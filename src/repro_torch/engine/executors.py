@@ -1,0 +1,440 @@
+"""Executors: the seam every GROUP BY plan lowers through.
+
+Port of ``repro.engine.executors``.  ``make_executor(plan)`` turns a
+:class:`GroupByPlan` into an object with the streaming protocol
+
+    open() → consume(chunk)* → finalize() → Table
+
+plus ``consume_async(chunk) → token`` / ``poll(token)`` (the double-
+buffered ingest seam the :class:`StreamHandle` drives) and an idempotent
+``finalize`` (a mid-stream ``snapshot()``).
+
+The port runs ONE route so far: ``strategy="concurrent"``, hash ticketing,
+``kernel="fused"`` — :class:`_FusedExecutor`, with the §4.4 pause → grow →
+resume protocol and the raise / grow / unchecked saturation policies.  Every
+other plan raises ``NotImplementedError`` naming the ROADMAP item that
+ports it; none quietly runs something else.
+
+Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
+chunk there.  ``device=None`` means ``"cuda"`` and raises ``RuntimeError``
+when no CUDA device exists; only an explicit ``device="cpu"`` runs on the
+CPU (the kernels' plain versions).
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashing import EMPTY_I32, table_capacity
+from repro_torch.engine.columns import Table, chunk_key_column
+from repro_torch.engine.groupby import (
+    GroupByOverflowError,
+    build_result_table,
+    expand_agg_specs,
+)
+from repro_torch.engine.plan_api import GroupByPlan, SaturationPolicy, value_columns
+from repro_torch.obs import metrics as obs_metrics
+
+# ---------------------------------------------------------------------------
+# kernel selection
+
+
+def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
+    """Lower the reference's legacy kernel spellings onto
+    ``ExecutionPolicy.kernel``: ``strategy="pallas"`` → ``concurrent`` +
+    ``kernel="split"`` and ``use_kernel=True`` → ``kernel="scan_body"`` (an
+    explicit ``kernel`` wins).  Neither route is ported, so
+    :func:`make_executor` raises for both.  Idempotent."""
+    ex = plan.execution
+    if plan.strategy != "pallas" and not ex.use_kernel:
+        return plan
+    kernel = ex.kernel or ("split" if plan.strategy == "pallas" else "scan_body")
+    strategy = "concurrent" if plan.strategy == "pallas" else plan.strategy
+    return replace(plan, strategy=strategy,
+                   execution=replace(ex, kernel=kernel, use_kernel=False))
+
+
+# Where each plan outside the ported slice will be ported (ROADMAP.md,
+# "Modules to port").
+_KERNEL_ITEM = {
+    None: "item 4c (the kernel=None planner with a CUDA-side budget)",
+    "off": "item 4a (the scan route: _ScanExecutor + GroupByOperator)",
+    "scan_body": "item 4b (_PallasExecutor with the ticket_hash and segment_agg kernels)",
+    "split": "item 4b (_PallasExecutor with the ticket_hash and segment_agg kernels)",
+}
+_STRATEGY_ITEM = {
+    "auto": "item 5 (auto: _ResolvingExecutor and the planner)",
+    "hybrid": "item 5 (the other single-device strategies)",
+    "partitioned": "item 5 (the other single-device strategies)",
+    "sharded": "item 9 (multi-device sharding)",
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP.md 'Modules to "
+        f"port' {item}"
+    )
+
+
+def resolve_device(device: str | None) -> torch.device:
+    """THE device rule: ``None`` → ``"cuda"``; a CUDA device that is not
+    there raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"ExecutionPolicy.device={device!r} runs on CUDA and no CUDA "
+            "device is available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels"
+        )
+    return dev
+
+
+def make_executor(plan: GroupByPlan):
+    """Lower a plan to its executor (only the fused concurrent hash route
+    is ported; see the module docstring)."""
+    plan = normalize_kernel(plan)
+    ex = plan.execution
+    kernel = ex.kernel
+    if kernel == "fused" and (plan.strategy not in ("auto", "concurrent")
+                              or ex.ticketing != "hash"
+                              or plan.saturation == SaturationPolicy.SPILL):
+        # invalid in the reference too, not merely unported
+        raise ValueError(
+            "kernel='fused' runs on the concurrent hash pipeline: it takes "
+            "strategy 'auto' or 'concurrent', ticketing='hash' and no "
+            "saturation='spill'"
+        )
+    for unported, what, item in (
+        (plan.saturation == SaturationPolicy.SPILL, "saturation='spill'",
+         "item 6 (out-of-core spill)"),
+        (plan.strategy != "concurrent", f"strategy={plan.strategy!r}",
+         _STRATEGY_ITEM.get(plan.strategy)),
+        (plan.max_groups is None, "max_groups=None (an estimated bound)",
+         "item 5 (auto: _ResolvingExecutor and the planner)"),
+        (ex.ticketing != "hash", f"ticketing={ex.ticketing!r}",
+         "item 5 (_SortExecutor and _DirectExecutor)"),
+        (kernel != "fused", f"kernel={kernel!r}", _KERNEL_ITEM.get(kernel)),
+    ):
+        if unported:
+            raise _not_ported(what, item)
+    device = resolve_device(ex.device)
+    if plan.saturation is None:
+        plan = replace(plan, saturation=SaturationPolicy.RAISE)
+    return _FusedExecutor(plan, device)
+
+
+# ---------------------------------------------------------------------------
+# shared helpers
+
+
+def _instrument(plan: GroupByPlan) -> bool:
+    """Per-plan instrumentation: an explicit ``ExecutionPolicy.instrument``
+    wins; ``None`` follows the global ``obs.metrics`` enable flag."""
+    ins = plan.execution.instrument
+    return obs_metrics.enabled() if ins is None else bool(ins)
+
+
+class _ExecutorBase:
+    """Default streaming protocol and the unified stats schema."""
+
+    peak_buffered_chunks = 0  # chunks retained beyond the in-flight window
+    peak_retained_bytes = 0   # host bytes retained beyond the in-flight window
+    strategy_label = "?"      # labeled-series key for registry publishing
+
+    def open(self) -> None:
+        pass
+
+    def memory_stats(self) -> dict:
+        return {
+            "peak_buffered_chunks": self.peak_buffered_chunks,
+            "peak_retained_bytes": self.peak_retained_bytes,
+        }
+
+    def device_table_bytes(self) -> int:
+        return 0
+
+    def event_counts(self) -> dict | None:
+        return None
+
+    def stats(self) -> dict:
+        """THE unified executor stats schema (``repro.obs/v1``): memory
+        keys at the top level, nested ``memory`` / ``device`` sections, and
+        the event counters under ``device`` when instrumented (published
+        into the registry, delta-based)."""
+        mem = self.memory_stats()
+        out = dict(mem)
+        out["schema"] = "repro.obs/v1"
+        out["strategy"] = self.strategy_label
+        out["memory"] = {
+            "peak_buffered_chunks": mem.get("peak_buffered_chunks", 0),
+            "peak_retained_bytes": mem.get("peak_retained_bytes", 0),
+        }
+        dev = {"device_table_bytes": self.device_table_bytes()}
+        ev = self.event_counts()
+        if ev is not None:
+            dev.update(ev)
+            self.publish(ev)
+        out["device"] = dev
+        return out
+
+    def publish(self, ev: dict | None = None) -> None:
+        """Push the counters into the process-wide registry as labeled
+        series; delta-based and a no-op while the registry is disabled."""
+        if not obs_metrics.enabled():
+            return
+        if ev is None:
+            ev = self.event_counts()
+        if ev is None:
+            return
+        pub = getattr(self, "_obs_publisher", None)
+        if pub is None:
+            pub = obs_metrics.EventPublisher(strategy=self.strategy_label)
+            self._obs_publisher = pub
+        gauges = ("table_capacity", "table_load_factor", "num_groups")
+        totals = {
+            f"groupby.{k}": v for k, v in ev.items()
+            if k not in gauges and isinstance(v, (int, float))
+        }
+        if "probe_hist" in ev:
+            totals["groupby.probe_len"] = ev["probe_hist"]
+        pub.publish(totals)
+        for g in gauges:
+            if g in ev:
+                obs_metrics.gauge(
+                    f"groupby.{g}", strategy=self.strategy_label
+                ).set(ev[g])
+
+
+def _chunk_keys_values(plan: GroupByPlan, chunk: Table, device: torch.device):
+    """Canonicalize one chunk on ``device``: the int32 key column (combined
+    or raw, ``__mask__`` applied) + float32 value columns."""
+    moved = Table({k: torch.as_tensor(v).to(device) for k, v in chunk.columns.items()})
+    keys, cols = chunk_key_column(moved, plan.keys, plan.raw_keys)
+    vals = {c: cols[c].reshape(-1).to(torch.float32) for c in value_columns(plan.aggs)}
+    return keys, vals
+
+
+def _overflow_error(count, max_groups) -> GroupByOverflowError:
+    return GroupByOverflowError(
+        f"GROUP BY overflow: {count} distinct keys exceed "
+        f"max_groups={max_groups}; groups past the bound were dropped. "
+        "Use SaturationPolicy.GROW, a larger max_groups, or a better "
+        "cardinality estimate."
+    )
+
+
+# ---------------------------------------------------------------------------
+# fused: ticketing + aggregation in one kernel, table carried across chunks
+
+
+class _FusedExecutor(_ExecutorBase):
+    """``kernel="fused"``: ticketing and aggregation fused in one kernel
+    (kernels/fused_groupby.py) whose table + accumulators persist ACROSS
+    chunks as carried device state.  Nothing is rebuilt or merged per
+    chunk.
+
+    ``kernel_programs > 1`` runs per-program local tables; ``finalize``
+    performs the second-level merge into one ticket space.  Saturation
+    rides the kernel's §4.4 info vector: ``poll`` reads it once per chunk,
+    grows bound/capacity with ``grow_fused_state`` (migration keeps
+    tickets, so committed aggregates are untouched) and relaunches the
+    chunk at each program's first halted morsel.  RAISE surfaces the
+    overflow; UNCHECKED never reads the info vector.
+
+    The kernel updates the state IN PLACE; every launch works on the
+    newest state, and a replayed chunk restarts at ``min(first_halt,
+    npm)``, so no committed morsel is applied twice."""
+
+    strategy_label = "fused"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        from repro_torch.kernels import fused_groupby as fk
+
+        self._fk = fk
+        self._plan = plan
+        self._device = device
+        ex = plan.execution
+        self._specs = expand_agg_specs(plan.aggs)
+        self._kinds = tuple(k for _, k in self._specs)
+        self._vcols = tuple(value_columns(plan.aggs))
+        # accumulator → value-plane map (-1: count reads no plane)
+        self._kspecs = tuple(
+            (-1 if kind == "count" or not col else self._vcols.index(col), kind)
+            for col, kind in self._specs
+        )
+        self._m = ex.morsel_size
+        self._P = ex.kernel_programs
+        self._lf = ex.load_factor
+        self._checked = plan.saturation != SaturationPolicy.UNCHECKED
+        self._grow = plan.saturation == SaturationPolicy.GROW
+        self._collect = _instrument(plan)
+        self._migrations = 0
+        self._bound_grows = 0
+        self._state = fk.init_fused_state(
+            capacity=ex.capacity or table_capacity(plan.max_groups, self._lf),
+            max_groups=plan.max_groups,
+            kinds=self._kinds,
+            programs=self._P,
+            device=device,
+        )
+        self._info = None        # (P, INFO_LEN) control vector, latest launch
+        # FIFO of launches whose halt signals are unread: [km, vm, info,
+        # grow_gen].  Prefetch dispatches chunk k+1 before chunk k's poll,
+        # so a grow pause must replay EVERY chunk launched since the last
+        # drain, each from its own recorded halt morsel.
+        self._pending: list = []
+        self._grow_gen = 0       # bumps per grow; stamps pending launches
+
+    def _morselize(self, keys, vals):
+        """Pad + reshape one chunk into (P·npm, M) key morsels and
+        (V, P·npm, M) value planes; program ``p`` owns the contiguous
+        morsel range [p·npm, (p+1)·npm)."""
+        n = keys.shape[0]
+        pad = (-n) % (self._m * self._P)
+        k = keys
+        if pad:
+            k = torch.cat([k, k.new_full((pad,), EMPTY_I32)])
+        km = k.reshape(-1, self._m).contiguous()
+        if self._vcols:
+            planes = []
+            for c in self._vcols:
+                v = vals[c]
+                if pad:
+                    v = torch.cat([v, v.new_zeros((pad,))])
+                planes.append(v.reshape(-1, self._m))
+            vm = torch.stack(planes).contiguous()
+        else:
+            # the kernel's value operand needs ≥1 plane; count-only plans
+            # never read it (plane index -1)
+            vm = torch.zeros((1, km.shape[0], self._m), dtype=torch.float32,
+                             device=self._device)
+        return km, vm
+
+    def _launch(self, km, vm, starts) -> None:
+        st = self._state
+        self._state, self._info = self._fk.fused_consume(
+            st, km, vm, starts,
+            specs=self._kspecs,
+            checked=self._checked,
+            grow_bound=self._grow,
+            # NOT clamped at 0: a bound below the morsel size must pause the
+            # very first morsel (count 0 > negative slack) — running it
+            # would issue tickets past the bound and lose their keys
+            threshold=int(self._lf * st.capacity),
+            bound_slack=st.max_groups - self._m,
+            collect_events=self._collect,
+        )
+
+    def consume_async(self, chunk: Table):
+        keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
+        km, vm = self._morselize(keys, vals)
+        self._launch(km, vm, torch.zeros((self._P,), dtype=torch.int32,
+                                         device=self._device))
+        if self._checked:
+            self._pending.append([km, vm, self._info, self._grow_gen])
+        return self._info
+
+    def consume(self, chunk: Table) -> None:
+        self.poll(self.consume_async(chunk))
+
+    def poll(self, token) -> None:
+        """Drain the halt signals of EVERY launch since the last drain, in
+        dispatch order (§4.4, host side).  A clean launch costs one info
+        read; a halted one replays from each program's first halted morsel.
+        An entry halted under a state the queue has since grown is
+        relaunched once before growing again (``_grow_gen``), so a burst of
+        stale halts cannot cascade into spurious doublings.  Zero reads when
+        UNCHECKED."""
+        if not self._checked:
+            return
+        fk = self._fk
+        while self._pending:
+            entry = self._pending[0]
+            while True:
+                km, vm, inf, gen = entry
+                info = inf.cpu().numpy()
+                halted = info[:, fk.INFO_HALTED] != 0
+                if not halted.any():
+                    break
+                cmax = int(info[:, fk.INFO_COUNT].max())
+                if not self._grow:
+                    raise _overflow_error(cmax, self._state.max_groups)
+                if gen == self._grow_gen:
+                    self._grow_state(cmax)
+                npm = km.shape[0] // self._P
+                starts = torch.as_tensor(
+                    np.minimum(info[:, fk.INFO_FIRST_HALT], npm).astype(np.int32),
+                    device=self._device,
+                )
+                self._launch(km, vm, starts)
+                entry[2], entry[3] = self._info, self._grow_gen
+            self._pending.pop(0)
+
+    def _grow_state(self, cmax: int) -> None:
+        st = self._state
+        new_g, new_c = st.max_groups, st.capacity
+        if cmax > st.max_groups - self._m:
+            # bound headroom: the blind-retry jump of the scan pipeline
+            new_g = max(4 * st.max_groups, cmax + self._m, 64)
+        if cmax > int(self._lf * st.capacity) or new_g == st.max_groups:
+            # capacity pressure — or a mid-morsel saturation below both
+            # thresholds (probe clustering): double so the replay progresses
+            new_c = 2 * st.capacity
+        new_c = max(new_c, table_capacity(new_g, self._lf))
+        if new_g > st.max_groups:
+            self._bound_grows += 1
+        if new_c > st.capacity:
+            self._migrations += 1
+        self._state = self._fk.grow_fused_state(
+            st, self._kinds, new_max_groups=new_g, new_capacity=new_c,
+            load_factor=self._lf,
+        )
+        self._grow_gen += 1
+
+    def _merged(self):
+        counts = self._state.count.cpu().numpy()
+        target = self._state.max_groups
+        if self._P > 1:
+            # the union of P local ticket spaces can exceed one local bound;
+            # GROW widens the merge target, RAISE detects via the merged
+            # table's own sticky overflow below
+            total = int(counts.sum())
+            if self._grow and total > target:
+                target = total
+        table, accs = self._fk.merge_fused_state(
+            self._state, self._kinds, max_groups=target, load_factor=self._lf,
+        )
+        overflowed = bool(counts.max(initial=0) > self._state.max_groups)
+        if self._checked and (overflowed or bool(table.overflowed)):
+            raise _overflow_error(int(table.count), target)
+        return table, accs, target
+
+    def finalize(self) -> Table:
+        self.poll(self._info)
+        table, accs, bound = self._merged()
+        acc_by_spec = dict(zip(self._specs, accs))
+        out = build_result_table(
+            self._plan.aggs, lambda c, k: acc_by_spec[(c, k)],
+            table.key_by_ticket, table.count, bound,
+        )
+        self.publish()
+        return out
+
+    def device_table_bytes(self) -> int:
+        return self._state.nbytes()
+
+    def event_counts(self) -> dict | None:
+        if not self._collect:
+            return None
+        vec = self._state.events.sum(dim=0).cpu().numpy()
+        count = int(self._state.count.sum())
+        out = obs_metrics.event_vector_to_dict(vec)
+        out["migrations"] = self._migrations
+        out["bound_grows"] = self._bound_grows
+        out["num_groups"] = count
+        out["table_capacity"] = self._state.capacity
+        out["table_load_factor"] = count / self._state.capacity
+        return out
