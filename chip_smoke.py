@@ -7,23 +7,35 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's CUDA source with ``nvcc`` and print the
-   command, the seconds and ``-Xptxas -v``.
-2. kernel vs plain — call ``fused_consume`` (the Hopper kernel) and
-   ``fused_consume_plain`` on the same CUDA tensors: 2^20 rows of uniform,
-   zipf and heavy-hitter keys at P = 1 and 4 under an exact bound; a forced
-   pause and its relaunch after ``grow_fused_state``; and an unchecked,
-   saturated table (1024 slots, 4096 distinct keys), which must end.
-3. main path — ``GroupByPlan(kernel="fused").stream(...)`` over N = 2^24
-   rows in 8 chunks with aggs count(*), sum(v), mean(v), max(v), for the
+1. build — compile the port's three CUDA sources (``fused_groupby``,
+   ``ticket_hash``, ``segment_agg``), one ``nvcc`` each, all started
+   together, and print the commands, the seconds and ``-Xptxas -v``.
+2. kernel vs plain — each kernel and its plain version on the same CUDA
+   tensors.  ``fused_consume``: 2^20 rows of uniform, zipf and
+   heavy-hitter keys at P = 1 and 4 under an exact bound; a forced pause
+   and its relaunch after ``grow_fused_state``; an unchecked, saturated
+   table (1024 slots, 4096 distinct keys), which must end.
+   ``ticket_hash``: 2^20 rows of uniform, zipf and heavy-hitter keys, a
+   bound below the distinct count (count > G, key_by_ticket truncated) and
+   a full 1024-slot table (-1 rows, count = 1024).  ``segment_agg``: every
+   kind × scatter / onehot over 2^20 rows with tickets of -1 and >= G.
+3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
+   chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
+   against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
+   + ``scatter_reduce_``).  The fused route (``kernel="fused"``): the
    paper's §4.1 classes (low, high, unique), a grow stream and a
-   132-program stream, each held against a sort-based oracle
-   (``torch.unique`` + float64 ``index_add_`` + ``scatter_reduce_``).
-4. timing — the kernel with CUDA events on one main-path chunk of each
-   class (its table, bound and program count: low, high, unique at P = 1,
-   low at P = 132), beside its bound, the plain version and
-   ``torch.unique`` + ``index_add_`` as the library yardstick; on each of
-   those chunks the kernel is also held against its plain version.
+   132-program stream.  The split route (``kernel="split"``): the same
+   three classes, a grow stream and low with ``update="onehot"``, with the
+   host-side merge timed apart from the kernels.  Every stream sets the
+   launch counts to 0 just before it and reads them just after.
+4. timing — CUDA events, median of 5 after one warm-up, on one 2^21-row
+   main-path chunk of each class, beside its bound, its plain version and
+   one library call: the fused kernel (low, high, unique at P = 1, low at
+   P = 132; library ``torch.unique`` + ``index_add_``), held against its
+   plain version on each of those chunks; the ticket kernel (library
+   ``torch.unique(return_inverse=True)``) and the segment kernel per plane
+   and strategy (library ``index_add_`` / ``scatter_reduce_``), each timed
+   beside its plain version and held against it on every class's chunk.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -37,12 +49,15 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
+KINDS4 = ("sum", "count", "min", "max")
+KERNELS = ("fused_groupby", "ticket_hash", "segment_agg")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
 SUM_RTOL = 1e-4                 # |Δsum| ≤ SUM_RTOL · Σ|v| over the group
@@ -201,11 +216,15 @@ def abs_sum_lookup(keys, vals):
     return of
 
 
-def timed(fn, *args, **kw):
-    """(result, seconds) of one call on the host clock, synchronized."""
+def sync(device=None) -> None:
     import torch
 
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize(device)
+
+
+def timed(fn, *args, **kw):
+    """(result, seconds) of one call on the host clock, synchronized."""
     sync()
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -314,14 +333,137 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
     return max_err
 
 
+def check_ticket_maps(keys, kout, pout, label, *, full=False):
+    """The ticket kernel's outputs vs the plain version's: the same count;
+    one gap-free ticket per key, consistent with the kernel's own table and
+    key_by_ticket; the same key set and the same -1 rows unless the table
+    is full (then a row is -1 iff its key is not in the kernel's table).
+    Returns the discrepancies counted (0 when all checks pass): |Δcount|
+    + rows whose ticket names another key + rows resolved differently +
+    keys in one table only."""
+    import torch
+
+    kt, ktk, ktt, kkbt, kc = kout
+    pt, ptk, ptt, _, pc = pout
+    n = int(kc)
+    d_count = abs(n - int(pc))
+    occ = ktt > 0
+    tick = ktt[occ]
+    check(torch.equal(torch.sort(tick).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32)),
+          f"{label}: table tickets are not 1..{n}")
+    inb = tick <= kkbt.numel()
+    check(torch.equal(kkbt[(tick[inb] - 1).long()], ktk[occ][inb]),
+          f"{label}: key_by_ticket disagrees with the table")
+    valid = keys != -1
+    ok = kt >= 0
+    check(bool((kt[ok] < n).all()), f"{label}: a row's ticket is past the count {n}")
+    key_of = torch.full((n + 1,), -1, dtype=torch.int32, device=keys.device)
+    key_of[tick.long()] = ktk[occ]
+    d_key = int((key_of[(kt[ok] + 1).long()] != keys[ok]).sum())
+    if full:
+        check(bool((valid & ~ok).any()), f"{label}: a full table left no row unresolved")
+        d_rows = int((torch.isin(keys[valid], ktk[occ]) != ok[valid]).sum())
+        d_set = 0
+    else:
+        d_rows = int(((ok != (pt >= 0)) | (ok != valid)).sum())
+        kset, pset = ktk[occ], ptk[ptt > 0]
+        d_set = int((~torch.isin(kset, pset)).sum()) + int((~torch.isin(pset, kset)).sum())
+    check(d_count == 0, f"{label}: count {n} vs plain {int(pc)}")
+    check(d_key == 0, f"{label}: {d_key} rows' tickets name another key")
+    check(d_rows == 0, f"{label}: {d_rows} rows resolved differently from the "
+          + ("kernel's table" if full else "plain version"))
+    check(d_set == 0, f"{label}: key sets differ in {d_set} keys")
+    return d_count + d_key + d_rows + d_set
+
+
+def check_segment(sa, t, v, got, want, kind, label, num_groups):
+    """COUNT/MIN/MAX exact, SUM within SUM_RTOL · Σ|v| of the group.
+    Returns the largest |Δ|."""
+    import torch
+
+    d = (got - want).abs()
+    d = d[torch.isfinite(d)]
+    err = float(d.max()) if d.numel() else 0.0
+    if kind == "sum":
+        tol = SUM_RTOL * sa.segment_agg_plain(t, v.abs(), num_groups=num_groups, kind="sum")
+        check(bool(((got - want).abs() <= tol).all()), f"{label}: SUM outside tolerance")
+    else:
+        check(torch.equal(got, want), f"{label}: {kind.upper()} differs")
+    return err
+
+
+def phase2_split(th, sa, gen, device, n=1 << 20, sat_rows=1 << 13):
+    """The split route's two kernels vs their plain versions on the card.
+    Returns the largest discrepancy of each (check_ticket_maps' count for
+    the ticket kernel, |Δacc| for the segment kernel)."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    max_err = {"ticket_hash": 0, "segment_agg": 0.0}
+    cases = []
+    for dist in ("uniform", "zipf", "heavy"):
+        keys = gen_keys(n, "high", dist, gen, device).to(torch.int32)
+        g = int(torch.unique(keys).numel())
+        cases.append((dist, keys, table_capacity(g), g, False))
+    keys = gen_keys(n, "high", "uniform", gen, device).to(torch.int32)
+    keys[:1000] = -1  # EMPTY padding rows
+    g = int(torch.unique(keys[keys != -1]).numel())
+    cases.append(("over_bound", keys, table_capacity(g), g // 3, False))
+    keys = torch.randint(0, 4096, (sat_rows,), generator=gen, device=device).to(torch.int32)
+    cases.append(("full", keys, 1024, 4096, True))
+    for label, keys, cap, g, full in cases:
+        kout, k_s = timed(th.ticket_hash, keys, capacity=cap, max_groups=g, morsel_size=M)
+        pout, p_s = timed(th.ticket_hash_plain, keys, capacity=cap, max_groups=g,
+                          morsel_size=M)
+        err = check_ticket_maps(keys, kout, pout, f"phase2 ticket {label}", full=full)
+        max_err["ticket_hash"] = max(max_err["ticket_hash"], err)
+        count = int(kout[4])
+        if label == "over_bound":
+            check(count > g, f"phase2 ticket over_bound: count {count} <= G {g}")
+        if full:
+            check(count == cap, f"phase2 ticket full: count {count} != {cap}")
+        log(f"phase2 ticket {label}: rows={keys.numel()} capacity={cap} G={g} count={count} "
+            f"unresolved={int((kout[0] < 0).sum())} kernel {k_s * 1e3:.2f} ms plain "
+            f"{p_s * 1e3:.0f} ms (host clock, first call) ok")
+
+    g = 3000
+    t = torch.randint(-1, g + 200, (n,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.randn(n, generator=gen, device=device)
+    for strategy in ("scatter", "onehot"):
+        for kind in KINDS4:
+            got = sa.segment_agg(t, v, num_groups=g, kind=kind, strategy=strategy,
+                                 morsel_size=M)
+            want = sa.segment_agg_plain(t, v, num_groups=g, kind=kind, strategy=strategy,
+                                        morsel_size=M)
+            label = f"phase2 segment {kind}/{strategy}"
+            err = check_segment(sa, t, v, got, want, kind, label, g)
+            max_err["segment_agg"] = max(max_err["segment_agg"], err)
+            log(f"{label}: rows={n} G={g} (tickets -1..{g + 199}) max|Δ|={err:.3g} ok")
+    return max_err
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
 AGGS_SPEC = (("count", None), ("sum", "v"), ("mean", "v"), ("max", "v"))
 
 
-def run_stream(fk, api, name, keys, vals, *, max_groups, saturation, programs,
-               chunks=8):
+def reset_launches(kmods) -> None:
+    for mod, fn in kmods.values():
+        getattr(mod, fn).launches = 0
+
+
+def read_launches(kmods) -> dict:
+    return {name: getattr(mod, fn).launches for name, (mod, fn) in kmods.items()}
+
+
+def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs=1,
+               kernel="fused", update=None, chunks=8):
+    """One stream of the main path through the plan API, held to the
+    oracle.  The launch counts are set to 0 just before it and read just
+    after; the split route's host-side merge is timed apart (synchronized
+    on both sides, so those times include the device work it waits for)."""
     import torch
 
     device = keys.device
@@ -329,9 +471,9 @@ def run_stream(fk, api, name, keys, vals, *, max_groups, saturation, programs,
     plan = api.GroupByPlan(
         keys=("k",), aggs=aggs, strategy="concurrent", max_groups=max_groups,
         saturation=saturation, raw_keys=True,
-        execution=api.ExecutionPolicy(kernel="fused", morsel_size=M,
+        execution=api.ExecutionPolicy(kernel=kernel, morsel_size=M,
                                       kernel_programs=programs, instrument=True,
-                                      device=device.type),
+                                      update=update, device=device.type),
     )
     n = keys.shape[0]
     step = n // chunks
@@ -343,14 +485,28 @@ def run_stream(fk, api, name, keys, vals, *, max_groups, saturation, programs,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    fk.fused_consume.launches = 0
+    merge = {"s": 0.0, "calls": 0}
+    reset_launches(kmods)
     t0 = time.perf_counter()
     handle = plan.stream(source())
+    ex = handle.executor
+    if kernel == "split":
+        inner = ex._merge
+
+        def timed_merge(partial):
+            sync(device)
+            m0 = time.perf_counter()
+            inner(partial)
+            sync(device)
+            merge["s"] += time.perf_counter() - m0
+            merge["calls"] += 1
+
+        ex._merge = timed_merge
     out = handle.result()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = fk.fused_consume.launches
+    launches = read_launches(kmods)
     dev = handle.stats()["device"]
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
@@ -370,45 +526,63 @@ def run_stream(fk, api, name, keys, vals, *, max_groups, saturation, programs,
     c64 = o["count"].double()
     d_mean = (out["mean(v)"][:ng][order].double() - o["sum"] / c64).abs()
     check(bool((d_mean <= tol / c64).all()), f"{name}: MEAN outside tolerance")
-    check(launches > 0, f"{name}: the fused kernel was never launched")
+    path = ("fused_groupby",) if kernel == "fused" else ("ticket_hash", "segment_agg")
+    for k in path:
+        check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
+    for k in set(KERNELS) - set(path):
+        check(launches[k] == 0, f"{name}: the {k} kernel ran on the {kernel} route")
     rec = {
-        "stream": name, "rows": n, "chunks": chunks, "groups": g,
-        "max_groups": max_groups, "saturation": saturation, "programs": programs,
-        "wall_s": wall, "rows_per_s": n / wall, "max_memory_allocated": peak,
-        "launches": launches, "migrations": dev["migrations"],
-        "bound_grows": dev["bound_grows"], "table_capacity": dev["table_capacity"],
+        "stream": name, "kernel": kernel, "update": update, "rows": n, "chunks": chunks,
+        "groups": g, "max_groups": max_groups, "saturation": saturation,
+        "programs": programs, "wall_s": wall, "rows_per_s": n / wall,
+        "max_memory_allocated": peak, "launches": launches,
         "max_sum_err_over_abs": float((d_sum / o["abs"].clamp_min(1e-30)).max()),
     }
+    if kernel == "fused":
+        rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
+                   table_capacity=dev["table_capacity"])
+    else:
+        rec.update(merge_s=merge["s"], merges=merge["calls"], relaunches=ex.relaunches,
+                   bound_grows=ex.bound_grows, capacity_grows=ex.capacity_grows,
+                   chunk_bound=ex._chunk_bound, chunk_capacity=ex._capacity,
+                   carried_bound=ex._max_groups,
+                   table_capacity=ex._table.capacity)
     log("phase3 " + json.dumps(rec))
     return rec
 
 
-def phase3(fk, api, gen, device, n=1 << 24):
+def phase3(kmods, api, gen, device, n=1 << 24):
     import torch
 
     vals = torch.randn(n, generator=gen, device=device)
     recs = []
     low = gen_keys(n, "low", "uniform", gen, device)
-    recs.append(run_stream(fk, api, "low", low, vals, max_groups=1024,
-                           saturation="raise", programs=1))
     high = gen_keys(n, "high", "zipf", gen, device)
-    recs.append(run_stream(fk, api, "high", high, vals, max_groups=n // 10,
-                           saturation="raise", programs=1))
+    for kernel, prefix in (("fused", ""), ("split", "split_")):
+        recs.append(run_stream(kmods, api, prefix + "low", low, vals, max_groups=1024,
+                               saturation="raise", kernel=kernel))
+        recs.append(run_stream(kmods, api, prefix + "high", high, vals, max_groups=n // 10,
+                               saturation="raise", kernel=kernel))
     del high
     uniq = gen_keys(n, "unique", "uniform", gen, device)
-    recs.append(run_stream(fk, api, "unique", uniq, vals, max_groups=n,
-                           saturation="raise", programs=1))
+    for kernel, prefix in (("fused", ""), ("split", "split_")):
+        recs.append(run_stream(kmods, api, prefix + "unique", uniq, vals, max_groups=n,
+                               saturation="raise", kernel=kernel))
     del uniq
     # zipf high keys hold ~1.4e4 groups at this N, under 2^16: the grow
-    # stream takes the high class's key domain uniformly (~1.68e6 groups)
+    # streams take the high class's key domain uniformly (~1.68e6 groups)
     high_u = gen_keys(n, "high", "uniform", gen, device)
-    rec = run_stream(fk, api, "high_grow", high_u, vals, max_groups=n >> 8,
-                     saturation="grow", programs=1)  # 2^16 at N = 2^24
-    check(rec["bound_grows"] >= 2, "high_grow: expected several bound grows")
-    recs.append(rec)
+    for kernel, prefix in (("fused", ""), ("split", "split_")):
+        rec = run_stream(kmods, api, prefix + "high_grow", high_u, vals,
+                         max_groups=n >> 8, saturation="grow", kernel=kernel)  # 2^16
+        check(rec["bound_grows"] >= 1, f"{rec['stream']}: expected a bound grow")
+        recs.append(rec)
+    check(recs[-2]["bound_grows"] >= 2, "high_grow: expected several bound grows")
     del high_u
-    recs.append(run_stream(fk, api, "low_p132", low, vals, max_groups=1024,
+    recs.append(run_stream(kmods, api, "low_p132", low, vals, max_groups=1024,
                            saturation="raise", programs=132))
+    recs.append(run_stream(kmods, api, "split_low_onehot", low, vals, max_groups=1024,
+                           saturation="raise", kernel="split", update="onehot"))
     return recs
 
 
@@ -543,6 +717,100 @@ def phase4(fk, gen, device, n=1 << 24, chunks=8):
             "library_ms": lib_ms, "max_abs_err": max_err, "per_class": per_class}
 
 
+def phase4_split(th, sa, gen, device, n=1 << 24, chunks=8, reps=5):
+    """The split route's kernels on one main-path chunk of each class (its
+    bound and capacity), CUDA events, beside their bounds, one library
+    call each and their plain versions, each held against its plain
+    version on that chunk."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    rows = n // chunks
+    vals = torch.randn(rows, generator=gen, device=device)
+    classes = {
+        "low": (gen_keys(n, "low", "uniform", gen, device)[:rows], 1024),
+        "high": (gen_keys(n, "high", "zipf", gen, device)[:rows], n // 10),
+        "unique": (gen_keys(n, "unique", "uniform", gen, device)[:rows], n),
+    }
+    out = {}
+    max_err = {"ticket_hash": 0, "segment_agg": 0.0}
+    for name, (keys, g) in classes.items():
+        k32 = keys.to(torch.int32)
+        cap = table_capacity(g)
+        d = int(torch.unique(k32).numel())
+        kw = dict(capacity=cap, max_groups=g, morsel_size=M)
+        t_ms = time_cuda(lambda: th.ticket_hash(k32, **kw), reps)
+        lib_ms = time_cuda(lambda: torch.unique(k32, return_inverse=True), reps)
+        # each input read once, each output written once: keys in, tickets
+        # out, the fresh table (keys + tickets) and key_by_ticket out
+        t_bytes = 8 * rows + 8 * cap + 4 * g
+        rec = {"rows": rows, "groups": d, "max_groups": g, "capacity": cap,
+               "ticket": {"kernel_ms": t_ms, "library_ms": lib_ms,
+                          "bound_ms": t_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}}
+        kout = th.ticket_hash(k32, **kw)
+        tickets = kout[0]
+        pout, tp_s = timed(th.ticket_hash_plain, k32, **kw)
+        t_err = check_ticket_maps(k32, kout, pout, f"phase4 ticket {name}")
+        max_err["ticket_hash"] = max(max_err["ticket_hash"], t_err)
+        rec["ticket"].update(plain_ms=tp_s * 1e3, discrepancies=t_err)
+        del pout
+        idx = tickets.long()
+        check(bool(((idx >= 0) & (idx < g)).all()), f"phase4 {name}: tickets out of range")
+        ones = torch.ones(rows, device=device)
+        seg = {}
+        for kind in KINDS4:
+            v = ones if kind == "count" else vals
+            if kind in ("sum", "count"):
+                def library(v=v):
+                    torch.zeros(g, device=device).index_add_(0, idx, v)
+            else:
+                def library(v=v, kind=kind):
+                    torch.full((g,), float("inf") if kind == "min" else float("-inf"),
+                               device=device).scatter_reduce_(
+                        0, idx, v, "amin" if kind == "min" else "amax")
+            lib_seg = time_cuda(library, reps)
+            s_bytes = rows * (4 if kind == "count" else 8) + 4 * g + 4 * d
+            for strategy in ("scatter", "onehot"):
+                if strategy == "onehot" and g > sa.MAX_ONEHOT_GROUPS:
+                    continue
+                skw = dict(num_groups=g, kind=kind, strategy=strategy, morsel_size=M)
+                s_ms = time_cuda(lambda: sa.segment_agg(tickets, vals, **skw), reps)
+                got = sa.segment_agg(tickets, vals, **skw)
+                want, p_s = timed(sa.segment_agg_plain, tickets, vals, **skw)
+                err = check_segment(sa, tickets, vals, got, want, kind,
+                                    f"phase4 segment {name} {kind}/{strategy}", g)
+                max_err["segment_agg"] = max(max_err["segment_agg"], err)
+                seg[f"{kind}/{strategy}"] = {
+                    "kernel_ms": s_ms, "plain_ms": p_s * 1e3, "library_ms": lib_seg,
+                    "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                    "max_abs_err": err}
+        rec["segment"] = seg
+        out[name] = rec
+        log(f"phase4 split {name}: ticket {t_ms:.3f} ms (torch.unique {lib_ms:.3f} ms, "
+            f"bound {rec['ticket']['bound_ms']:.4f} ms; vs plain ({tp_s * 1e3:.1f} ms): "
+            f"{t_err} discrepancies); segment sum/scatter "
+            f"{seg['sum/scatter']['kernel_ms']:.3f} ms (index_add_ "
+            f"{seg['sum/scatter']['library_ms']:.3f} ms, bound "
+            f"{seg['sum/scatter']['bound_ms']:.4f} ms) ok")
+    log("phase4 split " + json.dumps(out))
+    high = out["high"]
+    return {
+        "ticket_hash": {"ms": high["ticket"]["kernel_ms"],
+                        "plain_ms": high["ticket"]["plain_ms"],
+                        "bound_ms": high["ticket"]["bound_ms"], "bound_by": "bytes",
+                        "library_ms": high["ticket"]["library_ms"],
+                        "max_abs_err": max_err["ticket_hash"]},
+        "segment_agg": {"ms": high["segment"]["sum/scatter"]["kernel_ms"],
+                        "plain_ms": high["segment"]["sum/scatter"]["plain_ms"],
+                        "bound_ms": high["segment"]["sum/scatter"]["bound_ms"],
+                        "bound_by": "bytes",
+                        "library_ms": high["segment"]["sum/scatter"]["library_ms"],
+                        "max_abs_err": max_err["segment_agg"]},
+        "per_class": out,
+    }
+
+
 def toolchain(build):
     import torch
 
@@ -571,7 +839,12 @@ def main(argv=None) -> int:
     from repro_torch.engine import plan_api as api
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_groupby as fk
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import ticket_hash as th
 
+    # name → (module, wrapper) whose ``launches`` counts that kernel
+    kmods = {"fused_groupby": (fk, "fused_consume"), "ticket_hash": (th, "ticket_hash"),
+             "segment_agg": (sa, "segment_agg")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -581,8 +854,10 @@ def main(argv=None) -> int:
     log("== phase 1: build")
     log("toolchain " + json.dumps(toolchain(build)))
     t0 = time.perf_counter()
-    build.build("fused_groupby")
-    for name, info in sorted(build.BUILD_INFO.items()):
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, together
+        list(pool.map(build.build, KERNELS))
+    for name in KERNELS:
+        info = build.BUILD_INFO[name]
         log(f"build {name}: {info['cmd']}")
         log(f"build {name}: {info['seconds']:.2f} s -> {info['path']}")
         for ln in info["ptxas"]:
@@ -592,33 +867,41 @@ def main(argv=None) -> int:
     log("== phase 2: kernel vs plain on the card")
     t0 = time.perf_counter()
     max_err = phase2(fk, gen, device)
+    split_err = phase2_split(th, sa, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
     t0 = time.perf_counter()
-    recs = phase3(fk, api, gen, device)
-    launches = sum(r["launches"] for r in recs)
-    log(f"phase3 done in {time.perf_counter() - t0:.1f} s; fused launches {launches}")
+    recs = phase3(kmods, api, gen, device)
+    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNELS}
+    log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
     log("== phase 4: timing")
     t0 = time.perf_counter()
-    timing = phase4(fk, gen, device)
+    timing = {"fused_groupby": phase4(fk, gen, device)}
+    timing.update(phase4_split(th, sa, gen, device))
+    timing["fused_groupby"]["max_abs_err"] = max(max_err, timing["fused_groupby"]["max_abs_err"])
+    for name, err in split_err.items():
+        timing[name]["max_abs_err"] = max(err, timing[name]["max_abs_err"])
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
+    replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
+                "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
+                "segment_agg": "src/repro/kernels/segment_agg.py:103"}
     kernels = [{
-        "name": "fused_groupby",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_groupby.cu",
-        "replaces": "src/repro/kernels/fused_groupby.py:480",
-        "launches": launches,
-        "max_abs_err": max(max_err, timing["max_abs_err"]),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": timing[name]["max_abs_err"],
+        "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name in KERNELS]
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

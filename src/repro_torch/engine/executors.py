@@ -9,11 +9,19 @@ plus ``consume_async(chunk) → token`` / ``poll(token)`` (the double-
 buffered ingest seam the :class:`StreamHandle` drives) and an idempotent
 ``finalize`` (a mid-stream ``snapshot()``).
 
-The port runs ONE route so far: ``strategy="concurrent"``, hash ticketing,
-``kernel="fused"`` — :class:`_FusedExecutor`, with the §4.4 pause → grow →
-resume protocol and the raise / grow / unchecked saturation policies.  Every
-other plan raises ``NotImplementedError`` naming the ROADMAP item that
-ports it; none quietly runs something else.
+The port runs two routes of ``strategy="concurrent"`` with hash ticketing
+so far, each with the raise / grow / unchecked saturation policies:
+
+  * ``kernel="fused"`` — :class:`_FusedExecutor`: one kernel tickets and
+    aggregates against a table carried across chunks, with the §4.4
+    pause → grow → resume protocol;
+  * ``kernel="split"`` (legacy ``strategy="pallas"``) —
+    :class:`_PallasExecutor`: the ticket kernel and one segment kernel per
+    aggregate plane run over each chunk against a fresh table, and the
+    chunk's bounded partial merges into a carried table.
+
+Every other plan raises ``NotImplementedError`` naming the ROADMAP item
+that ports it; none quietly runs something else.
 
 Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
 chunk there.  ``device=None`` means ``"cuda"`` and raises ``RuntimeError``
@@ -22,11 +30,15 @@ CPU (the kernels' plain versions).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import replace
 
 import numpy as np
 import torch
 
+from repro_torch.core import resize
+from repro_torch.core import ticketing as tk
+from repro_torch.core import updates as up
 from repro_torch.core.hashing import EMPTY_I32, table_capacity
 from repro_torch.engine.columns import Table, chunk_key_column
 from repro_torch.engine.groupby import (
@@ -41,19 +53,46 @@ from repro_torch.obs import metrics as obs_metrics
 # kernel selection
 
 
+_ALIAS_WARNED: set = set()
+
+
+def _warn_alias_once(alias: str, repl: str) -> None:
+    if alias in _ALIAS_WARNED:
+        return
+    _ALIAS_WARNED.add(alias)
+    warnings.warn(
+        f"{alias} is deprecated; use ExecutionPolicy.kernel={repl!r}",
+        DeprecationWarning,
+        stacklevel=4,
+    )
+
+
+def reset_kernel_alias_warnings() -> None:
+    """Re-arm the once-per-process alias warnings (test helper)."""
+    _ALIAS_WARNED.clear()
+
+
 def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
     """Lower the reference's legacy kernel spellings onto
-    ``ExecutionPolicy.kernel``: ``strategy="pallas"`` → ``concurrent`` +
-    ``kernel="split"`` and ``use_kernel=True`` → ``kernel="scan_body"`` (an
-    explicit ``kernel`` wins).  Neither route is ported, so
-    :func:`make_executor` raises for both.  Idempotent."""
+    ``ExecutionPolicy.kernel``, warning once per process per alias:
+    ``strategy="pallas"`` → ``concurrent`` + ``kernel="split"`` and
+    ``use_kernel=True`` → ``kernel="scan_body"`` (an explicit ``kernel``
+    wins over either alias).  Idempotent."""
     ex = plan.execution
-    if plan.strategy != "pallas" and not ex.use_kernel:
-        return plan
-    kernel = ex.kernel or ("split" if plan.strategy == "pallas" else "scan_body")
-    strategy = "concurrent" if plan.strategy == "pallas" else plan.strategy
-    return replace(plan, strategy=strategy,
-                   execution=replace(ex, kernel=kernel, use_kernel=False))
+    strategy, kernel, changed = plan.strategy, ex.kernel, False
+    if strategy == "pallas":
+        _warn_alias_once('strategy="pallas"', "split")
+        strategy = "concurrent"
+        kernel = kernel or "split"
+        changed = True
+    if ex.use_kernel:
+        _warn_alias_once("ExecutionPolicy.use_kernel", "scan_body")
+        kernel = kernel or "scan_body"
+        changed = True
+    if changed:
+        plan = replace(plan, strategy=strategy,
+                       execution=replace(ex, kernel=kernel, use_kernel=False))
+    return plan
 
 
 # Where each plan outside the ported slice will be ported (ROADMAP.md,
@@ -61,8 +100,8 @@ def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
 _KERNEL_ITEM = {
     None: "item 4c (the kernel=None planner with a CUDA-side budget)",
     "off": "item 4a (the scan route: _ScanExecutor + GroupByOperator)",
-    "scan_body": "item 4b (_PallasExecutor with the ticket_hash and segment_agg kernels)",
-    "split": "item 4b (_PallasExecutor with the ticket_hash and segment_agg kernels)",
+    "scan_body": "item 4a (the scan route: GroupByOperator, which runs "
+                 "ops.make_scan_update_fn as its scan body)",
 }
 _STRATEGY_ITEM = {
     "auto": "item 5 (auto: _ResolvingExecutor and the planner)",
@@ -92,20 +131,28 @@ def resolve_device(device: str | None) -> torch.device:
     return dev
 
 
+# update strategies of the split route's segment kernel
+_SPLIT_UPDATES = ("scatter", "onehot")
+
+
 def make_executor(plan: GroupByPlan):
-    """Lower a plan to its executor (only the fused concurrent hash route
-    is ported; see the module docstring)."""
+    """Lower a plan to its executor (the fused and split concurrent hash
+    routes are ported; see the module docstring)."""
     plan = normalize_kernel(plan)
     ex = plan.execution
     kernel = ex.kernel
-    if kernel == "fused" and (plan.strategy not in ("auto", "concurrent")
-                              or ex.ticketing != "hash"
-                              or plan.saturation == SaturationPolicy.SPILL):
+    if kernel in ("split", "fused") and (plan.strategy not in ("auto", "concurrent")
+                                         or ex.ticketing != "hash"
+                                         or plan.saturation == SaturationPolicy.SPILL):
         # invalid in the reference too, not merely unported
         raise ValueError(
-            "kernel='fused' runs on the concurrent hash pipeline: it takes "
+            f"kernel={kernel!r} runs on the concurrent hash pipeline: it takes "
             "strategy 'auto' or 'concurrent', ticketing='hash' and no "
             "saturation='spill'"
+        )
+    if kernel == "split" and (ex.update or "scatter") not in _SPLIT_UPDATES:
+        raise ValueError(
+            f"kernel='split' takes update in {_SPLIT_UPDATES}, not {ex.update!r}"
         )
     for unported, what, item in (
         (plan.saturation == SaturationPolicy.SPILL, "saturation='spill'",
@@ -116,13 +163,16 @@ def make_executor(plan: GroupByPlan):
          "item 5 (auto: _ResolvingExecutor and the planner)"),
         (ex.ticketing != "hash", f"ticketing={ex.ticketing!r}",
          "item 5 (_SortExecutor and _DirectExecutor)"),
-        (kernel != "fused", f"kernel={kernel!r}", _KERNEL_ITEM.get(kernel)),
+        (kernel not in ("fused", "split"), f"kernel={kernel!r}",
+         _KERNEL_ITEM.get(kernel)),
     ):
         if unported:
             raise _not_ported(what, item)
     device = resolve_device(ex.device)
     if plan.saturation is None:
         plan = replace(plan, saturation=SaturationPolicy.RAISE)
+    if kernel == "split":
+        return _PallasExecutor(plan, device)
     return _FusedExecutor(plan, device)
 
 
@@ -145,6 +195,13 @@ class _ExecutorBase:
     strategy_label = "?"      # labeled-series key for registry publishing
 
     def open(self) -> None:
+        pass
+
+    def consume_async(self, chunk: Table):
+        self.consume(chunk)
+        return None
+
+    def poll(self, token) -> None:
         pass
 
     def memory_stats(self) -> dict:
@@ -217,6 +274,19 @@ def _chunk_keys_values(plan: GroupByPlan, chunk: Table, device: torch.device):
     return keys, vals
 
 
+def _next_bound(max_groups: int, rows: int, issued: int | None = None) -> int:
+    """THE grow rule.  With the true cardinality known (``issued``) jump
+    straight to it; blind retries grow 4× (geometric → O(log) replays).
+    ``rows`` always suffices, so the recovery loop terminates."""
+    if issued is not None:
+        return min(max(issued, 64), max(rows, issued))
+    return min(max(4 * max_groups, 64), rows)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _overflow_error(count, max_groups) -> GroupByOverflowError:
     return GroupByOverflowError(
         f"GROUP BY overflow: {count} distinct keys exceed "
@@ -224,6 +294,201 @@ def _overflow_error(count, max_groups) -> GroupByOverflowError:
         "Use SaturationPolicy.GROW, a larger max_groups, or a better "
         "cardinality estimate."
     )
+
+
+# ---------------------------------------------------------------------------
+# split: per-chunk kernel pipeline + a carried merge table
+
+# how a chunk's raw partial of each kind merges into the carried accumulator
+_MERGE_KIND = {"count": "sum", "sum": "sum", "min": "min", "max": "max"}
+
+
+class _IncrementalMergeExecutor(_ExecutorBase):
+    """Streaming shell for a pipeline that is a one-shot program over its
+    input (here: kernel launches against a table made fresh per chunk):
+    run it over EACH chunk, then merge the chunk's bounded partial (at most
+    ``max_groups`` (key, partial) entries) into a carried ticket table +
+    merge accumulators (``get_or_insert`` + ``scatter_update``).  State is
+    O(max_groups); no chunks are retained.
+
+    Saturation: the per-chunk pipeline recovers chunk-locally under GROW
+    (one blocking sync per chunk); the carried UNION bound grows by padding
+    ``key_by_ticket`` and the merge accumulators (tickets are stable) before
+    a chunk that could overflow it merges.  RAISE accumulates sticky
+    device-side flags and checks them once at finalize; UNCHECKED never
+    checks and truncates.
+
+    The FIRST chunk's raw partial is held un-merged and lowered into the
+    carried table only when a second chunk arrives, so a single-chunk run
+    materializes the pipeline's native layout (its own ticket order)."""
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        self._plan = plan
+        self._device = device
+        self._specs = expand_agg_specs(plan.aggs)
+        self._max_groups = plan.max_groups          # carried union bound
+        self._chunk_bound = plan.max_groups         # per-chunk pipeline bound
+        self._rows = 0
+        self._host_count = 0                        # union count mirror (GROW)
+        self._ovf = torch.zeros((), dtype=torch.bool, device=device)  # sticky loss
+        self._pending = None                        # first chunk's raw partial
+        self._merged_any = False
+        self._table = tk.make_table(
+            table_capacity(plan.max_groups, plan.execution.load_factor),
+            max_groups=plan.max_groups, device=device,
+        )
+        self._accs = {
+            spec: up.init_acc(plan.max_groups, spec[1], device=device)
+            for spec in self._specs
+        }
+
+    # subclass: run the pipeline over one chunk, honoring (and under GROW
+    # growing) ``self._chunk_bound``; returns (key_by_ticket, {spec: raw
+    # partial acc}, count, device loss flag)
+    def _chunk_partial(self, keys, vals):
+        raise NotImplementedError
+
+    def _grow_carried(self, new_max: int) -> None:
+        self._table = resize.grow_bound(
+            self._table, new_max, self._plan.execution.load_factor
+        )
+        for spec, acc in self._accs.items():
+            pad = up.init_acc(new_max - acc.shape[0], spec[1], device=self._device)
+            self._accs[spec] = torch.cat([acc, pad])
+        self._max_groups = new_max
+
+    def _merge(self, partial) -> None:
+        grow = self._plan.saturation == SaturationPolicy.GROW
+        kbt, partials, count, ovf = partial
+        if grow:
+            issued = int(count)
+            if self._host_count + issued > self._max_groups:
+                self._grow_carried(
+                    max(4 * self._max_groups, self._host_count + issued, 64)
+                )
+        tickets, self._table = tk.get_or_insert(self._table, kbt)
+        for spec, acc in partials.items():
+            self._accs[spec] = up.scatter_update(
+                self._accs[spec], tickets, acc, kind=_MERGE_KIND[spec[1]]
+            )
+        if grow:
+            self._host_count = int(self._table.count)
+        else:
+            self._ovf = self._ovf | ovf
+        self._merged_any = True
+
+    def consume(self, chunk: Table) -> None:
+        keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
+        self._rows += int(keys.shape[0])
+        partial = self._chunk_partial(keys, vals)
+        if not self._merged_any and self._pending is None:
+            # single-chunk fast path: hold the native layout; the held
+            # partial is retained state beyond the in-flight window
+            self._pending = partial
+            kbt, partials, _, _ = partial
+            self.peak_retained_bytes = max(
+                self.peak_retained_bytes,
+                _nbytes(kbt) + sum(_nbytes(a) for a in partials.values()),
+            )
+            return
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._merge(pending)
+        self._merge(partial)
+
+    def finalize(self) -> Table:
+        p = self._plan
+        checked = p.saturation != SaturationPolicy.UNCHECKED
+        if self._pending is not None and not self._merged_any:
+            # exactly one chunk: the pipeline's own materialization
+            kbt, partials, count, ovf = self._pending
+            if checked and bool(ovf):
+                raise _overflow_error(int(count), self._chunk_bound)
+            return build_result_table(
+                p.aggs, lambda c, k: partials[(c, k)], kbt, count,
+                self._chunk_bound,
+            )
+        if checked and (bool(self._ovf) or bool(self._table.overflowed)):
+            raise _overflow_error(int(self._table.count), self._max_groups)
+        return build_result_table(
+            p.aggs, lambda c, k: self._accs[(c, k)],
+            self._table.key_by_ticket, self._table.count, self._max_groups,
+        )
+
+    def device_table_bytes(self) -> int:
+        n = resize.table_nbytes(self._table) + sum(
+            _nbytes(a) for a in self._accs.values()
+        )
+        if self._pending is not None:
+            kbt, partials, _, _ = self._pending
+            n += _nbytes(kbt) + sum(_nbytes(a) for a in partials.values())
+        return n
+
+
+class _PallasExecutor(_IncrementalMergeExecutor):
+    """``kernel="split"`` (legacy ``strategy="pallas"``): the ticket kernel
+    and one segment kernel per aggregate plane (kernels/ops.py) launched per
+    chunk.  The ticket kernel's table lives for one launch, so each chunk's
+    bounded result merges into the carried table.  GROW re-launches the
+    CHUNK with a grown bound (``_next_bound``) or a doubled capacity — never
+    the stream.  ``relaunches`` / ``bound_grows`` / ``capacity_grows`` count
+    those re-launches."""
+
+    strategy_label = "pallas"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        super().__init__(plan, device)
+        ex = plan.execution
+        self._capacity = ex.capacity or table_capacity(plan.max_groups, ex.load_factor)
+        self.relaunches = 0
+        self.bound_grows = 0
+        self.capacity_grows = 0
+
+    def _chunk_partial(self, keys, vals):
+        from repro_torch.kernels import ops as kops
+
+        p, ex = self._plan, self._plan.execution
+        bound, capacity = self._chunk_bound, self._capacity
+        while True:
+            tickets, kbt, count = kops._ticket(
+                keys, capacity=capacity, max_groups=bound, morsel_size=ex.morsel_size,
+            )
+            dropped_dev = ((tickets < 0) & (keys != EMPTY_I32)).any()
+            ovf = (count > bound) | dropped_dev
+            if p.saturation != SaturationPolicy.GROW:
+                break
+            issued = int(count)
+            dropped = bool(dropped_dev)
+            if issued <= bound and not dropped:
+                break
+            # the two overflow causes recover independently: an undersized
+            # bound grows max_groups (rows-bounded), a saturated probe table
+            # doubles capacity
+            grew = False
+            if issued > bound and bound < self._rows:
+                bound = _next_bound(bound, self._rows)
+                self.bound_grows += 1
+                grew = True
+            if dropped:
+                capacity = max(table_capacity(bound, ex.load_factor), 2 * capacity)
+                self.capacity_grows += 1
+                grew = True
+            if not grew:
+                raise GroupByOverflowError(
+                    f"GROUP BY overflow: {issued} tickets issued against "
+                    f"max_groups={bound} and growth cannot make progress."
+                )
+            self.relaunches += 1
+        self._chunk_bound, self._capacity = bound, capacity
+        partials = {}
+        for col, kind in self._specs:
+            v = vals[col] if col else torch.ones(keys.shape, dtype=torch.float32,
+                                                 device=self._device)
+            partials[(col, kind)] = kops._segment_aggregate(
+                tickets, v, num_groups=bound, kind=kind,
+                strategy=ex.update or "scatter", morsel_size=ex.morsel_size,
+            )
+        return kbt, partials, count, ovf
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,45 @@
 """Hand-written Hopper kernels and their wrappers.
 
-``fused_groupby`` wraps ``csrc/fused_groupby.cu`` (built at first use by
-``build``); ``ops.groupby_kernel`` is the array front door onto the fused
-route.  Nothing here builds or imports a compiler at import time.
+ticket_hash — GET_OR_INSERT of a key column against a fresh table
+  (``csrc/ticket_hash.cu``), the split route's first kernel.
+segment_agg — fold of ticketed rows into a dense accumulator, scatter and
+  onehot strategies (``csrc/segment_agg.cu``), the split route's second.
+fused_groupby — ticketing + aggregation in one kernel against a table
+  carried across chunks (``csrc/fused_groupby.cu``, ``kernel="fused"``).
+
+Each wrapper launches its kernel for CUDA tensors (built at first use by
+``build``) and runs its plain PyTorch version for CPU tensors.
+``ops.groupby_kernel`` is the one front door for direct kernel callers
+(``fused=`` selects the route); the legacy direct entry points
+(``groupby_pallas``, ``ticket``, ``segment_aggregate``) warn once per
+process.  (The fused module's one-shot ``fused_groupby`` function is not
+re-exported: its name is the submodule's.)  Nothing here builds or
+imports a compiler at import time.
 """
+from repro_torch.kernels.fused_groupby import (
+    FusedState,
+    fused_consume,
+    grow_fused_state,
+    init_fused_state,
+    merge_fused_state,
+)
+from repro_torch.kernels.ops import (
+    groupby_kernel,
+    groupby_pallas,
+    multi_block_ticket,
+    segment_aggregate,
+    ticket,
+)
+
+__all__ = [
+    "FusedState",
+    "fused_consume",
+    "groupby_kernel",
+    "groupby_pallas",
+    "grow_fused_state",
+    "init_fused_state",
+    "merge_fused_state",
+    "multi_block_ticket",
+    "segment_aggregate",
+    "ticket",
+]

@@ -299,26 +299,26 @@ def test_groupby_kernel_front_door(kind):
     rng = np.random.default_rng(11)
     keys = rng.integers(0, 250, size=4096).astype(np.uint32)
     vals = rng.normal(size=4096).astype(np.float32)
-    tk_, ta, tn = tops.groupby_kernel(torch.from_numpy(keys.astype(np.int64)),
-                                      torch.from_numpy(vals), kind=kind, max_groups=512,
-                                      morsel_size=512, device="cpu")
-    jk, ja, jn = jops.groupby_kernel(jnp.asarray(keys), jnp.asarray(vals), kind=kind,
-                                     max_groups=512, morsel_size=512, fused=True)
-    n = int(jn)
-    assert int(tn) == n
-    assert np.array_equal(tk_.numpy()[:n], np.asarray(jk)[:n].astype(np.int64))
-    np.testing.assert_allclose(ta.numpy()[:n], np.asarray(ja)[:n], rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tops.groupby_kernel(torch.from_numpy(keys.astype(np.int64)), kind=kind,
-                            max_groups=512, fused=False, device="cpu")
+    for fused in (True, False):  # the fused route, then the default split route
+        tk_, ta, tn = tops.groupby_kernel(torch.from_numpy(keys.astype(np.int64)),
+                                          torch.from_numpy(vals), kind=kind, max_groups=512,
+                                          morsel_size=512, fused=fused, device="cpu")
+        jk, ja, jn = jops.groupby_kernel(jnp.asarray(keys), jnp.asarray(vals), kind=kind,
+                                         max_groups=512, morsel_size=512, fused=fused)
+        n = int(jn)
+        assert int(tn) == n
+        assert np.array_equal(tk_.numpy()[:n], np.asarray(jk)[:n].astype(np.int64))
+        np.testing.assert_allclose(ta.numpy()[:n], np.asarray(ja)[:n], rtol=1e-6, atol=1e-6)
+    default = tops.groupby_kernel(torch.from_numpy(keys.astype(np.int64)),
+                                  torch.from_numpy(vals), kind=kind, max_groups=512,
+                                  morsel_size=512, device="cpu")
+    assert torch.equal(default[0], tk_) and torch.equal(default[1], ta)  # fused=False
 
 
 OUT_OF_SLICE = {
     "kernel_none": dict(execution=dict(kernel=None)),
     "kernel_off": dict(execution=dict(kernel="off")),
     "kernel_scan_body": dict(execution=dict(kernel="scan_body")),
-    "kernel_split": dict(execution=dict(kernel="split")),
-    "strategy_pallas": dict(strategy="pallas", execution=dict(kernel=None)),
     "use_kernel": dict(execution=dict(kernel=None, use_kernel=True)),
     "strategy_auto": dict(strategy="auto"),
     "strategy_hybrid": dict(strategy="hybrid", execution=dict(kernel=None)),
