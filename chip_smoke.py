@@ -11,10 +11,13 @@ Four phases, each of which fails the run:
    ``ticket_hash``, ``segment_agg``), one ``nvcc`` each, all started
    together, and print the commands, the seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
-   tensors.  ``fused_consume``: 2^20 rows of uniform, zipf and
-   heavy-hitter keys at P = 1 and 4 under an exact bound; a forced pause
-   and its relaunch after ``grow_fused_state``; an unchecked, saturated
-   table (1024 slots, 4096 distinct keys), which must end.
+   tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
+   program): 2^20 rows of uniform, zipf and heavy-hitter keys at P = 1
+   and 4 under an exact bound; a forced pause under a GROW bound (the
+   committed morsels' rows counted once, no ticket past the bound) and the
+   replay of each version's todo morsels after ``grow_fused_state``; an
+   unchecked, saturated table (1024 slots, 4096 distinct keys), which
+   must end.
    ``ticket_hash``: 2^20 rows of uniform, zipf and heavy-hitter keys, a
    bound below the distinct count (count > G, key_by_ticket truncated) and
    a full 1024-slot table (-1 rows, count = 1024).  ``segment_agg``: every
@@ -24,18 +27,24 @@ Four phases, each of which fails the run:
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
    + ``scatter_reduce_``).  The fused route (``kernel="fused"``): the
    paper's §4.1 classes (low, high, unique), a grow stream and a
-   132-program stream.  The split route (``kernel="split"``): the same
-   three classes, a grow stream and low with ``update="onehot"``, with the
-   host-side merge timed apart from the kernels.  Every stream sets the
+   132-program stream; a RAISE stream must not pause (one launch per
+   chunk), and the grow stream may not grow more often than the one-CTA
+   rule did (3 bound grows, 3 migrations).  The split route
+   (``kernel="split"``): the same three classes, a grow stream and low
+   with ``update="onehot"``, with the host-side merge timed apart from the
+   kernels.  Every stream sets the
    launch counts to 0 just before it and reads them just after.
-4. timing — CUDA events, median of 5 after one warm-up, on one 2^21-row
-   main-path chunk of each class, beside its bound, its plain version and
-   one library call: the fused kernel (low, high, unique at P = 1, low at
-   P = 132; library ``torch.unique`` + ``index_add_``), held against its
-   plain version on each of those chunks; the ticket kernel (library
+4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
+   one 2^21-row main-path chunk of each class, beside its bound, its plain
+   version and one library call: the fused kernel (low, high, unique at
+   P = 1, low at P = 132; library ``torch.unique`` + ``index_add_``), held
+   against its plain version on each of those chunks, and swept over CTA
+   sizes; the ticket kernel (library
    ``torch.unique(return_inverse=True)``) and the segment kernel per plane
    and strategy (library ``index_add_`` / ``scatter_reduce_``), each timed
    beside its plain version and held against it on every class's chunk.
+   Both routes run on the same chunks, and the fused time is printed
+   beside the ticket kernel's (the ticketing share of the fused kernel).
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -166,19 +175,22 @@ def check_tickets(fk, state, label):
 
 def compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_sum_of, label, *,
                          same_keys=True):
-    """The kernel's state vs the plain version's, by the port's rules.
-    Returns the largest |Δ| seen on any accumulator."""
+    """The kernel's state vs the plain version's, by the port's rules, for
+    launches that leave no morsel todo: info equal, events equal (probe
+    steps aside; saturated morsels only by the flag when the table
+    saturated, since which morsels saturate depends on the CTAs' order),
+    gap-free tickets, and the key → aggregate map.  Returns the largest
+    |Δ| seen on any accumulator."""
     import torch
 
     check(torch.equal(ks.count, ps.count), f"{label}: group counts differ")
-    check(torch.equal(kinfo[:, [fk.INFO_COUNT, fk.INFO_SAT, fk.INFO_HALTED]],
-                      pinfo[:, [fk.INFO_COUNT, fk.INFO_SAT, fk.INFO_HALTED]]),
-          f"{label}: info differs {kinfo.tolist()} vs {pinfo.tolist()}")
-    if not bool(pinfo[:, fk.INFO_SAT].any()):
-        check(torch.equal(kinfo[:, fk.INFO_FIRST_HALT], pinfo[:, fk.INFO_FIRST_HALT]),
-              f"{label}: first halted morsel differs")
+    check(not bool(kinfo[:, fk.INFO_HALTED].any()) and not bool(pinfo[:, fk.INFO_HALTED].any()),
+          f"{label}: a launch left morsels todo {kinfo.tolist()} vs {pinfo.tolist()}")
+    check(torch.equal(kinfo, pinfo), f"{label}: info differs {kinfo.tolist()} vs {pinfo.tolist()}")
     ev_k, ev_p = ks.events.cpu(), ps.events.cpu()
-    exact = [0, 1, 2, 4, 5]   # morsels, rows, masked rows, saturations, pauses
+    exact = [0, 1, 2, 5]   # morsels, rows, masked rows, pauses
+    if not bool(pinfo[:, fk.INFO_SAT].any()):
+        exact.append(4)    # saturated morsels
     check(torch.equal(ev_k[:, exact], ev_p[:, exact]),
           f"{label}: events differ {ev_k.tolist()} vs {ev_p.tolist()}")
     check(torch.equal(ev_k[:, 6:].sum(dim=1), ev_k[:, 1]),
@@ -201,6 +213,11 @@ def compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_sum_of, label, *,
             else:
                 check(torch.equal(a, b), f"{label}: {kind.upper()} differs")
     return err
+
+
+def grid_of(fk) -> str:
+    ctas, per_program = fk.fused_consume.grid
+    return f"grid {ctas} CTAs, {per_program} per program"
 
 
 def abs_sum_lookup(keys, vals):
@@ -237,6 +254,9 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
 
     from repro_torch.core.hashing import table_capacity
 
+    def ones(k):
+        return torch.ones(k, dtype=torch.int32, device=device)
+
     kinds = tuple(k for _, k in SPECS4)
     max_err = 0.0
     for dist in ("uniform", "zipf", "heavy"):
@@ -248,23 +268,25 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
         for P in (1, 4):
             km = keys.to(torch.int32).reshape(-1, M).contiguous()
             vm = vals.reshape(1, -1, M).contiguous()
-            start = torch.zeros(P, dtype=torch.int32, device=device)
             kw = dict(specs=SPECS4, checked=True, grow_bound=False,
                       threshold=int(0.5 * c), bound_slack=g - M, collect_events=True)
             ks = fk.init_fused_state(capacity=c, max_groups=g, kinds=kinds, programs=P,
                                      device=device)
             ps = fk.init_fused_state(capacity=c, max_groups=g, kinds=kinds, programs=P,
                                      device=device)
-            (ks, kinfo), k_s = timed(fk.fused_consume, ks, km, vm, start, **kw)
-            (ps, pinfo), p_s = timed(fk.fused_consume_plain, ps, km, vm, start, **kw)
+            (ks, kinfo), k_s = timed(fk.fused_consume, ks, km, vm, ones(km.shape[0]), **kw)
+            (ps, pinfo), p_s = timed(fk.fused_consume_plain, ps, km, vm, ones(km.shape[0]),
+                                     **kw)
             label = f"phase2 {dist} P={P}"
+            check(fk.fused_consume.grid[1] > 1, f"{label}: one CTA per program")
             err = compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_of, label)
             max_err = max(max_err, err)
             log(f"{label}: rows={n} groups={g} capacity={c} counts={ks.count.tolist()} "
-                f"max|Δacc|={err:.3g} kernel {k_s * 1e3:.2f} ms plain {p_s * 1e3:.0f} ms "
-                "(host clock, first call) ok")
+                f"{grid_of(fk)} max|Δacc|={err:.3g} kernel {k_s * 1e3:.2f} ms plain "
+                f"{p_s * 1e3:.0f} ms (host clock, first call) ok")
 
-    # forced pause partway through the chunk, grow, relaunch at first_halt
+    # forced pause partway through the chunk (GROW bound of half the
+    # groups), grow, replay each version's own todo morsels
     keys = gen_keys(n, "high", "uniform", gen, device)
     vals = torch.randn(n, generator=gen, device=device)
     d = int(torch.unique(keys).numel())
@@ -272,34 +294,42 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
     c1 = table_capacity(g1)
     km = keys.to(torch.int32).reshape(-1, M).contiguous()
     vm = vals.reshape(1, -1, M).contiguous()
-    zero = torch.zeros(1, dtype=torch.int32, device=device)
+    npm = km.shape[0]
+    ktodo, ptodo = ones(npm), ones(npm)
     kw1 = dict(specs=SPECS4, checked=True, grow_bound=True, threshold=int(0.5 * c1),
                bound_slack=g1 - M, collect_events=True)
     ks = fk.init_fused_state(capacity=c1, max_groups=g1, kinds=kinds, device=device)
     ps = fk.init_fused_state(capacity=c1, max_groups=g1, kinds=kinds, device=device)
-    ks, kinfo = fk.fused_consume(ks, km, vm, zero, **kw1)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, zero, **kw1)
+    ks, kinfo = fk.fused_consume(ks, km, vm, ktodo, **kw1)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ptodo, **kw1)
+    grid = grid_of(fk)
     abs_of = abs_sum_lookup(keys, vals)
-    compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_of, "phase2 pause")
-    first = int(kinfo[0, fk.INFO_FIRST_HALT])
-    npm = km.shape[0]
-    check(int(kinfo[0, fk.INFO_HALTED]) == 1 and 0 < first < npm,
-          f"phase2 pause: expected a halt partway, info {kinfo.tolist()}")
+    left = int(ktodo.sum())
+    check(int(kinfo[0, fk.INFO_HALTED]) == 1 and int(pinfo[0, fk.INFO_HALTED]) == 1
+          and 0 < left < npm, f"phase2 pause: expected a halt partway, info {kinfo.tolist()}")
+    check(int(kinfo[0, fk.INFO_FIRST_HALT]) == int(torch.nonzero(ktodo)[0]),
+          "phase2 pause: info's lowest todo morsel is not the mask's")
+    check(int(ks.count[0]) <= g1, f"phase2 pause: {int(ks.count[0])} tickets past G={g1}")
+    check_tickets(fk, ks, "phase2 pause kernel")
+    count1, p_first = int(ks.count[0]), int(pinfo[0, fk.INFO_FIRST_HALT])
+    committed_rows = int((km[ktodo == 0] != -1).sum())
+    check(float(ks.accs[0].sum()) == float(committed_rows),
+          "phase2 pause: committed morsels' rows not counted exactly once")
     g2 = 4 * g1
     c2 = table_capacity(g2)
     ks = fk.grow_fused_state(ks, kinds, new_max_groups=g2, new_capacity=c2)
     ps = fk.grow_fused_state(ps, kinds, new_max_groups=g2, new_capacity=c2)
-    resume = torch.tensor([first], dtype=torch.int32, device=device)
     kw2 = dict(kw1, threshold=int(0.5 * c2), bound_slack=g2 - M)
-    ks, kinfo = fk.fused_consume(ks, km, vm, resume, **kw2)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, resume, **kw2)
+    ks, kinfo = fk.fused_consume(ks, km, vm, ktodo, **kw2)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ptodo, **kw2)
     err = compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_of, "phase2 resume")
     max_err = max(max_err, err)
-    check(int(kinfo[0, fk.INFO_HALTED]) == 0, "phase2 resume: halted again")
     check(int(ks.count[0]) == d, "phase2 resume: group count is not the distinct count")
     check(float(ks.accs[0].sum()) == float(n), "phase2 resume: rows counted twice or lost")
-    log(f"phase2 pause: halted at morsel {first}/{npm} with {g1} of {d} groups allowed; "
-        f"resumed after growing to {g2}: counts={ks.count.tolist()} max|Δacc|={err:.3g} ok")
+    log(f"phase2 pause: {grid}; {npm - left}/{npm} morsels committed, count {count1} "
+        f"with {g1} of {d} groups allowed (plain: halted at morsel {p_first}); replayed "
+        f"the todo morsels after growing to {g2}: {grid_of(fk)}, "
+        f"counts={ks.count.tolist()} max|Δacc|={err:.3g} ok")
 
     # unchecked against a saturated table: must end; admitted keys exact
     keys = torch.randint(0, 4096, (sat_rows,), generator=gen, device=device)
@@ -309,8 +339,8 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
     kw3 = dict(specs=SPECS4, checked=False, grow_bound=False, collect_events=True)
     ks = fk.init_fused_state(capacity=1024, max_groups=4096, kinds=kinds, device=device)
     ps = fk.init_fused_state(capacity=1024, max_groups=4096, kinds=kinds, device=device)
-    (ks, kinfo), t_kernel = timed(fk.fused_consume, ks, km, vm, zero, **kw3)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, zero, **kw3)
+    (ks, kinfo), t_kernel = timed(fk.fused_consume, ks, km, vm, ones(km.shape[0]), **kw3)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ones(km.shape[0]), **kw3)
     compare_kernel_plain(fk, ks, kinfo, ps, pinfo, None, "phase2 saturated",
                          same_keys=False)
     check(int(ks.count[0]) == 1024 and int(kinfo[0, fk.INFO_SAT]) == 1,
@@ -328,8 +358,11 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
         d_sum = (st.accs[1, 0][ko].double() - o["sum"][idx]).abs()
         check(bool((d_sum <= SUM_RTOL * o["abs"][idx]).all()),
               f"phase2 saturated {label}: admitted keys' SUM outside tolerance")
+    check(int(ks.events[0, 4]) >= 1 and int(ps.events[0, 4]) >= 1,
+          "phase2 saturated: no saturated morsel counted")
     log(f"phase2 saturated: rows={sat_rows} distinct≈4096 capacity=1024 -> count=1024, "
-        f"saturations={int(ks.events[0, 4])}, kernel ended in {t_kernel:.3f} s ok")
+        f"saturated morsels {int(ks.events[0, 4])} (plain {int(ps.events[0, 4])}), "
+        f"{grid_of(fk)}, kernel ended in {t_kernel:.3f} s ok")
     return max_err
 
 
@@ -539,8 +572,17 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
         "max_sum_err_over_abs": float((d_sum / o["abs"].clamp_min(1e-30)).max()),
     }
     if kernel == "fused":
+        fk = kmods["fused_groupby"][0]
         rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
-                   table_capacity=dev["table_capacity"])
+                   table_capacity=dev["table_capacity"], pauses=dev["pauses"],
+                   grid=list(fk.fused_consume.grid))
+        check(programs > 1 or fk.fused_consume.grid[1] > 1, f"{name}: one CTA per program")
+        if saturation == "raise":
+            # a RAISE stream whose groups fit its bound never halts: one
+            # launch per chunk, no replay
+            check(launches["fused_groupby"] == chunks and dev["pauses"] == 0,
+                  f"{name}: a RAISE stream paused ({launches['fused_groupby']} launches "
+                  f"for {chunks} chunks, {dev['pauses']} pauses)")
     else:
         rec.update(merge_s=merge["s"], merges=merge["calls"], relaunches=ex.relaunches,
                    bound_grows=ex.bound_grows, capacity_grows=ex.capacity_grows,
@@ -578,6 +620,11 @@ def phase3(kmods, api, gen, device, n=1 << 24):
         check(rec["bound_grows"] >= 1, f"{rec['stream']}: expected a bound grow")
         recs.append(rec)
     check(recs[-2]["bound_grows"] >= 2, "high_grow: expected several bound grows")
+    # per-morsel commit flags: a pause with room left relaunches without a
+    # grow, so racing CTAs add no growth over the sequential rule's
+    check(recs[-2]["bound_grows"] <= 3 and recs[-2]["migrations"] <= 3,
+          f"high_grow: {recs[-2]['bound_grows']} bound grows, "
+          f"{recs[-2]['migrations']} migrations (3 and 3 with one CTA per program)")
     del high_u
     recs.append(run_stream(kmods, api, "low_p132", low, vals, max_groups=1024,
                            saturation="raise", programs=132))
@@ -589,13 +636,24 @@ def phase3(kmods, api, gen, device, n=1 << 24):
 # -- phase 4: timing --------------------------------------------------------------
 
 
-def time_cuda(fn, reps, setup=None):
+def time_cuda(fn, reps, setup=None, warm_s=0.05):
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events
-    around each call only (``setup`` runs before each, untimed)."""
+    around each call only (``setup`` runs before each, untimed).  Calls
+    first run back to back for ``warm_s`` seconds, so that a timing does
+    not start on a card that sat idle through a host-bound plain
+    version."""
     import torch
 
+    t_end = time.perf_counter() + warm_s
+    while True:
+        if setup is not None:
+            setup()
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() >= t_end:
+            break
     times = []
-    for _ in range(reps + 1):
+    for _ in range(reps):
         if setup is not None:
             setup()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -605,7 +663,7 @@ def time_cuda(fn, reps, setup=None):
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
-    times = sorted(times[1:])  # first run warms up
+    times.sort()
     return times[len(times) // 2]
 
 
@@ -630,16 +688,17 @@ def kernel_timing(fk, keys, vals, *, max_groups, programs, device, reps=5):
     fresh = fk.init_fused_state(capacity=c, max_groups=max_groups, kinds=kinds,
                                 programs=programs, device=device)
     work = fk.FusedState(*(t.clone() for t in fresh))
-    start = torch.zeros(programs, dtype=torch.int32, device=device)
+    todo = torch.ones(km.shape[0], dtype=torch.int32, device=device)
     kw = dict(specs=SPECS4, checked=True, grow_bound=False, threshold=int(0.5 * c),
               bound_slack=max_groups - M, collect_events=True)
 
     def reset():
         for w, f in zip(work, fresh):
             w.copy_(f)
+        todo.fill_(1)
 
-    ms = time_cuda(lambda: fk.fused_consume(work, km, vm, start, **kw), reps, reset)
-    return ms, (fresh, km, vm, start, kw)
+    ms = time_cuda(lambda: fk.fused_consume(work, km, vm, todo, **kw), reps, reset)
+    return ms, (fresh, km, vm, kw)
 
 
 def bound_ms_of(keys, n_value_planes=1, n_specs=4):
@@ -662,69 +721,23 @@ def kernel_vs_plain(fk, keys, vals, launch, label):
     """The kernel and its plain version, each launched once from the same
     fresh state on the same main-path chunk, compared by the port's rules.
     Returns (max |Δacc|, plain ms on the host clock)."""
-    fresh, km, vm, start, kw = launch
+    import torch
+
+    fresh, km, vm, kw = launch
     ks = fk.FusedState(*(t.clone() for t in fresh))
     ps = fk.FusedState(*(t.clone() for t in fresh))
-    ks, kinfo = fk.fused_consume(ks, km, vm, start, **kw)
-    (ps, pinfo), p_s = timed(fk.fused_consume_plain, ps, km, vm, start, **kw)
+    todo = torch.ones(km.shape[0], dtype=torch.int32, device=km.device)
+    ks, kinfo = fk.fused_consume(ks, km, vm, todo, **kw)
+    (ps, pinfo), p_s = timed(fk.fused_consume_plain, ps, km, vm, todo.clone().fill_(1), **kw)
     err = compare_kernel_plain(fk, ks, kinfo, ps, pinfo, abs_sum_lookup(keys, vals), label)
     return err, p_s * 1e3
 
 
-def phase4(fk, gen, device, n=1 << 24, chunks=8):
+def phase4_chunks(gen, device, n=1 << 24, chunks=8):
+    """One main-path chunk of each class (the first n / chunks rows of the
+    class's keys, with their stream's bound) and one value plane: the
+    fused and the split kernels are timed on the same chunks."""
     import torch
-
-    from repro_torch.core.hashing import table_capacity
-
-    rows = n // chunks
-    vals = torch.randn(rows, generator=gen, device=device)
-    low = gen_keys(n, "low", "uniform", gen, device)[:rows]
-    classes = {
-        "low": (low, 1024, 1),
-        "high": (gen_keys(n, "high", "zipf", gen, device)[:rows], n // 10, 1),
-        "unique": (gen_keys(n, "unique", "uniform", gen, device)[:rows], n, 1),
-        "low_p132": (low, 1024, 132),
-    }
-    per_class = {}
-    max_err = 0.0
-    for name, (keys, g, P) in classes.items():
-        ms, launch = kernel_timing(fk, keys, vals, max_groups=g, programs=P, device=device)
-        b_ms, b_by = bound_ms_of(keys)
-        err, plain_ms = kernel_vs_plain(fk, keys, vals, launch, f"phase4 {name}")
-        del launch
-        max_err = max(max_err, err)
-        per_class[name] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "max_abs_err": err, "rows": rows,
-                           "programs": P, "max_groups": g,
-                           "capacity": table_capacity(g)}
-        log(f"phase4 {name}: kernel {ms:.3f} ms for {rows} rows (P={P}, "
-            f"capacity {table_capacity(g)}), bound {b_ms:.4f} ms ({b_by}); "
-            f"vs plain ({plain_ms:.1f} ms): max|Δacc|={err:.3g} ok")
-    log("phase4 " + json.dumps(per_class))
-    keys = classes["high"][0]
-
-    def library():
-        uk, inv = torch.unique(keys, return_inverse=True)
-        torch.zeros(uk.numel(), device=device).index_add_(0, inv, vals)
-
-    lib_ms = time_cuda(library, 5)
-    high = per_class["high"]
-    log(f"phase4 high chunk: kernel {high['kernel_ms']:.3f} ms, plain "
-        f"{high['plain_ms']:.1f} ms, torch.unique+index_add_ {lib_ms:.3f} ms, "
-        f"bound {high['bound_ms']:.4f} ms")
-    return {"ms": high["kernel_ms"], "plain_ms": high["plain_ms"],
-            "bound_ms": high["bound_ms"], "bound_by": high["bound_by"],
-            "library_ms": lib_ms, "max_abs_err": max_err, "per_class": per_class}
-
-
-def phase4_split(th, sa, gen, device, n=1 << 24, chunks=8, reps=5):
-    """The split route's kernels on one main-path chunk of each class (its
-    bound and capacity), CUDA events, beside their bounds, one library
-    call each and their plain versions, each held against its plain
-    version on that chunk."""
-    import torch
-
-    from repro_torch.core.hashing import table_capacity
 
     rows = n // chunks
     vals = torch.randn(rows, generator=gen, device=device)
@@ -733,6 +746,87 @@ def phase4_split(th, sa, gen, device, n=1 << 24, chunks=8, reps=5):
         "high": (gen_keys(n, "high", "zipf", gen, device)[:rows], n // 10),
         "unique": (gen_keys(n, "unique", "uniform", gen, device)[:rows], n),
     }
+    return classes, vals
+
+
+def phase4(fk, chunk_classes, vals, device):
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    rows = vals.numel()
+    classes = {name: (keys, g, 1) for name, (keys, g) in chunk_classes.items()}
+    classes["low_p132"] = (chunk_classes["low"][0], 1024, 132)
+    per_class = {}
+    max_err = 0.0
+    for name, (keys, g, P) in classes.items():
+        ms, launch = kernel_timing(fk, keys, vals, max_groups=g, programs=P, device=device)
+        grid = list(fk.fused_consume.grid)
+        b_ms, b_by = bound_ms_of(keys)
+        err, plain_ms = kernel_vs_plain(fk, keys, vals, launch, f"phase4 {name}")
+        del launch
+        max_err = max(max_err, err)
+
+        def library(keys=keys):
+            uk, inv = torch.unique(keys, return_inverse=True)
+            torch.zeros(uk.numel(), device=device).index_add_(0, inv, vals)
+
+        lib_ms = time_cuda(library, 5)
+        per_class[name] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err,
+                           "rows": rows, "programs": P, "max_groups": g,
+                           "capacity": table_capacity(g), "grid": grid}
+        log(f"phase4 {name}: kernel {ms:.3f} ms for {rows} rows (P={P}, "
+            f"capacity {table_capacity(g)}, grid {grid[0]} CTAs, {grid[1]} per program), "
+            f"bound {b_ms:.4f} ms ({b_by}), torch.unique+index_add_ {lib_ms:.3f} ms; "
+            f"vs plain ({plain_ms:.1f} ms): max|Δacc|={err:.3g} ok")
+    log("phase4 " + json.dumps(per_class))
+    high = per_class["high"]
+    return {"ms": high["kernel_ms"], "plain_ms": high["plain_ms"],
+            "bound_ms": high["bound_ms"], "bound_by": high["bound_by"],
+            "library_ms": high["library_ms"], "max_abs_err": max_err,
+            "per_class": per_class}
+
+
+def block_sweep(fk, classes, vals, device, sizes=(128, 256, 512, 1024)):
+    """The fused kernel's time per P = 1 chunk at each CTA size (the
+    kernel's block size is chosen from these), each launch's group count
+    checked against the chunk's distinct count."""
+    import torch
+
+    out = {}
+    default = fk.BLOCK_THREADS
+    try:
+        for threads in sizes:
+            fk.BLOCK_THREADS = threads
+            row = {}
+            for name, (keys, g) in classes.items():
+                ms, (fresh, km, vm, kw) = kernel_timing(fk, keys, vals, max_groups=g,
+                                                        programs=1, device=device)
+                ks = fk.FusedState(*(t.clone() for t in fresh))
+                todo = torch.ones(km.shape[0], dtype=torch.int32, device=device)
+                fk.fused_consume(ks, km, vm, todo, **kw)
+                check(int(ks.count[0]) == int(torch.unique(keys).numel())
+                      and not bool(todo.any()),
+                      f"block sweep {threads} threads {name}: wrong count or morsels left")
+                row[name] = {"ms": ms, "grid": list(fk.fused_consume.grid)}
+            out[threads] = row
+    finally:
+        fk.BLOCK_THREADS = default
+    log("phase4 block sweep " + json.dumps(out))
+    return out
+
+
+def phase4_split(th, sa, classes, vals, device, reps=5):
+    """The split route's kernels on one main-path chunk of each class (its
+    bound and capacity), CUDA events, beside their bounds, one library
+    call each and their plain versions, each held against its plain
+    version on that chunk."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    rows = vals.numel()
     out = {}
     max_err = {"ticket_hash": 0, "segment_agg": 0.0}
     for name, (keys, g) in classes.items():
@@ -878,8 +972,15 @@ def main(argv=None) -> int:
 
     log("== phase 4: timing")
     t0 = time.perf_counter()
-    timing = {"fused_groupby": phase4(fk, gen, device)}
-    timing.update(phase4_split(th, sa, gen, device))
+    chunk_classes, chunk_vals = phase4_chunks(gen, device)
+    timing = {"fused_groupby": phase4(fk, chunk_classes, chunk_vals, device)}
+    block_sweep(fk, chunk_classes, chunk_vals, device)
+    timing.update(phase4_split(th, sa, chunk_classes, chunk_vals, device))
+    for name in chunk_classes:
+        f_ms = timing["fused_groupby"]["per_class"][name]["kernel_ms"]
+        t_ms = timing["per_class"][name]["ticket"]["kernel_ms"]
+        log(f"phase4 {name} chunk: fused {f_ms:.3f} ms beside the ticket kernel's "
+            f"{t_ms:.3f} ms on the same keys (fused minus ticket {f_ms - t_ms:.3f} ms)")
     timing["fused_groupby"]["max_abs_err"] = max(max_err, timing["fused_groupby"]["max_abs_err"])
     for name, err in split_err.items():
         timing[name]["max_abs_err"] = max(err, timing[name]["max_abs_err"])

@@ -5,59 +5,85 @@
 // `_fused_kernel` (the Pallas TPU kernel of ExecutionPolicy.kernel="fused").
 //
 // What it computes, per program p (one local table per program) and per
-// morsel i = start[p] .. npm-1 in order:
+// morsel i of p whose todo flag is set:
 //   1. the §4.4 room check: with `checked`, a morsel pauses BEFORE it
-//      tickets anything when count > threshold (or count > bound_slack
-//      under `grow_bound`; bound_slack may be negative), and the program
-//      halts;
-//   2. GET_OR_INSERT of every row (Folklore*, paper Algorithm 1): read the
-//      slot's key, claim an empty slot with atomicCAS(EMPTY -> key); the
-//      winner takes ticket atomicAdd(count) + 1, writes key_by_ticket[t-1]
-//      when t <= G and publishes t; a thread that meets its own key with
-//      ticket 0 spins until the ticket is published.  At most C slots are
-//      probed (one wrap); a row still unresolved marks the morsel saturated;
-//   3. with `checked`, a saturated morsel halts the program and commits no
-//      update (its inserts stay: replay takes the lookup path);
-//   4. otherwise every resolved row updates the S accumulator planes:
-//      atomicAdd for sum/count, an order-preserving integer atomicMin/Max
-//      for min/max (neutral ±inf);
+//      tickets anything when the live count[p] > threshold, or, under
+//      `grow_bound`, when its reservation of M tickets does not fit
+//      (below); a paused morsel stays todo;
+//   2. GET_OR_INSERT of every row (csrc/hash_probe.cuh, paper Algorithm 1)
+//      into p's table, at device scope; at most C slots are probed, and a
+//      row still unresolved marks the morsel saturated;
+//   3. with `checked`, a saturated morsel commits no update and stays todo
+//      (its inserts stay: replay takes the lookup path);
+//   4. otherwise the morsel commits: every resolved row with a ticket
+//      <= G folds into the S accumulator planes (sum / count add, min / max
+//      as sign-split integer atomics) and the morsel's todo flag is cleared;
 //   5. committed-morsel event counts (morsels, rows, masked rows, probe
-//      steps, probe-length histogram) plus saturations and pauses, added to
-//      events[p] once at the end.
+//      steps, probe-length histogram), saturated morsels, and one pause per
+//      program whose launch left a morsel todo.
+// The last CTA of program p to finish writes info[p]: count, the lowest
+// morsel still todo (NO_HALT if none), the saturation flag, halted.
 //
 // Bound on this card: it moves bytes and does almost no arithmetic.  The
 // least traffic is the keys and value planes read once plus the table
 // slots, key_by_ticket entries and accumulators the chunk touches, each
 // read and written once, over 3.35 TB/s.  Probing is a chain of dependent
-// loads and atomics, so one CTA is latency bound long before that.
+// loads and atomics, so the kernel is latency bound unless many rows are
+// in flight at once, and same-address atomics serialise on hot keys.
 //
-// Design: one CTA per program.  Its loop over the program's morsels stands
-// in for the TPU's sequential grid axis, so "first halted morsel" keeps its
-// exact meaning and the pause decision depends only on the program's
-// distinct count, which is deterministic.  Table, key_by_ticket and
-// accumulators stay in global memory (high-cardinality tables do not fit
-// shared memory).  Only program p's CTA touches program p's state, so
-// block-scoped atomics and acquire/release at CTA scope suffice, and the
-// count lives in shared memory.  Everything is updated in place.
-// Simple first: with P = 1 the kernel uses one SM of 132.
+// Design.  The first version of this kernel ran one CTA per program,
+// walking the program's morsels in order with CTA-scope atomics: exact
+// "first halted morsel", but one SM of 132 at P = 1.  Now persistent CTAs
+// fill the card (SMs × the occupancy the block size and shared memory
+// allow), split evenly across programs; the CTAs of program p take
+// morsels from a device-scope counter (morsel-driven dispatch) and share
+// p's table through the device-scope protocol of hash_probe.cuh.  Morsels
+// no longer run in order, so the kernel reports per-morsel commit flags
+// (`todo`, cleared in place) and the host replays only the morsels left
+// todo.
+//   * Room check: the load threshold reads the live count, so under RAISE
+//     a pause still means the table holds more than threshold >= G groups.
+//     The bound uses a reservation: reserved[p] starts the launch at
+//     count[p]; a morsel moves it from r_old to r_old + M, and runs only if
+//     r_old <= bound_slack (= G - M in the executor), returning the M minus
+//     the tickets it issued when done.  With one CTA this is the sequential
+//     rule count > bound_slack; with many, no ticket past G is ever issued
+//     under GROW.  A reservation that does not fit waits while the count
+//     is <= bound_slack (the running morsels return their unused tickets)
+//     and pauses once it is past, so a launch pauses only when the count
+//     has crossed a threshold, as with one CTA.
+//   * Equal tickets fold before the device atomic: each CTA keeps a small
+//     hash table in shared memory keyed by ticket, with S accumulators per
+//     slot, and folds committed rows into it with shared atomics.  It is
+//     flushed to the device accumulators (one atomic per slot and plane)
+//     when more than half full and when the CTA ends, so a hot key costs
+//     one device atomic per CTA-flush instead of one per row.  A row whose
+//     ticket finds no slot within kLocalProbes folds at device scope.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_probe.cuh"
+
 namespace {
 
-constexpr int kEmpty = -1;
-constexpr int kInfoLen = 4;  // count, first halt, saturation, halted
+using hash_probe::kEmpty;
+constexpr int kInfoLen = 4;  // count, lowest todo morsel, saturation, halted
 constexpr int kNoHalt = 0x7FFFFFFF;
-constexpr int kEvtMorsels = 0, kEvtRows = 1, kEvtRowsMasked = 2,
-              kEvtProbeSteps = 3, kEvtProbeSaturations = 4, kEvtPauses = 5,
-              kNumEvents = 6;
+constexpr int kEvtPauses = 5, kNumEvents = 6;
 constexpr int kHistBuckets = 8;  // edges 2, 3, 4, 5, 9, 17, 33
 constexpr int kEventVecLen = kNumEvents + kHistBuckets;
+constexpr int kThreadSums = 3 + kHistBuckets;  // rows, masked, steps, hist
 constexpr int kMaxSpecs = 16;
 constexpr int kSum = 0, kCount = 1, kMin = 2, kMax = 3;
-// A published ticket is one store away from its CAS; a spin this long
-// means a broken protocol, and the kernel traps instead of hanging.
-constexpr long long kSpinLimit = 1LL << 26;
+// per-program launch scratch: morsel counter, finished CTAs, saturation
+// flag, reserved tickets
+constexpr int kScratch = 4, kNext = 0, kDone = 1, kSatFlag = 2, kReserved = 3;
+// dispatch outcome of one morsel
+constexpr int kSkip = 0, kRun = 1, kRunReserved = 2, kPause = 3, kEnd = 4;
+// the shared fold table: bytes for keys + accumulators, slots probed
+constexpr int kFoldBytes = 40 * 1024;
+constexpr int kMaxFoldSlots = 2048;
+constexpr int kLocalProbes = 32;
 
 struct Specs {
   int n;
@@ -65,219 +91,252 @@ struct Specs {
   int kind[kMaxSpecs];
 };
 
-__device__ __forceinline__ unsigned slot_hash(int key, unsigned mask) {
-  // xxhash32 avalanche, seed 0: repro.kernels.ticket_hash._slot_hash_i32
-  unsigned x = static_cast<unsigned>(key);
-  x ^= x >> 15;
-  x *= 0x85EBCA77u;
-  x ^= x >> 13;
-  x *= 0xC2B2AE3Du;
-  x ^= x >> 16;
-  return x & mask;
+__device__ __forceinline__ float neutral(int kind) {
+  return kind == kMin ? __int_as_float(0x7f800000)
+                      : kind == kMax ? __int_as_float(0xff800000) : 0.0f;
 }
 
-__device__ __forceinline__ int ld_relaxed_cta(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.cta.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
+__device__ __forceinline__ void fold(float* a, int kind, float v) {
+  switch (kind) {
+    case kSum:
+    case kCount: atomicAdd(a, v); break;
+    case kMin: hash_probe::atomic_min_f32(a, v); break;
+    default: hash_probe::atomic_max_f32(a, v); break;
+  }
 }
 
-__device__ __forceinline__ int ld_acquire_cta(const int* p) {
-  int v;
-  asm volatile("ld.acquire.cta.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
+// Flush the CTA's fold table into the device accumulators of program p
+// and empty it.  Called by every thread of the CTA.
+__device__ __forceinline__ void flush_folds(int* s_hkey, float* s_hacc, int* s_entries, int H,
+                            const Specs& specs, float* accs, int P, int p, int G) {
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    const int t = s_hkey[h];
+    if (t == 0) continue;
+    for (int s = 0; s < specs.n; ++s) {
+      float* a = accs + (static_cast<size_t>(s) * P + p) * G + (t - 1);
+      fold(a, specs.kind[s], s_hacc[s * H + h]);
+      s_hacc[s * H + h] = neutral(specs.kind[s]);
+    }
+    s_hkey[h] = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) *s_entries = 0;
+  __syncthreads();
 }
 
-__device__ __forceinline__ void st_release_cta(int* p, int v) {
-  asm volatile("st.release.cta.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-
-// Float min/max as integer atomics: non-negative floats order like their
-// int bits, negative floats order reversed as unsigned bits.  Correct
-// against the ±inf neutrals and for -0.0 (signbit, not `v >= 0`).
-__device__ __forceinline__ void atomic_min_f32(float* a, float v) {
-  if (!signbit(v)) atomicMin_block(reinterpret_cast<int*>(a), __float_as_int(v));
-  else atomicMax_block(reinterpret_cast<unsigned*>(a), __float_as_uint(v));
-}
-
-__device__ __forceinline__ void atomic_max_f32(float* a, float v) {
-  if (!signbit(v)) atomicMax_block(reinterpret_cast<int*>(a), __float_as_int(v));
-  else atomicMin_block(reinterpret_cast<unsigned*>(a), __float_as_uint(v));
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  return __reduce_add_sync(0xffffffffu, v);
+// The bound's room check: reserve M tickets of program p's bound, i.e.
+// move *reserved from r to r + M while r <= bound_slack.  While the live
+// count is still <= bound_slack, a reservation that does not fit waits for
+// the running morsels to return what they did not use (they hold no other
+// resource, so they finish); once the count itself is past bound_slack
+// the morsel pauses, the sequential rule count > bound_slack.  True when
+// reserved.
+__device__ __forceinline__ bool reserve(int* reserved, const int* count, int M, int bound_slack) {
+  long long spins = 0;
+  for (;;) {
+    const int r = hash_probe::ld_relaxed_gpu(reserved);
+    if (r <= bound_slack) {
+      if (atomicCAS(reserved, r, r + M) == r) return true;
+      continue;
+    }
+    if (hash_probe::ld_relaxed_gpu(count) > bound_slack) return false;
+    if (++spins > hash_probe::kSpinLimit) __trap();
+    __nanosleep(128);
+  }
 }
 
 __global__ void __launch_bounds__(1024) fused_groupby_kernel(
     const int* __restrict__ keys,      // (P*npm, M)
     const float* __restrict__ values,  // (V, P*npm, M)
-    const int* __restrict__ start,     // (P,)
-    int* __restrict__ tkeys,           // (P, C)
-    int* __restrict__ ttks,            // (P, C)
-    int* __restrict__ kbt,             // (P, G)
-    float* __restrict__ accs,          // (S, P, G)
-    int* __restrict__ count,           // (P,)
-    int* __restrict__ events,          // (P, kEventVecLen)
+    int* todo,                         // (P*npm,) 1 = still to commit
+    int* tkeys,                        // (P, C)
+    int* ttks,                         // (P, C)
+    int* kbt,                          // (P, G)
+    float* accs,                       // (S, P, G)
+    int* count,                        // (P,)
+    int* events,                       // (P, kEventVecLen)
     int* __restrict__ info,            // (P, kInfoLen)
-    Specs specs, int P, int npm, int M, int C, int G, int checked,
-    int grow_bound, int threshold, int bound_slack, int collect_events) {
+    int* scratch,                      // (P, kScratch)
+    Specs specs, int P, int cpp, int npm, int M, int C, int G, int H,
+    int checked, int grow_bound, int threshold, int bound_slack,
+    int collect_events) {
   extern __shared__ int smem[];
-  int* s_ticket = smem;      // (M,) 1-based ticket of each row, 0 unresolved
-  int* s_plen = smem + M;    // (M,) probe length, -1 for masked rows
-  __shared__ int s_count;
-  __shared__ int s_ev[kEventVecLen];
+  int* s_ticket = smem;                                  // (M,) 1-based, 0 none
+  int* s_hkey = smem + M;                                // (H,) ticket, 0 free
+  float* s_hacc = reinterpret_cast<float*>(s_hkey + H);  // (S, H)
+  __shared__ int s_i, s_state, s_issued, s_entries, s_flag;
+  __shared__ int s_ev[kThreadSums];
 
-  const int p = blockIdx.x;
+  const int p = blockIdx.x / cpp;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   int* tk = tkeys + static_cast<size_t>(p) * C;
   int* tt = ttks + static_cast<size_t>(p) * C;
   int* kb = kbt + static_cast<size_t>(p) * G;
+  int* sc = scratch + p * kScratch;
+  int* ptodo = todo + static_cast<size_t>(p) * npm;
   const size_t plane_rows = static_cast<size_t>(P) * npm * M;
-  const unsigned mask = static_cast<unsigned>(C - 1);
 
-  if (tid == 0) s_count = count[p];
-  if (tid < kEventVecLen) s_ev[tid] = 0;
+  for (int h = tid; h < H; h += nthreads) {
+    s_hkey[h] = 0;
+    for (int s = 0; s < specs.n; ++s) s_hacc[s * H + h] = neutral(specs.kind[s]);
+  }
+  if (tid == 0) s_entries = 0;
+  if (tid < kThreadSums) s_ev[tid] = 0;
   __syncthreads();
 
   // per-thread committed counts, reduced once at the end
-  int my_rows = 0, my_masked = 0, my_steps = 0;
-  int my_hist[kHistBuckets];
+  int sums[kThreadSums];
 #pragma unroll
-  for (int b = 0; b < kHistBuckets; ++b) my_hist[b] = 0;
-  // block-uniform control state
-  int halted = 0, first_halt = kNoHalt, sat_any = 0;
-  int n_morsels = 0, n_saturations = 0, n_pauses = 0;
+  for (int j = 0; j < kThreadSums; ++j) sums[j] = 0;
+  // CTA-uniform counts
+  int n_morsels = 0, n_saturations = 0;
 
-  for (int i = start[p]; i < npm; ++i) {
-    const int c0 = s_count;
-    __syncthreads();  // every thread read c0 before this morsel's inserts
-    if (checked) {
-      const bool needs_room =
-          c0 > threshold || (grow_bound && c0 > bound_slack);
-      if (needs_room) {
-        halted = 1;
-        first_halt = min(first_halt, i);
-        ++n_pauses;
-        break;
+  for (;;) {
+    // -- dispatch: the next morsel of program p, and its room check -------
+    if (tid == 0) {
+      const int i = atomicAdd(sc + kNext, 1);
+      int st = kSkip;
+      if (i >= npm) {
+        st = kEnd;
+      } else if (ptodo[i] != 0) {
+        st = kRun;
+        if (checked) {
+          if (hash_probe::ld_relaxed_gpu(count + p) > threshold) {
+            st = kPause;
+          } else if (grow_bound) {
+            st = reserve(sc + kReserved, count + p, M, bound_slack) ? kRunReserved : kPause;
+          }
+        }
       }
+      s_i = i;
+      s_state = st;
+      s_issued = 0;
     }
+    __syncthreads();
+    const int i = s_i, st = s_state;
+    __syncthreads();  // every thread read s_i / s_state before the next write
+    if (st == kEnd) break;
+    if (st == kSkip || st == kPause) continue;
     const size_t row0 = (static_cast<size_t>(p) * npm + i) * M;
 
     // -- phase 1: ticket every row of the morsel ------------------------
     int unresolved = 0;
+    int mine[kThreadSums];
+#pragma unroll
+    for (int j = 0; j < kThreadSums; ++j) mine[j] = 0;
     for (int r = tid; r < M; r += nthreads) {
       const int key = keys[row0 + r];
-      int ticket = 0, plen = -1;
-      if (key != kEmpty) {
-        unsigned slot = slot_hash(key, mask);
-        plen = 0;
-        for (int probe = 0; probe < C; ++probe) {
-          ++plen;
-          int k = ld_relaxed_cta(tk + slot);
-          if (k == kEmpty) {
-            const int prev = atomicCAS_block(tk + slot, kEmpty, key);
-            if (prev == kEmpty) {
-              const int t = atomicAdd_block(&s_count, 1) + 1;
-              if (t <= G) kb[t - 1] = key;
-              st_release_cta(tt + slot, t);
-              ticket = t;
-              break;
-            }
-            k = prev;
-          }
-          if (k == key) {
-            int t;
-            long long spins = 0;
-            while ((t = ld_acquire_cta(tt + slot)) == 0) {
-              if (++spins > kSpinLimit) __trap();
-              __nanosleep(32);
-            }
-            ticket = t;
-            break;
-          }
-          slot = (slot + 1) & mask;
-        }
+      int ticket = 0;
+      if (key == kEmpty) {
+        ++mine[1];
+      } else {
+        int plen = 0;
+        ticket = hash_probe::get_or_insert(key, tk, tt, kb, count + p, C, G, &plen,
+                                           &s_issued);
         if (ticket == 0) unresolved = 1;
+        ++mine[0];
+        mine[2] += plen;
+        const int bucket = (plen >= 2) + (plen >= 3) + (plen >= 4) + (plen >= 5) +
+                           (plen >= 9) + (plen >= 17) + (plen >= 33);
+#pragma unroll
+        for (int b = 0; b < kHistBuckets; ++b) mine[3 + b] += (bucket == b);
       }
       s_ticket[r] = ticket;
-      s_plen[r] = plen;
     }
     const int sat = __syncthreads_or(unresolved);
-    if (sat) {
-      sat_any = 1;
-      ++n_saturations;
-    }
-    if (checked && sat) {
-      // halt; inserts stay published, updates are dropped
-      halted = 1;
-      first_halt = min(first_halt, i);
-      ++n_pauses;
-      break;
-    }
+    if (tid == 0 && st == kRunReserved) atomicSub(sc + kReserved, M - s_issued);
+    if (sat) ++n_saturations;
+    if (checked && sat) continue;  // inserts stay, updates dropped, still todo
 
-    // -- phase 2: fold the committed morsel into the accumulators --------
+    // -- phase 2: fold the committed morsel through the shared table ------
     ++n_morsels;
-    for (int r = tid; r < M; r += nthreads) {
-      const int plen = s_plen[r];
-      if (plen < 0) {
-        ++my_masked;
-        continue;
-      }
-      ++my_rows;
-      my_steps += plen;
-      const int bucket = (plen >= 2) + (plen >= 3) + (plen >= 4) +
-                         (plen >= 5) + (plen >= 9) + (plen >= 17) +
-                         (plen >= 33);
 #pragma unroll
-      for (int b = 0; b < kHistBuckets; ++b) my_hist[b] += (bucket == b);
+    for (int j = 0; j < kThreadSums; ++j) sums[j] += mine[j];
+    for (int r = tid; r < M; r += nthreads) {
       const int t = s_ticket[r];
-      if (t <= 0 || t > G) continue;  // unresolved, or past the bound
+      if (t <= 0 || t > G) continue;  // masked, unresolved, or past the bound
+      int slot = -1;
+      int h = t & (H - 1);
+      for (int q = 0; q < kLocalProbes; ++q) {
+        int k = *static_cast<volatile int*>(s_hkey + h);
+        if (k == 0) {
+          k = atomicCAS_block(s_hkey + h, 0, t);
+          if (k == 0) {
+            atomicAdd_block(&s_entries, 1);
+            slot = h;
+            break;
+          }
+        }
+        if (k == t) {
+          slot = h;
+          break;
+        }
+        h = (h + 1) & (H - 1);
+      }
       for (int s = 0; s < specs.n; ++s) {
         const int plane = specs.plane[s];
-        const float v =
-            plane < 0 ? 1.0f : values[plane * plane_rows + row0 + r];
-        float* a = accs + (static_cast<size_t>(s) * P + p) * G + (t - 1);
-        switch (specs.kind[s]) {
-          case kSum:
-          case kCount: atomicAdd_block(a, v); break;
-          case kMin: atomic_min_f32(a, v); break;
-          default: atomic_max_f32(a, v); break;
-        }
+        const float v = plane < 0 ? 1.0f : values[plane * plane_rows + row0 + r];
+        float* a = slot >= 0 ? s_hacc + s * H + slot
+                             : accs + (static_cast<size_t>(s) * P + p) * G + (t - 1);
+        fold(a, specs.kind[s], v);
       }
     }
+    if (tid == 0) ptodo[i] = 0;  // committed
+    __syncthreads();
+    if (s_entries > H / 2) flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
   }
+  flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
 
   if (collect_events) {
     const int lane = tid & 31;
-    int sums[3 + kHistBuckets] = {my_rows, my_masked, my_steps};
 #pragma unroll
-    for (int b = 0; b < kHistBuckets; ++b) sums[3 + b] = my_hist[b];
-#pragma unroll
-    for (int j = 0; j < 3 + kHistBuckets; ++j) {
-      const int w = warp_sum(sums[j]);
+    for (int j = 0; j < kThreadSums; ++j) {
+      const int w = __reduce_add_sync(0xffffffffu, sums[j]);
       if (lane == 0 && w != 0) atomicAdd_block(&s_ev[j], w);
     }
     __syncthreads();
     if (tid == 0) {
       int* ev = events + static_cast<size_t>(p) * kEventVecLen;
-      ev[kEvtMorsels] += n_morsels;
-      ev[kEvtRows] += s_ev[0];
-      ev[kEvtRowsMasked] += s_ev[1];
-      ev[kEvtProbeSteps] += s_ev[2];
-      ev[kEvtProbeSaturations] += n_saturations;
-      ev[kEvtPauses] += n_pauses;
-      for (int b = 0; b < kHistBuckets; ++b) ev[kNumEvents + b] += s_ev[3 + b];
+      // morsels, rows, masked rows, probe steps, saturations, pauses, hist
+      const int add[kEventVecLen] = {n_morsels, s_ev[0], s_ev[1], s_ev[2], n_saturations,
+                                     0, s_ev[3], s_ev[4], s_ev[5], s_ev[6],
+                                     s_ev[7], s_ev[8], s_ev[9], s_ev[10]};
+#pragma unroll
+      for (int j = 0; j < kEventVecLen; ++j) {
+        if (add[j] != 0) atomicAdd(ev + j, add[j]);
+      }
     }
   }
+  if (tid == 0 && n_saturations > 0) atomicExch(sc + kSatFlag, 1);
+
+  // -- the last CTA of program p writes info[p] -------------------------
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_flag = atomicAdd(sc + kDone, 1) == cpp - 1;
+  __syncthreads();
+  if (!s_flag) return;
+  __threadfence();
+  if (tid == 0) s_i = kNoHalt;
+  __syncthreads();
+  for (int j = tid; j < npm; j += nthreads) {
+    if (hash_probe::ld_relaxed_gpu(ptodo + j) != 0) {
+      atomicMin_block(&s_i, j);
+      break;  // j grows: the first todo this thread finds is its lowest
+    }
+  }
+  __syncthreads();
   if (tid == 0) {
-    count[p] = s_count;
+    const int low = s_i;
+    const int halted = low != kNoHalt;
     int* inf = info + static_cast<size_t>(p) * kInfoLen;
-    inf[0] = s_count;
-    inf[1] = first_halt;
-    inf[2] = sat_any;
+    inf[0] = hash_probe::ld_relaxed_gpu(count + p);
+    inf[1] = low;
+    inf[2] = hash_probe::ld_relaxed_gpu(sc + kSatFlag);
     inf[3] = halted;
+    if (collect_events && halted) {
+      atomicAdd(events + static_cast<size_t>(p) * kEventVecLen + kEvtPauses, 1);
+    }
   }
 }
 
@@ -285,17 +344,22 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
 
 extern "C" {
 
-// Launch one fused GROUP BY pass on `stream`.  Returns cudaGetLastError()
-// as an int (0 = launched).  The caller checks shapes, types and devices.
-int fused_groupby_launch(const void* keys, const void* values,
-                         const void* start, void* tkeys, void* ttks,
-                         void* kbt, void* accs, void* count, void* events,
-                         void* info, const int* spec_planes,
-                         const int* spec_kinds, int num_specs, int P, int npm,
-                         int M, int C, int G, int checked, int grow_bound,
-                         int threshold, int bound_slack, int collect_events,
-                         void* stream) {
-  if (num_specs < 1 || num_specs > kMaxSpecs || P < 1 || M < 1 || C < 1) {
+// Launch one fused GROUP BY pass on `stream` with `threads` threads a CTA.
+// `scratch` is (P, 4) int32: zeros, with column 3 (reserved) holding
+// count.  grid_out gets (CTAs, CTAs per program).  Returns
+// cudaGetLastError() as an int (0 = launched).  The caller checks shapes,
+// types and devices.
+int fused_groupby_launch(const void* keys, const void* values, void* todo,
+                         void* tkeys, void* ttks, void* kbt, void* accs,
+                         void* count, void* events, void* info, void* scratch,
+                         const int* spec_planes, const int* spec_kinds,
+                         int num_specs, int P, int npm, int M, int C, int G,
+                         int checked, int grow_bound, int threshold,
+                         int bound_slack, int collect_events, int threads,
+                         int* grid_out, void* stream) {
+  if (num_specs < 1 || num_specs > kMaxSpecs || P < 1 || M < 1 || C < 1 ||
+      (C & (C - 1)) != 0 || npm < 0 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Specs specs;
@@ -304,16 +368,37 @@ int fused_groupby_launch(const void* keys, const void* values,
     specs.plane[s] = s < num_specs ? spec_planes[s] : -1;
     specs.kind[s] = s < num_specs ? spec_kinds[s] : kSum;
   }
-  int threads = ((M + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = 2 * static_cast<size_t>(M) * sizeof(int);
-  fused_groupby_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // the fold table: a power of two of slots, S + 1 ints each
+  int H = kMaxFoldSlots;
+  while (H > 32 && static_cast<size_t>(H) * (num_specs + 1) * 4 > kFoldBytes) H /= 2;
+  const size_t smem = (static_cast<size_t>(M) + static_cast<size_t>(H) * (num_specs + 1)) *
+                      sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fused_groupby_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_groupby_kernel,
+                                                        threads, smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int cpp = sms * per_sm / P;
+  if (cpp > npm) cpp = npm;
+  if (cpp < 1) cpp = 1;
+  grid_out[0] = P * cpp;
+  grid_out[1] = cpp;
+  fused_groupby_kernel<<<P * cpp, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), static_cast<const float*>(values),
-      static_cast<const int*>(start), static_cast<int*>(tkeys),
-      static_cast<int*>(ttks), static_cast<int*>(kbt),
-      static_cast<float*>(accs), static_cast<int*>(count),
-      static_cast<int*>(events), static_cast<int*>(info), specs, P, npm, M, C,
-      G, checked, grow_bound, threshold, bound_slack, collect_events);
+      static_cast<int*>(todo), static_cast<int*>(tkeys), static_cast<int*>(ttks),
+      static_cast<int*>(kbt), static_cast<float*>(accs), static_cast<int*>(count),
+      static_cast<int*>(events), static_cast<int*>(info), static_cast<int*>(scratch),
+      specs, P, cpp, npm, M, C, G, H, checked, grow_bound, threshold, bound_slack,
+      collect_events);
   return static_cast<int>(cudaGetLastError());
 }
 

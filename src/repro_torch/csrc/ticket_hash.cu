@@ -25,50 +25,19 @@
 // rows runs on enough CTAs to fill the card.  The table is in global
 // memory and shared by every CTA, so claims and the count use device-scope
 // atomics and the publish / wait pair is release / acquire at GPU scope
-// (CTA scope, as in fused_groupby.cu, would be wrong here).  The CAS
-// winners of a warp that are converged take their tickets with one
-// atomicAdd (a warp-aggregated range claim: the fuzzy ticketer).
-#include <cooperative_groups.h>
+// (csrc/hash_probe.cuh, shared with fused_groupby.cu).  The CAS winners
+// of a warp that are converged take their tickets with one atomicAdd (a
+// warp-aggregated range claim: the fuzzy ticketer).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "hash_probe.cuh"
 
 namespace {
 
-constexpr int kEmpty = -1;
+using hash_probe::kEmpty;
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-// A published ticket is one store away from its CAS; a spin this long
-// means a broken protocol, and the kernel traps instead of hanging.
-constexpr long long kSpinLimit = 1LL << 26;
-
-__device__ __forceinline__ unsigned slot_hash(int key, unsigned mask) {
-  // xxhash32 avalanche, seed 0: repro.kernels.ticket_hash._slot_hash_i32
-  unsigned x = static_cast<unsigned>(key);
-  x ^= x >> 15;
-  x *= 0x85EBCA77u;
-  x ^= x >> 13;
-  x *= 0xC2B2AE3Du;
-  x ^= x >> 16;
-  return x & mask;
-}
-
-__device__ __forceinline__ int ld_relaxed_gpu(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release_gpu(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
 
 __global__ void __launch_bounds__(kThreads) ticket_hash_kernel(
     const int* __restrict__ keys,  // (N,)
@@ -78,43 +47,14 @@ __global__ void __launch_bounds__(kThreads) ticket_hash_kernel(
     int* __restrict__ kbt,         // (G,) EMPTY-filled
     int* __restrict__ count,       // (1,) zero
     long long n, int C, int G) {
-  const unsigned mask = static_cast<unsigned>(C - 1);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        r < n; r += stride) {
     const int key = keys[r];
-    int ticket = 0;
+    int ticket = 0, plen = 0;
     if (key != kEmpty) {
-      unsigned slot = slot_hash(key, mask);
-      for (int probe = 0; probe < C; ++probe) {
-        int k = ld_relaxed_gpu(tkeys + slot);
-        if (k == kEmpty) {
-          const int prev = atomicCAS(tkeys + slot, kEmpty, key);
-          if (prev == kEmpty) {
-            cg::coalesced_group winners = cg::coalesced_threads();
-            int base = 0;
-            if (winners.thread_rank() == 0) base = atomicAdd(count, static_cast<int>(winners.size()));
-            base = winners.shfl(base, 0);
-            const int t = base + static_cast<int>(winners.thread_rank()) + 1;
-            if (t <= G) kbt[t - 1] = key;
-            st_release_gpu(ttks + slot, t);
-            ticket = t;
-            break;
-          }
-          k = prev;
-        }
-        if (k == key) {
-          int t;
-          long long spins = 0;
-          while ((t = ld_acquire_gpu(ttks + slot)) == 0) {
-            if (++spins > kSpinLimit) __trap();
-            __nanosleep(32);
-          }
-          ticket = t;
-          break;
-        }
-        slot = (slot + 1) & mask;
-      }
+      ticket = hash_probe::get_or_insert(key, tkeys, ttks, kbt, count, C, G, &plen,
+                                         nullptr);
     }
     tickets[r] = ticket - 1;  // 0 (EMPTY or unresolved) -> -1
   }

@@ -33,7 +33,6 @@ from __future__ import annotations
 import warnings
 from dataclasses import replace
 
-import numpy as np
 import torch
 
 from repro_torch.core import resize
@@ -503,15 +502,20 @@ class _FusedExecutor(_ExecutorBase):
 
     ``kernel_programs > 1`` runs per-program local tables; ``finalize``
     performs the second-level merge into one ticket space.  Saturation
-    rides the kernel's §4.4 info vector: ``poll`` reads it once per chunk,
-    grows bound/capacity with ``grow_fused_state`` (migration keeps
-    tickets, so committed aggregates are untouched) and relaunches the
-    chunk at each program's first halted morsel.  RAISE surfaces the
-    overflow; UNCHECKED never reads the info vector.
+    rides the kernel's §4.4 info vector and its per-morsel commit flags:
+    ``poll`` reads the info once per chunk and relaunches the chunk on its
+    own ``todo`` mask, which the kernel cleared for every morsel it
+    committed — growing bound/capacity with ``grow_fused_state`` first
+    (migration keeps tickets, so committed aggregates are untouched) only
+    when the count crossed a threshold or a morsel saturated.  A halt with
+    room left relaunches on the same state, so morsels that raced for the
+    bound never grow the table (the kernel makes such halts rare: a
+    reservation that does not fit waits while the count has room).  RAISE
+    surfaces the overflow; UNCHECKED never reads the info vector.
 
     The kernel updates the state IN PLACE; every launch works on the
-    newest state, and a replayed chunk restarts at ``min(first_halt,
-    npm)``, so no committed morsel is applied twice."""
+    newest state and only on morsels still todo, so no committed morsel is
+    applied twice."""
 
     strategy_label = "fused"
 
@@ -546,10 +550,10 @@ class _FusedExecutor(_ExecutorBase):
             device=device,
         )
         self._info = None        # (P, INFO_LEN) control vector, latest launch
-        # FIFO of launches whose halt signals are unread: [km, vm, info,
-        # grow_gen].  Prefetch dispatches chunk k+1 before chunk k's poll,
-        # so a grow pause must replay EVERY chunk launched since the last
-        # drain, each from its own recorded halt morsel.
+        # FIFO of launches whose halt signals are unread: [km, vm, todo,
+        # info, grow_gen].  Prefetch dispatches chunk k+1 before chunk k's
+        # poll, so a grow pause must replay EVERY chunk launched since the
+        # last drain, each on its own todo mask.
         self._pending: list = []
         self._grow_gen = 0       # bumps per grow; stamps pending launches
 
@@ -578,10 +582,10 @@ class _FusedExecutor(_ExecutorBase):
                              device=self._device)
         return km, vm
 
-    def _launch(self, km, vm, starts) -> None:
+    def _launch(self, km, vm, todo) -> None:
         st = self._state
         self._state, self._info = self._fk.fused_consume(
-            st, km, vm, starts,
+            st, km, vm, todo,
             specs=self._kspecs,
             checked=self._checked,
             grow_bound=self._grow,
@@ -596,10 +600,10 @@ class _FusedExecutor(_ExecutorBase):
     def consume_async(self, chunk: Table):
         keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
         km, vm = self._morselize(keys, vals)
-        self._launch(km, vm, torch.zeros((self._P,), dtype=torch.int32,
-                                         device=self._device))
+        todo = torch.ones((km.shape[0],), dtype=torch.int32, device=self._device)
+        self._launch(km, vm, todo)
         if self._checked:
-            self._pending.append([km, vm, self._info, self._grow_gen])
+            self._pending.append([km, vm, todo, self._info, self._grow_gen])
         return self._info
 
     def consume(self, chunk: Table) -> None:
@@ -608,10 +612,11 @@ class _FusedExecutor(_ExecutorBase):
     def poll(self, token) -> None:
         """Drain the halt signals of EVERY launch since the last drain, in
         dispatch order (§4.4, host side).  A clean launch costs one info
-        read; a halted one replays from each program's first halted morsel.
-        An entry halted under a state the queue has since grown is
-        relaunched once before growing again (``_grow_gen``), so a burst of
-        stale halts cannot cascade into spurious doublings.  Zero reads when
+        read; a halted one is relaunched on its todo mask, after a grow when
+        the count crossed a threshold or a morsel saturated.  An entry
+        halted under a state the queue has since grown is relaunched once
+        before growing again (``_grow_gen``), so a burst of stale halts
+        cannot cascade into spurious doublings.  Zero reads when
         UNCHECKED."""
         if not self._checked:
             return
@@ -619,24 +624,25 @@ class _FusedExecutor(_ExecutorBase):
         while self._pending:
             entry = self._pending[0]
             while True:
-                km, vm, inf, gen = entry
+                km, vm, todo, inf, gen = entry
                 info = inf.cpu().numpy()
-                halted = info[:, fk.INFO_HALTED] != 0
-                if not halted.any():
+                if not (info[:, fk.INFO_HALTED] != 0).any():
                     break
                 cmax = int(info[:, fk.INFO_COUNT].max())
                 if not self._grow:
                     raise _overflow_error(cmax, self._state.max_groups)
-                if gen == self._grow_gen:
+                sat = bool((info[:, fk.INFO_SAT] != 0).any())
+                if gen == self._grow_gen and (sat or self._crossed(cmax)):
                     self._grow_state(cmax)
-                npm = km.shape[0] // self._P
-                starts = torch.as_tensor(
-                    np.minimum(info[:, fk.INFO_FIRST_HALT], npm).astype(np.int32),
-                    device=self._device,
-                )
-                self._launch(km, vm, starts)
-                entry[2], entry[3] = self._info, self._grow_gen
+                self._launch(km, vm, todo)
+                entry[3], entry[4] = self._info, self._grow_gen
             self._pending.pop(0)
+
+    def _crossed(self, cmax: int) -> bool:
+        """The count passed the load threshold or the bound's headroom (the
+        kernel's pause rules with one CTA)."""
+        st = self._state
+        return cmax > int(self._lf * st.capacity) or cmax > st.max_groups - self._m
 
     def _grow_state(self, cmax: int) -> None:
         st = self._state

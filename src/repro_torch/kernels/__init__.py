@@ -22,6 +22,7 @@ from repro_torch.kernels.fused_groupby import (
     grow_fused_state,
     init_fused_state,
     merge_fused_state,
+    todo_from_start,
 )
 from repro_torch.kernels.ops import (
     groupby_kernel,
@@ -42,4 +43,5 @@ __all__ = [
     "multi_block_ticket",
     "segment_aggregate",
     "ticket",
+    "todo_from_start",
 ]

@@ -7,8 +7,9 @@ headers), so ``nvcc`` compiles it in seconds:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 The library lands in ``build/repro_torch/`` at the repository root (listed
-in ``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  A missing
+in ``.gitignore``), named by a hash of the source, the ``csrc/*.cuh``
+headers it includes and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.  A missing
 ``nvcc`` or a failed build raises: no kernel wrapper falls back to its
 plain version when it holds a CUDA tensor.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,12 +54,23 @@ def _ptxas_lines(log: str) -> list:
             if "registers" in ln or "spill" in ln or "smem" in ln]
 
 
+def _source_digest(src: Path) -> str:
+    """sha256 of the source, the ``csrc`` headers it includes and the flags."""
+    text = src.read_bytes()
+    digest = hashlib.sha256(text)
+    for header in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
+        digest.update((CSRC / header.decode()).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into the build directory unless a library
-    of the same source and flags is already there.  Returns its path."""
+    of the same source, headers and flags is already there.  Returns its
+    path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    digest = _source_digest(src)
+    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if out.exists():
         BUILD_INFO.setdefault(name, {"cmd": None, "seconds": 0.0,
                                      "ptxas": [], "path": str(out)})

@@ -3,27 +3,32 @@
 Port of ``repro.kernels.fused_groupby``.  One launch consumes a morselized
 chunk against carried state (``FusedState``: one local probe table,
 ``key_by_ticket`` and S accumulator planes per program, plus the event
-vector), tickets every morsel and folds it into the accumulators, and
-reports the §4.4 control signals in a ``(P, INFO_LEN)`` info vector that
-the executor reads once per chunk.
+vector), tickets every morsel whose ``todo`` flag is set and folds it into
+the accumulators, clears the flag of each morsel it commits, and reports
+the §4.4 control signals in a ``(P, INFO_LEN)`` info vector that the
+executor reads once per chunk.  The morsels left todo (paused, or
+saturated under ``checked``) are replayed by relaunching on the same mask.
 
 :func:`fused_consume` is the wrapper.  For CUDA tensors it launches the
 hand-written Hopper kernel ``csrc/fused_groupby.cu`` (built at first use,
-``kernels/build.py``) and raises if it cannot; for CPU tensors it runs
-:func:`fused_consume_plain`, a PyTorch implementation of the Pallas
-kernel's exact protocol (claim rounds, lowest lane wins, tickets ranked by
-a cumulative sum, at most ``2C + 2`` rounds) that matches the JAX kernel
-ticket for ticket.  Both update ``state`` IN PLACE — unlike the JAX
-kernel, which returns new arrays — so a launch never copies the table.
-:func:`grow_fused_state` and :func:`merge_fused_state` return new tensors
-and never mutate their input.
+``kernels/build.py``) on CTAs that fill the card, and raises if it cannot;
+for CPU tensors it runs :func:`fused_consume_plain`, a PyTorch
+implementation of the Pallas kernel's exact protocol (claim rounds, lowest
+lane wins, tickets ranked by a cumulative sum, at most ``2C + 2`` rounds,
+morsels in order) that matches the JAX kernel ticket for ticket when the
+mask is :func:`todo_from_start`.  Both update ``state`` and ``todo`` IN
+PLACE — unlike the JAX kernel, which returns new arrays — so a launch never
+copies the table.  :func:`grow_fused_state` and :func:`merge_fused_state`
+return new tensors and never mutate their input.
 
-The kernel uses atomics, so its ticket order and float-sum order vary from
-run to run.  It agrees with the plain version on the group count, the key
-set, COUNT/MIN/MAX exactly and SUM within float tolerance, gap-free tickets
-consistent with ``key_by_ticket``, the exact halt signals whenever no
-morsel saturates mid-probe, and the exact event counts except probe steps
-(the kernel has no claim rounds).
+The kernel's CTAs race on one table and take morsels in no fixed order, so
+its ticket order, float-sum order and — when a launch pauses or saturates
+— its set of committed morsels vary from run to run.  It agrees with the
+plain version on the group count, the key set, COUNT/MIN/MAX exactly and
+SUM within float tolerance, gap-free tickets consistent with
+``key_by_ticket``, and on the info vector and the event counts (probe steps
+aside: the kernel has no claim rounds) of every launch that commits all its
+morsels.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ _NEUTRAL = {"sum": 0.0, "count": 0.0, "min": float("inf"), "max": float("-inf")}
 _KIND_CODE = {"sum": 0, "count": 1, "min": 2, "max": 3}
 
 # Control-signal layout of the per-program info vector: issued-ticket
-# count, first halted morsel (NO_HALT when the launch ran to completion),
-# the sticky probe-saturation flag, and the halted bit.
+# count, the lowest morsel still todo after the launch (NO_HALT when it
+# committed every morsel; the reference's first halted morsel), the
+# launch's probe-saturation flag, and the halted bit (a morsel is todo).
 INFO_COUNT = 0
 INFO_FIRST_HALT = 1
 INFO_SAT = 2
@@ -52,7 +58,8 @@ INFO_LEN = 4
 NO_HALT = 0x7FFFFFFF
 
 MAX_SPECS = 16          # accumulator planes the kernel takes (csrc kMaxSpecs)
-MAX_MORSEL_ROWS = 4096  # 2 ints of shared memory per row, under 48 KB
+MAX_MORSEL_ROWS = 4096  # 1 int of shared memory per row, beside the fold table
+BLOCK_THREADS = 256     # threads per CTA of the kernel (a multiple of 32)
 _INT32_MAX = 0x7FFFFFFF
 
 
@@ -209,12 +216,20 @@ def merge_fused_state(
     return table, [a[:max_groups] for a in accs]
 
 
-def _check_launch(state: FusedState, keys, values, start, specs) -> None:
+def todo_from_start(P: int, npm: int, start, device=None) -> torch.Tensor:
+    """The ``(P·npm,)`` int32 todo mask of the reference's resume points:
+    morsel ``i`` of program ``p`` is todo iff ``i >= start[p]``."""
+    start = torch.as_tensor(start, dtype=torch.int32, device=device).reshape(P, 1)
+    i = torch.arange(npm, dtype=torch.int32, device=start.device)
+    return (i >= start).to(torch.int32).reshape(-1).contiguous()
+
+
+def _check_launch(state: FusedState, keys, values, todo, specs) -> None:
     """Device, dtype, shape and contiguity checks shared by both paths."""
     dev = keys.device
     for name, t, dtype in (
         ("keys", keys, torch.int32), ("values", values, torch.float32),
-        ("start", start, torch.int32), ("tkeys", state.tkeys, torch.int32),
+        ("todo", todo, torch.int32), ("tkeys", state.tkeys, torch.int32),
         ("ttks", state.ttks, torch.int32), ("kbt", state.kbt, torch.int32),
         ("accs", state.accs, torch.float32), ("count", state.count, torch.int32),
         ("events", state.events, torch.int32),
@@ -238,8 +253,8 @@ def _check_launch(state: FusedState, keys, values, start, specs) -> None:
     if (tuple(state.ttks.shape) != (P, C) or tuple(state.kbt.shape) != (P, G)
             or p_accs != P or tuple(state.count.shape) != (P,)
             or tuple(state.events.shape) != (P, obs_metrics.EVENT_VEC_LEN)
-            or tuple(start.shape) != (P,)):
-        raise ValueError("inconsistent FusedState / start shapes")
+            or tuple(todo.shape) != (total,)):
+        raise ValueError("inconsistent FusedState / todo shapes")
     if C & (C - 1):
         raise ValueError(f"capacity must be a power of 2, got {C}")
     if len(specs) != S or not 1 <= S <= MAX_SPECS:
@@ -253,7 +268,7 @@ def fused_consume(
     state: FusedState,
     keys: torch.Tensor,    # (P * npm, M) int32, EMPTY_I32-padded
     values: torch.Tensor,  # (V, P * npm, M) float32
-    start: torch.Tensor,   # (P,) int32 — resume morsel per program
+    todo: torch.Tensor,    # (P * npm,) int32 — 1: morsel still to commit
     *,
     specs: tuple,
     checked: bool = True,
@@ -262,19 +277,21 @@ def fused_consume(
     bound_slack: int = 0,
     collect_events: bool = False,
 ):
-    """One fused pass over a morselized chunk; ``state`` is updated in
-    place.  Program ``p`` owns morsels ``[p*npm, (p+1)*npm)`` and runs them
-    in order from ``start[p]``.  Returns ``(state, info)`` with ``info`` the
+    """One fused pass over a morselized chunk; ``state`` and ``todo`` are
+    updated in place.  Program ``p`` owns morsels ``[p*npm, (p+1)*npm)``
+    and commits those whose ``todo`` flag is set, clearing the flag of each
+    one it commits.  Returns ``(state, info)`` with ``info`` the
     ``(P, INFO_LEN)`` control vector.
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``fused_consume.launches``); CPU tensors run
-    :func:`fused_consume_plain`; any other device raises."""
-    _check_launch(state, keys, values, start, specs)
+    ``fused_consume.launches``; its ``(CTAs, CTAs per program)`` kept in
+    ``fused_consume.grid``); CPU tensors run :func:`fused_consume_plain`;
+    any other device raises."""
+    _check_launch(state, keys, values, todo, specs)
     dev = keys.device
     if dev.type == "cpu":
         return fused_consume_plain(
-            state, keys, values, start, specs=specs, checked=checked,
+            state, keys, values, todo, specs=specs, checked=checked,
             grow_bound=grow_bound, threshold=threshold,
             bound_slack=bound_slack, collect_events=collect_events,
         )
@@ -289,17 +306,22 @@ def fused_consume(
     if M > MAX_MORSEL_ROWS:
         raise ValueError(f"morsel of {M} rows exceeds the kernel's {MAX_MORSEL_ROWS}")
     info = torch.empty((P, INFO_LEN), dtype=torch.int32, device=dev)
+    # per-launch scratch: morsel counter, finished CTAs, saturation flag,
+    # and the reserved tickets, which start at the count
+    scratch = torch.zeros((P, 4), dtype=torch.int32, device=dev)
+    scratch[:, 3] = state.count
     planes = (ctypes.c_int * S)(*[int(p) for p, _ in specs])
     kinds = (ctypes.c_int * S)(*[_KIND_CODE[k] for _, k in specs])
+    grid = (ctypes.c_int * 2)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _kernel_library()
     err = lib.fused_groupby_launch(
-        keys.data_ptr(), values.data_ptr(), start.data_ptr(),
+        keys.data_ptr(), values.data_ptr(), todo.data_ptr(),
         state.tkeys.data_ptr(), state.ttks.data_ptr(), state.kbt.data_ptr(),
         state.accs.data_ptr(), state.count.data_ptr(), state.events.data_ptr(),
-        info.data_ptr(), planes, kinds, S, P, total // P, M, C, G,
+        info.data_ptr(), scratch.data_ptr(), planes, kinds, S, P, total // P, M, C, G,
         int(checked), int(grow_bound), int(threshold), int(bound_slack),
-        int(collect_events), stream,
+        int(collect_events), BLOCK_THREADS, grid, stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -307,10 +329,12 @@ def fused_consume(
             + lib.fused_groupby_error_string(err).decode()
         )
     fused_consume.launches += 1
+    fused_consume.grid = (grid[0], grid[1])
     return state, info
 
 
 fused_consume.launches = 0  # kernel launches (CUDA tensors only)
+fused_consume.grid = None   # (CTAs, CTAs per program) of the latest launch
 
 
 def _kernel_library() -> ctypes.CDLL:
@@ -321,7 +345,7 @@ def _kernel_library() -> ctypes.CDLL:
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [ptr] * 10 + [ints, ints] + [i32] * 11 + [ptr]
+        fn.argtypes = [ptr] * 11 + [ints, ints] + [i32] * 12 + [ints, ptr]
         fn.restype = ctypes.c_int
         lib.fused_groupby_error_string.argtypes = [ctypes.c_int]
         lib.fused_groupby_error_string.restype = ctypes.c_char_p
@@ -332,7 +356,7 @@ def fused_consume_plain(
     state: FusedState,
     keys: torch.Tensor,
     values: torch.Tensor,
-    start: torch.Tensor,
+    todo: torch.Tensor,
     *,
     specs: tuple,
     checked: bool = True,
@@ -343,9 +367,13 @@ def fused_consume_plain(
 ):
     """The plain PyTorch version of the fused kernel: the Pallas kernel's
     protocol step for step (``core.ticketing.get_or_insert`` claim rounds
-    per morsel), on any device, updating ``state`` in place.  Matches JAX
-    ``fused_consume(..., interpret=True)`` ticket for ticket."""
-    _check_launch(state, keys, values, start, specs)
+    per morsel), on any device, updating ``state`` and ``todo`` in place.
+    Each program runs its todo morsels in order; at its first pause (or
+    saturation under ``checked``) it leaves that morsel and every later
+    one todo — the kernel's rule with one CTA.  With
+    ``todo_from_start(P, npm, start)`` it matches JAX
+    ``fused_consume(..., start, interpret=True)`` ticket for ticket."""
+    _check_launch(state, keys, values, todo, specs)
     dev = keys.device
     P = state.programs
     S, _, G = state.accs.shape
@@ -355,14 +383,15 @@ def fused_consume_plain(
     edges = torch.tensor(obs_metrics.PROBE_HIST_EDGES, dtype=torch.int32, device=dev)
     no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
     ones = torch.ones((M,), dtype=torch.float32, device=dev)
-    for p, s0 in enumerate(start.tolist()):
+    flags = todo.reshape(P, npm).tolist()
+    for p in range(P):
         count = int(state.count[p])
-        first_halt, sat_any, halted = NO_HALT, 0, 0
+        sat_any, halted = 0, 0
         ev = [0] * obs_metrics.EVENT_VEC_LEN
         hist = torch.zeros(obs_metrics.PROBE_HIST_BUCKETS, dtype=torch.int64, device=dev)
-        for i in range(s0, npm):
+        for i in (i for i in range(npm) if flags[p][i]):
             if checked and (count > threshold or (grow_bound and count > bound_slack)):
-                halted, first_halt = 1, min(first_halt, i)
+                halted = 1
                 ev[obs_metrics.EVT_PAUSES] += 1
                 break
             row = p * npm + i
@@ -382,7 +411,7 @@ def fused_consume_plain(
                 sat_any = 1
                 ev[obs_metrics.EVT_PROBE_SATURATIONS] += 1
             if checked and sat:
-                halted, first_halt = 1, min(first_halt, i)
+                halted = 1
                 ev[obs_metrics.EVT_PAUSES] += 1
                 break
             do = valid & (tickets >= 0) & (tickets < G)
@@ -394,6 +423,8 @@ def fused_consume_plain(
                     acc.index_add_(0, t, v)
                 else:
                     acc.scatter_reduce_(0, t, v, "amin" if kind == "min" else "amax")
+            flags[p][i] = 0
+            todo[row] = 0
             n_valid = int(valid.sum())
             ev[obs_metrics.EVT_MORSELS] += 1
             ev[obs_metrics.EVT_ROWS] += n_valid
@@ -406,7 +437,8 @@ def fused_consume_plain(
             add[obs_metrics.NUM_EVENTS:] += hist.to(torch.int32)
             state.events[p] += add
         state.count[p] = count
-        info[p] = torch.tensor([count, first_halt, sat_any, halted], dtype=torch.int32)
+        lowest = next((i for i in range(npm) if flags[p][i]), NO_HALT)
+        info[p] = torch.tensor([count, lowest, sat_any, halted], dtype=torch.int32)
     return state, info
 
 
@@ -433,7 +465,7 @@ def fused_groupby(
                              kinds=(kind,), device=keys.device)
     specs = ((-1 if kind == "count" else 0, kind),)
     state, _ = fused_consume(
-        state, k2, v2, torch.zeros((1,), dtype=torch.int32, device=keys.device),
+        state, k2, v2, torch.ones((num,), dtype=torch.int32, device=keys.device),
         specs=specs, checked=False, grow_bound=False, collect_events=False,
     )
     acc = state.accs[0, 0]

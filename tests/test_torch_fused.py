@@ -3,7 +3,9 @@
 The plain ``fused_consume`` (the kernel's CPU path) must match JAX
 ``fused_consume(..., interpret=True)`` ticket for ticket: tkeys, ttks,
 kbt, count, events and info exactly, accumulators within 1e-6 (relative
-and absolute — the same float adds, possibly in another order).  The
+and absolute — the same float adds, possibly in another order).  The port
+takes a per-morsel ``todo`` mask where JAX takes a resume morsel per
+program; ``todo_from_start`` maps one onto the other.  The
 host-side state helpers, ``core.ticketing`` and ``core.resize`` are held
 against their JAX counterparts bit for bit.  The CUDA kernel itself is
 held to the plain version on a card, in tests/test_torch_gpu.py."""
@@ -37,16 +39,22 @@ def _inputs(seed, P, npm, M, card, V=1, masked=0):
 
 
 def _run_both(jstate, keys, vals, start, specs, **kw):
-    """One launch in each package from the same (JAX) state."""
+    """One launch in each package from the same (JAX) state; the port's
+    todo mask comes from ``start`` and must come back cleared for exactly
+    the morsels before each program's first halt."""
     tstate = tfk.from_jax_state([np.asarray(a) for a in jstate])
     jnew, jinfo = jfk.fused_consume(
         jstate, jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(start, jnp.int32),
         specs=specs, interpret=True, **kw,
     )
+    P = len(start)
+    npm = keys.shape[0] // P
+    todo = tfk.todo_from_start(P, npm, start)
     tnew, tinfo = tfk.fused_consume(
-        tstate, torch.from_numpy(keys), torch.from_numpy(vals),
-        torch.tensor(start, dtype=torch.int32), specs=specs, **kw,
+        tstate, torch.from_numpy(keys), torch.from_numpy(vals), todo, specs=specs, **kw,
     )
+    first = np.asarray(jinfo)[:, jfk.INFO_FIRST_HALT].clip(max=npm)
+    assert torch.equal(todo, tfk.todo_from_start(P, npm, first))
     return jnew, np.asarray(jinfo), tnew, tinfo.numpy()
 
 
@@ -120,6 +128,61 @@ def test_resume_from_start_after_grow_matches_jax():
     _assert_state_equal(jend, tend)
     # every valid row committed exactly once across the two launches
     assert int(tend.accs[0].sum()) == keys.size
+
+
+@pytest.mark.parametrize("case", ["programs_4_mean", "saturated_checked", "count_only"])
+def test_plain_todo_with_holes_equals_compacted_morsels(case):
+    """A todo mask with holes runs exactly the flagged morsels in order:
+    the same state, info and events as a launch over only those morsels
+    (compacted, all todo), with the lowest-todo index mapped back."""
+    P, npm, M, card, cap, g, specs, _, kw = CASES[case]
+    npm *= 2
+    keys, vals = _inputs(40 + sorted(CASES).index(case), P, npm, M, card, masked=11)
+    rng = np.random.default_rng(7)
+    flags = rng.random((P, npm)) < 0.6
+    flags[:, 0] = True
+    flags[:, -1] = False
+    kinds = _kinds(specs)
+    holes = tfk.init_fused_state(capacity=cap, max_groups=g, kinds=kinds, programs=P)
+    packed = tfk.init_fused_state(capacity=cap, max_groups=g, kinds=kinds, programs=P)
+    todo = torch.from_numpy(flags.reshape(-1).astype(np.int32))
+    hnew, hinfo = tfk.fused_consume(holes, torch.from_numpy(keys), torch.from_numpy(vals),
+                                    todo, specs=specs, **kw)
+    n_sel = flags.sum(axis=1)
+    width = int(n_sel.max())
+    kp = np.full((P, width, M), -1, np.int32)
+    vp = np.zeros((1, P, width, M), np.float32)
+    for p in range(P):
+        idx = np.flatnonzero(flags[p]) + p * npm
+        kp[p, :n_sel[p]] = keys[idx]
+        vp[0, p, :n_sel[p]] = vals[0, idx]
+    ptodo = torch.from_numpy(
+        (np.arange(width)[None, :] < n_sel[:, None]).reshape(-1).astype(np.int32))
+    pnew, pinfo = tfk.fused_consume(packed, torch.from_numpy(kp.reshape(P * width, M)),
+                                    torch.from_numpy(vp.reshape(1, P * width, M)), ptodo,
+                                    specs=specs, **kw)
+    for f in tfk.FusedState._fields:
+        assert torch.equal(getattr(hnew, f), getattr(pnew, f)), f
+    hi, pi = hinfo.numpy(), pinfo.numpy()
+    cols = [tfk.INFO_COUNT, tfk.INFO_SAT, tfk.INFO_HALTED]
+    assert np.array_equal(hi[:, cols], pi[:, cols])
+    left = todo.reshape(P, npm).numpy()
+    for p in range(P):
+        idx = np.flatnonzero(flags[p])
+        done = ptodo.reshape(P, width).numpy()[p, :n_sel[p]] == 0
+        assert np.array_equal(left[p, idx], (~done).astype(np.int32))
+        assert not left[p, ~flags[p]].any()  # holes stay holes
+        low = pi[p, tfk.INFO_FIRST_HALT]
+        want = tfk.NO_HALT if low == tfk.NO_HALT else idx[low]
+        assert hi[p, tfk.INFO_FIRST_HALT] == want
+    if case == "saturated_checked":
+        assert hi[0, tfk.INFO_HALTED] == 1
+
+
+def test_todo_from_start():
+    todo = tfk.todo_from_start(3, 4, [0, 2, 4])
+    assert todo.dtype == torch.int32 and todo.is_contiguous()
+    assert todo.tolist() == [1, 1, 1, 1, 0, 0, 1, 1, 0, 0, 0, 0]
 
 
 def test_init_grow_merge_state_match_jax():
@@ -240,17 +303,20 @@ def test_wrapper_checks_inputs_and_devices():
     st = tfk.init_fused_state(capacity=64, max_groups=32, kinds=("sum",))
     keys = torch.zeros((2, 64), dtype=torch.int32)
     vals = torch.zeros((1, 2, 64))
-    start = torch.zeros((1,), dtype=torch.int32)
+    todo = torch.ones((2,), dtype=torch.int32)
     before = tfk.fused_consume.launches
-    tfk.fused_consume(st, keys, vals, start, specs=((0, "sum"),))
+    tfk.fused_consume(st, keys, vals, todo, specs=((0, "sum"),), checked=False)
     assert tfk.fused_consume.launches == before  # the plain path is no launch
+    assert todo.tolist() == [0, 0]  # both morsels committed, in place
     with pytest.raises(TypeError):
-        tfk.fused_consume(st, keys.long(), vals, start, specs=((0, "sum"),))
+        tfk.fused_consume(st, keys.long(), vals, todo, specs=((0, "sum"),))
     with pytest.raises(ValueError):
-        tfk.fused_consume(st, keys, vals, start, specs=((1, "sum"),))
+        tfk.fused_consume(st, keys, vals, todo, specs=((1, "sum"),))
     with pytest.raises(ValueError):
-        tfk.fused_consume(st, keys[:, :32], vals, start, specs=((0, "sum"),))
+        tfk.fused_consume(st, keys[:, :32], vals, todo, specs=((0, "sum"),))
+    with pytest.raises(ValueError):
+        tfk.fused_consume(st, keys, vals, todo[:1], specs=((0, "sum"),))
     meta = tfk.FusedState(*(t.to("meta") for t in st))
     with pytest.raises(ValueError):
-        tfk.fused_consume(meta, keys.to("meta"), vals.to("meta"), start.to("meta"),
+        tfk.fused_consume(meta, keys.to("meta"), vals.to("meta"), todo.to("meta"),
                           specs=((0, "sum"),))

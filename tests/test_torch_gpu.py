@@ -11,7 +11,11 @@ Atomics make the kernel's ticket order and float-sum order vary, so it is
 held to the plain version by map: same group count and key set, COUNT /
 MIN / MAX exact, SUM within 1e-4 of Σ|v| over the group, gap-free tickets
 consistent with key_by_ticket, and exact halt signals and event counts
-(probe steps aside: the kernel has no claim rounds).  The split route's
+(probe steps aside: the kernel has no claim rounds) for launches that
+commit every morsel.  The fused kernel's CTAs take morsels in no fixed
+order, so when a launch pauses, its set of committed morsels is checked
+(each committed row counted once) and the state after the todo morsels are
+replayed is held to the plain version's.  The split route's
 ticket kernel is held the same way (one ticket per key, gap-free, the same
 key set and count, the same unresolved rows), its segment kernel with
 COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
@@ -60,17 +64,26 @@ def _abs_sums(keys, vals, at):
     return a[torch.searchsorted(uk, at)]
 
 
+def _assert_tickets(ks):
+    """Gap-free tickets 1..count, each naming its slot's key in
+    key_by_ticket (every ticket of the kernel lies within the bound)."""
+    for p in range(ks.programs):
+        n = int(ks.count[p])
+        assert n <= ks.max_groups
+        t = ks.ttks[p][ks.ttks[p] > 0]
+        assert torch.equal(torch.sort(t).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32))
+        assert torch.equal(ks.kbt[p][(t - 1).long()], ks.tkeys[p][ks.ttks[p] > 0])
+        assert bool((ks.kbt[p, :n] != -1).all())
+
+
 def _assert_agree(ks, kinfo, ps, pinfo, keys, vals):
     assert torch.equal(kinfo, pinfo)
     assert torch.equal(ks.count, ps.count)
     exact = [0, 1, 2, 4, 5]
     assert torch.equal(ks.events[:, exact], ps.events[:, exact])
     assert torch.equal(ks.events[:, 6:].sum(dim=1), ks.events[:, 1])
+    _assert_tickets(ks)
     for p in range(ks.programs):
-        n = int(ks.count[p])
-        t = ks.ttks[p][ks.ttks[p] > 0]
-        assert torch.equal(torch.sort(t).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32))
-        assert torch.equal(ks.kbt[p][(t - 1).long()], ks.tkeys[p][ks.ttks[p] > 0])
         for s, (_, kind) in enumerate(SPECS4):
             kk, ka = _by_key(ks, p, s)
             pk, pa = _by_key(ps, p, s)
@@ -82,6 +95,10 @@ def _assert_agree(ks, kinfo, ps, pinfo, keys, vals):
                 assert torch.equal(ka, pa)
 
 
+def _ones(n, dev):
+    return torch.ones(n, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [1, 4])
 def test_kernel_matches_plain(cuda, P):
@@ -91,18 +108,21 @@ def test_kernel_matches_plain(cuda, P):
     c = table_capacity(g)
     km = keys.to(torch.int32).reshape(-1, M).contiguous()
     vm = vals.reshape(1, -1, M).contiguous()
-    start = torch.zeros(P, dtype=torch.int32, device=cuda)
+    ktodo, ptodo = _ones(km.shape[0], cuda), _ones(km.shape[0], cuda)
     kw = dict(specs=SPECS4, checked=True, grow_bound=False, threshold=c // 2,
               bound_slack=g - M, collect_events=True)
     ks = fk.init_fused_state(capacity=c, max_groups=g, kinds=KINDS, programs=P, device=cuda)
     ps = fk.init_fused_state(capacity=c, max_groups=g, kinds=KINDS, programs=P, device=cuda)
     before = fk.fused_consume.launches
-    ks, kinfo = fk.fused_consume(ks, km, vm, start, **kw)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, start, **kw)
+    ks, kinfo = fk.fused_consume(ks, km, vm, ktodo, **kw)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ptodo, **kw)
     torch.cuda.synchronize()
     assert fk.fused_consume.launches == before + 1
+    ctas, per_program = fk.fused_consume.grid
+    assert per_program > 1 and ctas == P * per_program  # many CTAs share each table
     _assert_agree(ks, kinfo, ps, pinfo, keys, vals)
     assert int(ks.events[:, 2].sum()) == 100  # the masked rows
+    assert not bool(ktodo.any()) and not bool(ptodo.any())
 
 
 @pytest.mark.gpu
@@ -112,27 +132,76 @@ def test_kernel_pause_and_resume_match_plain(cuda):
     c1 = table_capacity(g1)
     km = keys.to(torch.int32).reshape(-1, M).contiguous()
     vm = vals.reshape(1, -1, M).contiguous()
+    ktodo, ptodo = _ones(km.shape[0], cuda), _ones(km.shape[0], cuda)
     kw = dict(specs=SPECS4, checked=True, grow_bound=True, collect_events=True)
     ks = fk.init_fused_state(capacity=c1, max_groups=g1, kinds=KINDS, device=cuda)
     ps = fk.init_fused_state(capacity=c1, max_groups=g1, kinds=KINDS, device=cuda)
-    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
     kw1 = dict(kw, threshold=c1 // 2, bound_slack=g1 - M)
-    ks, kinfo = fk.fused_consume(ks, km, vm, zero, **kw1)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, zero, **kw1)
-    _assert_agree(ks, kinfo, ps, pinfo, keys, vals)
-    first = int(kinfo[0, fk.INFO_FIRST_HALT])
-    assert int(kinfo[0, fk.INFO_HALTED]) == 1 and 0 < first < km.shape[0]
+    ks, kinfo = fk.fused_consume(ks, km, vm, ktodo, **kw1)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ptodo, **kw1)
+    torch.cuda.synchronize()
+    assert int(kinfo[0, fk.INFO_HALTED]) == 1 and int(pinfo[0, fk.INFO_HALTED]) == 1
+    assert int(kinfo[0, fk.INFO_FIRST_HALT]) == int(torch.nonzero(ktodo)[0])
+    _assert_tickets(ks)
+    # the committed morsels' rows are counted once, the others not at all
+    committed = ktodo == 0
+    assert float(ks.accs[0].sum()) == float((km[committed] != -1).sum())
     g2 = 32768
     c2 = table_capacity(g2)
     ks = fk.grow_fused_state(ks, KINDS, new_max_groups=g2, new_capacity=c2)
     ps = fk.grow_fused_state(ps, KINDS, new_max_groups=g2, new_capacity=c2)
-    resume = torch.tensor([first], dtype=torch.int32, device=cuda)
     kw2 = dict(kw, threshold=c2 // 2, bound_slack=g2 - M)
-    ks, kinfo = fk.fused_consume(ks, km, vm, resume, **kw2)
-    ps, pinfo = fk.fused_consume_plain(ps, km, vm, resume, **kw2)
-    _assert_agree(ks, kinfo, ps, pinfo, keys, vals)
-    assert int(kinfo[0, fk.INFO_HALTED]) == 0
+    ks, kinfo = fk.fused_consume(ks, km, vm, ktodo, **kw2)
+    ps, pinfo = fk.fused_consume_plain(ps, km, vm, ptodo, **kw2)
+    _assert_agree(ks, kinfo, ps, pinfo, keys, vals)  # map, count, total events
+    assert int(kinfo[0, fk.INFO_HALTED]) == 0 and not bool(ktodo.any())
     assert float(ks.accs[0].sum()) == float(keys.numel())
+
+
+@pytest.mark.gpu
+def test_kernel_on_many_ctas_issues_no_ticket_past_a_grow_bound(cuda):
+    keys, vals = _data(cuda, 256 * M, 50000, 17)
+    g = 3000
+    c = table_capacity(g)
+    km = keys.to(torch.int32).reshape(-1, M).contiguous()
+    vm = vals.reshape(1, -1, M).contiguous()
+    todo = _ones(km.shape[0], cuda)
+    ks = fk.init_fused_state(capacity=c, max_groups=g, kinds=KINDS, device=cuda)
+    ks, info = fk.fused_consume(ks, km, vm, todo, specs=SPECS4, checked=True,
+                                grow_bound=True, threshold=c // 2, bound_slack=g - M,
+                                collect_events=True)
+    torch.cuda.synchronize()
+    assert fk.fused_consume.grid[1] > 1
+    assert int(info[0, fk.INFO_HALTED]) == 1 and bool(todo.any())
+    assert int(ks.count[0]) <= g and int(info[0, fk.INFO_COUNT]) == int(ks.count[0])
+    _assert_tickets(ks)  # key_by_ticket complete: no ticket was dropped
+    committed = todo == 0
+    assert float(ks.accs[0].sum()) == float((km[committed] != -1).sum())
+
+
+@pytest.mark.gpu
+def test_kernel_under_raise_with_a_bound_just_above_the_distinct_count(cuda):
+    keys, vals = _data(cuda, 256 * M, 5000, 19)
+    d = int(torch.unique(keys).numel())
+    g = d + 1
+    c = table_capacity(g)
+    km = keys.to(torch.int32).reshape(-1, M).contiguous()
+    vm = vals.reshape(1, -1, M).contiguous()
+    todo = _ones(km.shape[0], cuda)
+    ks = fk.init_fused_state(capacity=c, max_groups=g, kinds=KINDS, device=cuda)
+    ks, info = fk.fused_consume(ks, km, vm, todo, specs=SPECS4, checked=True,
+                                grow_bound=False, threshold=c // 2, bound_slack=g - M,
+                                collect_events=True)
+    torch.cuda.synchronize()
+    assert info[0].tolist() == [d, fk.NO_HALT, 0, 0] and not bool(todo.any())
+    plan = api.GroupByPlan(
+        keys=("k",), aggs=(api.AggSpec("count"),), strategy="concurrent", max_groups=g,
+        saturation="raise", raw_keys=True, execution=api.ExecutionPolicy(kernel="fused"),
+    )
+    out = plan.collect([api.Table({"k": keys[i:i + 65536]})
+                        for i in range(0, keys.numel(), 65536)])
+    assert int(out["__num_groups__"][0]) == d
+    assert int(out["count(*)"][:d].sum()) == keys.numel()
 
 
 @pytest.mark.gpu
@@ -141,7 +210,7 @@ def test_kernel_ends_on_a_full_table(cuda):
     km = keys.to(torch.int32).reshape(-1, M).contiguous()
     vm = vals.reshape(1, -1, M).contiguous()
     ks = fk.init_fused_state(capacity=1024, max_groups=4096, kinds=KINDS, device=cuda)
-    ks, info = fk.fused_consume(ks, km, vm, torch.zeros(1, dtype=torch.int32, device=cuda),
+    ks, info = fk.fused_consume(ks, km, vm, _ones(km.shape[0], cuda),
                                 specs=SPECS4, checked=False, grow_bound=False,
                                 collect_events=True)
     torch.cuda.synchronize()

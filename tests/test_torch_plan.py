@@ -19,6 +19,7 @@ from repro_torch.engine import columns as tcol
 from repro_torch.engine import executors as tex
 from repro_torch.engine import plan_api as tapi
 from repro_torch.engine.groupby import GroupByOverflowError
+from repro_torch.kernels import fused_groupby as tfk
 from repro_torch.kernels import ops as tops
 
 TOL = 1e-4
@@ -191,6 +192,83 @@ def test_grow_under_prefetch_replays_every_pending_launch():
     assert _map(out, "sum(v)") == _map(out, "count(*)")
     dev = handle.stats()["device"]
     assert dev["bound_grows"] >= 2 and dev["rows"] == 8192
+
+
+def _racing_kernel(monkeypatch, seed):
+    """Replace the fused kernel with a stand-in for CTAs that race: each
+    launch commits a random, non-empty subset of every program's todo
+    morsels (through the plain version, in order) and pauses the rest
+    although the table has room.  Returns its log: one (count, bound) pair
+    per program and launch, read after the launch."""
+    plain = tfk.fused_consume_plain
+    rng = np.random.default_rng(seed)
+    log = []
+
+    def stand_in(state, keys, values, todo, **kw):
+        P = state.programs
+        flags = todo.reshape(P, -1)
+        sub = torch.zeros_like(flags)
+        for p in range(P):
+            idx = torch.nonzero(flags[p]).flatten()
+            if idx.numel():
+                pick = torch.from_numpy(rng.random(idx.numel()) < 0.5)
+                pick[int(rng.integers(idx.numel()))] = True
+                sub[p, idx[pick]] = 1
+        chosen = sub.clone()
+        state, info = plain(state, keys, values, sub.reshape(-1), **kw)
+        flags[(chosen == 1) & (sub == 0)] = 0  # the committed morsels
+        for p in range(P):
+            left = torch.nonzero(flags[p]).flatten()
+            info[p, tfk.INFO_FIRST_HALT] = int(left[0]) if left.numel() else tfk.NO_HALT
+            info[p, tfk.INFO_HALTED] = int(left.numel() > 0)
+            log.append((int(state.count[p]), state.max_groups))
+        return state, info
+
+    monkeypatch.setattr(tfk, "fused_consume", stand_in)
+    return log
+
+
+@pytest.mark.parametrize("programs", [1, 2])
+def test_racing_commits_give_the_jax_result_without_growth(monkeypatch, programs):
+    """GROW launches that pause morsels while room remains (the bound's
+    reservation race; under RAISE the kernel pauses only past the load
+    threshold) are replayed on their todo masks with no grow: the JAX
+    fused plan's map, no bound grows or migrations (the plain path's and
+    JAX's 0 and 0)."""
+    saturation = "grow"
+    rng = np.random.default_rng(20 + programs)
+    keys = rng.integers(0, 300, size=8192).astype(np.uint32)
+    vals = rng.normal(size=8192).astype(np.float32)
+    aggs = (tapi.AggSpec("count"), tapi.AggSpec("sum", "v"), tapi.AggSpec("min", "v"))
+    kw = dict(max_groups=1024, saturation=saturation)
+    want = _run_jax(keys, vals, aggs, execution=dict(kernel="fused"), **kw)
+    log = _racing_kernel(monkeypatch, programs)
+    plan = _torch_plan(aggs, execution=dict(kernel_programs=programs, instrument=True), **kw)
+    handle = plan.stream(_chunks_of(keys, vals, 2048))
+    got = handle.result()
+    for col in ("count(*)", "sum(v)", "min(v)"):
+        _assert_maps_close(_map(got, col), _map(want, col))
+    dev = handle.stats()["device"]
+    assert dev["bound_grows"] == 0 and dev["migrations"] == 0
+    assert dev["rows"] == 8192
+    assert len(log) > 4 * programs  # more launches than chunks: paused morsels replayed
+
+
+def test_racing_commits_under_a_tight_grow_bound_issue_no_ticket_past_it(monkeypatch):
+    rng = np.random.default_rng(23)
+    keys = rng.integers(0, 600, size=8192).astype(np.uint32)
+    vals = rng.normal(size=8192).astype(np.float32)
+    aggs = (tapi.AggSpec("count"), tapi.AggSpec("max", "v"))
+    kw = dict(max_groups=64, saturation="grow")
+    want = _run_jax(keys, vals, aggs, execution=dict(kernel="fused"), **kw)
+    log = _racing_kernel(monkeypatch, 3)
+    plan = _torch_plan(aggs, execution=dict(instrument=True), **kw)
+    handle = plan.stream(_chunks_of(keys, vals, 2048))
+    got = handle.result()
+    for col in ("count(*)", "max(v)"):
+        _assert_maps_close(_map(got, col), _map(want, col))
+    assert all(count <= bound for count, bound in log), log
+    assert handle.stats()["device"]["bound_grows"] >= 1
 
 
 def test_overflow_raises():
