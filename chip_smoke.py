@@ -19,9 +19,13 @@ Four phases, each of which fails the run:
    unchecked, saturated table (1024 slots, 4096 distinct keys), which
    must end.
    ``ticket_hash``: 2^20 rows of uniform, zipf and heavy-hitter keys, a
-   bound below the distinct count (count > G, key_by_ticket truncated) and
-   a full 1024-slot table (-1 rows, count = 1024).  ``segment_agg``: every
-   kind × scatter / onehot over 2^20 rows with tickets of -1 and >= G.
+   bound below the distinct count (count > G, key_by_ticket truncated), a
+   full 1024-slot table (-1 rows, count = 1024), 2^20 unique keys against
+   2^24 slots (the kernel's region mode) and 3·1024 rows (a ragged tile),
+   each held by ``ticket_map_discrepancies``.  ``segment_agg``: every
+   kind × scatter / onehot over 2^20 rows with tickets of -1 and >= G, and
+   every kind (scatter) on a hot key (55% of 2^20 rows, G = 2^14, values
+   with -0.0 and, for min/max, ±inf).
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -41,10 +45,16 @@ Four phases, each of which fails the run:
    against its plain version on each of those chunks, and swept over CTA
    sizes; the ticket kernel (library
    ``torch.unique(return_inverse=True)``) and the segment kernel per plane
-   and strategy (library ``index_add_`` / ``scatter_reduce_``), each timed
-   beside its plain version and held against it on every class's chunk.
-   Both routes run on the same chunks, and the fused time is printed
-   beside the ticket kernel's (the ticketing share of the fused kernel).
+   and strategy (library ``index_add_`` / ``scatter_reduce_``, printed per
+   class and kind), each timed beside its plain version and held against
+   it on every class's chunk.  The ticket call is also split: allocation
+   and fill alone, the launch alone, and ``torch.profiler``'s device time
+   per kernel (one session over the three classes), and its choice of mode
+   is timed on the zipf and unique chunks against a 2^25-slot table (the
+   mode the sample chooses beside tile mode, forced by one morsel of EMPTY
+   rows).  Both
+   routes run on the same chunks, and the fused time is printed beside the
+   ticket kernel's.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -366,47 +376,20 @@ def phase2(fk, gen, device, n=1 << 20, sat_rows=1 << 13):
     return max_err
 
 
-def check_ticket_maps(keys, kout, pout, label, *, full=False):
-    """The ticket kernel's outputs vs the plain version's: the same count;
-    one gap-free ticket per key, consistent with the kernel's own table and
+def check_ticket_maps(th, keys, kout, pout, label, *, full=False):
+    """The ticket kernel's outputs vs the plain version's by the port's
+    contract (``ticket_map_discrepancies``: the same count; one gap-free
+    ticket per key, consistent with the kernel's own table and
     key_by_ticket; the same key set and the same -1 rows unless the table
-    is full (then a row is -1 iff its key is not in the kernel's table).
-    Returns the discrepancies counted (0 when all checks pass): |Δcount|
-    + rows whose ticket names another key + rows resolved differently +
-    keys in one table only."""
-    import torch
-
-    kt, ktk, ktt, kkbt, kc = kout
-    pt, ptk, ptt, _, pc = pout
-    n = int(kc)
-    d_count = abs(n - int(pc))
-    occ = ktt > 0
-    tick = ktt[occ]
-    check(torch.equal(torch.sort(tick).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32)),
-          f"{label}: table tickets are not 1..{n}")
-    inb = tick <= kkbt.numel()
-    check(torch.equal(kkbt[(tick[inb] - 1).long()], ktk[occ][inb]),
-          f"{label}: key_by_ticket disagrees with the table")
-    valid = keys != -1
-    ok = kt >= 0
-    check(bool((kt[ok] < n).all()), f"{label}: a row's ticket is past the count {n}")
-    key_of = torch.full((n + 1,), -1, dtype=torch.int32, device=keys.device)
-    key_of[tick.long()] = ktk[occ]
-    d_key = int((key_of[(kt[ok] + 1).long()] != keys[ok]).sum())
+    is full, then a row is -1 iff its key is not in the kernel's table).
+    A full table must leave some row unresolved.  Returns the
+    discrepancies counted (0 when the check passes)."""
+    bad = th.ticket_map_discrepancies(keys, kout, pout, full=full)
+    check(bad == 0, f"{label}: {bad} discrepancies from the plain version's ticket map")
     if full:
-        check(bool((valid & ~ok).any()), f"{label}: a full table left no row unresolved")
-        d_rows = int((torch.isin(keys[valid], ktk[occ]) != ok[valid]).sum())
-        d_set = 0
-    else:
-        d_rows = int(((ok != (pt >= 0)) | (ok != valid)).sum())
-        kset, pset = ktk[occ], ptk[ptt > 0]
-        d_set = int((~torch.isin(kset, pset)).sum()) + int((~torch.isin(pset, kset)).sum())
-    check(d_count == 0, f"{label}: count {n} vs plain {int(pc)}")
-    check(d_key == 0, f"{label}: {d_key} rows' tickets name another key")
-    check(d_rows == 0, f"{label}: {d_rows} rows resolved differently from the "
-          + ("kernel's table" if full else "plain version"))
-    check(d_set == 0, f"{label}: key sets differ in {d_set} keys")
-    return d_count + d_key + d_rows + d_set
+        check(bool(((keys != -1) & (kout[0] < 0)).any()),
+              f"{label}: a full table left no row unresolved")
+    return bad
 
 
 def check_segment(sa, t, v, got, want, kind, label, num_groups):
@@ -445,11 +428,16 @@ def phase2_split(th, sa, gen, device, n=1 << 20, sat_rows=1 << 13):
     cases.append(("over_bound", keys, table_capacity(g), g // 3, False))
     keys = torch.randint(0, 4096, (sat_rows,), generator=gen, device=device).to(torch.int32)
     cases.append(("full", keys, 1024, 4096, True))
+    # every row inserts, 16 slots a row: the kernel builds the table by regions
+    keys = torch.randperm(1 << 24, generator=gen, device=device)[:n].to(torch.int32)
+    cases.append(("unique_regions", keys, 16 * n, n, False))
+    keys = torch.randint(0, 1500, (3 * M,), generator=gen, device=device).to(torch.int32)
+    cases.append(("ragged_tile", keys, 4096, 2048, False))
     for label, keys, cap, g, full in cases:
         kout, k_s = timed(th.ticket_hash, keys, capacity=cap, max_groups=g, morsel_size=M)
         pout, p_s = timed(th.ticket_hash_plain, keys, capacity=cap, max_groups=g,
                           morsel_size=M)
-        err = check_ticket_maps(keys, kout, pout, f"phase2 ticket {label}", full=full)
+        err = check_ticket_maps(th, keys, kout, pout, f"phase2 ticket {label}", full=full)
         max_err["ticket_hash"] = max(max_err["ticket_hash"], err)
         count = int(kout[4])
         if label == "over_bound":
@@ -473,6 +461,23 @@ def phase2_split(th, sa, gen, device, n=1 << 20, sat_rows=1 << 13):
             err = check_segment(sa, t, v, got, want, kind, label, g)
             max_err["segment_agg"] = max(max_err["segment_agg"], err)
             log(f"{label}: rows={n} G={g} (tickets -1..{g + 199}) max|Δ|={err:.3g} ok")
+    # a hot key: 55% of the rows on one ticket, the rest over G = 2^14
+    g = 1 << 14
+    t = torch.randint(-1, g + 100, (n,), generator=gen, device=device, dtype=torch.int32)
+    t[torch.rand(n, generator=gen, device=device) < 0.55] = 5
+    for kind in KINDS4:
+        v = torch.randn(n, generator=gen, device=device)
+        v[::97] = -0.0
+        if kind in ("min", "max"):
+            v[2::1013] = float("inf")
+            v[3::1009] = float("-inf")
+        got = sa.segment_agg(t, v, num_groups=g, kind=kind, morsel_size=M)
+        want = sa.segment_agg_plain(t, v, num_groups=g, kind=kind, morsel_size=M)
+        label = f"phase2 segment hot key {kind}/scatter"
+        err = check_segment(sa, t, v, got, want, kind, label, g)
+        max_err["segment_agg"] = max(max_err["segment_agg"], err)
+        log(f"{label}: rows={n} G={g} hot ticket on {int((t == 5).sum())} rows "
+            f"max|Δ|={err:.3g} ok")
     return max_err
 
 
@@ -817,6 +822,105 @@ def block_sweep(fk, classes, vals, device, sizes=(128, 256, 512, 1024)):
     return out
 
 
+def device_profiles(calls, first_kernels):
+    """``torch.profiler``'s device time per kernel over one call of each
+    function in ``calls`` (label → fn; each called once untraced first),
+    in one profiler session (a second session in the same process recorded
+    no device time with torch 2.11 on an H100): label → [(kernel, device
+    ms)].  The calls run one after another with a synchronize between, so
+    their kernels are told apart by order: each call's first kernel has a
+    name in ``first_kernels``, and a call's kernels from that list come
+    first and together (matching CPU and device clocks proved unreliable).  Empty lists when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in calls.values():
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, fn in calls.items():
+            with record_function("smoke:" + label):
+                fn()
+                sync()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith("smoke:")),
+                     key=lambda e: e.time_range.start)
+    groups = []
+    prev_first = False
+    for e in kernels:
+        first = any(k in e.name for k in first_kernels)
+        if (first and not prev_first) or not groups:
+            groups.append([])
+        prev_first = first
+        groups[-1].append((e.name[:48], e.time_range.elapsed_us() / 1e3))
+    out = {label: [] for label in calls}
+    if len(groups) == len(calls):
+        out.update(zip(calls, groups))
+    return out
+
+
+def ticket_breakdown(th, k32, cap, g, reps):
+    """Where one ticket call's time goes, CUDA events each: the wrapper's
+    allocation and fill alone, and the kernel launch alone on outputs
+    allocated and filled beforehand (untimed).  Where the shapes allow the
+    kernel's region mode (the unique chunk) the fill runs with the launch,
+    after the sample, and the first part is the allocation alone."""
+    n, dev = k32.numel(), k32.device
+    okw = dict(capacity=cap, max_groups=g, device=dev)
+    fill_ms = time_cuda(lambda: th.fresh_outputs(n, **okw), reps)
+    held = {}
+
+    def setup():
+        held["state"] = th.fresh_outputs(n, **okw)
+
+    launch_ms = time_cuda(lambda: th.launch(k32, held["state"]), reps, setup)
+    held.clear()
+    return {"fill_ms": fill_ms, "launch_ms": launch_ms}
+
+
+def region_selection(th, classes, reps=5):
+    """The ticket kernel's choice of mode on one table past the L2 (C =
+    2^25, G = 2^24, as the unique stream's) for the zipf and the unique
+    chunk: the chunk as it is (one row per 16 slots: the shapes allow region
+    mode and a sample of the keys decides on the card) beside tile mode
+    alone (the same chunk and one morsel of EMPTY rows, past one row per
+    16 slots, which the shapes rule out).  The zipf chunk, whose keys
+    repeat, should cost what tile mode costs; the unique chunk less.  Both
+    calls are held against the plain version on the zipf chunk.  Returns
+    (record, largest discrepancy)."""
+    import torch
+
+    cap, g = 1 << 25, 1 << 24
+    out, max_err = {}, 0
+    for name in ("high", "unique"):
+        k32 = classes[name][0].to(torch.int32)
+        n = k32.numel()
+        check(16 * n == cap, f"region selection: {n} rows are not C/16")
+        padded = torch.cat([k32, k32.new_full((M,), -1)])
+        kw = dict(capacity=cap, max_groups=g, morsel_size=M)
+        chosen_ms = time_cuda(lambda: th.ticket_hash(k32, **kw), reps)
+        tile_ms = time_cuda(lambda: th.ticket_hash(padded, **kw), reps)
+        rec = {"rows": n, "groups": int(torch.unique(k32).numel()), "capacity": cap,
+               "max_groups": g, "chosen_ms": chosen_ms, "tile_ms": tile_ms,
+               "bound_ms": (8 * n + 8 * cap + 4 * g) / HBM_BYTES_PER_S * 1e3}
+        if name == "high":
+            pout = th.ticket_hash_plain(padded, **kw)
+            label = "phase4 region selection zipf"
+            err = check_ticket_maps(th, padded, th.ticket_hash(padded, **kw), pout,
+                                    label + " tile mode")
+            head = (pout[0][:n],) + tuple(pout[1:])
+            err = max(err, check_ticket_maps(th, k32, th.ticket_hash(k32, **kw), head,
+                                             label + " chosen mode"))
+            rec["discrepancies"] = err
+            max_err = max(max_err, err)
+            del pout, head
+        out[name] = rec
+        log(f"phase4 region selection {name}: {rec['groups']} keys in {n} rows at C={cap}: "
+            f"as chosen {chosen_ms:.4f} ms, tile mode (+{M} EMPTY rows) {tile_ms:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms")
+    return out, max_err
+
+
 def phase4_split(th, sa, classes, vals, device, reps=5):
     """The split route's kernels on one main-path chunk of each class (its
     bound and capacity), CUDA events, beside their bounds, one library
@@ -829,6 +933,7 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
     rows = vals.numel()
     out = {}
     max_err = {"ticket_hash": 0, "segment_agg": 0.0}
+    profile_calls = {}
     for name, (keys, g) in classes.items():
         k32 = keys.to(torch.int32)
         cap = table_capacity(g)
@@ -836,16 +941,21 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
         kw = dict(capacity=cap, max_groups=g, morsel_size=M)
         t_ms = time_cuda(lambda: th.ticket_hash(k32, **kw), reps)
         lib_ms = time_cuda(lambda: torch.unique(k32, return_inverse=True), reps)
+        breakdown = ticket_breakdown(th, k32, cap, g, reps)
+        breakdown.update(call_ms=t_ms, torch_unique_ms=lib_ms)
+        log(f"phase4 ticket breakdown {name}: " + json.dumps(breakdown))
+        profile_calls[name] = lambda k32=k32, kw=kw: th.ticket_hash(k32, **kw)
         # each input read once, each output written once: keys in, tickets
         # out, the fresh table (keys + tickets) and key_by_ticket out
         t_bytes = 8 * rows + 8 * cap + 4 * g
         rec = {"rows": rows, "groups": d, "max_groups": g, "capacity": cap,
                "ticket": {"kernel_ms": t_ms, "library_ms": lib_ms,
-                          "bound_ms": t_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}}
+                          "bound_ms": t_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                          "breakdown": breakdown}}
         kout = th.ticket_hash(k32, **kw)
         tickets = kout[0]
         pout, tp_s = timed(th.ticket_hash_plain, k32, **kw)
-        t_err = check_ticket_maps(k32, kout, pout, f"phase4 ticket {name}")
+        t_err = check_ticket_maps(th, k32, kout, pout, f"phase4 ticket {name}")
         max_err["ticket_hash"] = max(max_err["ticket_hash"], t_err)
         rec["ticket"].update(plain_ms=tp_s * 1e3, discrepancies=t_err)
         del pout
@@ -881,12 +991,28 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
                     "max_abs_err": err}
         rec["segment"] = seg
         out[name] = rec
+        for key, r in seg.items():
+            log(f"phase4 segment {name} {key}: kernel {r['kernel_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms ({'index_add_' if key[:3] in ('sum', 'cou') else 'scatter_reduce_'}), "
+                f"bound {r['bound_ms']:.4f} ms, kernel/library {r['kernel_ms'] / r['library_ms']:.3f}")
         log(f"phase4 split {name}: ticket {t_ms:.3f} ms (torch.unique {lib_ms:.3f} ms, "
             f"bound {rec['ticket']['bound_ms']:.4f} ms; vs plain ({tp_s * 1e3:.1f} ms): "
             f"{t_err} discrepancies); segment sum/scatter "
             f"{seg['sum/scatter']['kernel_ms']:.3f} ms (index_add_ "
             f"{seg['sum/scatter']['library_ms']:.3f} ms, bound "
             f"{seg['sum/scatter']['bound_ms']:.4f} ms) ok")
+    selection, sel_err = region_selection(th, classes, reps)
+    max_err["ticket_hash"] = max(max_err["ticket_hash"], sel_err)
+    # the zipf chunk against the 2^25-slot table too: the sample's cost
+    k_high = classes["high"][0].to(torch.int32)
+    profile_calls["high_c25"] = lambda: th.ticket_hash(k_high, capacity=1 << 25,
+                                                       max_groups=1 << 24, morsel_size=M)
+    # a call starts with the fill, or with the sample and then the fill
+    profiles = device_profiles(profile_calls, ("ticket_sample_kernel", "ticket_fill_kernel"))
+    for name, rows_ms in profiles.items():
+        rec = out[name]["ticket"]["breakdown"] if name in out else selection["high"]
+        rec["profile_ms"] = rows_ms
+        log(f"phase4 ticket profile {name}: " + json.dumps(rows_ms))
     log("phase4 split " + json.dumps(out))
     high = out["high"]
     return {
@@ -902,6 +1028,7 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
                         "library_ms": high["segment"]["sum/scatter"]["library_ms"],
                         "max_abs_err": max_err["segment_agg"]},
         "per_class": out,
+        "region_selection": selection,
     }
 
 

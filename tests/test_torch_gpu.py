@@ -22,7 +22,7 @@ COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
 import pytest
 import torch
 
-from repro_torch.core.hashing import table_capacity
+from repro_torch.core.hashing import slot_hash, table_capacity
 from repro_torch.engine import plan_api as api
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_groupby as fk
@@ -245,30 +245,14 @@ def test_plan_on_the_default_device(cuda, saturation, bound):
 
 
 def _assert_ticket_maps_agree(keys, kout, pout, *, full=False):
-    """The kernel's tickets vs the plain version's: the same count; one
-    gap-free ticket per key, consistent with the kernel's own table and
-    key_by_ticket; the same key set and unresolved rows unless the table
-    is full (then: a row is unresolved iff its key is not in the table)."""
-    kt, ktk, ktt, kkbt, kc = kout
-    pt, ptk, ptt, _, pc = pout
-    assert int(kc) == int(pc)
-    n = int(kc)
-    occ = ktt > 0
-    tick = ktt[occ]
-    assert torch.equal(torch.sort(tick).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32))
-    inb = tick <= kkbt.numel()
-    assert torch.equal(kkbt[(tick[inb] - 1).long()], ktk[occ][inb])
-    key_of = torch.full((n + 1,), -1, dtype=torch.int32, device=keys.device)
-    key_of[tick.long()] = ktk[occ]
-    valid = keys != -1
-    ok = kt >= 0
-    assert torch.equal(key_of[(kt[ok] + 1).long()], keys[ok])
+    """The kernel's tickets vs the plain version's
+    (``ticket_map_discrepancies``): the same count; one gap-free ticket
+    per key, consistent with the kernel's own table and key_by_ticket; the
+    same key set and unresolved rows unless the table is full (then: a row
+    is unresolved iff its key is not in the table, and some row is)."""
+    assert th.ticket_map_discrepancies(keys, kout, pout, full=full) == 0
     if full:
-        assert bool((~ok & valid).any())
-        assert torch.equal(torch.isin(keys[valid], ktk[occ]), ok[valid])
-    else:
-        assert torch.equal(ok, pt >= 0) and torch.equal(ok, valid)
-        assert torch.equal(torch.sort(ktk[occ]).values, torch.sort(ptk[ptt > 0]).values)
+        assert bool(((keys != -1) & (kout[0] < 0)).any())
 
 
 @pytest.mark.gpu
@@ -312,6 +296,129 @@ def test_segment_kernel_matches_plain(cuda, kind, strategy):
         assert bool(((got - want).abs() <= tol).all())
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unique", "ragged_tile"])
+def test_ticket_kernel_on_unique_keys_and_a_ragged_tile(cuda, case):
+    """Every row inserts (2^20 distinct keys), or the rows end partway
+    through a tile of the kernel (3·M rows)."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    if case == "unique":
+        rows, cap, g = 1 << 20, 1 << 21, 1 << 20
+        keys = torch.randperm(rows, generator=gen, device=cuda).to(torch.int32)
+    else:
+        rows, cap, g = 3 * M, 4096, 2048
+        keys = torch.randint(0, 1500, (rows,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        keys[-77:] = -1
+    before = th.ticket_hash.launches
+    kout = th.ticket_hash(keys, capacity=cap, max_groups=g, morsel_size=M)
+    pout = th.ticket_hash_plain(keys, capacity=cap, max_groups=g, morsel_size=M)
+    torch.cuda.synchronize()
+    assert th.ticket_hash.launches == before + 1
+    _assert_ticket_maps_agree(keys, kout, pout)
+    if case == "unique":
+        assert int(kout[4]) == rows and bool((kout[0] >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unique", "crowded", "skewed"])
+def test_ticket_kernel_builds_a_large_sparse_table_by_regions(cuda, case):
+    """A table past the L2 with one row per 16 slots: where the sampled keys
+    are mostly distinct the kernel stages the rows by region and builds
+    each region in shared memory.  "crowded" adds 3000 distinct keys homed
+    in one region (its slab of 1024 rows overflows), keys whose home slots
+    are the last six of that region (those staged run past its end) and
+    EMPTY rows; both go to the overflow pass.  "skewed" puts one key on half
+    the rows, so the sample chooses tile mode."""
+    rows, cap, g = 1 << 19, 1 << 23, 1 << 20
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    keys = torch.randperm(1 << 24, generator=gen, device=cuda)[:rows].to(torch.int32)
+    if case == "crowded":
+        cand = torch.arange(1 << 26, device=cuda, dtype=torch.int32)
+        home = slot_hash(cand, cap)
+        in_region = (home >> 13) == 100
+        near_end = cand[in_region & ((home & 8191) >= 8186)]
+        homed = cand[in_region & ((home & 8191) < 8186)][:3000]
+        assert near_end.numel() >= 20 and homed.numel() == 3000
+        keys[:near_end.numel()] = near_end
+        keys[near_end.numel():near_end.numel() + 3000] = homed
+    elif case == "skewed":
+        keys[1::2] = 7
+    if case != "unique":
+        keys[-300:] = -1
+    kout = th.ticket_hash(keys, capacity=cap, max_groups=g, morsel_size=M)
+    pout = th.ticket_hash_plain(keys, capacity=cap, max_groups=g, morsel_size=M)
+    torch.cuda.synchronize()
+    _assert_ticket_maps_agree(keys, kout, pout)
+
+
+def _segment_values(gen, rows, dev, kind):
+    """Normal values with negatives, -0.0 and +0.0, and ±inf for MIN/MAX
+    (SUM's tolerance would be undefined on an infinite group)."""
+    v = torch.randn(rows, generator=gen, device=dev)
+    v[::97] = -0.0
+    v[1::89] = 0.0
+    if kind in ("min", "max"):
+        v[2::1013] = float("inf")
+        v[3::1009] = float("-inf")
+    return v
+
+
+def _assert_segment_agrees(t, v, got, want, kind, g):
+    if kind == "sum":
+        tol = 1e-4 * sa.segment_agg_plain(t, v.abs(), num_groups=g, kind="sum")
+        assert bool(((got - want).abs() <= tol).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sum", "count", "min", "max"])
+def test_segment_kernel_on_a_hot_key(cuda, kind):
+    """One ticket holds >= 50% of 2^20 rows, the rest spread over
+    G = 2^14 with tickets of -1 and >= G mixed in: the warp and CTA folds
+    of the hot ticket."""
+    rows, g = 1 << 20, 1 << 14
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    t = torch.randint(-1, g + 100, (rows,), generator=gen, device=cuda, dtype=torch.int32)
+    hot = torch.rand(rows, generator=gen, device=cuda) < 0.55
+    t[hot] = 5
+    v = _segment_values(gen, rows, cuda, kind)
+    before = sa.segment_agg.launches
+    got = sa.segment_agg(t, v, num_groups=g, kind=kind, strategy="scatter")
+    want = sa.segment_agg_plain(t, v, num_groups=g, kind=kind, strategy="scatter")
+    torch.cuda.synchronize()
+    assert sa.segment_agg.launches == before + 1
+    assert int((t == 5).sum()) >= rows // 2
+    _assert_segment_agrees(t, v, got, want, kind, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["distinct", "paired"])
+@pytest.mark.parametrize("kind", ["sum", "count", "min", "max"])
+def test_segment_kernel_with_more_tickets_per_cta_than_fold_slots(cuda, kind, layout):
+    """Over 8192 distinct tickets per CTA.  "distinct": 2^22 rows over
+    2^22 tickets, so a CTA folds a slot per row and turns to device atomics
+    after its first tile.  "paired": 2^23 rows where each ticket comes twice
+    in one thread's tile (the table pays) and a quarter of the tickets share
+    their low 13 bits, so the CTA flushes mid-way and rows that find no
+    slot within the probes fold into device memory."""
+    rows = 1 << (22 if layout == "distinct" else 23)
+    g = 1 << 22
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    t = torch.randint(0, g, (rows,), generator=gen, device=cuda, dtype=torch.int32)
+    if layout == "paired":
+        crowd = torch.rand(rows, generator=gen, device=cuda) < 0.25
+        t[crowd] = (t[crowd] & ~8191) | 77
+        pairs = t.view(-1, 1024)
+        pairs[:, 512:] = pairs[:, :512]
+    v = _segment_values(gen, rows, cuda, kind)
+    got = sa.segment_agg(t, v, num_groups=g, kind=kind, strategy="scatter")
+    want = sa.segment_agg_plain(t, v, num_groups=g, kind=kind, strategy="scatter")
+    torch.cuda.synchronize()
+    _assert_segment_agrees(t, v, got, want, kind, g)
 
 
 @pytest.mark.gpu

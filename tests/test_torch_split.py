@@ -107,6 +107,68 @@ def test_ticket_hash_checks_its_arguments():
                         morsel_size=256)
 
 
+# -- the ticket-map checker (the kernel's contract with the plain version) ----
+
+
+def _plain_case(name):
+    rows, morsel, card, cap, g = TICKET_CASES[name]
+    keys = _t(_ticket_keys(name, rows, card, 5).view(np.int32))
+    return keys, tth.ticket_hash_plain(keys, capacity=cap, max_groups=g,
+                                       morsel_size=morsel)
+
+
+def _renumbered(out, new_of):
+    """``out`` with ticket t (1-based) renamed ``new_of[t - 1]`` in the
+    table, the rows and ``key_by_ticket``, as a racing kernel may number
+    them."""
+    tickets, tkeys, ttks, kbt, count = (x.clone() for x in out)
+    occ = ttks > 0
+    ttks[occ] = new_of[ttks[occ].long() - 1]
+    ok = tickets >= 0
+    tickets[ok] = new_of[tickets[ok].long()] - 1
+    kbt.fill_(-1)
+    inb = occ & (ttks <= kbt.numel())
+    kbt[ttks[inb].long() - 1] = tkeys[inb]
+    return tickets, tkeys, ttks, kbt, count
+
+
+@pytest.mark.parametrize("name", ["medium", "heavy_hitter", "count_over_bound",
+                                  "empty_padding", "full_table"])
+def test_ticket_map_checker_accepts_any_numbering(name):
+    keys, ref = _plain_case(name)
+    n = int(ref[4])
+    full = name == "full_table"
+    assert tth.ticket_map_discrepancies(keys, ref, ref, full=full) == 0
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(n)).to(torch.int32) + 1
+    assert tth.ticket_map_discrepancies(keys, _renumbered(ref, perm), ref, full=full) == 0
+
+
+def _corrupt(out, how):
+    tickets, tkeys, ttks, kbt, count = (x.clone() for x in out)
+    n = int(count)
+    if how == "gap":  # ticket 3 never issued: every later ticket one up
+        out = _renumbered(out, torch.arange(1, n + 1, dtype=torch.int32)
+                          + (torch.arange(1, n + 1) >= 3).to(torch.int32))
+        return out
+    if how == "duplicate":  # two slots share ticket 1
+        ttks[torch.nonzero(ttks == 2)[0]] = 1
+    elif how == "key_by_ticket":  # ticket 1 names ticket 2's key
+        kbt[0] = kbt[1]
+    elif how == "dropped_row":  # a resolved row left -1, the table had room
+        tickets[torch.nonzero(tickets >= 0)[7]] = -1
+    elif how == "count":
+        count = count + 1
+    return tickets, tkeys, ttks, kbt, count
+
+
+@pytest.mark.parametrize("how", ["gap", "duplicate", "key_by_ticket", "dropped_row",
+                                 "count"])
+def test_ticket_map_checker_counts_each_corruption(how):
+    keys, ref = _plain_case("medium")
+    assert int(ref[4]) <= TICKET_CASES["medium"][4]
+    assert tth.ticket_map_discrepancies(keys, _corrupt(ref, how), ref) > 0
+
+
 # -- segment kernel ----------------------------------------------------------
 
 
