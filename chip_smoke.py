@@ -25,7 +25,13 @@ Four phases, each of which fails the run:
    each held by ``ticket_map_discrepancies``.  ``segment_agg``: every
    kind × scatter / onehot over 2^20 rows with tickets of -1 and >= G, and
    every kind (scatter) on a hot key (55% of 2^20 rows, G = 2^14, values
-   with -0.0 and, for min/max, ±inf).
+   with -0.0 and, for min/max, ±inf).  ``scan_ticket`` (the fused kernel's
+   ticket-only mode, the scan route's ticket stage): 2^20 rows of uniform,
+   zipf and heavy-hitter keys in 4096-row morsels, held by
+   ``scan_ticket_discrepancies``; a forced GROW pause (the committed
+   morsels whole, no ticket past the bound) and its replay after growing
+   the bound; an unchecked, saturated table, which must end.  The
+   serialized update's one-thread kernel against its row loop, exactly.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -36,7 +42,14 @@ Four phases, each of which fails the run:
    rule did (3 bound grows, 3 migrations).  The split route
    (``kernel="split"``): the same three classes, a grow stream and low
    with ``update="onehot"``, with the host-side merge timed apart from the
-   kernels.  Every stream sets the
+   kernels.  The scan route (``kernel="off"``: ``scan_ticket`` + the
+   update strategies of ``core/updates.py``; ``kernel="scan_body"``:
+   ``scan_ticket`` + the segment kernel): low, high, unique and a grow
+   stream off; low, high and unique scan_body (a RAISE stream makes one
+   ticket launch per chunk and, scan_body, one segment launch per plane
+   and chunk); ``update="onehot"`` on low, ``"sort_segment"`` on high, an
+   unchecked stream on low; and on 2^16 rows only, ``pipeline="host"``
+   (scan_body) and ``update="serialized"``.  Every stream sets the
    launch counts to 0 just before it and reads them just after.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
@@ -54,7 +67,11 @@ Four phases, each of which fails the run:
    mode the sample chooses beside tile mode, forced by one morsel of EMPTY
    rows).  Both
    routes run on the same chunks, and the fused time is printed beside the
-   ticket kernel's.
+   ticket kernel's.  ``scan_ticket`` is timed on the same chunks (4096-row
+   morsels, the bound of the class's stream), beside its plain version,
+   its bytes bound and ``torch.unique(return_inverse=True)``, and held
+   against its plain version on each; the serialized kernel on one chunk
+   of its stream (8192 rows), beside ``index_add_``.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -76,7 +93,8 @@ SRC = os.path.join(HERE, "src")
 M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
-KERNELS = ("fused_groupby", "ticket_hash", "segment_agg")
+KERNELS = ("fused_groupby", "ticket_hash", "segment_agg")  # CUDA sources
+SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
 SUM_RTOL = 1e-4                 # |Δsum| ≤ SUM_RTOL · Σ|v| over the group
@@ -481,6 +499,124 @@ def phase2_split(th, sa, gen, device, n=1 << 20, sat_rows=1 << 13):
     return max_err
 
 
+def scan_pair(fk, tk, keys, rows, cap, g, **kw):
+    """One ``scan_ticket`` launch and its plain version, each from a fresh
+    table of ``cap`` slots and bound ``g``, over ``keys`` in morsels of
+    ``rows``: (km, [(tickets, table, todo, info, events), ...], seconds
+    of each on the host clock), kernel first."""
+    import torch
+
+    km = keys.to(torch.int32).reshape(-1, rows).contiguous()
+    out, secs = [], []
+    for fn in (fk.scan_ticket, fk.scan_ticket_plain):
+        t = tk.make_table(cap, g, device=km.device)
+        todo = torch.ones(km.shape[0], dtype=torch.int32, device=km.device)
+        ev = torch.zeros(14, dtype=torch.int32, device=km.device)
+        (tickets, info), sec = timed(fn, t, km, todo, events=ev, **kw)
+        secs.append(sec)
+        out.append((tickets, t, todo, info, ev))
+    return km, out, secs
+
+
+def check_scan_events(kev, pev, sat, label):
+    """Committed-morsel events of two launches that commit every morsel:
+    morsels, rows, masked rows and pauses exact, saturations unless the
+    table saturated, the histogram summing to the rows."""
+    import torch
+
+    exact = [0, 1, 2, 5] + ([] if sat else [4])
+    check(torch.equal(kev[exact].cpu(), pev[exact].cpu()),
+          f"{label}: events differ {kev.tolist()} vs {pev.tolist()}")
+    check(int(kev[6:].sum()) == int(kev[1]), f"{label}: histogram does not sum to the rows")
+
+
+def phase2_scan(fk, sa, gen, device, n=1 << 20):
+    """The scan route's kernels vs their plain versions on the card: the
+    ticket stage (``scan_ticket``, the fused kernel's ticket-only mode)
+    and the serialized update's one-thread kernel.  Returns the largest
+    discrepancy of each."""
+    import torch
+
+    from repro_torch.core import resize
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core.hashing import table_capacity
+
+    worst = {"scan_ticket": 0, "segment_agg_serialized": 0.0}
+    for dist in ("uniform", "zipf", "heavy"):
+        keys = gen_keys(n, "high", dist, gen, device).to(torch.int32)
+        keys[:777] = -1  # EMPTY rows
+        g = int(torch.unique(keys[keys != -1]).numel())
+        c = table_capacity(g)
+        km, (k, p), (k_s, _) = scan_pair(fk, tk, keys, SCAN_M, c, g, checked=True,
+                                    threshold=c // 2, collect_events=True)
+        label = f"phase2 scan_ticket {dist}"
+        check(torch.equal(k[3], p[3]), f"{label}: info differs {k[3].tolist()} vs {p[3].tolist()}")
+        check(not bool(k[2].any()) and fk.scan_ticket.grid[1] > 1,
+              f"{label}: morsels left todo or one CTA")
+        check_scan_events(k[4], p[4], False, label)
+        bad = fk.scan_ticket_discrepancies(km, k[:2], p[:2])
+        check(bad == 0, f"{label}: {bad} discrepancies from the plain version's ticket map")
+        log(f"{label}: rows={n} groups={g} capacity={c} grid {fk.scan_ticket.grid} "
+            f"kernel {k_s * 1e3:.2f} ms (host clock, first call), 0 discrepancies ok")
+
+    # a GROW bound of half the keys: pause partway, replay after the grow
+    keys = gen_keys(n, "high", "uniform", gen, device)
+    d = int(torch.unique(keys).numel())
+    g1 = d // 2
+    c = table_capacity(4 * g1)
+    kw = dict(checked=True, grow_bound=True, threshold=c // 2, collect_events=True)
+    km, (k, p), _ = scan_pair(fk, tk, keys, SCAN_M, c, g1, bound_slack=g1 - SCAN_M, **kw)
+    ends = []
+    for label, fn, (tickets, t, todo, info, ev) in (("kernel", fk.scan_ticket, k),
+                                                   ("plain", fk.scan_ticket_plain, p)):
+        left = todo.bool()
+        check(int(info[0, fk.INFO_HALTED]) == 1 and 0 < int(left.sum()) < km.shape[0],
+              f"phase2 scan pause {label}: no halt partway, info {info.tolist()}")
+        check(int(t.count) <= g1, f"phase2 scan pause {label}: tickets past G={g1}")
+        check(bool((tickets[left] == -1).all()) and bool((tickets[~left] >= 0).all()),
+              f"phase2 scan pause {label}: a morsel committed in part")
+        committed = int((~left).sum())
+        t2 = resize.grow_bound(t, 4 * g1)
+        t2b, info2 = fn(t2, km, todo, bound_slack=4 * g1 - SCAN_M, events=ev, **kw)
+        check(int(info2[0, fk.INFO_HALTED]) == 0 and int(t2.count) == d,
+              f"phase2 scan resume {label}: info {info2.tolist()}, {d} keys")
+        check(int(ev[1]) == n, f"phase2 scan resume {label}: rows counted {int(ev[1])} != {n}")
+        ends.append((torch.where(t2b >= 0, t2b, tickets), t2))
+        log(f"phase2 scan pause {label}: {committed}/{km.shape[0]} morsels committed with "
+            f"{g1} of {d} groups allowed, replayed after growing to {4 * g1} ok")
+    bad = fk.scan_ticket_discrepancies(km, ends[0], ends[1])
+    check(bad == 0, f"phase2 scan resume: {bad} discrepancies")
+
+    # unchecked against a saturated table: must end
+    keys = torch.randint(0, 4096, (1 << 13,), generator=gen, device=device)
+    km, (k, p), (k_s, _) = scan_pair(fk, tk, keys, 1024, 1024, 4096, checked=False,
+                                collect_events=True)
+    check(int(k[1].count) == 1024 and int(k[3][0, fk.INFO_SAT]) == 1 and not bool(k[2].any()),
+          f"phase2 scan saturated: expected a full table, every morsel committed, "
+          f"info {k[3].tolist()}")
+    check_scan_events(k[4], p[4], True, "phase2 scan saturated")
+    bad = fk.scan_ticket_discrepancies(km, k[:2], p[:2], full=True)
+    check(bad == 0, f"phase2 scan saturated: {bad} discrepancies")
+    log(f"phase2 scan saturated: 8192 rows, ≈4096 keys, 1024 slots -> count 1024, "
+        f"unresolved {int((k[0] < 0).sum())}, kernel ended in {k_s:.3f} s ok")
+
+    # the serialized update: one thread, rows in order, against its row loop
+    t = torch.randint(-1, 3100, (1 << 14,), generator=gen, device=device, dtype=torch.int32)
+    v = torch.randn(1 << 14, generator=gen, device=device)
+    for kind in KINDS4:
+        acc = torch.full((3000,), float("inf") if kind == "min" else
+                         float("-inf") if kind == "max" else 0.0, device=device)
+        want = sa.serialized_agg_plain(acc.cpu().clone(), t.cpu(), v.cpu(), kind=kind)
+        got = sa.serialized_agg(acc, t, v, kind=kind).cpu()
+        d = (got - want).abs()
+        d = d[torch.isfinite(d)]
+        err = float(d.max()) if d.numel() else 0.0
+        check(torch.equal(got, want), f"phase2 serialized {kind}: differs from the row loop")
+        worst["segment_agg_serialized"] = max(worst["segment_agg_serialized"], err)
+        log(f"phase2 serialized {kind}: 16384 rows, G=3000, exact ok")
+    return worst
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
@@ -496,8 +632,25 @@ def read_launches(kmods) -> dict:
     return {name: getattr(mod, fn).launches for name, (mod, fn) in kmods.items()}
 
 
+SCAN_KERNELS = (None, "off", "scan_body")
+
+
+def stream_path(kernel, update, pipeline):
+    """The kernels a stream must launch (each at least once)."""
+    if kernel == "fused":
+        return ("fused_groupby",)
+    if kernel == "split":
+        return ("ticket_hash", "segment_agg")
+    path = () if pipeline == "host" else ("scan_ticket",)
+    if kernel == "scan_body":
+        path += ("segment_agg",)
+    elif update == "serialized":
+        path += ("segment_agg_serialized",)
+    return path
+
+
 def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs=1,
-               kernel="fused", update=None, chunks=8):
+               kernel="fused", update=None, chunks=8, pipeline="scan"):
     """One stream of the main path through the plan API, held to the
     oracle.  The launch counts are set to 0 just before it and read just
     after; the split route's host-side merge is timed apart (synchronized
@@ -511,7 +664,8 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
         saturation=saturation, raw_keys=True,
         execution=api.ExecutionPolicy(kernel=kernel, morsel_size=M,
                                       kernel_programs=programs, instrument=True,
-                                      update=update, device=device.type),
+                                      update=update, device=device.type,
+                                      pipeline=pipeline),
     )
     n = keys.shape[0]
     step = n // chunks
@@ -564,13 +718,14 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
     c64 = o["count"].double()
     d_mean = (out["mean(v)"][:ng][order].double() - o["sum"] / c64).abs()
     check(bool((d_mean <= tol / c64).all()), f"{name}: MEAN outside tolerance")
-    path = ("fused_groupby",) if kernel == "fused" else ("ticket_hash", "segment_agg")
+    path = stream_path(kernel, update, pipeline)
     for k in path:
         check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
-    for k in set(KERNELS) - set(path):
+    for k in set(kmods) - set(path):
         check(launches[k] == 0, f"{name}: the {k} kernel ran on the {kernel} route")
     rec = {
-        "stream": name, "kernel": kernel, "update": update, "rows": n, "chunks": chunks,
+        "stream": name, "kernel": kernel, "update": update, "pipeline": pipeline,
+        "rows": n, "chunks": chunks,
         "groups": g, "max_groups": max_groups, "saturation": saturation,
         "programs": programs, "wall_s": wall, "rows_per_s": n / wall,
         "max_memory_allocated": peak, "launches": launches,
@@ -588,6 +743,20 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
             check(launches["fused_groupby"] == chunks and dev["pauses"] == 0,
                   f"{name}: a RAISE stream paused ({launches['fused_groupby']} launches "
                   f"for {chunks} chunks, {dev['pauses']} pauses)")
+    elif kernel in SCAN_KERNELS:
+        planes = len(ex._op._state.specs)
+        rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
+                   table_capacity=dev["table_capacity"], pauses=dev["pauses"],
+                   planes=planes, grid=list(kmods["scan_ticket"][0].scan_ticket.grid or ()))
+        if saturation == "raise" and pipeline == "scan":
+            # no pause: one ticket launch per chunk, one update per plane
+            check(launches["scan_ticket"] == chunks and dev["pauses"] == 0,
+                  f"{name}: {launches['scan_ticket']} ticket launches for {chunks} chunks, "
+                  f"{dev['pauses']} pauses")
+            if kernel == "scan_body":
+                check(launches["segment_agg"] == planes * chunks,
+                      f"{name}: {launches['segment_agg']} segment launches for {planes} "
+                      f"planes x {chunks} chunks")
     else:
         rec.update(merge_s=merge["s"], merges=merge["calls"], relaunches=ex.relaunches,
                    bound_grows=ex.bound_grows, capacity_grows=ex.capacity_grows,
@@ -635,6 +804,44 @@ def phase3(kmods, api, gen, device, n=1 << 24):
                            saturation="raise", programs=132))
     recs.append(run_stream(kmods, api, "split_low_onehot", low, vals, max_groups=1024,
                            saturation="raise", kernel="split", update="onehot"))
+    recs += phase3_scan(kmods, api, gen, device, low, vals, n)
+    return recs
+
+
+def phase3_scan(kmods, api, gen, device, low, vals, n):
+    """The scan route's streams (kernel "off" and "scan_body")."""
+    recs = []
+    for kernel, prefix in (("off", "scan_"), ("scan_body", "body_")):
+        recs.append(run_stream(kmods, api, prefix + "low", low, vals, max_groups=1024,
+                               saturation="raise", kernel=kernel))
+    recs.append(run_stream(kmods, api, "scan_low_onehot", low, vals, max_groups=1024,
+                           saturation="raise", kernel="off", update="onehot"))
+    recs.append(run_stream(kmods, api, "scan_low_unchecked", low, vals, max_groups=1024,
+                           saturation="unchecked", kernel="off"))
+    small = 1 << 16
+    recs.append(run_stream(kmods, api, "body_low_host", low[:small], vals[:small],
+                           max_groups=1024, saturation="raise", kernel="scan_body",
+                           pipeline="host"))
+    recs.append(run_stream(kmods, api, "scan_low_serialized", low[:small], vals[:small],
+                           max_groups=1024, saturation="raise", kernel="off",
+                           update="serialized"))
+    high = gen_keys(n, "high", "zipf", gen, device)
+    for kernel, prefix in (("off", "scan_"), ("scan_body", "body_")):
+        recs.append(run_stream(kmods, api, prefix + "high", high, vals, max_groups=n // 10,
+                               saturation="raise", kernel=kernel))
+    recs.append(run_stream(kmods, api, "scan_high_sort", high, vals, max_groups=n // 10,
+                           saturation="raise", kernel="off", update="sort_segment"))
+    del high
+    uniq = gen_keys(n, "unique", "uniform", gen, device)
+    for kernel, prefix in (("off", "scan_"), ("scan_body", "body_")):
+        recs.append(run_stream(kmods, api, prefix + "unique", uniq, vals, max_groups=n,
+                               saturation="raise", kernel=kernel))
+    del uniq
+    high_u = gen_keys(n, "high", "uniform", gen, device)
+    rec = run_stream(kmods, api, "scan_high_grow", high_u, vals, max_groups=n >> 8,
+                     saturation="grow", kernel="off")
+    check(rec["bound_grows"] >= 2, f"scan_high_grow: {rec['bound_grows']} bound grows")
+    recs.append(rec)
     return recs
 
 
@@ -1032,6 +1239,93 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
     }
 
 
+def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class, reps=5):
+    """``scan_ticket`` on one main-path chunk of each class (4096-row
+    morsels, the bound and capacity of the class's stream, RAISE, events
+    on, as the scan executor launches it), CUDA events from a fresh table
+    each time, beside its plain version, its bytes bound,
+    ``torch.unique(return_inverse=True)``, and the fused and ticket
+    kernels on the same chunk; held against its plain version on each.
+    Then the serialized kernel on one chunk of its stream (8192 rows)."""
+    import torch
+
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core.hashing import table_capacity
+
+    out, worst = {}, 0
+    for name, (keys, g) in classes.items():
+        k32 = keys.to(torch.int32)
+        rows = k32.numel()
+        km = k32.reshape(-1, SCAN_M).contiguous()
+        cap = table_capacity(g)
+        d = int(torch.unique(k32).numel())
+        fresh = tk.make_table(cap, g, device=device)
+        work = tk.TicketTable(*(t.clone() for t in fresh))
+        todo = torch.ones(km.shape[0], dtype=torch.int32, device=device)
+        ev = torch.zeros(14, dtype=torch.int32, device=device)
+        kw = dict(checked=True, grow_bound=False, threshold=cap // 2,
+                  bound_slack=g - SCAN_M, collect_events=True, events=ev)
+
+        def reset():
+            for w, f in zip(work, fresh):
+                w.copy_(f)
+            todo.fill_(1)
+
+        ms = time_cuda(lambda: fk.scan_ticket(work, km, todo, **kw), reps, reset)
+        grid = list(fk.scan_ticket.grid)
+        lib_ms = time_cuda(lambda: torch.unique(k32, return_inverse=True), reps)
+        km_, (k, p), (_, p_s) = scan_pair(fk, tk, k32, SCAN_M, cap, g, checked=True,
+                                          threshold=cap // 2, bound_slack=g - SCAN_M,
+                                          collect_events=True)
+        bad = fk.scan_ticket_discrepancies(km_, k[:2], p[:2])
+        check(bad == 0 and not bool(k[2].any()),
+              f"phase4 scan_ticket {name}: {bad} discrepancies")
+        worst = max(worst, bad)
+        del k, p, work
+        # keys read once, tickets written once, and per distinct key its
+        # slot (key + ticket) and key_by_ticket entry written once
+        b_ms = (8 * rows + 12 * d) / HBM_BYTES_PER_S * 1e3
+        out[name] = {"kernel_ms": ms, "plain_ms": p_s * 1e3, "bound_ms": b_ms,
+                     "bound_by": "bytes", "library_ms": lib_ms, "discrepancies": bad,
+                     "rows": rows, "groups": d, "max_groups": g, "capacity": cap,
+                     "grid": grid, "fused_ms": fused_per_class[name]["kernel_ms"],
+                     "ticket_hash_ms": split_per_class[name]["ticket"]["kernel_ms"]}
+        log(f"phase4 scan_ticket {name}: kernel {ms:.4f} ms for {rows} rows in {km.shape[0]} "
+            f"morsels (grid {grid[0]} CTAs), bound {b_ms:.4f} ms, torch.unique "
+            f"{lib_ms:.4f} ms, plain {p_s * 1e3:.1f} ms; same chunk: fused "
+            f"{out[name]['fused_ms']:.4f} ms, ticket_hash {out[name]['ticket_hash_ms']:.4f} ms; "
+            f"0 discrepancies ok")
+    log("phase4 scan " + json.dumps(out))
+    # the serialized update on one chunk of its stream: 8192 rows, G = 1024
+    rows = 8192
+    t = classes["low"][0][:rows].to(torch.int32)
+    v = vals[:rows].contiguous()
+    acc = torch.zeros(1024, device=device)
+    s_ms = time_cuda(lambda: sa.serialized_agg(acc, t, v, kind="sum"), reps,
+                     lambda: acc.zero_())
+    acc.zero_()
+    want, p_s = timed(sa.serialized_agg_plain, acc.cpu().clone(), t.cpu(), v.cpu(), kind="sum")
+    got = sa.serialized_agg(acc, t, v, kind="sum").cpu()
+    check(torch.equal(got, want), "phase4 serialized: differs from the row loop")
+    idx = t.long()
+    lib = time_cuda(lambda: torch.zeros(1024, device=device).index_add_(0, idx, v), reps)
+    # one dependent read-modify-write a row, ~0.5 µs of L2 latency each:
+    # the bytes bound (tickets and values read, accumulator written) is printed
+    ser = {"ms": s_ms, "plain_ms": p_s * 1e3, "library_ms": lib,
+           "bound_ms": (8 * rows + 4 * 1024) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "max_abs_err": 0.0, "rows": rows}
+    log(f"phase4 serialized: {s_ms:.4f} ms for {rows} rows (one thread), index_add_ "
+        f"{lib:.4f} ms, plain {p_s * 1e3:.1f} ms, bound {ser['bound_ms']:.5f} ms, exact ok")
+    high = out["high"]
+    return {
+        "scan_ticket": {"ms": high["kernel_ms"], "plain_ms": high["plain_ms"],
+                        "bound_ms": high["bound_ms"], "bound_by": "bytes",
+                        "library_ms": high["library_ms"], "max_abs_err": worst},
+        "segment_agg_serialized": ser,
+        "scan_per_class": out,
+    }
+
+
 def toolchain(build):
     import torch
 
@@ -1065,7 +1359,8 @@ def main(argv=None) -> int:
 
     # name → (module, wrapper) whose ``launches`` counts that kernel
     kmods = {"fused_groupby": (fk, "fused_consume"), "ticket_hash": (th, "ticket_hash"),
-             "segment_agg": (sa, "segment_agg")}
+             "segment_agg": (sa, "segment_agg"), "scan_ticket": (fk, "scan_ticket"),
+             "segment_agg_serialized": (sa, "serialized_agg")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -1089,12 +1384,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     max_err = phase2(fk, gen, device)
     split_err = phase2_split(th, sa, gen, device)
+    split_err.update(phase2_scan(fk, sa, gen, device))
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
     t0 = time.perf_counter()
     recs = phase3(kmods, api, gen, device)
-    launches = {k: sum(r["launches"][k] for r in recs) for k in KERNELS}
+    launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
     log("== phase 4: timing")
@@ -1103,6 +1399,8 @@ def main(argv=None) -> int:
     timing = {"fused_groupby": phase4(fk, chunk_classes, chunk_vals, device)}
     block_sweep(fk, chunk_classes, chunk_vals, device)
     timing.update(phase4_split(th, sa, chunk_classes, chunk_vals, device))
+    timing.update(phase4_scan(fk, sa, chunk_classes, chunk_vals, device,
+                              timing["fused_groupby"]["per_class"], timing["per_class"]))
     for name in chunk_classes:
         f_ms = timing["fused_groupby"]["per_class"][name]["kernel_ms"]
         t_ms = timing["per_class"][name]["ticket"]["kernel_ms"]
@@ -1114,13 +1412,17 @@ def main(argv=None) -> int:
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
+    # the scan route's two kernels replace plain jnp, not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
-                "segment_agg": "src/repro/kernels/segment_agg.py:103"}
+                "segment_agg": "src/repro/kernels/segment_agg.py:103",
+                "scan_ticket": "src/repro/engine/groupby.py:144",
+                "segment_agg_serialized": "src/repro/core/updates.py:226"}
+    source = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/csrc/{name}.cu",
+        "source": f"src/repro_torch/csrc/{source.get(name, name)}.cu",
         "replaces": replaces[name],
         "launches": launches[name],
         "max_abs_err": timing[name]["max_abs_err"],
@@ -1129,7 +1431,7 @@ def main(argv=None) -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name in KERNELS]
+    } for name in kmods]
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

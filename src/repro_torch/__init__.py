@@ -2,11 +2,12 @@
 
 The package mirrors ``src/repro/`` module for module (``core/``,
 ``engine/``, ``kernels/``, ``obs/``, ``data/``) and imports neither JAX nor
-anything of ``repro``.  Its first slice is the production route
-``GroupByPlan(strategy="concurrent", execution=ExecutionPolicy(
-kernel="fused"))``: a stream of chunks through one carried hash table and
-its accumulators, ticketed and aggregated by a hand-written Hopper kernel
-(``csrc/fused_groupby.cu``).
+anything of ``repro``.  It runs ``GroupByPlan(strategy="concurrent")``
+with hash ticketing and an explicit ``max_groups`` on three routes: the
+fused kernel (``kernel="fused"``, ``csrc/fused_groupby.cu``), the split
+ticket + segment kernels (``kernel="split"``), and the scan route
+(``kernel`` None / "off" / "scan_body": the fused kernel's ticket-only
+mode, then the update strategies or the segment kernel per plane).
 
 Conventions that differ from the JAX package:
 

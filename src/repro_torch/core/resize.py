@@ -74,3 +74,11 @@ def grow_bound(
 def table_nbytes(table: tk.TicketTable) -> int:
     """Device bytes one ticket table holds."""
     return int(sum(t.numel() * t.element_size() for t in table))
+
+
+def maybe_resize(table: tk.TicketTable, load_factor: float = 0.5) -> tk.TicketTable:
+    """Host-side growth check between morsels (the host pipeline's resize
+    point): double the capacity once the count passes the load factor."""
+    if int(table.count) > load_factor * table.capacity:
+        return migrate(table, 2 * table.capacity)
+    return table

@@ -8,8 +8,11 @@ ticket range ``count + 1 + rank`` ranked by a cumulative sum.  PyTorch has
 no ``mode="drop"`` scatter, so lanes that do not claim park on one extra
 slot ``C`` of the claim vector.
 
-The merge of per-program fused tables and the migration of a grown table
-use it; the hot path tickets inside the fused kernel.  Tickets are
+The merge of per-program fused tables, the migration of a grown table and
+the scan route's host pipeline use it; the hot paths ticket inside the
+kernels.  :func:`sort_ticketing` (no hash table; the oracle's ticketer) and
+:func:`direct_ticketing` (ticket == key for a bounded domain) are the
+reference's two other ticketers.  Tickets are
 **1-based** in the table (0 = empty), 0-based at the API (-1 = sentinel or
 unresolved), as in the reference.
 """
@@ -125,6 +128,46 @@ def get_or_insert(table: TicketTable, keys: torch.Tensor, *, seed: int = 0,
     if count_probes:
         return tickets, new_table, probe_len.reshape(keys.shape)
     return tickets, new_table
+
+
+def sort_ticketing(keys: torch.Tensor):
+    """Sort-based ticketing (no hash table): sort the keys as unsigned
+    32-bit values, mark each first of a run, ticket = prefix count - 1.
+    Returns ``(tickets, key_by_ticket, count)``: int32 tickets (-1 for
+    sentinel rows, which sort last), ``(n,)`` int32 key bit patterns in
+    ticket order (EMPTY_I32 past the count) and a 0-d int32 count."""
+    flat = keys.reshape(-1).to(torch.int32)
+    n = flat.shape[0]
+    dev = flat.device
+    u = flat.to(torch.int64) & 0xFFFFFFFF
+    order = torch.argsort(u, stable=True)
+    su = u[order]
+    valid = su != (EMPTY_I32 & 0xFFFFFFFF)
+    first = torch.ones((n,), dtype=torch.bool, device=dev)
+    first[1:] = su[1:] != su[:-1]
+    is_new = valid & first
+    ticket_s = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    count = is_new.sum().to(torch.int32)
+    tickets = torch.empty((n,), dtype=torch.int32, device=dev)
+    tickets[order] = torch.where(valid, ticket_s, torch.full_like(ticket_s, -1)).to(torch.int32)
+    key_by_ticket = torch.full((n,), EMPTY_I32, dtype=torch.int32, device=dev)
+    if n:
+        slot = torch.where(is_new, ticket_s, torch.full_like(ticket_s, n - 1))
+        key_by_ticket[slot] = torch.where(is_new, flat[order],
+                                          torch.full_like(flat, EMPTY_I32))
+    return tickets.reshape(keys.shape), key_by_ticket, count
+
+
+def direct_ticketing(keys: torch.Tensor, domain: int):
+    """Perfect-hash ticketing for a bounded key domain: ticket == key for
+    keys in ``[0, domain)`` (int32 bit patterns, so keys of 2^31 and up
+    are negative and out of it), -1 otherwise.  Returns ``(tickets,
+    key_by_ticket, count)`` with ``key_by_ticket = arange(domain)``."""
+    flat = keys.reshape(-1).to(torch.int32)
+    tickets = torch.where((flat >= 0) & (flat < domain), flat, torch.full_like(flat, -1))
+    key_by_ticket = torch.arange(domain, dtype=torch.int32, device=flat.device)
+    count = torch.tensor(domain, dtype=torch.int32, device=flat.device)
+    return tickets.reshape(keys.shape), key_by_ticket, count
 
 
 def lookup(table: TicketTable, keys: torch.Tensor, *, seed: int = 0) -> torch.Tensor:

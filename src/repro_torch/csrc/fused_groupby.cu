@@ -59,6 +59,19 @@
 //     when more than half full and when the CTA ends, so a hot key costs
 //     one device atomic per CTA-flush instead of one per row.  A row whose
 //     ticket finds no slot within kLocalProbes folds at device scope.
+//
+// Ticket-only mode (`scan_ticket_launch`, the kTicketOnly instantiation):
+// the ticket stage of the scan route (ExecutionPolicy.kernel "off" /
+// "scan_body").  Its reference is no Pallas kernel but plain jnp under
+// jax.lax.scan (src/repro/engine/groupby.py:144, make_pause_scan_body's
+// get_or_insert); on the card it is this kernel's morsel loop with S = 0
+// accumulator planes, P = 1 and no fold table, that writes each row's
+// 0-based ticket for the morsels this launch commits and -1 for every
+// other row (padding, morsels skipped or paused, a morsel that saturated
+// under `checked` even though some of its keys were inserted).  Rows need
+// no shared memory here, so a morsel may have any number of rows.  The
+// fused instantiation compiles as before: every ticket-only branch is an
+// `if constexpr`.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -145,6 +158,7 @@ __device__ __forceinline__ bool reserve(int* reserved, const int* count, int M, 
   }
 }
 
+template <bool kTicketOnly>
 __global__ void __launch_bounds__(1024) fused_groupby_kernel(
     const int* __restrict__ keys,      // (P*npm, M)
     const float* __restrict__ values,  // (V, P*npm, M)
@@ -157,6 +171,7 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
     int* events,                       // (P, kEventVecLen)
     int* __restrict__ info,            // (P, kInfoLen)
     int* scratch,                      // (P, kScratch)
+    int* __restrict__ out_tickets,     // ticket-only: (P*npm, M) 0-based or -1
     Specs specs, int P, int cpp, int npm, int M, int C, int G, int H,
     int checked, int grow_bound, int threshold, int bound_slack,
     int collect_events) {
@@ -177,9 +192,11 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
   int* ptodo = todo + static_cast<size_t>(p) * npm;
   const size_t plane_rows = static_cast<size_t>(P) * npm * M;
 
-  for (int h = tid; h < H; h += nthreads) {
-    s_hkey[h] = 0;
-    for (int s = 0; s < specs.n; ++s) s_hacc[s * H + h] = neutral(specs.kind[s]);
+  if constexpr (!kTicketOnly) {
+    for (int h = tid; h < H; h += nthreads) {
+      s_hkey[h] = 0;
+      for (int s = 0; s < specs.n; ++s) s_hacc[s * H + h] = neutral(specs.kind[s]);
+    }
   }
   if (tid == 0) s_entries = 0;
   if (tid < kThreadSums) s_ev[tid] = 0;
@@ -217,8 +234,13 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
     const int i = s_i, st = s_state;
     __syncthreads();  // every thread read s_i / s_state before the next write
     if (st == kEnd) break;
-    if (st == kSkip || st == kPause) continue;
     const size_t row0 = (static_cast<size_t>(p) * npm + i) * M;
+    if (st == kSkip || st == kPause) {
+      if constexpr (kTicketOnly) {
+        for (int r = tid; r < M; r += nthreads) out_tickets[row0 + r] = -1;
+      }
+      continue;
+    }
 
     // -- phase 1: ticket every row of the morsel ------------------------
     int unresolved = 0;
@@ -242,17 +264,27 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
 #pragma unroll
         for (int b = 0; b < kHistBuckets; ++b) mine[3 + b] += (bucket == b);
       }
-      s_ticket[r] = ticket;
+      if constexpr (kTicketOnly) {
+        out_tickets[row0 + r] = ticket - 1;
+      } else {
+        s_ticket[r] = ticket;
+      }
     }
     const int sat = __syncthreads_or(unresolved);
     if (tid == 0 && st == kRunReserved) atomicSub(sc + kReserved, M - s_issued);
     if (sat) ++n_saturations;
-    if (checked && sat) continue;  // inserts stay, updates dropped, still todo
+    if (checked && sat) {  // inserts stay, updates dropped, still todo
+      if constexpr (kTicketOnly) {
+        for (int r = tid; r < M; r += nthreads) out_tickets[row0 + r] = -1;
+      }
+      continue;
+    }
 
     // -- phase 2: fold the committed morsel through the shared table ------
     ++n_morsels;
 #pragma unroll
     for (int j = 0; j < kThreadSums; ++j) sums[j] += mine[j];
+    if constexpr (!kTicketOnly) {
     for (int r = tid; r < M; r += nthreads) {
       const int t = s_ticket[r];
       if (t <= 0 || t > G) continue;  // masked, unresolved, or past the bound
@@ -282,11 +314,14 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
         fold(a, specs.kind[s], v);
       }
     }
+    }  // !kTicketOnly
     if (tid == 0) ptodo[i] = 0;  // committed
     __syncthreads();
-    if (s_entries > H / 2) flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
+    if constexpr (!kTicketOnly) {
+      if (s_entries > H / 2) flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
+    }
   }
-  flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
+  if constexpr (!kTicketOnly) flush_folds(s_hkey, s_hacc, &s_entries, H, specs, accs, P, p, G);
 
   if (collect_events) {
     const int lane = tid & 31;
@@ -340,15 +375,76 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
   }
 }
 
+// Launch one pass of the kernel on `stream` with `threads` threads a CTA:
+// the fused pass (kTicketOnly false, 1..kMaxSpecs accumulator planes) or
+// the ticket-only pass (no planes, `out_tickets` written).  `scratch` is
+// (P, 4) int32: zeros, with column 3 (reserved) holding count.  grid_out
+// gets (CTAs, CTAs per program).  Returns a cudaError_t (cudaSuccess =
+// launched).  The caller checks shapes, types and devices.
+template <bool kTicketOnly>
+cudaError_t launch(const void* keys, const void* values, void* todo, void* tkeys, void* ttks,
+                   void* kbt, void* accs, void* count, void* events, void* info,
+                   void* scratch, void* out_tickets, const int* spec_planes,
+                   const int* spec_kinds, int num_specs, int P, int npm, int M, int C, int G,
+                   int checked, int grow_bound, int threshold, int bound_slack,
+                   int collect_events, int threads, int* grid_out, void* stream) {
+  const bool specs_ok = kTicketOnly ? num_specs == 0 && out_tickets != nullptr
+                                    : num_specs >= 1 && num_specs <= kMaxSpecs;
+  if (!specs_ok || P < 1 || M < 1 || C < 1 || (C & (C - 1)) != 0 || npm < 0 ||
+      threads < 32 || threads > 1024 || threads % 32 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  Specs specs;
+  specs.n = num_specs;
+  for (int s = 0; s < kMaxSpecs; ++s) {
+    specs.plane[s] = s < num_specs ? spec_planes[s] : -1;
+    specs.kind[s] = s < num_specs ? spec_kinds[s] : kSum;
+  }
+  // the fold table: a power of two of slots, S + 1 ints each; the
+  // ticket-only pass keeps neither it nor a ticket per row in shared memory
+  int H = 0;
+  size_t smem = 0;
+  if (!kTicketOnly) {
+    H = kMaxFoldSlots;
+    while (H > 32 && static_cast<size_t>(H) * (num_specs + 1) * 4 > kFoldBytes) H /= 2;
+    smem = (static_cast<size_t>(M) + static_cast<size_t>(H) * (num_specs + 1)) * sizeof(int);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fused_groupby_kernel<kTicketOnly>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_groupby_kernel<kTicketOnly>, threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int cpp = sms * per_sm / P;
+  if (cpp > npm) cpp = npm;
+  if (cpp < 1) cpp = 1;
+  grid_out[0] = P * cpp;
+  grid_out[1] = cpp;
+  fused_groupby_kernel<kTicketOnly>
+      <<<P * cpp, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(keys), static_cast<const float*>(values),
+          static_cast<int*>(todo), static_cast<int*>(tkeys), static_cast<int*>(ttks),
+          static_cast<int*>(kbt), static_cast<float*>(accs), static_cast<int*>(count),
+          static_cast<int*>(events), static_cast<int*>(info), static_cast<int*>(scratch),
+          static_cast<int*>(out_tickets), specs, P, cpp, npm, M, C, G, H, checked,
+          grow_bound, threshold, bound_slack, collect_events);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch one fused GROUP BY pass on `stream` with `threads` threads a CTA.
-// `scratch` is (P, 4) int32: zeros, with column 3 (reserved) holding
-// count.  grid_out gets (CTAs, CTAs per program).  Returns
-// cudaGetLastError() as an int (0 = launched).  The caller checks shapes,
-// types and devices.
+// One fused GROUP BY pass (launch<false>).  Returns cudaGetLastError() as
+// an int (0 = launched).
 int fused_groupby_launch(const void* keys, const void* values, void* todo,
                          void* tkeys, void* ttks, void* kbt, void* accs,
                          void* count, void* events, void* info, void* scratch,
@@ -357,49 +453,25 @@ int fused_groupby_launch(const void* keys, const void* values, void* todo,
                          int checked, int grow_bound, int threshold,
                          int bound_slack, int collect_events, int threads,
                          int* grid_out, void* stream) {
-  if (num_specs < 1 || num_specs > kMaxSpecs || P < 1 || M < 1 || C < 1 ||
-      (C & (C - 1)) != 0 || npm < 0 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Specs specs;
-  specs.n = num_specs;
-  for (int s = 0; s < kMaxSpecs; ++s) {
-    specs.plane[s] = s < num_specs ? spec_planes[s] : -1;
-    specs.kind[s] = s < num_specs ? spec_kinds[s] : kSum;
-  }
-  // the fold table: a power of two of slots, S + 1 ints each
-  int H = kMaxFoldSlots;
-  while (H > 32 && static_cast<size_t>(H) * (num_specs + 1) * 4 > kFoldBytes) H /= 2;
-  const size_t smem = (static_cast<size_t>(M) + static_cast<size_t>(H) * (num_specs + 1)) *
-                      sizeof(int);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_groupby_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_groupby_kernel,
-                                                        threads, smem);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  int cpp = sms * per_sm / P;
-  if (cpp > npm) cpp = npm;
-  if (cpp < 1) cpp = 1;
-  grid_out[0] = P * cpp;
-  grid_out[1] = cpp;
-  fused_groupby_kernel<<<P * cpp, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), static_cast<const float*>(values),
-      static_cast<int*>(todo), static_cast<int*>(tkeys), static_cast<int*>(ttks),
-      static_cast<int*>(kbt), static_cast<float*>(accs), static_cast<int*>(count),
-      static_cast<int*>(events), static_cast<int*>(info), static_cast<int*>(scratch),
-      specs, P, cpp, npm, M, C, G, H, checked, grow_bound, threshold, bound_slack,
-      collect_events);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<false>(
+      keys, values, todo, tkeys, ttks, kbt, accs, count, events, info, scratch, nullptr,
+      spec_planes, spec_kinds, num_specs, P, npm, M, C, G, checked, grow_bound, threshold,
+      bound_slack, collect_events, threads, grid_out, stream));
+}
+
+// One ticket-only pass of the scan route (launch<true>) over npm morsels of
+// M rows against one table: `out_tickets` (npm, M) gets each row's 0-based
+// ticket for the morsels this launch commits and -1 for every other row.
+// Returns cudaGetLastError() as an int (0 = launched).
+int scan_ticket_launch(const void* keys, void* todo, void* tkeys, void* ttks, void* kbt,
+                       void* count, void* events, void* info, void* scratch,
+                       void* out_tickets, int npm, int M, int C, int G, int checked,
+                       int grow_bound, int threshold, int bound_slack, int collect_events,
+                       int threads, int* grid_out, void* stream) {
+  return static_cast<int>(launch<true>(
+      keys, nullptr, todo, tkeys, ttks, kbt, nullptr, count, events, info, scratch,
+      out_tickets, nullptr, nullptr, 0, 1, npm, M, C, G, checked, grow_bound, threshold,
+      bound_slack, collect_events, threads, grid_out, stream));
 }
 
 const char* fused_groupby_error_string(int err) {

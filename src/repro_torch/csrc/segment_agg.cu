@@ -41,6 +41,14 @@
 //     memory, folds its rows with block-scope shared-memory atomics, and
 //     flushes the entries it touched once with device-scope atomics.  It
 //     takes G <= kMaxOnehotGroups (224 KiB of the 227 KiB a block may use).
+//   serialized: one thread folds the rows in row order, each a plain read,
+//     op and write of its accumulator.  It replaces no Pallas kernel: its
+//     reference is core/updates.py `serialized_update`
+//     (src/repro/core/updates.py:226, a jax.lax.fori_loop), the paper's
+//     fine-grained-locking stand-in, which exists to measure what full
+//     serialization costs.  Its bound is latency, one dependent
+//     read-modify-write a row; min / max replace the accumulator only when
+//     v < a (v > a), as the plain row loop does.
 // Float min/max are integer atomics on the bits, split by the sign bit:
 // non-negative floats order like their int bits, negative floats reversed
 // as unsigned bits; correct against the ±inf neutrals and for -0.0.  The
@@ -52,7 +60,7 @@
 namespace {
 
 constexpr int kSum = 0, kCount = 1, kMin = 2, kMax = 3;
-constexpr int kScatter = 0, kOnehot = 1;
+constexpr int kScatter = 0, kOnehot = 1, kSerialized = 2;
 constexpr int kOnehotThreads = 512;
 constexpr unsigned kFull = 0xffffffffu;
 // scatter: rows per thread per tile, and the CTA's fold table (a power of
@@ -269,8 +277,31 @@ __global__ void __launch_bounds__(kOnehotThreads) segment_onehot_kernel(
 }
 
 template <int Kind>
+__global__ void segment_serialized_kernel(const int* __restrict__ tickets,
+                                          const float* __restrict__ values,
+                                          float* __restrict__ acc, long long n, int G) {
+  for (long long r = 0; r < n; ++r) {
+    const int t = tickets[r];
+    if (t < 0 || t >= G) continue;
+    const float v = Kind == kCount ? 1.0f : values[r];
+    float* a = acc + t;
+    if (Kind == kSum || Kind == kCount) {
+      *a = __fadd_rn(*a, v);
+    } else if (Kind == kMin) {
+      if (v < *a) *a = v;
+    } else if (v > *a) {
+      *a = v;
+    }
+  }
+}
+
+template <int Kind>
 cudaError_t launch(int strategy, const int* tickets, const float* values, float* acc,
                    long long n, int G, int dev, int sms, cudaStream_t stream) {
+  if (strategy == kSerialized) {
+    segment_serialized_kernel<Kind><<<1, 1, 0, stream>>>(tickets, values, acc, n, G);
+    return cudaGetLastError();
+  }
   if (strategy == kScatter) {
     // the shared-memory opt-in and the occupancy, once per device
     static int per_sm_of[64];
@@ -324,13 +355,14 @@ cudaError_t launch(int strategy, const int* tickets, const float* values, float*
 extern "C" {
 
 // Launch one fold on `stream`.  `kind`: 0 sum, 1 count, 2 min, 3 max;
-// `strategy`: 0 scatter, 1 onehot.  Returns a cudaError_t as an int
-// (0 = launched).  The caller fills `acc` with the neutral and checks
+// `strategy`: 0 scatter, 1 onehot, 2 serialized.  Returns a cudaError_t as an int
+// (0 = launched).  `acc` holds the accumulators the rows
+// fold into (the kind's neutral for a fresh fold); the caller checks
 // shapes, types and devices.
 int segment_agg_launch(const void* tickets, const void* values, void* acc,
                        long long n, int G, int kind, int strategy, void* stream) {
   if (n < 0 || G < 0 || kind < kSum || kind > kMax ||
-      (strategy != kScatter && strategy != kOnehot) ||
+      (strategy != kScatter && strategy != kOnehot && strategy != kSerialized) ||
       (strategy == kOnehot && G > kMaxOnehotGroups)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,9 +9,16 @@ plus ``consume_async(chunk) → token`` / ``poll(token)`` (the double-
 buffered ingest seam the :class:`StreamHandle` drives) and an idempotent
 ``finalize`` (a mid-stream ``snapshot()``).
 
-The port runs two routes of ``strategy="concurrent"`` with hash ticketing
-so far, each with the raise / grow / unchecked saturation policies:
+The port runs three routes of ``strategy="concurrent"`` with hash
+ticketing and an explicit ``max_groups`` so far, each with the raise /
+grow / unchecked saturation policies:
 
+  * ``kernel`` ∈ {None, "off", "scan_body"} (and the ``use_kernel=True``
+    alias) — :class:`_ScanExecutor`: the scan route's
+    :class:`~repro_torch.engine.groupby.GroupByOperator`, a ticket launch
+    and one update per accumulator plane per chunk against a carried table,
+    with the update strategies of ``core/updates.py`` (``"off"``) or the
+    segment kernel (``"scan_body"``);
   * ``kernel="fused"`` — :class:`_FusedExecutor`: one kernel tickets and
     aggregates against a table carried across chunks, with the §4.4
     pause → grow → resume protocol;
@@ -41,9 +48,11 @@ from repro_torch.core import updates as up
 from repro_torch.core.hashing import EMPTY_I32, table_capacity
 from repro_torch.engine.columns import Table, chunk_key_column
 from repro_torch.engine.groupby import (
+    GroupByOperator,
     GroupByOverflowError,
     build_result_table,
     expand_agg_specs,
+    resolve_device,
 )
 from repro_torch.engine.plan_api import GroupByPlan, SaturationPolicy, value_columns
 from repro_torch.obs import metrics as obs_metrics
@@ -96,12 +105,6 @@ def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
 
 # Where each plan outside the ported slice will be ported (ROADMAP.md,
 # "Modules to port").
-_KERNEL_ITEM = {
-    None: "item 4c (the kernel=None planner with a CUDA-side budget)",
-    "off": "item 4a (the scan route: _ScanExecutor + GroupByOperator)",
-    "scan_body": "item 4a (the scan route: GroupByOperator, which runs "
-                 "ops.make_scan_update_fn as its scan body)",
-}
 _STRATEGY_ITEM = {
     "auto": "item 5 (auto: _ResolvingExecutor and the planner)",
     "hybrid": "item 5 (the other single-device strategies)",
@@ -117,26 +120,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def resolve_device(device: str | None) -> torch.device:
-    """THE device rule: ``None`` → ``"cuda"``; a CUDA device that is not
-    there raises instead of falling back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"ExecutionPolicy.device={device!r} runs on CUDA and no CUDA "
-            "device is available; pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels"
-        )
-    return dev
-
-
 # update strategies of the split route's segment kernel
 _SPLIT_UPDATES = ("scatter", "onehot")
 
 
 def make_executor(plan: GroupByPlan):
-    """Lower a plan to its executor (the fused and split concurrent hash
-    routes are ported; see the module docstring)."""
+    """Lower a plan to its executor (the scan, fused and split concurrent
+    hash routes are ported; see the module docstring)."""
     plan = normalize_kernel(plan)
     ex = plan.execution
     kernel = ex.kernel
@@ -162,8 +152,6 @@ def make_executor(plan: GroupByPlan):
          "item 5 (auto: _ResolvingExecutor and the planner)"),
         (ex.ticketing != "hash", f"ticketing={ex.ticketing!r}",
          "item 5 (_SortExecutor and _DirectExecutor)"),
-        (kernel not in ("fused", "split"), f"kernel={kernel!r}",
-         _KERNEL_ITEM.get(kernel)),
     ):
         if unported:
             raise _not_ported(what, item)
@@ -172,7 +160,9 @@ def make_executor(plan: GroupByPlan):
         plan = replace(plan, saturation=SaturationPolicy.RAISE)
     if kernel == "split":
         return _PallasExecutor(plan, device)
-    return _FusedExecutor(plan, device)
+    if kernel == "fused":
+        return _FusedExecutor(plan, device)
+    return _ScanExecutor(plan, device)
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +283,56 @@ def _overflow_error(count, max_groups) -> GroupByOverflowError:
         "Use SaturationPolicy.GROW, a larger max_groups, or a better "
         "cardinality estimate."
     )
+
+
+# ---------------------------------------------------------------------------
+# concurrent: the scan route (streams natively)
+
+
+class _ScanExecutor(_ExecutorBase):
+    """Strategy ``concurrent`` with hash ticketing and ``kernel`` ∈ {None,
+    "off", "scan_body"}: a thin saturation-policy shell around the scan
+    route's :class:`GroupByOperator`.  Streaming-native, no chunk is
+    retained: ``grow`` rides the operator's in-stream bound growth (pause
+    → widen ``key_by_ticket`` + accumulators → resume at the paused
+    morsel)."""
+
+    strategy_label = "concurrent"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        self._plan = plan
+        p, ex = plan, plan.execution
+        self._op = GroupByOperator(
+            key_columns=list(p.keys), aggs=list(p.aggs), max_groups=p.max_groups,
+            morsel_rows=ex.morsel_rows, update=ex.update or "scatter",
+            use_kernel=ex.kernel == "scan_body", load_factor=ex.load_factor,
+            pipeline=ex.pipeline, capacity=ex.capacity, raw_keys=p.raw_keys,
+            check_overflow=p.saturation != SaturationPolicy.UNCHECKED,
+            grow_bound=p.saturation == SaturationPolicy.GROW,
+            collect_events=_instrument(plan), device=str(device),
+        )
+
+    def consume(self, chunk: Table) -> None:
+        self._op.consume(chunk)
+
+    def consume_async(self, chunk: Table):
+        return self._op.consume_async(chunk)
+
+    def poll(self, token) -> None:
+        self._op.poll(token)
+
+    def finalize(self) -> Table:
+        out = self._op.finalize()
+        self.publish()
+        return out
+
+    def device_table_bytes(self) -> int:
+        return resize.table_nbytes(self._op._table) + sum(
+            _nbytes(a) for a in self._op._state.accs
+        )
+
+    def event_counts(self):
+        return self._op.event_counts() if self._op.collect_events else None
 
 
 # ---------------------------------------------------------------------------

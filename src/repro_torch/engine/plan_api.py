@@ -15,9 +15,11 @@ streaming executor (``open → consume* → finalize``), and
     partial = handle.snapshot()    # idempotent mid-stream materialize
     result = handle.result()       # drain the source, finalize
 
-The port runs the ``kernel="fused"`` concurrent hash route so far; every
-other plan makes ``make_executor`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+The port runs ``strategy="concurrent"`` with hash ticketing and an
+explicit ``max_groups`` on every kernel route (None / "off" / "scan_body":
+the scan route; "split"; "fused"); every other plan makes
+``make_executor`` raise ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.obs import trace
 STRATEGIES = ("auto", "concurrent", "partitioned", "hybrid", "pallas", "sharded")
 
 # THE kernel selector (ExecutionPolicy.kernel), as in the reference:
-# None → planner | off | scan_body | split | fused.  The port runs "fused".
+# None | off | scan_body (the scan route) | split | fused.
 KERNELS = (None, "off", "scan_body", "split", "fused")
 
 
@@ -332,6 +334,14 @@ def value_columns(aggs: Sequence[AggSpec]) -> tuple:
     return tuple(sorted({c for c, _ in expand_agg_specs(aggs) if c is not None}))
 
 
+def as_group_result(out: Table, agg: AggSpec):
+    """The uniform ``Table`` result → the legacy ``GroupByResult`` (keys in
+    ticket order, one aggregate vector, scalar group count)."""
+    from repro_torch.core.aggregation import GroupByResult
+
+    return GroupByResult(out["key"], out[agg.name], out["__num_groups__"][0])
+
+
 def arrays_as_table(keys: torch.Tensor, values: torch.Tensor | None) -> tuple:
     """The array calling convention ``(keys, values?)`` → a (Table,
     value-column-names) pair for a ``raw_keys`` plan; 2-D values become one
@@ -359,6 +369,7 @@ __all__ = [
     "STRATEGIES",
     "StreamHandle",
     "arrays_as_table",
+    "as_group_result",
     "execute",
     "iter_chunks",
     "value_columns",

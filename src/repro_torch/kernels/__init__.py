@@ -5,7 +5,9 @@ ticket_hash — GET_OR_INSERT of a key column against a fresh table
 segment_agg — fold of ticketed rows into a dense accumulator, scatter and
   onehot strategies (``csrc/segment_agg.cu``), the split route's second.
 fused_groupby — ticketing + aggregation in one kernel against a table
-  carried across chunks (``csrc/fused_groupby.cu``, ``kernel="fused"``).
+  carried across chunks (``csrc/fused_groupby.cu``, ``kernel="fused"``),
+  and the same kernel's ticket-only mode ``scan_ticket``, the scan route's
+  ticket stage (``kernel`` None / "off" / "scan_body").
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.
@@ -22,6 +24,7 @@ from repro_torch.kernels.fused_groupby import (
     grow_fused_state,
     init_fused_state,
     merge_fused_state,
+    scan_ticket,
     todo_from_start,
 )
 from repro_torch.kernels.ops import (
@@ -41,6 +44,7 @@ __all__ = [
     "init_fused_state",
     "merge_fused_state",
     "multi_block_ticket",
+    "scan_ticket",
     "segment_aggregate",
     "ticket",
     "todo_from_start",

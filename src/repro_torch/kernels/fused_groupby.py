@@ -29,6 +29,15 @@ SUM within float tolerance, gap-free tickets consistent with
 ``key_by_ticket``, and on the info vector and the event counts (probe steps
 aside: the kernel has no claim rounds) of every launch that commits all its
 morsels.
+
+:func:`scan_ticket` is the scan route's ticket stage: the same kernel's
+morsel loop in its ticket-only mode (S = 0 accumulator planes, one
+program) against a carried :class:`~repro_torch.core.ticketing.
+TicketTable`, updated in place, that writes each row's ticket for the
+morsels it commits and -1 for every other row.  Its plain version is
+:func:`fused_consume_plain` with S = 0 and the same ticket output; the
+per-morsel step of the plain version is the scan route's own
+``engine.groupby.make_pause_scan_body``.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 from repro_torch.core import resize
 from repro_torch.core import ticketing as tk
 from repro_torch.core.hashing import EMPTY_I32, table_capacity, to_i32_bits
+from repro_torch.engine.groupby import make_pause_scan_body, make_unchecked_scan_body
 from repro_torch.obs import metrics as obs_metrics
 
 _NEUTRAL = {"sum": 0.0, "count": 0.0, "min": float("inf"), "max": float("-inf")}
@@ -224,16 +234,22 @@ def todo_from_start(P: int, npm: int, start, device=None) -> torch.Tensor:
     return (i >= start).to(torch.int32).reshape(-1).contiguous()
 
 
-def _check_launch(state: FusedState, keys, values, todo, specs) -> None:
+def _check_launch(state: FusedState, keys, values, todo, specs, tickets_out=None) -> None:
     """Device, dtype, shape and contiguity checks shared by both paths."""
     dev = keys.device
-    for name, t, dtype in (
+    checks = [
         ("keys", keys, torch.int32), ("values", values, torch.float32),
         ("todo", todo, torch.int32), ("tkeys", state.tkeys, torch.int32),
         ("ttks", state.ttks, torch.int32), ("kbt", state.kbt, torch.int32),
         ("accs", state.accs, torch.float32), ("count", state.count, torch.int32),
         ("events", state.events, torch.int32),
-    ):
+    ]
+    if tickets_out is not None:
+        checks.append(("tickets_out", tickets_out, torch.int32))
+        if tickets_out.shape != keys.shape:
+            raise ValueError(f"tickets_out {tuple(tickets_out.shape)} is not the keys' "
+                             f"{tuple(keys.shape)}")
+    for name, t, dtype in checks:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, keys on {dev}")
         if t.dtype != dtype:
@@ -257,7 +273,7 @@ def _check_launch(state: FusedState, keys, values, todo, specs) -> None:
         raise ValueError("inconsistent FusedState / todo shapes")
     if C & (C - 1):
         raise ValueError(f"capacity must be a power of 2, got {C}")
-    if len(specs) != S or not 1 <= S <= MAX_SPECS:
+    if len(specs) != S or not 0 <= S <= MAX_SPECS:
         raise ValueError(f"{len(specs)} specs for {S} accumulator planes (max {MAX_SPECS})")
     for plane, kind in specs:
         if kind not in _KIND_CODE or not -1 <= plane < V:
@@ -303,6 +319,9 @@ def fused_consume(
     P, C = state.tkeys.shape
     S, _, G = state.accs.shape
     _, total, M = values.shape
+    if S == 0:
+        raise ValueError("the fused kernel takes 1..MAX_SPECS accumulator planes; "
+                         "scan_ticket runs its ticket-only mode")
     if M > MAX_MORSEL_ROWS:
         raise ValueError(f"morsel of {M} rows exceeds the kernel's {MAX_MORSEL_ROWS}")
     info = torch.empty((P, INFO_LEN), dtype=torch.int32, device=dev)
@@ -349,6 +368,9 @@ def _kernel_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.fused_groupby_error_string.argtypes = [ctypes.c_int]
         lib.fused_groupby_error_string.restype = ctypes.c_char_p
+        scan = lib.scan_ticket_launch
+        scan.argtypes = [ptr] * 10 + [i32] * 10 + [ints, ptr]
+        scan.restype = ctypes.c_int
     return lib
 
 
@@ -364,82 +386,204 @@ def fused_consume_plain(
     threshold: int = 0,
     bound_slack: int = 0,
     collect_events: bool = False,
+    tickets_out: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the fused kernel: the Pallas kernel's
-    protocol step for step (``core.ticketing.get_or_insert`` claim rounds
-    per morsel), on any device, updating ``state`` and ``todo`` in place.
-    Each program runs its todo morsels in order; at its first pause (or
-    saturation under ``checked``) it leaves that morsel and every later
-    one todo — the kernel's rule with one CTA.  With
-    ``todo_from_start(P, npm, start)`` it matches JAX
-    ``fused_consume(..., start, interpret=True)`` ticket for ticket."""
-    _check_launch(state, keys, values, todo, specs)
+    protocol step for step, on any device, updating ``state`` and ``todo``
+    in place.  Each program runs its todo morsels in order through the scan
+    route's per-morsel body (``engine.groupby.make_pause_scan_body``, or
+    the unchecked body): room check, ``core.ticketing.get_or_insert`` claim
+    rounds, and a fold of the committed rows into the S accumulator planes.
+    At its first pause (or saturation under ``checked``) a program leaves
+    that morsel and every later one todo — the kernel's rule with one CTA.
+    ``tickets_out`` (the keys' shape, filled with -1 by the caller) gets
+    the 0-based tickets of every committed morsel: with S = 0 this is
+    :func:`scan_ticket`'s plain version.  With ``todo_from_start(P, npm,
+    start)`` it matches JAX ``fused_consume(..., start, interpret=True)``
+    ticket for ticket."""
+    _check_launch(state, keys, values, todo, specs, tickets_out)
     dev = keys.device
     P = state.programs
     S, _, G = state.accs.shape
-    _, total, M = values.shape
+    total, M = keys.shape
     npm = total // P
     info = torch.zeros((P, INFO_LEN), dtype=torch.int32, device=dev)
-    edges = torch.tensor(obs_metrics.PROBE_HIST_EDGES, dtype=torch.int32, device=dev)
     no_ovf = torch.zeros((), dtype=torch.bool, device=dev)
     ones = torch.ones((M,), dtype=torch.float32, device=dev)
     flags = todo.reshape(P, npm).tolist()
     for p in range(P):
-        count = int(state.count[p])
-        sat_any, halted = 0, 0
-        ev = [0] * obs_metrics.EVENT_VEC_LEN
-        hist = torch.zeros(obs_metrics.PROBE_HIST_BUCKETS, dtype=torch.int64, device=dev)
-        for i in (i for i in range(npm) if flags[p][i]):
-            if checked and (count > threshold or (grow_bound and count > bound_slack)):
-                halted = 1
-                ev[obs_metrics.EVT_PAUSES] += 1
-                break
-            row = p * npm + i
-            mk = keys[row]
-            table = tk.TicketTable(
-                state.tkeys[p], state.ttks[p], state.kbt[p],
-                torch.tensor(count, dtype=torch.int32, device=dev), no_ovf,
-            )
-            tickets, table, plen = tk.get_or_insert(table, mk, count_probes=True)
-            state.tkeys[p].copy_(table.keys)
-            state.ttks[p].copy_(table.tickets)
-            state.kbt[p].copy_(table.key_by_ticket)
-            count = int(table.count)
-            valid = mk != EMPTY_I32
-            sat = bool(((tickets < 0) & valid).any())
-            if sat:
-                sat_any = 1
-                ev[obs_metrics.EVT_PROBE_SATURATIONS] += 1
-            if checked and sat:
-                halted = 1
-                ev[obs_metrics.EVT_PAUSES] += 1
-                break
-            do = valid & (tickets >= 0) & (tickets < G)
+
+        def commit(accs_p, tickets, row):
+            if tickets_out is not None:
+                tickets_out[row] = tickets
+            do = (tickets >= 0) & (tickets < G)
             t = tickets[do].to(torch.int64)
             for s, (plane, kind) in enumerate(specs):
                 v = (ones if plane < 0 else values[plane, row])[do]
-                acc = state.accs[s, p]
                 if kind in ("sum", "count"):
-                    acc.index_add_(0, t, v)
+                    accs_p[s].index_add_(0, t, v)
                 else:
-                    acc.scatter_reduce_(0, t, v, "amin" if kind == "min" else "amax")
+                    accs_p[s].scatter_reduce_(0, t, v, "amin" if kind == "min" else "amax")
+            return accs_p
+
+        if checked:
+            body = make_pause_scan_body(0, threshold, bound_slack if grow_bound else None,
+                                        commit, count_events=True)
+        else:
+            body = make_unchecked_scan_body(0, commit, count_events=True)
+        table = tk.TicketTable(state.tkeys[p], state.ttks[p], state.kbt[p],
+                               state.count[p].clone(), no_ovf)
+        carry = (table, state.accs[:, p], False, obs_metrics.zero_event_vector(dev))
+        for i in (i for i in range(npm) if flags[p][i]):
+            row = p * npm + i
+            carry, halt = body(carry, (i, keys[row], row))
+            if halt:
+                break
             flags[p][i] = 0
             todo[row] = 0
-            n_valid = int(valid.sum())
-            ev[obs_metrics.EVT_MORSELS] += 1
-            ev[obs_metrics.EVT_ROWS] += n_valid
-            ev[obs_metrics.EVT_ROWS_MASKED] += M - n_valid
-            ev[obs_metrics.EVT_PROBE_STEPS] += int(plen.sum())
-            bucket = torch.searchsorted(edges, plen[valid], right=True)
-            hist += torch.bincount(bucket, minlength=obs_metrics.PROBE_HIST_BUCKETS)
-        if collect_events:
-            add = torch.tensor(ev, dtype=torch.int32, device=dev)
-            add[obs_metrics.NUM_EVENTS:] += hist.to(torch.int32)
-            state.events[p] += add
+        table, _, halted, ev = carry
+        state.tkeys[p].copy_(table.keys)
+        state.ttks[p].copy_(table.tickets)
+        state.kbt[p].copy_(table.key_by_ticket)
+        count = int(table.count)
         state.count[p] = count
+        if collect_events:
+            state.events[p] += ev
+        sat_any = int(ev[obs_metrics.EVT_PROBE_SATURATIONS] > 0)
         lowest = next((i for i in range(npm) if flags[p][i]), NO_HALT)
-        info[p] = torch.tensor([count, lowest, sat_any, halted], dtype=torch.int32)
+        info[p] = torch.tensor([count, lowest, sat_any, int(halted)], dtype=torch.int32)
     return state, info
+
+
+def _table_view(table: tk.TicketTable, events: torch.Tensor) -> FusedState:
+    """A one-program :class:`FusedState` of views of ``table`` (no copy) and
+    no accumulator planes: what the ticket-only launch reads and updates."""
+    return FusedState(
+        tkeys=table.keys.view(1, -1), ttks=table.tickets.view(1, -1),
+        kbt=table.key_by_ticket.view(1, -1),
+        accs=torch.empty((0, 1, table.max_groups), dtype=torch.float32,
+                         device=table.keys.device),
+        count=table.count.view(1), events=events.view(1, -1),
+    )
+
+
+def scan_ticket(
+    table: tk.TicketTable,
+    keys: torch.Tensor,    # (npm, M) int32, EMPTY_I32-padded
+    todo: torch.Tensor,    # (npm,) int32 — 1: morsel still to commit
+    *,
+    checked: bool = True,
+    grow_bound: bool = False,
+    threshold: int = 0,
+    bound_slack: int = 0,
+    collect_events: bool = False,
+    events: torch.Tensor | None = None,
+):
+    """The scan route's ticket stage over a morselized chunk against the
+    carried ``table`` (keys, tickets, ``key_by_ticket``, count and the
+    sticky overflow flag updated IN PLACE) and ``todo`` (cleared for every
+    morsel committed).  The §4.4 room check runs before each morsel:
+    ``count > threshold``, and under ``grow_bound`` the morsel's
+    reservation of M tickets must start at ``<= bound_slack``; a morsel
+    that saturates the table commits nothing under ``checked``.
+
+    Returns ``(tickets, info)``: ``tickets`` the keys' shape, each row's
+    0-based ticket for the morsels this launch commits and -1 for every
+    other row (padding, morsels not todo, paused, or saturated, even though
+    some of their keys were inserted); ``info`` the fused route's ``(1,
+    INFO_LEN)`` control vector.  ``events`` (``(EVENT_VEC_LEN,)`` int32,
+    committed-morsel semantics) gains this launch's counts when
+    ``collect_events``.
+
+    CUDA tensors launch ``csrc/fused_groupby.cu`` in its ticket-only mode
+    (counted in ``scan_ticket.launches``; grid in ``scan_ticket.grid``) and
+    raise if they cannot; its CTAs take morsels in no fixed order, so
+    ticket order and, on a pause, the set of committed morsels vary from
+    run to run.  A morsel may have any number of rows there.  CPU tensors
+    run :func:`scan_ticket_plain`: morsels in order, ticket for ticket the
+    JAX scan route's."""
+    dev = keys.device
+    if dev.type == "cpu":
+        return scan_ticket_plain(
+            table, keys, todo, checked=checked, grow_bound=grow_bound,
+            threshold=threshold, bound_slack=bound_slack,
+            collect_events=collect_events, events=events,
+        )
+    if events is None:
+        events = obs_metrics.zero_event_vector(dev)
+    state = _table_view(table, events)
+    values = torch.empty((0, *keys.shape), dtype=torch.float32, device=dev)
+    _check_launch(state, keys, values, todo, ())
+    if dev.type == "cuda":
+        for name, v in (("threshold", threshold), ("bound_slack", bound_slack)):
+            if not -_INT32_MAX <= v <= _INT32_MAX:
+                raise ValueError(f"{name}={v} does not fit int32")
+        npm, M = keys.shape
+        tickets = torch.empty(keys.shape, dtype=torch.int32, device=dev)
+        if npm == 0:  # no morsel: nothing to launch, nothing todo
+            info = torch.zeros((1, INFO_LEN), dtype=torch.int32, device=dev)
+            info[0, INFO_COUNT] = state.count[0]
+            info[0, INFO_FIRST_HALT] = NO_HALT
+            return tickets, info
+        info = torch.empty((1, INFO_LEN), dtype=torch.int32, device=dev)
+        scratch = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+        scratch[:, 3] = state.count
+        grid = (ctypes.c_int * 2)()
+        lib = _kernel_library()
+        err = lib.scan_ticket_launch(
+            keys.data_ptr(), todo.data_ptr(), state.tkeys.data_ptr(), state.ttks.data_ptr(),
+            state.kbt.data_ptr(), state.count.data_ptr(), state.events.data_ptr(),
+            info.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), npm, M,
+            table.capacity, table.max_groups, int(checked), int(grow_bound),
+            int(threshold), int(bound_slack), int(collect_events), BLOCK_THREADS, grid,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                "scan_ticket kernel launch failed: "
+                + lib.fused_groupby_error_string(err).decode()
+            )
+        scan_ticket.launches += 1
+        scan_ticket.grid = (grid[0], grid[1])
+    else:
+        raise ValueError(f"scan_ticket runs on cuda or cpu tensors, not {dev}")
+    table.overflowed.logical_or_(table.count > table.max_groups)
+    return tickets, info
+
+
+scan_ticket.launches = 0  # kernel launches (CUDA tensors only)
+scan_ticket.grid = None   # (CTAs, CTAs per program) of the latest launch
+
+
+def scan_ticket_plain(
+    table: tk.TicketTable,
+    keys: torch.Tensor,
+    todo: torch.Tensor,
+    *,
+    checked: bool = True,
+    grow_bound: bool = False,
+    threshold: int = 0,
+    bound_slack: int = 0,
+    collect_events: bool = False,
+    events: torch.Tensor | None = None,
+):
+    """The plain version of :func:`scan_ticket`, on any device, with its
+    signature and in-place updates: :func:`fused_consume_plain` with S = 0
+    on a one-program view of ``table``, writing the committed morsels'
+    tickets."""
+    dev = keys.device
+    if events is None:
+        events = obs_metrics.zero_event_vector(dev)
+    state = _table_view(table, events)
+    values = torch.empty((0, *keys.shape), dtype=torch.float32, device=dev)
+    tickets = torch.full(keys.shape, -1, dtype=torch.int32, device=dev)
+    _, info = fused_consume_plain(
+        state, keys, values, todo, specs=(), checked=checked, grow_bound=grow_bound,
+        threshold=threshold, bound_slack=bound_slack, collect_events=collect_events,
+        tickets_out=tickets,
+    )
+    table.overflowed.logical_or_(table.count > table.max_groups)
+    return tickets, info
 
 
 def fused_groupby(
@@ -490,3 +634,21 @@ def to_numpy(state: FusedState) -> tuple:
     """The port's state as numpy arrays in JAX ``FusedState`` field order
     and dtypes (the inverse of :func:`from_jax_state`)."""
     return tuple(t.detach().cpu().numpy() for t in state)
+
+
+def scan_ticket_discrepancies(keys: torch.Tensor, out, ref, *, full: bool = False) -> int:
+    """How far a :func:`scan_ticket` launch (``out``: its tickets and the
+    table it updated) breaks the contract with :func:`scan_ticket_plain`
+    on the same keys from the same table (``ref``); 0 when it keeps it.
+    Both launches must commit every morsel.  The rules are the ticket
+    kernel's (``ticket_hash.ticket_map_discrepancies``): the same count,
+    gap-free tickets consistent with the table and ``key_by_ticket``, and
+    the same key set and -1 rows (when ``full``: a row is -1 iff its key is
+    not in the table)."""
+    from repro_torch.kernels.ticket_hash import ticket_map_discrepancies
+
+    def flat(o):
+        tickets, t = o
+        return (tickets.reshape(-1), t.keys, t.tickets, t.key_by_ticket, t.count)
+
+    return ticket_map_discrepancies(keys.reshape(-1), flat(out), flat(ref), full=full)

@@ -9,9 +9,9 @@ of the tensors picks the Hopper kernel (CUDA) or its plain version (CPU).
 ``fused=False`` (the default, as in the reference) runs the split ticket +
 segment-aggregate route (``ExecutionPolicy.kernel="split"``), ``fused=True``
 the fused kernel.  ``make_scan_update_fn`` adapts the segment kernel to
-the scan route's update-fn signature; its consumer, the scan route's
-``GroupByOperator``, is not ported yet (ROADMAP 'Modules to port' item
-4a).  ``multi_block_ticket`` radix-splits a key stream over independent
+the scan route's update-fn signature (``kernel="scan_body"``: the
+``GroupByOperator`` calls it once per accumulator plane and ticket
+launch).  ``multi_block_ticket`` radix-splits a key stream over independent
 tables; tickets get a per-block base, so the global ticket space has
 bounded gaps.  The legacy direct entry points (``ticket``,
 ``segment_aggregate``, ``groupby_pallas``) warn once per process.
@@ -114,20 +114,24 @@ def segment_aggregate(tickets: torch.Tensor, values: torch.Tensor, *,
 def make_scan_update_fn(*, strategy: str = "scatter", morsel_size: int = 1024,
                         interpret: bool | None = None):
     """Adapt the segment kernel to the update-fn signature
-    ``(acc, tickets, values, kind=...) -> acc``: the kernel folds the
-    morsel into a fresh partial, which is merged into the carried
-    accumulator (added for sum/count; min/max against the partial's ±inf
-    identities).  Memoized, so operators with the same arguments share one
-    function object, as in the reference."""
+    ``(acc, tickets, values, kind=...) -> acc`` of ``core.updates``: the
+    kernel folds every row (a morsel, or a whole chunk's ticket vector)
+    straight into the carried float32 accumulator, IN PLACE, so a call
+    costs its rows and not the G-wide partial plus merge of the
+    reference's form.  Rows whose ticket is < 0 or >= G are parked.
+    ``onehot`` takes at most ``segment_agg.MAX_ONEHOT_GROUPS`` groups and
+    raises ``ValueError`` past them.  Memoized, so operators with the same
+    arguments share one function object, as in the reference."""
 
     def update_fn(acc, tickets, values, kind: str = "sum"):
-        part = _segment_aggregate(
-            tickets, values, num_groups=acc.shape[0], kind=kind,
-            strategy=strategy, morsel_size=min(morsel_size, tickets.shape[0]),
-        ).to(acc.dtype)
-        if kind in ("sum", "count"):
-            return acc + part
-        return torch.minimum(acc, part) if kind == "min" else torch.maximum(acc, part)
+        n = tickets.reshape(-1).shape[0]
+        if n == 0:
+            return acc
+        ms = min(morsel_size, n)
+        tp = _pad_to(tickets.reshape(-1).to(torch.int32), ms, -1)
+        vp = _pad_to(values.reshape(-1).to(torch.float32), ms, 0.0)
+        return segment_agg(tp, vp, num_groups=acc.shape[0], kind=kind,
+                           strategy=strategy, morsel_size=ms, out=acc)
 
     return update_fn
 

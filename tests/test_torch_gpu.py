@@ -22,6 +22,8 @@ COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
 import pytest
 import torch
 
+from repro_torch.core import resize
+from repro_torch.core import ticketing as tk
 from repro_torch.core.hashing import slot_hash, table_capacity
 from repro_torch.engine import plan_api as api
 from repro_torch.kernels import build
@@ -485,3 +487,135 @@ def test_split_plan_on_the_default_device(cuda, saturation, bound, update):
     assert torch.equal(out["key"][:n][order], uk)
     assert torch.equal(out["count(*)"][:n][order].long(), cnt)
     assert torch.equal(out["max(v)"][:n][order], mx)
+
+
+# -- the scan route: scan_ticket (fused kernel, ticket-only) and serialized ---
+
+
+def _scan_pair(keys, M_rows, cap, g, **kw):
+    """One scan_ticket launch and its plain version from the same fresh
+    table over the same morsels: ((tickets, table, todo, info) each)."""
+    km = keys.to(torch.int32).reshape(-1, M_rows).contiguous()
+    out = []
+    for fn in (fk.scan_ticket, fk.scan_ticket_plain):
+        t = tk.make_table(cap, g, device=km.device)
+        todo = torch.ones(km.shape[0], dtype=torch.int32, device=km.device)
+        tickets, info = fn(t, km, todo, **kw)
+        out.append((tickets, t, todo, info))
+    torch.cuda.synchronize()
+    return km, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["uniform", "zipf", "hot"])
+def test_scan_ticket_matches_plain(cuda, case):
+    keys, _ = _data(cuda, 256 * M, 20000, 51, masked=300)
+    if case == "zipf":
+        gen = torch.Generator(device=cuda).manual_seed(52)
+        keys = torch.remainder((torch.rand(keys.shape[0], generator=gen, device=cuda)
+                                ** -1.5).long(), 20000)
+    if case == "hot":
+        keys[::2] = 7
+    g = int(torch.unique(keys[keys != 0xFFFFFFFF]).numel())
+    cap = table_capacity(g)
+    before = fk.scan_ticket.launches
+    km, (k, p) = _scan_pair(keys, 4096, cap, g, checked=True, threshold=cap // 2,
+                            collect_events=True)
+    assert fk.scan_ticket.launches == before + 1
+    assert fk.scan_ticket.grid[1] > 1
+    assert torch.equal(k[3], p[3]) and not bool(k[2].any())
+    assert fk.scan_ticket_discrepancies(km, k[:2], p[:2]) == 0
+
+
+@pytest.mark.gpu
+def test_scan_ticket_grow_pause_and_replay(cuda):
+    """A GROW bound of half the keys: the launch pauses partway, commits
+    whole morsels only (no ticket past the bound, -1 on every row of a
+    morsel left todo), and the replay after growing the bound ends where
+    the plain version's replay ends."""
+    keys, _ = _data(cuda, 256 * M, 1 << 20, 53)
+    d = int(torch.unique(keys).numel())
+    g1, Mr = d // 2, 4096
+    cap = table_capacity(4 * g1)
+    km, (k, p) = _scan_pair(keys, Mr, cap, g1, checked=True, grow_bound=True,
+                            threshold=cap // 2, bound_slack=g1 - Mr)
+    for tickets, t, todo, info in (k, p):
+        left = todo.bool()
+        assert int(info[0, fk.INFO_HALTED]) == 1 and 0 < int(left.sum()) < km.shape[0]
+        assert int(t.count) <= g1 and int(info[0, fk.INFO_FIRST_HALT]) == int(
+            torch.nonzero(left)[0])
+        assert bool((tickets[left] == -1).all()) and bool((tickets[~left] >= 0).all())
+    ends = []
+    for (tickets, t, todo, info), fn in zip((k, p), (fk.scan_ticket, fk.scan_ticket_plain)):
+        t2 = resize.grow_bound(t, 4 * g1)
+        t2b, info2 = fn(t2, km, todo, checked=True, grow_bound=True, threshold=cap // 2,
+                        bound_slack=4 * g1 - Mr)
+        assert int(info2[0, fk.INFO_HALTED]) == 0 and int(t2.count) == d
+        whole = torch.where(t2b >= 0, t2b, tickets)  # each row's ticket, either launch
+        ends.append((whole, t2))
+    torch.cuda.synchronize()
+    assert fk.scan_ticket_discrepancies(km, ends[0], ends[1]) == 0
+
+
+@pytest.mark.gpu
+def test_scan_ticket_ends_on_a_saturated_unchecked_table(cuda):
+    keys = torch.randint(0, 4096, (8 * M,), device=cuda)
+    km, (k, p) = _scan_pair(keys, M, 1024, 4096, checked=False, collect_events=True)
+    assert int(k[1].count) == 1024 and int(k[3][0, fk.INFO_SAT]) == 1
+    assert not bool(k[2].any())  # unchecked: every morsel commits
+    assert fk.scan_ticket_discrepancies(km, k[:2], p[:2], full=True) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["off", "scan_body"])
+def test_raise_scan_stream_makes_one_ticket_launch_per_chunk(cuda, kernel):
+    keys, vals = _data(cuda, 8 * 64 * M, 3000, 55)
+    plan = api.GroupByPlan(
+        keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("sum", "v")),
+        strategy="concurrent", max_groups=4096, raw_keys=True,
+        execution=api.ExecutionPolicy(kernel=kernel))
+    chunks = [api.Table({"k": keys[i:i + 64 * M], "v": vals[i:i + 64 * M]})
+              for i in range(0, keys.shape[0], 64 * M)]
+    t0, s0 = fk.scan_ticket.launches, sa.segment_agg.launches
+    out = plan.collect(chunks)
+    assert fk.scan_ticket.launches - t0 == len(chunks)
+    assert sa.segment_agg.launches - s0 == (2 * len(chunks) if kernel == "scan_body" else 0)
+    uk, cnt = torch.unique(keys, return_counts=True)
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+    assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["off", "scan_body"])
+def test_scan_stream_takes_zero_row_and_short_chunks(cuda, kernel):
+    plan = api.GroupByPlan(
+        keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("min", "v")),
+        strategy="concurrent", max_groups=64, raw_keys=True,
+        execution=api.ExecutionPolicy(kernel=kernel))
+    empty = api.Table({"k": torch.zeros(0, dtype=torch.int64, device=cuda),
+                       "v": torch.zeros(0, device=cuda)})
+    short = api.Table({"k": torch.arange(10, device=cuda), "v": torch.arange(10.0, device=cuda)})
+    t0 = fk.scan_ticket.launches
+    out = plan.collect([empty, short, empty])
+    assert fk.scan_ticket.launches - t0 == 1  # an empty chunk launches nothing
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == 10 and torch.equal(out["key"][:n][order], torch.arange(10, device=cuda))
+    assert torch.equal(out["min(v)"][:n][order], torch.arange(10.0, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sum", "count", "min", "max"])
+def test_serialized_kernel_matches_plain(cuda, kind):
+    gen = torch.Generator(device=cuda).manual_seed(57)
+    t = torch.randint(-1, 700, (1 << 13,), generator=gen, device=cuda, dtype=torch.int32)
+    v = torch.randn(1 << 13, generator=gen, device=cuda)
+    acc = torch.full((650,), sa._NEUTRAL[kind], device=cuda)
+    want = sa.serialized_agg_plain(acc.cpu().clone(), t.cpu(), v.cpu(), kind=kind)
+    before = sa.serialized_agg.launches
+    got = sa.serialized_agg(acc, t, v, kind=kind)
+    torch.cuda.synchronize()
+    assert got is acc and sa.serialized_agg.launches == before + 1
+    assert torch.equal(got.cpu(), want)  # one order of float adds: exact

@@ -394,10 +394,6 @@ def test_groupby_kernel_front_door(kind):
 
 
 OUT_OF_SLICE = {
-    "kernel_none": dict(execution=dict(kernel=None)),
-    "kernel_off": dict(execution=dict(kernel="off")),
-    "kernel_scan_body": dict(execution=dict(kernel="scan_body")),
-    "use_kernel": dict(execution=dict(kernel=None, use_kernel=True)),
     "strategy_auto": dict(strategy="auto"),
     "strategy_hybrid": dict(strategy="hybrid", execution=dict(kernel=None)),
     "strategy_partitioned": dict(strategy="partitioned", execution=dict(kernel=None)),
@@ -420,6 +416,40 @@ def test_out_of_slice_plans_raise_not_implemented(case):
         max_groups=kw.pop("max_groups", 64), execution=tapi.ExecutionPolicy(**ex), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tex.make_executor(plan)
+
+
+# once out of the slice, now the scan route (tests/test_torch_scan.py)
+SCAN_ROUTE = {
+    "kernel_none": dict(kernel=None),
+    "kernel_off": dict(kernel="off"),
+    "kernel_scan_body": dict(kernel="scan_body"),
+    "use_kernel": dict(kernel=None, use_kernel=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_ROUTE))
+def test_scan_route_plans_run_and_match_the_oracle(case):
+    rng = np.random.default_rng(41)
+    keys = rng.integers(0, 300, size=3000).astype(np.uint32)
+    vals = rng.normal(size=3000).astype(np.float32)
+    plan = tapi.GroupByPlan(
+        keys=("k",), aggs=(tapi.AggSpec("count"), tapi.AggSpec("sum", "v")),
+        strategy="concurrent", max_groups=512, raw_keys=True,
+        execution=tapi.ExecutionPolicy(device="cpu", morsel_rows=512, **SCAN_ROUTE[case]))
+    if case == "use_kernel":
+        tex.reset_kernel_alias_warnings()
+        with pytest.warns(DeprecationWarning, match="use_kernel"):
+            ex = tex.make_executor(plan)
+    else:
+        ex = tex.make_executor(plan)
+    assert isinstance(ex, tex._ScanExecutor)
+    assert ex._op.use_kernel == (case in ("kernel_scan_body", "use_kernel"))
+    out = plan.collect([tcol.Table({"k": torch.from_numpy(keys[i:i + 1000].astype(np.int64)),
+                                    "v": torch.from_numpy(vals[i:i + 1000])})
+                        for i in range(0, 3000, 1000)])
+    _assert_maps_close(_map(out, "sum(v)"), _np_sums(keys, vals))
+    counts = dict(zip(*np.unique(keys, return_counts=True)))
+    assert _map(out, "count(*)") == {int(k): float(c) for k, c in counts.items()}
 
 
 def test_invalid_kernel_combinations_raise_value_error():

@@ -270,7 +270,7 @@ def test_make_scan_update_fn_matches_reference(kind):
     tfn = tops.make_scan_update_fn(strategy="scatter", morsel_size=256)
     assert tfn is tops.make_scan_update_fn(strategy="scatter", morsel_size=256)
     jfn = jops.make_scan_update_fn(strategy="scatter", morsel_size=256, interpret=True)
-    got = tfn(_t(acc0), _t(t), _t(v), kind=kind)
+    got = tfn(_t(acc0.copy()), _t(t), _t(v), kind=kind)  # folds in place
     want = jfn(jnp.asarray(acc0), jnp.asarray(t), jnp.asarray(v), kind=kind)
     _assert_acc(kind, got, want)
 
@@ -454,12 +454,12 @@ def test_strategy_pallas_alias_warns_once_and_matches():
     assert _result_map(old, "sum(v)") == _result_map(new, "sum(v)")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        with pytest.raises(NotImplementedError, match="item 4a"):
-            tex.make_executor(tapi.GroupByPlan(
-                keys=("k",), aggs=(tapi.AggSpec("count"),), strategy="concurrent",
-                max_groups=64, execution=tapi.ExecutionPolicy(use_kernel=True, device="cpu")))
+        ex = tex.make_executor(tapi.GroupByPlan(
+            keys=("k",), aggs=(tapi.AggSpec("count"),), strategy="concurrent",
+            max_groups=64, execution=tapi.ExecutionPolicy(use_kernel=True, device="cpu")))
     dep = [w for w in caught if issubclass(w.category, DeprecationWarning)]
     assert len(dep) == 1 and "kernel='scan_body'" in str(dep[0].message)
+    assert isinstance(ex, tex._ScanExecutor) and ex._op.use_kernel  # the scan_body route
 
 
 def test_direct_entry_points_warn_once():
