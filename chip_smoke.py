@@ -25,9 +25,11 @@ Four phases, each of which fails the run:
    each held by ``ticket_map_discrepancies``.  ``segment_agg``: every
    kind × scatter / onehot over 2^20 rows with tickets of -1 and >= G, and
    every kind (scatter) on a hot key (55% of 2^20 rows, G = 2^14, values
-   with -0.0 and, for min/max, ±inf).  ``scan_ticket`` (the fused kernel's
-   ticket-only mode, the scan route's ticket stage): 2^20 rows of uniform,
-   zipf and heavy-hitter keys in 4096-row morsels, held by
+   with -0.0 and, for min/max, ±inf).  ``scan_ticket``
+   (``scan_ticket_kernel`` of ``csrc/fused_groupby.cu``, the scan route's
+   ticket stage: the fused kernel's morsel dispatch, then tiles through a
+   per-CTA key cache with one count atomic per tile): 2^20 rows of
+   uniform, zipf and heavy-hitter keys in 4096-row morsels, held by
    ``scan_ticket_discrepancies``; a forced GROW pause (the committed
    morsels whole, no ticket past the bound) and its replay after growing
    the bound; an unchecked, saturated table, which must end.  The
@@ -62,7 +64,7 @@ Four phases, each of which fails the run:
    class and kind), each timed beside its plain version and held against
    it on every class's chunk.  The ticket call is also split: allocation
    and fill alone, the launch alone, and ``torch.profiler``'s device time
-   per kernel (one session over the three classes), and its choice of mode
+   per kernel, and its choice of mode
    is timed on the zipf and unique chunks against a 2^25-slot table (the
    mode the sample chooses beside tile mode, forced by one morsel of EMPTY
    rows).  Both
@@ -70,8 +72,13 @@ Four phases, each of which fails the run:
    ticket kernel's.  ``scan_ticket`` is timed on the same chunks (4096-row
    morsels, the bound of the class's stream), beside its plain version,
    its bytes bound and ``torch.unique(return_inverse=True)``, and held
-   against its plain version on each; the serialized kernel on one chunk
-   of its stream (8192 rows), beside ``index_add_``.
+   against its plain version on each; its call is split on an idle card
+   (the whole call, the wrapper's host work before the launch on the host
+   clock, the launch alone) and swept over CTA sizes (256, 512, 1024).
+   One ``torch.profiler`` session (a second one records nothing) gives the
+   device time of every kernel of one ticket call and one ``scan_ticket``
+   call per class.  The serialized kernel on one chunk of its stream (8192
+   rows), beside ``index_add_``.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -532,7 +539,7 @@ def check_scan_events(kev, pev, sat, label):
 
 def phase2_scan(fk, sa, gen, device, n=1 << 20):
     """The scan route's kernels vs their plain versions on the card: the
-    ticket stage (``scan_ticket``, the fused kernel's ticket-only mode)
+    ticket stage (``scan_ticket``, its ``scan_ticket_kernel``)
     and the serialized update's one-thread kernel.  Returns the largest
     discrepancy of each."""
     import torch
@@ -1132,7 +1139,8 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
     """The split route's kernels on one main-path chunk of each class (its
     bound and capacity), CUDA events, beside their bounds, one library
     call each and their plain versions, each held against its plain
-    version on that chunk."""
+    version on that chunk.  Returns (the ticket calls that
+    :func:`phase4_profiles` traces, label → fn; the record)."""
     import torch
 
     from repro_torch.core.hashing import table_capacity
@@ -1214,15 +1222,8 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
     k_high = classes["high"][0].to(torch.int32)
     profile_calls["high_c25"] = lambda: th.ticket_hash(k_high, capacity=1 << 25,
                                                        max_groups=1 << 24, morsel_size=M)
-    # a call starts with the fill, or with the sample and then the fill
-    profiles = device_profiles(profile_calls, ("ticket_sample_kernel", "ticket_fill_kernel"))
-    for name, rows_ms in profiles.items():
-        rec = out[name]["ticket"]["breakdown"] if name in out else selection["high"]
-        rec["profile_ms"] = rows_ms
-        log(f"phase4 ticket profile {name}: " + json.dumps(rows_ms))
-    log("phase4 split " + json.dumps(out))
     high = out["high"]
-    return {
+    return profile_calls, {
         "ticket_hash": {"ms": high["ticket"]["kernel_ms"],
                         "plain_ms": high["ticket"]["plain_ms"],
                         "bound_ms": high["ticket"]["bound_ms"], "bound_by": "bytes",
@@ -1239,40 +1240,131 @@ def phase4_split(th, sa, classes, vals, device, reps=5):
     }
 
 
+def scan_launch(fk, tk, k32, g, device):
+    """What one ``scan_ticket`` launch of the scan executor takes on a
+    main-path chunk (4096-row morsels, the bound and capacity of the
+    class's stream, RAISE, events on): (km, a fresh table, a work table,
+    todo, kwargs, reset), where ``reset()`` puts the work table and todo
+    back to fresh."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    km = k32.reshape(-1, SCAN_M).contiguous()
+    cap = table_capacity(g)
+    fresh = tk.make_table(cap, g, device=device)
+    work = tk.TicketTable(*(t.clone() for t in fresh))
+    todo = torch.ones(km.shape[0], dtype=torch.int32, device=device)
+    ev = torch.zeros(14, dtype=torch.int32, device=device)
+    kw = dict(checked=True, grow_bound=False, threshold=cap // 2,
+              bound_slack=g - SCAN_M, collect_events=True, events=ev)
+
+    def reset():
+        for w, f in zip(work, fresh):
+            w.copy_(f)
+        todo.fill_(1)
+
+    return km, fresh, work, todo, kw, reset
+
+
+def scan_ticket_breakdown(fk, launch, reps):
+    """Where one ``scan_ticket`` call's time goes on an idle card (every
+    setup ends in a synchronize): the whole call (CUDA events), the
+    wrapper's host work before the launch alone (``prepare_scan_ticket``,
+    host clock), and the launch alone on a call prepared beforehand
+    (``launch_scan_ticket``, CUDA events).  ``phase4_profiles`` adds
+    ``torch.profiler``'s device time per kernel of the call."""
+    km, _, work, todo, kw, reset = launch
+    held = {}
+
+    def idle():
+        reset()
+        sync()
+
+    def prepared():
+        idle()
+        held["call"] = fk.prepare_scan_ticket(work, km, todo, **kw)
+        sync()
+
+    call_ms = time_cuda(lambda: fk.scan_ticket(work, km, todo, **kw), reps, idle)
+    launch_ms = time_cuda(lambda: fk.launch_scan_ticket(held["call"]), reps, prepared)
+    host = []
+    for _ in range(reps):
+        idle()
+        t0 = time.perf_counter()
+        fk.prepare_scan_ticket(work, km, todo, **kw)
+        host.append((time.perf_counter() - t0) * 1e3)
+        sync()
+    host.sort()
+    held.clear()
+    return {"call_idle_ms": call_ms, "host_ms": host[len(host) // 2], "launch_ms": launch_ms}
+
+
+def scan_block_sweep(fk, tk, classes, device, sizes=(256, 512, 1024), reps=5):
+    """``scan_ticket``'s time per main-path chunk at each CTA size (its
+    block size is chosen from these), each launch's group count checked
+    against the chunk's distinct count and every morsel committed."""
+    import torch
+
+    out = {}
+    default = fk.SCAN_BLOCK_THREADS
+    try:
+        for threads in sizes:
+            fk.SCAN_BLOCK_THREADS = threads
+            row = {}
+            for name, (keys, g) in classes.items():
+                k32 = keys.to(torch.int32)
+                km, _, work, todo, kw, reset = scan_launch(fk, tk, k32, g, device)
+                ms = time_cuda(lambda: fk.scan_ticket(work, km, todo, **kw), reps, reset)
+                reset()
+                fk.scan_ticket(work, km, todo, **kw)
+                check(int(work.count) == int(torch.unique(k32).numel()) and not bool(todo.any()),
+                      f"scan block sweep {threads} threads {name}: wrong count or morsels left")
+                row[name] = {"ms": ms, "grid": list(fk.scan_ticket.grid)}
+                del work
+            out[threads] = row
+    finally:
+        fk.SCAN_BLOCK_THREADS = default
+    log("phase4 scan block sweep " + json.dumps(out))
+    return out
+
+
 def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class, reps=5):
     """``scan_ticket`` on one main-path chunk of each class (4096-row
     morsels, the bound and capacity of the class's stream, RAISE, events
     on, as the scan executor launches it), CUDA events from a fresh table
     each time, beside its plain version, its bytes bound,
     ``torch.unique(return_inverse=True)``, and the fused and ticket
-    kernels on the same chunk; held against its plain version on each.
-    Then the serialized kernel on one chunk of its stream (8192 rows)."""
+    kernels on the same chunk; held against its plain version on each,
+    its call split by :func:`scan_ticket_breakdown`.  Then the serialized
+    kernel on one chunk of its stream (8192 rows).  Returns (the calls
+    that :func:`phase4_profiles` traces, label → fn; the record)."""
     import torch
 
     from repro_torch.core import ticketing as tk
-    from repro_torch.core.hashing import table_capacity
 
-    out, worst = {}, 0
+    out, worst, profile_calls = {}, 0, {}
     for name, (keys, g) in classes.items():
         k32 = keys.to(torch.int32)
         rows = k32.numel()
-        km = k32.reshape(-1, SCAN_M).contiguous()
-        cap = table_capacity(g)
+        launch = scan_launch(fk, tk, k32, g, device)
+        km, fresh, work, todo, kw, reset = launch
+        cap = fresh.capacity
         d = int(torch.unique(k32).numel())
-        fresh = tk.make_table(cap, g, device=device)
-        work = tk.TicketTable(*(t.clone() for t in fresh))
-        todo = torch.ones(km.shape[0], dtype=torch.int32, device=device)
-        ev = torch.zeros(14, dtype=torch.int32, device=device)
-        kw = dict(checked=True, grow_bound=False, threshold=cap // 2,
-                  bound_slack=g - SCAN_M, collect_events=True, events=ev)
-
-        def reset():
-            for w, f in zip(work, fresh):
-                w.copy_(f)
-            todo.fill_(1)
-
         ms = time_cuda(lambda: fk.scan_ticket(work, km, todo, **kw), reps, reset)
         grid = list(fk.scan_ticket.grid)
+        breakdown = scan_ticket_breakdown(fk, launch, reps)
+        log(f"phase4 scan_ticket breakdown {name}: " + json.dumps(breakdown))
+        # the traced call and its untraced first call each on a fresh table
+        # and todo mask, made beforehand
+        fresh_pairs = [(tk.TicketTable(*(t.clone() for t in fresh)), torch.ones_like(todo))
+                       for _ in range(2)]
+
+        def profiled(km=km, kw=kw, pairs=fresh_pairs):
+            table, todo_ = pairs.pop()
+            return fk.scan_ticket(table, km, todo_, **kw)
+
+        profile_calls[name] = profiled
         lib_ms = time_cuda(lambda: torch.unique(k32, return_inverse=True), reps)
         km_, (k, p), (_, p_s) = scan_pair(fk, tk, k32, SCAN_M, cap, g, checked=True,
                                           threshold=cap // 2, bound_slack=g - SCAN_M,
@@ -1281,21 +1373,21 @@ def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class,
         check(bad == 0 and not bool(k[2].any()),
               f"phase4 scan_ticket {name}: {bad} discrepancies")
         worst = max(worst, bad)
-        del k, p, work
+        del k, p, work, launch
         # keys read once, tickets written once, and per distinct key its
         # slot (key + ticket) and key_by_ticket entry written once
         b_ms = (8 * rows + 12 * d) / HBM_BYTES_PER_S * 1e3
         out[name] = {"kernel_ms": ms, "plain_ms": p_s * 1e3, "bound_ms": b_ms,
                      "bound_by": "bytes", "library_ms": lib_ms, "discrepancies": bad,
                      "rows": rows, "groups": d, "max_groups": g, "capacity": cap,
-                     "grid": grid, "fused_ms": fused_per_class[name]["kernel_ms"],
+                     "grid": grid, "breakdown": breakdown,
+                     "fused_ms": fused_per_class[name]["kernel_ms"],
                      "ticket_hash_ms": split_per_class[name]["ticket"]["kernel_ms"]}
         log(f"phase4 scan_ticket {name}: kernel {ms:.4f} ms for {rows} rows in {km.shape[0]} "
             f"morsels (grid {grid[0]} CTAs), bound {b_ms:.4f} ms, torch.unique "
             f"{lib_ms:.4f} ms, plain {p_s * 1e3:.1f} ms; same chunk: fused "
             f"{out[name]['fused_ms']:.4f} ms, ticket_hash {out[name]['ticket_hash_ms']:.4f} ms; "
             f"0 discrepancies ok")
-    log("phase4 scan " + json.dumps(out))
     # the serialized update on one chunk of its stream: 8192 rows, G = 1024
     rows = 8192
     t = classes["low"][0][:rows].to(torch.int32)
@@ -1317,13 +1409,38 @@ def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class,
     log(f"phase4 serialized: {s_ms:.4f} ms for {rows} rows (one thread), index_add_ "
         f"{lib:.4f} ms, plain {p_s * 1e3:.1f} ms, bound {ser['bound_ms']:.5f} ms, exact ok")
     high = out["high"]
-    return {
+    return profile_calls, {
         "scan_ticket": {"ms": high["kernel_ms"], "plain_ms": high["plain_ms"],
                         "bound_ms": high["bound_ms"], "bound_by": "bytes",
                         "library_ms": high["library_ms"], "max_abs_err": worst},
         "segment_agg_serialized": ser,
         "scan_per_class": out,
     }
+
+
+def phase4_profiles(timing, ticket_calls, scan_calls):
+    """``torch.profiler``'s device time per kernel of one ticket call per
+    class (and the zipf chunk at C = 2^25) and one ``scan_ticket`` call per
+    class, in the process's one profiler session, attached to each call's
+    breakdown in ``timing``."""
+    calls = dict(ticket_calls)
+    calls.update({"scan_" + name: fn for name, fn in scan_calls.items()})
+    # a ticket call starts with the sample or the fill; a scan_ticket call
+    # with its scratch fill
+    profiles = device_profiles(calls, ("ticket_sample_kernel", "ticket_fill_kernel",
+                                       "scan_fill_kernel"))
+    for label, rows_ms in profiles.items():
+        if label.startswith("scan_"):
+            timing["scan_per_class"][label[5:]]["breakdown"]["profile_ms"] = rows_ms
+            log(f"phase4 scan_ticket profile {label[5:]}: " + json.dumps(rows_ms))
+            continue
+        per_class = timing["per_class"]
+        rec = (per_class[label]["ticket"]["breakdown"] if label in per_class
+               else timing["region_selection"]["high"])
+        rec["profile_ms"] = rows_ms
+        log(f"phase4 ticket profile {label}: " + json.dumps(rows_ms))
+    log("phase4 split " + json.dumps(timing["per_class"]))
+    log("phase4 scan " + json.dumps(timing["scan_per_class"]))
 
 
 def toolchain(build):
@@ -1351,6 +1468,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.core import ticketing as tk
     from repro_torch.engine import plan_api as api
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_groupby as fk
@@ -1398,9 +1516,14 @@ def main(argv=None) -> int:
     chunk_classes, chunk_vals = phase4_chunks(gen, device)
     timing = {"fused_groupby": phase4(fk, chunk_classes, chunk_vals, device)}
     block_sweep(fk, chunk_classes, chunk_vals, device)
-    timing.update(phase4_split(th, sa, chunk_classes, chunk_vals, device))
-    timing.update(phase4_scan(fk, sa, chunk_classes, chunk_vals, device,
-                              timing["fused_groupby"]["per_class"], timing["per_class"]))
+    ticket_calls, split_timing = phase4_split(th, sa, chunk_classes, chunk_vals, device)
+    timing.update(split_timing)
+    scan_calls, scan_timing = phase4_scan(fk, sa, chunk_classes, chunk_vals, device,
+                                          timing["fused_groupby"]["per_class"],
+                                          timing["per_class"])
+    timing.update(scan_timing)
+    scan_block_sweep(fk, tk, chunk_classes, device)
+    phase4_profiles(timing, ticket_calls, scan_calls)
     for name in chunk_classes:
         f_ms = timing["fused_groupby"]["per_class"][name]["kernel_ms"]
         t_ms = timing["per_class"][name]["ticket"]["kernel_ms"]

@@ -6,8 +6,8 @@ anything of ``repro``.  It runs ``GroupByPlan(strategy="concurrent")``
 with hash ticketing and an explicit ``max_groups`` on three routes: the
 fused kernel (``kernel="fused"``, ``csrc/fused_groupby.cu``), the split
 ticket + segment kernels (``kernel="split"``), and the scan route
-(``kernel`` None / "off" / "scan_body": the fused kernel's ticket-only
-mode, then the update strategies or the segment kernel per plane).
+(``kernel`` None / "off" / "scan_body": ``scan_ticket_kernel`` of the
+same source, then the update strategies or the segment kernel per plane).
 
 Conventions that differ from the JAX package:
 

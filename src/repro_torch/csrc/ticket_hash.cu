@@ -110,10 +110,7 @@
 
 namespace {
 
-using hash_probe::kEmpty;
-using hash_probe::kSpinLimit;
-using hash_probe::slot_hash;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace hash_probe;  // the table protocol and the tile protocol
 // tile mode
 constexpr int kThreads = 512;
 constexpr int kRows = 4;  // rows per thread per tile
@@ -148,12 +145,6 @@ static_assert(kSampleRun == 32 && kSampleRows % (kSampleRun * kSampleThreads / 3
               "a sampled run is one warp load");
 constexpr int kSampleSlots = 2 * kSampleRows;
 constexpr int kSampleSmem = kSampleSlots * 4;
-// a free slot word, and a free cache word: key EMPTY, ticket 0
-constexpr unsigned long long kFreeSlot = 0x00000000FFFFFFFFull;
-// row outcomes (kNone: EMPTY, or not placed in C probes)
-constexpr int kNone = 0, kWon = 1, kFound = 2, kPending = 3;
-// a row's part in a tile's dedupe
-constexpr int kSolo = 0, kLead = 1, kFollow = 2, kCached = 3;
 
 // The shapes allow region mode when the table is past the L2 and sparse:
 // at least kRegionMinSlots slots and 16 slots a row, so staged slabs
@@ -171,85 +162,12 @@ __device__ __forceinline__ unsigned long long ld_slot(const unsigned long long* 
   return v;
 }
 
-__device__ __forceinline__ void st_relaxed_gpu(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int key_of(unsigned long long w) {
-  return static_cast<int>(static_cast<unsigned>(w));
-}
-
-__device__ __forceinline__ int ticket_of(unsigned long long w) {
-  return static_cast<int>(static_cast<unsigned>(w >> 32));
-}
-
-__device__ __forceinline__ unsigned long long pack(int key, int ticket) {
-  return (static_cast<unsigned long long>(static_cast<unsigned>(ticket)) << 32) |
-         static_cast<unsigned>(key);
-}
-
 __device__ __forceinline__ int* key_word(unsigned long long* slots, unsigned s) {
   return reinterpret_cast<int*>(slots + s);
 }
 
 __device__ __forceinline__ int* ticket_word(unsigned long long* slots, unsigned s) {
   return reinterpret_cast<int*>(slots + s) + 1;
-}
-
-// This lane's place in a list that *count counts, for the lanes of the warp
-// whose `append` is true: one atomicAdd per warp (block-scope on a shared
-// count when Block).  Every lane of the warp calls it.
-template <bool Block>
-__device__ __forceinline__ int warp_append(bool append, int* count) {
-  const unsigned ballot = __ballot_sync(kFull, append);
-  const int lane = threadIdx.x & 31;
-  int base = 0;
-  if (lane == 0 && ballot != 0) {
-    base = Block ? atomicAdd_block(count, __popc(ballot)) : atomicAdd(count, __popc(ballot));
-  }
-  base = __shfl_sync(kFull, base, 0);
-  return base + __popc(ballot & ((1u << lane) - 1u));
-}
-
-// The exclusive prefix of x over the CTA's threads; *s_total (shared) gets
-// the sum.  Every thread of the CTA calls it (two __syncthreads); s_warp
-// holds Block / 32 ints.
-template <int Block>
-__device__ __forceinline__ int block_scan(int x, int* s_warp, int* s_total) {
-  constexpr int kWarpsPerBlock = Block / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int wsum = lane < kWarpsPerBlock ? s_warp[lane] : 0;
-    int wincl = wsum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, wincl, d);
-      if (lane >= d) wincl += y;
-    }
-    if (lane < kWarpsPerBlock) s_warp[lane] = wincl - wsum;  // exclusive
-    if (lane == 31) *s_total = wincl;
-  }
-  __syncthreads();
-  return s_warp[warp] + (incl - x);
-}
-
-// The first of x consecutive 1-based tickets for this thread: a block-wide
-// scan of x, and one atomicAdd on *count for the CTA's total.  Every thread
-// of the CTA calls it (three __syncthreads).
-template <int Block>
-__device__ __forceinline__ int claim_tickets(int x, int* count, int* s_warp, int* s_base) {
-  const int before = block_scan<Block>(x, s_warp, s_base);
-  if (threadIdx.x == 0) *s_base = *s_base > 0 ? atomicAdd(count, *s_base) : 0;
-  __syncthreads();
-  return *s_base + before + 1;
 }
 
 // The outcome of slot word `w` (loaded, or the CAS's view of it) for
@@ -281,28 +199,6 @@ __device__ int probe_on(int key, unsigned* slot, int* tick, unsigned long long* 
     if (st >= 0) return st;
   }
   return kNone;
-}
-
-// This row's part in the tile's dedupe, from cache word c (see the file
-// comment); may claim the cache slot.
-__device__ __forceinline__ int dedupe_role(unsigned long long* cslot, int key, int* tick) {
-  unsigned long long c = *static_cast<volatile unsigned long long*>(cslot);
-  for (int attempt = 0; attempt < 2; ++attempt) {
-    if (key_of(c) == key) {
-      const int t = ticket_of(c);
-      if (t > 0) {
-        *tick = t;
-        return kCached;
-      }
-      if (t == 0) return kFollow;
-    }
-    const bool in_flight = key_of(c) != kEmpty && ticket_of(c) == 0;
-    if (attempt == 1 || in_flight) break;
-    const unsigned long long old = atomicCAS(cslot, c, pack(key, 0));
-    if (old == c) return kLead;
-    c = old;  // another row got there first: follow it if it holds this key
-  }
-  return kSolo;
 }
 
 // Region mode's choice (step 0 in the file comment): *use_regions = 1 when

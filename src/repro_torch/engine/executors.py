@@ -143,6 +143,19 @@ def make_executor(plan: GroupByPlan):
         raise ValueError(
             f"kernel='split' takes update in {_SPLIT_UPDATES}, not {ex.update!r}"
         )
+    if plan.saturation == SaturationPolicy.SPILL:
+        # the reference's two rejections (repro.engine.executors.make_executor)
+        if plan.strategy not in ("auto", "concurrent"):
+            raise ValueError(
+                "saturation='spill' runs on the concurrent hash pipeline; "
+                f"strategy {plan.strategy!r} does not support spilling"
+            )
+        if plan.strategy == "concurrent" and ex.ticketing != "hash":
+            raise ValueError(
+                "saturation='spill' requires ticketing='hash' (the hot "
+                "table is the probe table the spill router classifies "
+                "against)"
+            )
     for unported, what, item in (
         (plan.saturation == SaturationPolicy.SPILL, "saturation='spill'",
          "item 6 (out-of-core spill)"),

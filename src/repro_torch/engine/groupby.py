@@ -13,9 +13,9 @@ GET_OR_INSERT and the update of every accumulator.  The port splits the
 morsel loop into two stages, each dispatched once per chunk without a host
 sync:
 
-1. the ticket stage, ``kernels.fused_groupby.scan_ticket``: the morsel loop
-   of the fused kernel in its ticket-only mode (``csrc/fused_groupby.cu``)
-   on CUDA tensors, :func:`make_pause_scan_body` (the reference's own
+1. the ticket stage, ``kernels.fused_groupby.scan_ticket``: the fused
+   kernel's morsel dispatch with tiled, cached GET_OR_INSERT
+   (``scan_ticket_kernel`` in ``csrc/fused_groupby.cu``) on CUDA tensors, :func:`make_pause_scan_body` (the reference's own
    per-morsel body) on CPU tensors.  It writes every row's ticket for the
    morsels it commits, -1 for the rest, clears those morsels' ``todo``
    flags and reports the §4.4 info vector;

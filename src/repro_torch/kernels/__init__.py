@@ -6,8 +6,8 @@ segment_agg — fold of ticketed rows into a dense accumulator, scatter and
   onehot strategies (``csrc/segment_agg.cu``), the split route's second.
 fused_groupby — ticketing + aggregation in one kernel against a table
   carried across chunks (``csrc/fused_groupby.cu``, ``kernel="fused"``),
-  and the same kernel's ticket-only mode ``scan_ticket``, the scan route's
-  ticket stage (``kernel`` None / "off" / "scan_body").
+  and ``scan_ticket``, the scan route's ticket stage (``kernel`` None /
+  "off" / "scan_body"), a kernel of its own in the same source.
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

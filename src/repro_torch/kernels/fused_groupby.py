@@ -30,11 +30,13 @@ SUM within float tolerance, gap-free tickets consistent with
 aside: the kernel has no claim rounds) of every launch that commits all its
 morsels.
 
-:func:`scan_ticket` is the scan route's ticket stage: the same kernel's
-morsel loop in its ticket-only mode (S = 0 accumulator planes, one
-program) against a carried :class:`~repro_torch.core.ticketing.
-TicketTable`, updated in place, that writes each row's ticket for the
-morsels it commits and -1 for every other row.  Its plain version is
+:func:`scan_ticket` is the scan route's ticket stage: the same morsel
+dispatch and room check (one program, no accumulator planes) in a kernel
+of its own, ``scan_ticket_kernel``, that tickets each morsel in tiles
+through a per-CTA key cache with one count atomic per tile, against a
+carried :class:`~repro_torch.core.ticketing.TicketTable`, updated in place,
+and writes each row's ticket for the morsels it commits and -1 for every
+other row.  Its plain version is
 :func:`fused_consume_plain` with S = 0 and the same ticket output; the
 per-morsel step of the plain version is the scan route's own
 ``engine.groupby.make_pause_scan_body``.
@@ -70,6 +72,7 @@ NO_HALT = 0x7FFFFFFF
 MAX_SPECS = 16          # accumulator planes the kernel takes (csrc kMaxSpecs)
 MAX_MORSEL_ROWS = 4096  # 1 int of shared memory per row, beside the fold table
 BLOCK_THREADS = 256     # threads per CTA of the kernel (a multiple of 32)
+SCAN_BLOCK_THREADS = 512  # threads per CTA of scan_ticket's kernel: 256, 512 or 1024
 _INT32_MAX = 0x7FFFFFFF
 
 
@@ -321,7 +324,7 @@ def fused_consume(
     _, total, M = values.shape
     if S == 0:
         raise ValueError("the fused kernel takes 1..MAX_SPECS accumulator planes; "
-                         "scan_ticket runs its ticket-only mode")
+                         "scan_ticket tickets without any")
     if M > MAX_MORSEL_ROWS:
         raise ValueError(f"morsel of {M} rows exceeds the kernel's {MAX_MORSEL_ROWS}")
     info = torch.empty((P, INFO_LEN), dtype=torch.int32, device=dev)
@@ -369,7 +372,7 @@ def _kernel_library() -> ctypes.CDLL:
         lib.fused_groupby_error_string.argtypes = [ctypes.c_int]
         lib.fused_groupby_error_string.restype = ctypes.c_char_p
         scan = lib.scan_ticket_launch
-        scan.argtypes = [ptr] * 10 + [i32] * 10 + [ints, ptr]
+        scan.argtypes = [ptr] * 11 + [i32] * 10 + [ints, ptr]
         scan.restype = ctypes.c_int
     return lib
 
@@ -457,7 +460,8 @@ def fused_consume_plain(
 
 def _table_view(table: tk.TicketTable, events: torch.Tensor) -> FusedState:
     """A one-program :class:`FusedState` of views of ``table`` (no copy) and
-    no accumulator planes: what the ticket-only launch reads and updates."""
+    no accumulator planes: what :func:`scan_ticket_plain` reads and
+    updates."""
     return FusedState(
         tkeys=table.keys.view(1, -1), ttks=table.tickets.view(1, -1),
         kbt=table.key_by_ticket.view(1, -1),
@@ -495,13 +499,14 @@ def scan_ticket(
     committed-morsel semantics) gains this launch's counts when
     ``collect_events``.
 
-    CUDA tensors launch ``csrc/fused_groupby.cu`` in its ticket-only mode
+    CUDA tensors launch ``scan_ticket_kernel`` of ``csrc/fused_groupby.cu``
     (counted in ``scan_ticket.launches``; grid in ``scan_ticket.grid``) and
     raise if they cannot; its CTAs take morsels in no fixed order, so
     ticket order and, on a pause, the set of committed morsels vary from
-    run to run.  A morsel may have any number of rows there.  CPU tensors
-    run :func:`scan_ticket_plain`: morsels in order, ticket for ticket the
-    JAX scan route's."""
+    run to run, and a row answered from a CTA's key cache counts one probe
+    step.  A morsel may have any number of rows there.  CPU tensors run
+    :func:`scan_ticket_plain`: morsels in order, ticket for ticket the JAX
+    scan route's."""
     dev = keys.device
     if dev.type == "cpu":
         return scan_ticket_plain(
@@ -509,45 +514,82 @@ def scan_ticket(
             threshold=threshold, bound_slack=bound_slack,
             collect_events=collect_events, events=events,
         )
-    if events is None:
-        events = obs_metrics.zero_event_vector(dev)
-    state = _table_view(table, events)
-    values = torch.empty((0, *keys.shape), dtype=torch.float32, device=dev)
-    _check_launch(state, keys, values, todo, ())
-    if dev.type == "cuda":
-        for name, v in (("threshold", threshold), ("bound_slack", bound_slack)):
-            if not -_INT32_MAX <= v <= _INT32_MAX:
-                raise ValueError(f"{name}={v} does not fit int32")
-        npm, M = keys.shape
-        tickets = torch.empty(keys.shape, dtype=torch.int32, device=dev)
-        if npm == 0:  # no morsel: nothing to launch, nothing todo
-            info = torch.zeros((1, INFO_LEN), dtype=torch.int32, device=dev)
-            info[0, INFO_COUNT] = state.count[0]
-            info[0, INFO_FIRST_HALT] = NO_HALT
-            return tickets, info
-        info = torch.empty((1, INFO_LEN), dtype=torch.int32, device=dev)
-        scratch = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-        scratch[:, 3] = state.count
-        grid = (ctypes.c_int * 2)()
-        lib = _kernel_library()
-        err = lib.scan_ticket_launch(
-            keys.data_ptr(), todo.data_ptr(), state.tkeys.data_ptr(), state.ttks.data_ptr(),
-            state.kbt.data_ptr(), state.count.data_ptr(), state.events.data_ptr(),
-            info.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), npm, M,
-            table.capacity, table.max_groups, int(checked), int(grow_bound),
-            int(threshold), int(bound_slack), int(collect_events), BLOCK_THREADS, grid,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(
-                "scan_ticket kernel launch failed: "
-                + lib.fused_groupby_error_string(err).decode()
-            )
-        scan_ticket.launches += 1
-        scan_ticket.grid = (grid[0], grid[1])
-    else:
+    call = prepare_scan_ticket(
+        table, keys, todo, checked=checked, grow_bound=grow_bound, threshold=threshold,
+        bound_slack=bound_slack, collect_events=collect_events, events=events,
+    )
+    return launch_scan_ticket(call)
+
+
+_SCAN_SCRATCH = 4  # int32 words of launch scratch (csrc kScratch)
+
+
+def prepare_scan_ticket(table, keys, todo, *, checked=True, grow_bound=False, threshold=0,
+                        bound_slack=0, collect_events=False, events=None):
+    """The host work of one :func:`scan_ticket` call on CUDA tensors: the
+    checks, the tickets, and one small allocation holding the info vector
+    and the launch scratch (the launcher fills the scratch on the card;
+    the info vector, which the executor keeps until it polls, does not
+    hold the tickets' memory).  :func:`launch_scan_ticket` runs the launch
+    on it; the two split the call to time them apart."""
+    dev = keys.device
+    if dev.type != "cuda":
         raise ValueError(f"scan_ticket runs on cuda or cpu tensors, not {dev}")
-    table.overflowed.logical_or_(table.count > table.max_groups)
+    if events is None and collect_events:
+        events = obs_metrics.zero_event_vector(dev)
+    tensors = (keys, todo, table.keys, table.tickets, table.key_by_ticket, table.count,
+               table.overflowed) + ((events,) if events is not None else ())
+    for t, dtype in zip(tensors, (torch.int32,) * 6 + (torch.bool, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"scan_ticket takes contiguous {dtype} tensors on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if keys.dim() != 2 or tuple(todo.shape) != keys.shape[:1]:
+        raise ValueError(f"keys {tuple(keys.shape)} / todo {tuple(todo.shape)} are not "
+                         "(npm, M) / (npm,)")
+    C = table.capacity
+    if (C & (C - 1) or tuple(table.tickets.shape) != (C,) or table.count.numel() != 1
+            or table.overflowed.numel() != 1
+            or (events is not None and events.numel() != obs_metrics.EVENT_VEC_LEN)):
+        raise ValueError("inconsistent TicketTable / events shapes")
+    for name, v in (("threshold", threshold), ("bound_slack", bound_slack)):
+        if not -_INT32_MAX <= v <= _INT32_MAX:
+            raise ValueError(f"{name}={v} does not fit int32")
+    npm, M = keys.shape
+    if npm == 0:  # no morsel: nothing to launch, nothing todo
+        info = torch.zeros((1, INFO_LEN), dtype=torch.int32, device=dev)
+        info[0, INFO_COUNT] = table.count
+        info[0, INFO_FIRST_HALT] = NO_HALT
+        return keys.new_empty(keys.shape), info, None, ()
+    tickets = torch.empty((npm, M), dtype=torch.int32, device=dev)
+    aux = torch.empty((INFO_LEN + _SCAN_SCRATCH,), dtype=torch.int32, device=dev)
+    args = (keys.data_ptr(), todo.data_ptr(), table.keys.data_ptr(), table.tickets.data_ptr(),
+            table.key_by_ticket.data_ptr(), table.count.data_ptr(),
+            events.data_ptr() if events is not None else None, aux.data_ptr(),
+            aux.data_ptr() + 4 * INFO_LEN, tickets.data_ptr(), table.overflowed.data_ptr(),
+            npm, M, C, table.max_groups, int(checked), int(grow_bound), int(threshold),
+            int(bound_slack), int(collect_events))
+    # the tensors behind the pointers stay referenced until the launch
+    return tickets, aux[:INFO_LEN].view(1, INFO_LEN), args, (aux, tensors)
+
+
+def launch_scan_ticket(call):
+    """Launch the kernel on :func:`prepare_scan_ticket`'s call on the
+    current stream (counted; a call with no morsel launches nothing) and
+    return :func:`scan_ticket`'s ``(tickets, info)``.  Raises if the
+    kernel cannot be built or launched."""
+    tickets, info, args, _ = call
+    if args is None:
+        return tickets, info
+    grid = (ctypes.c_int * 2)()
+    lib = _kernel_library()
+    err = lib.scan_ticket_launch(*args, SCAN_BLOCK_THREADS, grid,
+                                 torch.cuda.current_stream(tickets.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            "scan_ticket kernel launch failed: " + lib.fused_groupby_error_string(err).decode()
+        )
+    scan_ticket.launches += 1
+    scan_ticket.grid = (grid[0], grid[1])
     return tickets, info
 
 

@@ -50,3 +50,17 @@ def test_both_table_kernels_include_the_shared_protocol():
         text = (build.CSRC / f"{name}.cu").read_text()
         assert '#include "hash_probe.cuh"' in text, name
         assert "slot_hash(int" not in text, name  # no private copy of the protocol
+
+
+def test_the_tile_protocol_is_shared_and_the_scan_kernel_has_its_own():
+    header = (build.CSRC / "hash_probe.cuh").read_text()
+    for helper in ("int block_scan(", "int claim_tickets(", "int dedupe_role(",
+                   "int warp_append("):
+        assert helper in header, helper
+    for name in ("fused_groupby", "ticket_hash"):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for helper in ("int block_scan(", "int claim_tickets(", "int dedupe_role("):
+            assert helper not in text, (name, helper)  # no private copy of the protocol
+    fused = (build.CSRC / "fused_groupby.cu").read_text()
+    assert "kTicketOnly" not in fused
+    assert "scan_ticket_kernel(" in fused and "claim_tickets<T>(" in fused

@@ -489,7 +489,7 @@ def test_split_plan_on_the_default_device(cuda, saturation, bound, update):
     assert torch.equal(out["max(v)"][:n][order], mx)
 
 
-# -- the scan route: scan_ticket (fused kernel, ticket-only) and serialized ---
+# -- the scan route: scan_ticket (scan_ticket_kernel) and serialized -----------
 
 
 def _scan_pair(keys, M_rows, cap, g, **kw):
@@ -564,6 +564,83 @@ def test_scan_ticket_ends_on_a_saturated_unchecked_table(cuda):
     assert int(k[1].count) == 1024 and int(k[3][0, fk.INFO_SAT]) == 1
     assert not bool(k[2].any())  # unchecked: every morsel commits
     assert fk.scan_ticket_discrepancies(km, k[:2], p[:2], full=True) == 0
+
+
+def _scan_from(table, km, **kw):
+    """scan_ticket and scan_ticket_plain on the same morsels, each from its
+    own copy of ``table``, events on: ((tickets, table, todo, info,
+    events) each), every histogram summing to its rows."""
+    out = []
+    for fn in (fk.scan_ticket, fk.scan_ticket_plain):
+        t = tk.TicketTable(*(x.clone() for x in table))
+        todo = torch.ones(km.shape[0], dtype=torch.int32, device=km.device)
+        ev = torch.zeros(14, dtype=torch.int32, device=km.device)
+        tickets, info = fn(t, km, todo, collect_events=True, events=ev, **kw)
+        out.append((tickets, t, todo, info, ev))
+    torch.cuda.synchronize()
+    for *_, ev in out:
+        assert int(ev[6:].sum()) == int(ev[1])
+    return out
+
+
+def _tile_rows():
+    return fk.SCAN_BLOCK_THREADS * 4  # the kernel's tile: threads × 4 rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["many_morsels", "hot_key_tiles", "ragged_morsel",
+                                  "second_launch"])
+def test_scan_ticket_tiles_and_key_cache_match_plain(cuda, case):
+    """The tile protocol against the plain version: a CTA's key cache
+    reused over many more morsels than CTAs; a hot key over several tiles
+    of each morsel; a morsel size that is no multiple of the tile; and a
+    second launch on a table that holds most of its keys already (a fresh
+    cache over found keys)."""
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    rows, card = {"many_morsels": (32, 300), "hot_key_tiles": (4 * _tile_rows(), 5000),
+                  "ragged_morsel": (3000, 20000), "second_launch": (4096, 30000)}[case]
+    npm = {"many_morsels": 2048, "hot_key_tiles": 16}.get(case, 64)
+    keys = torch.randint(0, card, (npm * rows,), generator=gen, device=cuda, dtype=torch.int32)
+    keys[:: 97] = -1  # EMPTY rows
+    if case == "hot_key_tiles":
+        keys[torch.rand(keys.shape[0], generator=gen, device=cuda) < 0.75] = 7
+    km = keys.reshape(npm, rows)
+    g = int(torch.unique(keys[keys != -1]).numel())
+    table = tk.make_table(table_capacity(g), g, device=cuda)
+    if case == "second_launch":  # a first launch inserts most of the keys
+        first = keys[torch.randperm(keys.shape[0], generator=gen, device=cuda)].reshape(npm, rows)
+        todo = torch.ones(npm, dtype=torch.int32, device=cuda)
+        fk.scan_ticket(table, first[:48].contiguous(), todo[:48], checked=True,
+                       threshold=table.capacity // 2)
+        assert 0 < int(table.count) < g
+    kw = dict(checked=True, threshold=table.capacity // 2)
+    k, p = _scan_from(table, km, **kw)
+    if case == "many_morsels":
+        assert 2 * fk.scan_ticket.grid[0] <= npm
+    assert torch.equal(k[3], p[3]) and not bool(k[2].any())
+    assert torch.equal(k[4][[0, 1, 2, 4, 5]], p[4][[0, 1, 2, 4, 5]])
+    assert fk.scan_ticket_discrepancies(km, k[:2], p[:2]) == 0
+
+
+@pytest.mark.gpu
+def test_scan_ticket_morsel_saturating_in_its_second_tile_stays_todo(cuda):
+    """Under `checked`, a morsel whose second tile finds the table full
+    commits nothing: every row -1 (the first tile's too), the morsel stays
+    todo, and the kernel's inserts of the first tile stay in the table (the
+    plain version claims the whole morsel at once)."""
+    tile = _tile_rows()
+    gen = torch.Generator(device=cuda).manual_seed(62)
+    head = torch.randint(0, 1000, (tile,), generator=gen, device=cuda, dtype=torch.int32)
+    tail = torch.arange(1000, 1000 + tile, device=cuda, dtype=torch.int32)
+    km = torch.cat([head, tail]).reshape(1, 2 * tile)
+    table = tk.make_table(1024, 4096, device=cuda)
+    out = _scan_from(table, km, checked=True, threshold=1 << 20)
+    for tickets, t, todo, info, ev in out:
+        assert bool((tickets == -1).all()) and int(todo[0]) == 1
+        assert info[0].tolist()[1:] == [0, 1, 1]  # first todo morsel 0, saturated, halted
+        assert int(t.count) == 1024 and int(info[0, fk.INFO_COUNT]) == 1024
+        assert ev.tolist()[:6] == [0, 0, 0, 0, 1, 1]  # one saturation, one pause
+    assert bool(torch.isin(head, out[0][1].keys).all())
 
 
 @pytest.mark.gpu

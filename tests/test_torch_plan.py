@@ -418,6 +418,39 @@ def test_out_of_slice_plans_raise_not_implemented(case):
         tex.make_executor(plan)
 
 
+# spill plans that the reference rejects with ValueError (not merely unported)
+INVALID_SPILL = {
+    "strategy_hybrid": dict(strategy="hybrid"),
+    "strategy_partitioned": dict(strategy="partitioned"),
+    "strategy_sharded": dict(strategy="sharded"),
+    "ticketing_sort": dict(ticketing="sort"),
+    "ticketing_direct": dict(ticketing="direct"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INVALID_SPILL))
+def test_invalid_spill_plans_raise_value_error_as_in_the_reference(case):
+    from repro.engine import executors as jex
+
+    kw = dict(INVALID_SPILL[case])
+    strategy = kw.pop("strategy", "concurrent")
+    for api, make in ((japi, jex.make_executor), (tapi, tex.make_executor)):
+        ex = dict(kernel=None, **kw)
+        if api is tapi:
+            ex["device"] = "cpu"
+        plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"),), strategy=strategy,
+                               max_groups=64, saturation="spill",
+                               execution=api.ExecutionPolicy(**ex))
+        with pytest.raises(ValueError, match="spill"):
+            make(plan)
+    # a valid concurrent hash spill plan is still unported
+    plan = tapi.GroupByPlan(keys=("k",), aggs=(tapi.AggSpec("count"),), strategy="concurrent",
+                            max_groups=64, saturation="spill",
+                            execution=tapi.ExecutionPolicy(kernel=None, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tex.make_executor(plan)
+
+
 # once out of the slice, now the scan route (tests/test_torch_scan.py)
 SCAN_ROUTE = {
     "kernel_none": dict(kernel=None),
