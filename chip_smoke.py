@@ -7,9 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's three CUDA sources (``fused_groupby``,
-   ``ticket_hash``, ``segment_agg``), one ``nvcc`` each, all started
-   together, and print the commands, the seconds and ``-Xptxas -v``.
+1. build — compile the port's four CUDA sources (``fused_groupby``,
+   ``ticket_hash``, ``segment_agg``, ``hybrid_registers``), one ``nvcc``
+   each, all started together, and print the commands, the seconds and
+   ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
    program): 2^20 rows of uniform, zipf and heavy-hitter keys at P = 1
@@ -34,6 +35,11 @@ Four phases, each of which fails the run:
    morsels whole, no ticket past the bound) and its replay after growing
    the bound; an unchecked, saturated table, which must end.  The
    serialized update's one-thread kernel against its row loop, exactly.
+   ``hybrid_registers`` (the hybrid route's register fold): 2^20 rows of
+   the low, high, unique, heavy-hitter and heavy-unique classes (keys
+   spread over all 32 bits, EMPTY rows), R = 8 and 64 heavy keys, a plane
+   of every kind: tail keys equal, COUNT / MIN / MAX exact, SUM within
+   1e-4·Σ|v|.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -51,8 +57,20 @@ Four phases, each of which fails the run:
    ticket launch per chunk and, scan_body, one segment launch per plane
    and chunk); ``update="onehot"`` on low, ``"sort_segment"`` on high, an
    unchecked stream on low; and on 2^16 rows only, ``pipeline="host"``
-   (scan_body) and ``update="serialized"``.  Every stream sets the
-   launch counts to 0 just before it and reads them just after.
+   (scan_body) and ``update="serialized"``.  The default plan
+   (``GroupByPlan(keys, aggs)``: strategy auto, max_groups None,
+   saturation GROW, hashed keys) on low (twice: auto_low_again shows the
+   first pass's share), high and unique, each resolved route printed
+   beside the class's body_* wall, with the time of the resolver's
+   per-chunk sampling and of the operator's host-side grows; the heavy-unique class
+   (a third of the rows on one key, the rest distinct) under auto (it
+   must end as hybrid), ``strategy="hybrid"`` and scan_body; auto_escalate
+   (two chunks uniform over 2^22 keys, then half the rows on one key: a
+   scan executor after two chunks, an escalated hybrid at the end); and
+   direct ticketing over a declared domain of 1000 keys (direct_low), then
+   with a last chunk over 2000 keys (direct_low_grow, the domain grows).
+   Every stream sets the launch counts to 0 just before it and reads them
+   just after, and must launch exactly the kernels of its route.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -78,7 +96,10 @@ Four phases, each of which fails the run:
    One ``torch.profiler`` session (a second one records nothing) gives the
    device time of every kernel of one ticket call and one ``scan_ticket``
    call per class.  The serialized kernel on one chunk of its stream (8192
-   rows), beside ``index_add_``.
+   rows), beside ``index_add_``.  ``hybrid_registers`` on the low, high,
+   unique and heavy-unique chunks with the main path's planes and the
+   heavy keys ``detect_heavy_hitters`` names, beside its plain version
+   (held against it) and its bytes bound; no library call computes it.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -100,7 +121,7 @@ SRC = os.path.join(HERE, "src")
 M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
-KERNELS = ("fused_groupby", "ticket_hash", "segment_agg")  # CUDA sources
+KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers")  # CUDA sources
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
@@ -160,6 +181,16 @@ def gen_keys(n, cardinality, dist, gen, device):
         hh = torch.rand(n, generator=gen, device=device) < 0.5
         return torch.where(hh, torch.full_like(keys, 7), keys)
     raise ValueError(dist)
+
+
+def heavy_unique_keys(n, gen, device):
+    """Paper Table 2's worst corner: distinct keys (a permutation of n)
+    with a third of the rows, shuffled, on one key (7).  int64."""
+    import torch
+
+    keys = torch.randperm(n, generator=gen, device=device)
+    hot = torch.rand(n, generator=gen, device=device) < 1 / 3
+    return torch.where(hot, torch.full_like(keys, 7), keys)
 
 
 def oracle(keys, vals):
@@ -624,6 +655,81 @@ def phase2_scan(fk, sa, gen, device, n=1 << 20):
     return worst
 
 
+HR_KINDS = ("count", "sum", "min", "max")
+
+
+def top_keys(k32, r):
+    """The r - 1 most frequent live keys of an int32 key column, and one
+    EMPTY pad: r heavy keys."""
+    import torch
+
+    live = k32[k32 != -1]
+    uk, cnt = torch.unique(live, return_counts=True)
+    heavy = torch.full((r,), -1, dtype=torch.int32, device=k32.device)
+    top = uk[torch.argsort(cnt, descending=True)][: r - 1]
+    heavy[: top.numel()] = top
+    return heavy
+
+
+def check_registers(keys, heavy, vals, got, want, tail_k, tail_p, kinds, label):
+    """The register kernel vs its plain version: tail keys equal; COUNT,
+    MIN and MAX exact; SUM within SUM_RTOL · Σ|v| of the register's rows.
+    Returns the largest |Δ| of any register."""
+    import torch
+
+    check(torch.equal(tail_k, tail_p), f"{label}: tail keys differ in "
+          f"{int((tail_k != tail_p).sum())} rows")
+    hit = keys[None, :] == heavy[:, None]
+    absum = torch.where(hit, vals.abs()[None, :], 0.0).double().sum(dim=1)
+    err = 0.0
+    for s, kind in enumerate(kinds):
+        d = (got[s] - want[s]).abs()
+        d = torch.where(torch.isinf(want[s]) & (got[s] == want[s]), torch.zeros_like(d), d)
+        err = max(err, float(d.max()))
+        if kind == "sum":
+            check(bool((d.double() <= SUM_RTOL * absum + 1e-6).all()),
+                  f"{label}: SUM outside {SUM_RTOL}·Σ|v|")
+        else:
+            check(torch.equal(got[s], want[s]), f"{label}: {kind.upper()} differs")
+    return err
+
+
+def phase2_hybrid(hr, gen, device, n=1 << 20):
+    """The register kernel vs its plain version on a 2^20-row chunk of
+    every class, R = 8 and 64, one plane of every kind; keys spread over
+    all 32 bits (an odd multiplier, so the classes keep their shape) with
+    EMPTY rows.  Returns the largest |Δ| of any register."""
+    import torch
+
+    classes = {"low": gen_keys(n, "low", "uniform", gen, device),
+               "high": gen_keys(n, "high", "zipf", gen, device),
+               "unique": gen_keys(n, "unique", "uniform", gen, device),
+               "heavy": gen_keys(n, "high", "heavy", gen, device),
+               "heavy_unique": heavy_unique_keys(n, gen, device)}
+    vals = torch.randn(n, generator=gen, device=device)
+    vals[::97] = -0.0
+    planes = [None, vals, vals, vals]
+    err = 0.0
+    for name, keys in classes.items():
+        u = (keys * 0x9E3779B1) & 0xFFFFFFFF
+        k32 = torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+        k32[:7] = -1
+        for r in (8, 64):
+            heavy = top_keys(k32, r)
+            fresh = torch.stack([torch.full((r,), v, device=device)
+                                 for v in (0.0, 0.0, float("inf"), float("-inf"))])
+            got, want = fresh.clone(), fresh.clone()
+            tail_k = hr.hybrid_registers(k32, heavy, planes, got, kinds=HR_KINDS)
+            tail_p = hr.hybrid_registers_plain(k32, heavy, planes, want, kinds=HR_KINDS)
+            sync(device)
+            label = f"phase2 hybrid_registers {name} R={r}"
+            e = check_registers(k32, heavy, vals, got, want, tail_k, tail_p, HR_KINDS, label)
+            err = max(err, e)
+            log(f"{label}: {int((tail_k == -1).sum()) - 7} rows on registers, "
+                f"max|Δreg|={e:.3g}, tail equal, count/min/max exact ok")
+    return err
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
@@ -656,24 +762,46 @@ def stream_path(kernel, update, pipeline):
     return path
 
 
-def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs=1,
-               kernel="fused", update=None, chunks=8, pipeline="scan"):
+def executor_path(ex):
+    """The kernels the executor's route launches (each at least once): a
+    resolved or escalated plan is read off the executor that ran it."""
+    name = type(ex).__name__
+    if name == "_ResolvingExecutor":
+        return executor_path(ex._inner)
+    if name == "_HybridExecutor":
+        return ("hybrid_registers", "scan_ticket") + (
+            ("segment_agg",) if ex._op.use_kernel else ())
+    if name == "_DirectExecutor":
+        return ("segment_agg",) if ex._plan.execution.kernel == "scan_body" else ()
+    e = ex._plan.execution
+    return stream_path(e.kernel, e.update, e.pipeline)
+
+
+def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None,
+               programs=1, kernel="fused", update=None, chunks=8, pipeline="scan",
+               plan=None, hashed=False, probe=None):
     """One stream of the main path through the plan API, held to the
-    oracle.  The launch counts are set to 0 just before it and read just
-    after; the split route's host-side merge is timed apart (synchronized
-    on both sides, so those times include the device work it waits for)."""
+    oracle.  ``plan`` replaces the concurrent plan built from the keyword
+    arguments (the default-plan streams); ``hashed``: the plan hashes the
+    key column, so the oracle groups the hashed keys; ``probe(handle)``
+    runs after the first two chunks.  The launch counts are set to 0 just before the
+    stream and read just after; the split route's host-side merge is timed
+    apart (synchronized on both sides, so those times include the device
+    work it waits for)."""
     import torch
 
     device = keys.device
     aggs = tuple(api.AggSpec(k, c) for k, c in AGGS_SPEC)
-    plan = api.GroupByPlan(
-        keys=("k",), aggs=aggs, strategy="concurrent", max_groups=max_groups,
-        saturation=saturation, raw_keys=True,
-        execution=api.ExecutionPolicy(kernel=kernel, morsel_size=M,
-                                      kernel_programs=programs, instrument=True,
-                                      update=update, device=device.type,
-                                      pipeline=pipeline),
-    )
+    default_plan = plan is not None
+    if plan is None:
+        plan = api.GroupByPlan(
+            keys=("k",), aggs=aggs, strategy="concurrent", max_groups=max_groups,
+            saturation=saturation, raw_keys=True,
+            execution=api.ExecutionPolicy(kernel=kernel, morsel_size=M,
+                                          kernel_programs=programs, instrument=True,
+                                          update=update, device=device.type,
+                                          pipeline=pipeline),
+        )
     n = keys.shape[0]
     step = n // chunks
 
@@ -701,7 +829,40 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
             merge["calls"] += 1
 
         ex._merge = timed_merge
-    out = handle.result()
+    host = {"observe_s": 0.0, "grow_s": 0.0, "grows": 0}
+    restore = None
+    if default_plan:
+        # the resolver's per-chunk sample and statistics, and the operator's
+        # host-side grows (bound and migration), each synchronized on both
+        # sides: both already wait for the device (the sample's read, the
+        # count's read)
+        from repro_torch.engine.groupby import GroupByOperator
+
+        def timed(hook, key, count=None):
+            def run(*a):
+                sync(device)
+                h0 = time.perf_counter()
+                r = hook(*a)
+                sync(device)
+                host[key] += time.perf_counter() - h0
+                if count:
+                    host[count] += 1
+                return r
+            return run
+
+        if hasattr(ex, "_observe"):
+            ex._observe = timed(ex._observe, "observe_s")
+        grow = GroupByOperator._grow
+        GroupByOperator._grow = lambda op, m: timed(lambda: grow(op, m), "grow_s", "grows")()
+        restore = grow
+    try:
+        if probe is not None:
+            handle.pump(2)
+            probe(handle)
+        out = handle.result()
+    finally:
+        if restore is not None:
+            GroupByOperator._grow = restore
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -709,23 +870,35 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
     dev = handle.stats()["device"]
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
+    if hashed:
+        from repro_torch.engine.columns import combine_keys
+
+        keys = combine_keys(keys).to(torch.int64) & 0xFFFFFFFF
     o = oracle(keys, vals)
     g = o["keys"].numel()
     ng = int(out["__num_groups__"][0])
-    check(ng == g, f"{name}: {ng} groups, oracle {g}")
-    rk = out["key"][:ng]
-    order = torch.argsort(rk)
-    check(torch.equal(rk[order], o["keys"]), f"{name}: key set differs from the oracle")
-    cnt = out["count(*)"][:ng][order]
+    rows = torch.arange(ng, device=device)
+    if type(getattr(ex, "_inner", ex)).__name__ == "_DirectExecutor":
+        # direct ticketing's groups are its whole domain: keys that no row
+        # holds come back with count 0
+        inner = getattr(ex, "_inner", ex)
+        check(ng == min(inner._domain, inner._bound), f"{name}: {ng} groups for domain "
+              f"{inner._domain}")
+        rows = rows[out["count(*)"][:ng] > 0]
+    check(rows.numel() == g, f"{name}: {rows.numel()} groups, oracle {g}")
+    rk = out["key"][rows]
+    order = rows[torch.argsort(rk)]
+    check(torch.equal(out["key"][order], o["keys"]), f"{name}: key set differs from the oracle")
+    cnt = out["count(*)"][order]
     check(torch.equal(cnt.double(), o["count"].double()), f"{name}: COUNT not exact")
-    check(torch.equal(out["max(v)"][:ng][order], o["max"]), f"{name}: MAX not exact")
+    check(torch.equal(out["max(v)"][order], o["max"]), f"{name}: MAX not exact")
     tol = SUM_RTOL * o["abs"]
-    d_sum = (out["sum(v)"][:ng][order].double() - o["sum"]).abs()
+    d_sum = (out["sum(v)"][order].double() - o["sum"]).abs()
     check(bool((d_sum <= tol).all()), f"{name}: SUM outside {SUM_RTOL}·Σ|v|")
     c64 = o["count"].double()
-    d_mean = (out["mean(v)"][:ng][order].double() - o["sum"] / c64).abs()
+    d_mean = (out["mean(v)"][order].double() - o["sum"] / c64).abs()
     check(bool((d_mean <= tol / c64).all()), f"{name}: MEAN outside tolerance")
-    path = stream_path(kernel, update, pipeline)
+    path = executor_path(ex)
     for k in path:
         check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
     for k in set(kmods) - set(path):
@@ -738,7 +911,22 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups, saturation, programs
         "max_memory_allocated": peak, "launches": launches,
         "max_sum_err_over_abs": float((d_sum / o["abs"].clamp_min(1e-30)).max()),
     }
-    if kernel == "fused":
+    if default_plan:
+        inner = getattr(ex, "_inner", ex)
+        res = getattr(ex, "_resolved", plan)
+        rec.update(strategy=plan.strategy, resolved_strategy=res.strategy,
+                   kernel=res.execution.kernel, update=res.execution.update,
+                   ticketing=res.execution.ticketing, max_groups=res.max_groups,
+                   saturation=res.saturation, executor=type(inner).__name__,
+                   escalated=bool(getattr(ex, "_escalated", False)),
+                   pauses=dev.get("pauses"), bound_grows=dev.get("bound_grows"),
+                   migrations=dev.get("migrations"), table_capacity=dev.get("table_capacity"),
+                   **host)
+        if type(inner).__name__ == "_HybridExecutor":
+            rec["heavy_keys"] = int((inner._heavy != -1).sum())
+        if type(inner).__name__ == "_DirectExecutor":
+            rec.update(domain=inner._domain, final_bound=inner._bound)
+    elif kernel == "fused":
         fk = kmods["fused_groupby"][0]
         rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
                    table_capacity=dev["table_capacity"], pauses=dev["pauses"],
@@ -812,6 +1000,7 @@ def phase3(kmods, api, gen, device, n=1 << 24):
     recs.append(run_stream(kmods, api, "split_low_onehot", low, vals, max_groups=1024,
                            saturation="raise", kernel="split", update="onehot"))
     recs += phase3_scan(kmods, api, gen, device, low, vals, n)
+    recs += phase3_default(kmods, api, gen, device, low, vals, n, recs)
     return recs
 
 
@@ -850,6 +1039,105 @@ def phase3_scan(kmods, api, gen, device, low, vals, n):
     check(rec["bound_grows"] >= 2, f"scan_high_grow: {rec['bound_grows']} bound grows")
     recs.append(rec)
     return recs
+
+
+def phase3_default(kmods, api, gen, device, low, vals, n, recs):
+    """The default plan's streams: ``GroupByPlan(keys, aggs)`` with every
+    default (strategy auto, max_groups None, saturation GROW; the key
+    column hashed) on each class; the heavy-unique class under auto,
+    ``strategy="hybrid"`` and scan_body; a stream whose heavy hitter
+    appears at its third chunk (auto escalates to hybrid); direct
+    ticketing over a declared domain of 1000 keys, then with a last chunk
+    past it.  Each default-plan stream prints its resolved route beside
+    the scan_body wall of its class."""
+    import torch
+
+    aggs = tuple(api.AggSpec(k, c) for k, c in AGGS_SPEC)
+    walls = {r["stream"]: r["wall_s"] for r in recs}
+    # every default but the event counters (pauses, grows) of stats()
+    auto = api.GroupByPlan(keys=("k",), aggs=aggs,
+                           execution=api.ExecutionPolicy(instrument=True))
+    out = []
+
+    def show(rec, beside):
+        log(f"phase3 {rec['stream']}: resolved {rec['resolved_strategy']} "
+            f"kernel={rec['kernel']} update={rec['update']} "
+            f"max_groups={rec['max_groups']} -> {rec['executor']}"
+            f"{' (escalated)' if rec['escalated'] else ''}; launches "
+            f"{json.dumps(rec['launches'])}; observe {rec['observe_s']:.4f} s, "
+            f"{rec['grows']} grow calls {rec['grow_s']:.4f} s; wall {rec['wall_s']:.4f} s beside "
+            + ", ".join(f"{b} {walls[b]:.4f} s" for b in beside if b in walls))
+
+    for cls, make in (("low", lambda: low),
+                      ("high", lambda: gen_keys(n, "high", "zipf", gen, device)),
+                      ("unique", lambda: gen_keys(n, "unique", "uniform", gen, device))):
+        keys = make()
+        # low runs twice: the first default-plan stream of the process pays
+        # first-use costs (hashed keys' temporaries, allocator growth)
+        for name in ["auto_" + cls] + (["auto_low_again"] if cls == "low" else []):
+            rec = run_stream(kmods, api, name, keys, vals, plan=auto, hashed=True)
+            check(rec["kernel"] == "scan_body" and rec["update"] == "scatter",
+                  f"{name}: resolved kernel={rec['kernel']} update={rec['update']}, not "
+                  "the CUDA route (scan_body, scatter)")
+            show(rec, ["body_" + cls, "auto_low"])
+            out.append(rec)
+            walls[rec["stream"]] = rec["wall_s"]
+        del keys
+    hu = heavy_unique_keys(n, gen, device)
+    rec = run_stream(kmods, api, "auto_heavy_unique", hu, vals, plan=auto, hashed=True)
+    check(rec["executor"] == "_HybridExecutor",
+          f"auto_heavy_unique: ended as {rec['executor']}, not _HybridExecutor")
+    out.append(rec)
+    hybrid = api.GroupByPlan(keys=("k",), aggs=aggs, strategy="hybrid", raw_keys=True,
+                             execution=api.ExecutionPolicy(instrument=True))
+    rec_h = run_stream(kmods, api, "hybrid_heavy_unique", hu, vals, plan=hybrid)
+    check(rec_h["executor"] == "_HybridExecutor", "hybrid_heavy_unique: not hybrid")
+    out.append(rec_h)
+    rec_b = run_stream(kmods, api, "body_heavy_unique", hu, vals, max_groups=n,
+                       saturation="raise", kernel="scan_body")
+    out.append(rec_b)
+    walls.update({r["stream"]: r["wall_s"] for r in out})
+    show(rec, ["hybrid_heavy_unique", "body_heavy_unique"])
+    show(rec_h, ["auto_heavy_unique", "body_heavy_unique"])
+    del hu
+    # uniform over 2^22 keys for two chunks, then half the rows on key 7
+    step = n // 8
+    esc = torch.randint(0, 1 << 22, (n,), generator=gen, device=device)
+    hot = torch.rand(n, generator=gen, device=device) < 0.5
+    hot[: 2 * step] = False
+    esc = torch.where(hot, torch.full_like(esc, 7), esc)
+    seen = {}
+
+    def after_two(handle):
+        seen["inner"] = type(handle.executor._inner).__name__
+
+    rec = run_stream(kmods, api, "auto_escalate", esc, vals, plan=auto, hashed=True,
+                     probe=after_two)
+    rec["inner_after_2_chunks"] = seen["inner"]
+    check(seen["inner"] == "_ScanExecutor",
+          f"auto_escalate: {seen['inner']} after two chunks, not _ScanExecutor")
+    check(rec["executor"] == "_HybridExecutor" and rec["escalated"],
+          f"auto_escalate: ended as {rec['executor']}, not an escalated _HybridExecutor")
+    show(rec, ["auto_high"])
+    out.append(rec)
+    del esc, hot
+    direct = api.GroupByPlan(keys=("k",), aggs=aggs, strategy="concurrent", raw_keys=True,
+                             execution=api.ExecutionPolicy(ticketing="direct", key_domain=1000,
+                                                           instrument=True))
+    rec = run_stream(kmods, api, "direct_low", low, vals, plan=direct)
+    check(rec["executor"] == "_DirectExecutor" and rec["domain"] == 1000,
+          f"direct_low: {rec['executor']} with domain {rec.get('domain')}")
+    show(rec, ["body_low", "auto_low"])
+    out.append(rec)
+    past = low.clone()
+    past[-step:] = torch.randint(0, 2000, (step,), generator=gen, device=device)
+    rec = run_stream(kmods, api, "direct_low_grow", past, vals, plan=direct)
+    want = int(past.max()) + 1
+    check(rec["executor"] == "_DirectExecutor" and rec["domain"] == want,
+          f"direct_low_grow: {rec['executor']} with domain {rec.get('domain')}, not {want}")
+    show(rec, ["direct_low"])
+    out.append(rec)
+    return out
 
 
 # -- phase 4: timing --------------------------------------------------------------
@@ -1418,18 +1706,81 @@ def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class,
     }
 
 
-def phase4_profiles(timing, ticket_calls, scan_calls):
+def phase4_hybrid(hr, thy, chunk_classes, vals, gen, device, reps=5):
+    """The register kernel on one 2^21-row main-path chunk of each class
+    (and of the heavy-unique class), with the main path's planes (the §4
+    aggs: count, sum, count, max) and the eight heavy keys
+    ``detect_heavy_hitters`` names on the chunk: CUDA events, median of
+    ``reps``, beside its plain version (held against it) and its bytes
+    bound: the keys read, the tail keys written and the value column read
+    for the rows that hit a register.  No single PyTorch call computes
+    this function, so it has no library time.  Returns (the calls that
+    :func:`phase4_profiles` traces, label → fn; the record)."""
+    import torch
+
+    rows = vals.numel()
+    classes = {name: keys for name, (keys, _) in chunk_classes.items()}
+    classes["heavy_unique"] = heavy_unique_keys(rows, gen, device)
+    kinds = ("count", "sum", "count", "max")
+    planes = [None, vals, None, vals]
+    per_class, calls = {}, {}
+    worst = 0.0
+    for name, keys in classes.items():
+        k32 = keys.to(torch.int32)
+        heavy = torch.from_numpy(thy.detect_heavy_hitters(k32, 8).view("int32")).to(device)
+        fresh = torch.stack([torch.full((8,), v, device=device)
+                             for v in (0.0, 0.0, 0.0, float("-inf"))])
+        regs = fresh.clone()
+        ms = time_cuda(lambda: hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds),
+                       reps, lambda: regs.copy_(fresh))
+        got, want = fresh.clone(), fresh.clone()
+        tail_k = hr.hybrid_registers(k32, heavy, planes, got, kinds=kinds)
+        tail_p, p_s = timed(hr.hybrid_registers_plain, k32, heavy, planes, want, kinds=kinds)
+        err = check_registers(k32, heavy, vals, got, want, tail_k, tail_p, kinds,
+                              f"phase4 hybrid_registers {name}")
+        worst = max(worst, err)
+        hits = int((tail_k == -1).sum())
+        nbytes = 8 * rows + 4 * hits
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        per_class[name] = {"kernel_ms": ms, "plain_ms": p_s * 1e3, "bound_ms": b_ms,
+                           "bound_by": "bytes", "library_ms": None, "max_abs_err": err,
+                           "rows": rows, "registers": int((heavy != -1).sum()),
+                           "rows_on_registers": hits}
+
+        def call(k32=k32, heavy=heavy, regs=regs, fresh=fresh):
+            # the register reset runs after the kernel, so the profile can
+            # tell the calls apart by their first kernel
+            hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds)
+            regs.copy_(fresh)
+
+        calls["hybrid_" + name] = call
+        log(f"phase4 hybrid_registers {name}: kernel {ms:.4f} ms for {rows} rows "
+            f"({hits} on {per_class[name]['registers']} registers), bound {b_ms:.4f} ms "
+            f"(bytes), plain {p_s * 1e3:.2f} ms, no library call; max|Δreg|={err:.3g} ok")
+    log("phase4 hybrid " + json.dumps(per_class))
+    hu = per_class["heavy_unique"]
+    return calls, {"ms": hu["kernel_ms"], "plain_ms": hu["plain_ms"],
+                   "bound_ms": hu["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                   "max_abs_err": worst, "per_class": per_class}
+
+
+def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls):
     """``torch.profiler``'s device time per kernel of one ticket call per
-    class (and the zipf chunk at C = 2^25) and one ``scan_ticket`` call per
-    class, in the process's one profiler session, attached to each call's
-    breakdown in ``timing``."""
+    class (and the zipf chunk at C = 2^25), one ``scan_ticket`` call per
+    class and one ``hybrid_registers`` call per class, in the process's one
+    profiler session, attached to each call's record in ``timing``."""
     calls = dict(ticket_calls)
     calls.update({"scan_" + name: fn for name, fn in scan_calls.items()})
+    calls.update(hybrid_calls)
     # a ticket call starts with the sample or the fill; a scan_ticket call
-    # with its scratch fill
+    # with its scratch fill; a register call with its kernel
     profiles = device_profiles(calls, ("ticket_sample_kernel", "ticket_fill_kernel",
-                                       "scan_fill_kernel"))
+                                       "scan_fill_kernel", "hybrid_registers_kernel"))
     for label, rows_ms in profiles.items():
+        if label.startswith("hybrid_"):
+            timing["hybrid_registers"]["per_class"][label[7:]]["profile_ms"] = rows_ms
+            log(f"phase4 hybrid_registers profile {label[7:]}: " + json.dumps(rows_ms))
+            continue
         if label.startswith("scan_"):
             timing["scan_per_class"][label[5:]]["breakdown"]["profile_ms"] = rows_ms
             log(f"phase4 scan_ticket profile {label[5:]}: " + json.dumps(rows_ms))
@@ -1471,14 +1822,17 @@ def main(argv=None) -> int:
     from repro_torch.core import ticketing as tk
     from repro_torch.engine import plan_api as api
     from repro_torch.kernels import build
+    from repro_torch.core import hybrid as thy
     from repro_torch.kernels import fused_groupby as fk
+    from repro_torch.kernels import hybrid_registers as hr
     from repro_torch.kernels import segment_agg as sa
     from repro_torch.kernels import ticket_hash as th
 
     # name → (module, wrapper) whose ``launches`` counts that kernel
     kmods = {"fused_groupby": (fk, "fused_consume"), "ticket_hash": (th, "ticket_hash"),
              "segment_agg": (sa, "segment_agg"), "scan_ticket": (fk, "scan_ticket"),
-             "segment_agg_serialized": (sa, "serialized_agg")}
+             "segment_agg_serialized": (sa, "serialized_agg"),
+             "hybrid_registers": (hr, "hybrid_registers")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -1503,6 +1857,7 @@ def main(argv=None) -> int:
     max_err = phase2(fk, gen, device)
     split_err = phase2_split(th, sa, gen, device)
     split_err.update(phase2_scan(fk, sa, gen, device))
+    split_err["hybrid_registers"] = phase2_hybrid(hr, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -1523,7 +1878,10 @@ def main(argv=None) -> int:
                                           timing["per_class"])
     timing.update(scan_timing)
     scan_block_sweep(fk, tk, chunk_classes, device)
-    phase4_profiles(timing, ticket_calls, scan_calls)
+    hybrid_calls, timing["hybrid_registers"] = phase4_hybrid(hr, thy, chunk_classes,
+                                                             chunk_vals, gen, device)
+    phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls)
+    log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
         f_ms = timing["fused_groupby"]["per_class"][name]["kernel_ms"]
         t_ms = timing["per_class"][name]["ticket"]["kernel_ms"]
@@ -1535,12 +1893,14 @@ def main(argv=None) -> int:
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
-    # the scan route's two kernels replace plain jnp, not a Pallas kernel
+    # the scan route's two kernels and the register fold replace plain jnp,
+    # not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
                 "scan_ticket": "src/repro/engine/groupby.py:144",
-                "segment_agg_serialized": "src/repro/core/updates.py:226"}
+                "segment_agg_serialized": "src/repro/core/updates.py:226",
+                "hybrid_registers": "src/repro/engine/executors.py:884"}
     source = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
     kernels = [{
         "name": name,

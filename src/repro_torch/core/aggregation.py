@@ -48,8 +48,9 @@ def concurrent_groupby(
       update: scatter | onehot | sort_segment | serialized (§3.2).
       max_groups: the bound on unique keys.
       morsel_size: rows per morsel; None → one morsel (the whole column).
-      ticketing: hash; sort and direct are not ported yet (ROADMAP modules
-        item 5) and raise ``NotImplementedError``.
+      ticketing: hash | direct (ticket == key over ``[0, max_groups)``);
+        sort is not ported yet (ROADMAP modules item 5b) and raises
+        ``NotImplementedError``.
       capacity: hash-table slots; default ``table_capacity``.
       saturation: unchecked (the legacy default: truncate past the bound)
         | raise | grow.

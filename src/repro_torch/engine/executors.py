@@ -9,25 +9,38 @@ plus ``consume_async(chunk) → token`` / ``poll(token)`` (the double-
 buffered ingest seam the :class:`StreamHandle` drives) and an idempotent
 ``finalize`` (a mid-stream ``snapshot()``).
 
-The port runs three routes of ``strategy="concurrent"`` with hash
-ticketing and an explicit ``max_groups`` so far, each with the raise /
-grow / unchecked saturation policies:
+The port runs these plans, each with the raise / grow / unchecked
+saturation policies:
 
-  * ``kernel`` ∈ {None, "off", "scan_body"} (and the ``use_kernel=True``
-    alias) — :class:`_ScanExecutor`: the scan route's
-    :class:`~repro_torch.engine.groupby.GroupByOperator`, a ticket launch
-    and one update per accumulator plane per chunk against a carried table,
-    with the update strategies of ``core/updates.py`` (``"off"``) or the
-    segment kernel (``"scan_body"``);
-  * ``kernel="fused"`` — :class:`_FusedExecutor`: one kernel tickets and
-    aggregates against a table carried across chunks, with the §4.4
-    pause → grow → resume protocol;
-  * ``kernel="split"`` (legacy ``strategy="pallas"``) —
-    :class:`_PallasExecutor`: the ticket kernel and one segment kernel per
-    aggregate plane run over each chunk against a fresh table, and the
-    chunk's bounded partial merges into a carried table.
+  * ``strategy="auto"`` or ``max_groups=None`` (the defaults) —
+    :class:`_ResolvingExecutor`: samples each chunk's first keys into
+    ``core.adaptive.RunningStats``, resolves the plan from the first
+    chunk (:func:`resolve_plan_stats`: the reference's Table 1 policy,
+    plus :func:`cuda_route` on a card) and escalates a hash pipeline to
+    hybrid mid-stream when heavy hitters emerge;
+  * ``strategy="concurrent"``, hash ticketing:
+      - ``kernel`` ∈ {None, "off", "scan_body"} (and the ``use_kernel=True``
+        alias) — :class:`_ScanExecutor`: the scan route's
+        :class:`~repro_torch.engine.groupby.GroupByOperator`, a ticket
+        launch and one update per accumulator plane per chunk against a
+        carried table, with the update strategies of ``core/updates.py``
+        (``"off"``) or the segment kernel (``"scan_body"``);
+      - ``kernel="fused"`` — :class:`_FusedExecutor`: one kernel tickets
+        and aggregates against a table carried across chunks, with the
+        §4.4 pause → grow → resume protocol;
+      - ``kernel="split"`` (legacy ``strategy="pallas"``) —
+        :class:`_PallasExecutor`: the ticket kernel and one segment kernel
+        per aggregate plane over each chunk against a fresh table, the
+        chunk's bounded partial merged into a carried table;
+  * ``strategy="concurrent"``, ``ticketing="direct"`` —
+    :class:`_DirectExecutor`: ticket == key over a bounded domain, one
+    update per plane per chunk into a carried accumulator;
+  * ``strategy="hybrid"`` — :class:`_HybridExecutor`: heavy-hitter rows
+    fold into registers (the ``hybrid_registers`` kernel on a card), the
+    tail runs through the scan route's operator.
 
-Every other plan raises ``NotImplementedError`` naming the ROADMAP item
+Every other plan (strategy partitioned or sharded, ticketing sort,
+saturation spill) raises ``NotImplementedError`` naming the ROADMAP item
 that ports it; none quietly runs something else.
 
 Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
@@ -40,12 +53,13 @@ from __future__ import annotations
 import warnings
 from dataclasses import replace
 
+import numpy as np
 import torch
 
-from repro_torch.core import resize
+from repro_torch.core import adaptive, resize
 from repro_torch.core import ticketing as tk
 from repro_torch.core import updates as up
-from repro_torch.core.hashing import EMPTY_I32, table_capacity
+from repro_torch.core.hashing import EMPTY_I32, table_capacity, to_i32_bits
 from repro_torch.engine.columns import Table, chunk_key_column
 from repro_torch.engine.groupby import (
     GroupByOperator,
@@ -106,9 +120,7 @@ def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
 # Where each plan outside the ported slice will be ported (ROADMAP.md,
 # "Modules to port").
 _STRATEGY_ITEM = {
-    "auto": "item 5 (auto: _ResolvingExecutor and the planner)",
-    "hybrid": "item 5 (the other single-device strategies)",
-    "partitioned": "item 5 (the other single-device strategies)",
+    "partitioned": "item 5b (the remaining single-device strategies)",
     "sharded": "item 9 (multi-device sharding)",
 }
 
@@ -125,8 +137,10 @@ _SPLIT_UPDATES = ("scatter", "onehot")
 
 
 def make_executor(plan: GroupByPlan):
-    """Lower a plan to its executor (the scan, fused and split concurrent
-    hash routes are ported; see the module docstring)."""
+    """Lower a plan to its executor (see the module docstring).
+    ``strategy="auto"`` (or an unset ``max_groups``) defers to
+    :class:`_ResolvingExecutor`, which samples the first chunk's keys and
+    re-dispatches: the paper's estimate → choose → run."""
     plan = normalize_kernel(plan)
     ex = plan.execution
     kernel = ex.kernel
@@ -159,18 +173,27 @@ def make_executor(plan: GroupByPlan):
     for unported, what, item in (
         (plan.saturation == SaturationPolicy.SPILL, "saturation='spill'",
          "item 6 (out-of-core spill)"),
-        (plan.strategy != "concurrent", f"strategy={plan.strategy!r}",
+        (plan.strategy in _STRATEGY_ITEM, f"strategy={plan.strategy!r}",
          _STRATEGY_ITEM.get(plan.strategy)),
-        (plan.max_groups is None, "max_groups=None (an estimated bound)",
-         "item 5 (auto: _ResolvingExecutor and the planner)"),
-        (ex.ticketing != "hash", f"ticketing={ex.ticketing!r}",
-         "item 5 (_SortExecutor and _DirectExecutor)"),
+        (ex.ticketing == "sort", "ticketing='sort'",
+         "item 5b (_SortExecutor, the remaining single-device strategies)"),
     ):
         if unported:
             raise _not_ported(what, item)
     device = resolve_device(ex.device)
     if plan.saturation is None:
-        plan = replace(plan, saturation=SaturationPolicy.RAISE)
+        # THE saturation default: an estimated bound recovers (a sample
+        # cannot see a long tail); an explicit bound is a caller contract
+        plan = replace(plan, saturation=(
+            SaturationPolicy.GROW if plan.max_groups is None
+            else SaturationPolicy.RAISE
+        ))
+    if plan.strategy == "auto" or plan.max_groups is None:
+        return _ResolvingExecutor(plan, device)
+    if plan.strategy == "hybrid":
+        return _HybridExecutor(plan, device)
+    if ex.ticketing == "direct":
+        return _DirectExecutor(plan, device)
     if kernel == "split":
         return _PallasExecutor(plan, device)
     if kernel == "fused":
@@ -299,6 +322,190 @@ def _overflow_error(count, max_groups) -> GroupByOverflowError:
 
 
 # ---------------------------------------------------------------------------
+# auto resolution (estimate → choose → run → re-plan)
+
+# cardinality and skew past which a hash pipeline takes the hybrid route
+# (heavy hitters at high cardinality: paper Table 2's worst corner)
+_HYBRID_TOP_FREQ = 0.25
+_HYBRID_GROUPS = 4096
+
+
+def _wants_hybrid(stats: adaptive.WorkloadStats) -> bool:
+    return stats.est_top_freq >= _HYBRID_TOP_FREQ and stats.est_groups > _HYBRID_GROUPS
+
+
+def cuda_route(plan: GroupByPlan, resolved: GroupByPlan) -> GroupByPlan:
+    """THE route rule of a resolved plan on a CUDA device, the port's
+    counterpart of the reference's off-TPU ``kernel_table_budget`` (which
+    is 0, so the reference never picks ``fused`` off a TPU).
+
+    When ``plan`` runs on CUDA (``ExecutionPolicy.device`` None or a CUDA
+    device), its caller left ``kernel`` None and its ``update`` is None or
+    ``"scatter"``, the resolved plan takes ``kernel="scan_body"`` and
+    ``update="scatter"``, whichever of concurrent hash, direct or hybrid
+    Table 1 picked.  Every other plan keeps the reference's resolution,
+    field for field.  Measured ground (chip_smoke phase 3 walls on one H100
+    80GB HBM3 at 700.00 W, 2^24 rows in 8 chunks, PERF.md §5): body_* at
+    0.0054–0.0083 s per stream against 0.0101–0.0669 s for ``kernel="off"``
+    and 0.0044–0.2041 s for fused; the reference's pick for small
+    cardinalities (``update="onehot"``, ``kernel`` None) took 0.64–0.71 s
+    on the low class.  ``update="scatter"`` also keeps a GROW bound past
+    ``segment_agg.MAX_ONEHOT_GROUPS`` legal under scan_body.  The route
+    changes speed only, never the result map."""
+    ex = plan.execution
+    on_cuda = torch.device("cuda" if ex.device is None else ex.device).type == "cuda"
+    if not on_cuda or ex.kernel is not None or ex.update not in (None, "scatter"):
+        return resolved
+    return replace(resolved, execution=replace(resolved.execution, kernel="scan_body",
+                                               update="scatter"))
+
+
+def resolve_plan_stats(plan: GroupByPlan, stats: adaptive.WorkloadStats) -> GroupByPlan:
+    """Bind ``strategy="auto"`` / ``max_groups=None`` from workload
+    statistics: the reference's rule (``core/adaptive.py``, the paper's
+    Table 1 policy, plus the hybrid route for high cardinality under heavy
+    hitters), then :func:`cuda_route`."""
+    max_groups = plan.max_groups
+    if max_groups is None:
+        # 2× headroom over the estimate, never above the row count, never 0
+        max_groups = max(1, min(max(stats.est_groups * 2, 64), max(stats.n_rows, 1)))
+    strategy, execution = plan.strategy, plan.execution
+    if strategy == "auto":
+        if plan.saturation == SaturationPolicy.SPILL:
+            strategy = "concurrent"
+            update = execution.update or "scatter"
+        elif _wants_hybrid(stats):
+            strategy = "hybrid"
+            update = execution.update or "scatter"
+        else:
+            choice = adaptive.choose_plan(
+                stats, num_accumulators=len(expand_agg_specs(plan.aggs))
+            )
+            strategy = "concurrent"
+            update = execution.update or (
+                "sort_segment" if choice.ticketing == "sort" else choice.update
+            )
+            if (choice.ticketing == "direct" and execution.ticketing == "hash"
+                    and plan.raw_keys):
+                # bounded key domain: perfect-hash ticketing, ticket == key
+                execution = replace(
+                    execution, ticketing="direct",
+                    key_domain=execution.key_domain or stats.key_domain,
+                )
+            elif (choice.kernel == "fused" and execution.kernel is None
+                    and execution.ticketing == "hash"):
+                execution = replace(execution, kernel="fused")
+        execution = replace(execution, update=update)
+    resolved = replace(plan, strategy=strategy, max_groups=max_groups, execution=execution)
+    return cuda_route(plan, resolved)
+
+
+def resolve_plan(plan: GroupByPlan, keys: torch.Tensor) -> GroupByPlan:
+    """One-shot resolution from a key sample (the streaming resolver below
+    carries :class:`adaptive.RunningStats` across chunks instead)."""
+    stats = adaptive.sample_stats(keys, domain=plan.execution.key_domain)
+    return resolve_plan_stats(plan, stats)
+
+
+class _ResolvingExecutor(_ExecutorBase):
+    """Defers strategy / bound resolution to the first consumed chunk,
+    then carries :class:`adaptive.RunningStats` across the stream and
+    RE-PLANS mid-stream: a hash-ticketed concurrent pipeline escalates to
+    hybrid when the observed heavy-hitter mass crosses the planner
+    threshold (the live operator is adopted in place, so nothing replays).
+
+    Each chunk's first :attr:`SAMPLE_ROWS` keys go to the host once (one
+    device round trip per chunk).  The first chunk reaches the resolved
+    executor through the same ``consume_async`` seam the stream uses."""
+
+    SAMPLE_ROWS = 4096
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        self._plan = plan
+        self._device = device
+        self._inner = None
+        self._resolved = None
+        self._stats = adaptive.RunningStats(domain=plan.execution.key_domain)
+        self._escalated = False
+
+    @property
+    def peak_buffered_chunks(self) -> int:
+        return self._inner.peak_buffered_chunks if self._inner else 0
+
+    def memory_stats(self) -> dict:
+        return self._inner.memory_stats() if self._inner else super().memory_stats()
+
+    @property
+    def strategy_label(self) -> str:
+        return self._inner.strategy_label if self._inner else "auto"
+
+    def device_table_bytes(self) -> int:
+        return self._inner.device_table_bytes() if self._inner else 0
+
+    def event_counts(self):
+        return self._inner.event_counts() if self._inner else None
+
+    def stats(self) -> dict:
+        return self._inner.stats() if self._inner else super().stats()
+
+    def _sample_keys(self, chunk: Table) -> torch.Tensor:
+        head = Table({k: torch.as_tensor(v)[: self.SAMPLE_ROWS]
+                      for k, v in chunk.columns.items()})
+        keys, _ = chunk_key_column(head, self._plan.keys, self._plan.raw_keys)
+        return keys
+
+    def _observe(self, chunk: Table) -> None:
+        stats = self._stats.update(self._sample_keys(chunk))
+        if self._inner is None:
+            self._resolved = resolve_plan_stats(self._plan, stats)
+            self._inner = make_executor(self._resolved)
+            self._inner.open()
+        else:
+            self._maybe_replan(stats)
+
+    def _maybe_replan(self, stats: adaptive.WorkloadStats) -> None:
+        """hash → hybrid escalation: the first chunk's sample missed
+        heavy-hitter mass that the running sketch has now seen.  Only under
+        GROW (the auto default): adoption inserts the heavy keys into the
+        live table, which must be allowed to widen for them."""
+        if (
+            self._escalated
+            or not isinstance(self._inner, _ScanExecutor)
+            or self._resolved.saturation != SaturationPolicy.GROW
+            or not _wants_hybrid(stats)
+        ):
+            return
+        heavy = self._stats.heavy_keys[: self._plan.execution.num_registers]
+        if not heavy:
+            return
+        hybrid_plan = replace(
+            self._resolved, strategy="hybrid",
+            execution=replace(self._resolved.execution,
+                              heavy_keys=np.asarray(heavy, np.uint32)),
+        )
+        self._inner = _HybridExecutor.adopt(hybrid_plan, self._inner._op)
+        self._escalated = True
+
+    def consume(self, chunk: Table) -> None:
+        self._observe(chunk)
+        self._inner.consume(chunk)
+
+    def consume_async(self, chunk: Table):
+        self._observe(chunk)
+        return self._inner.consume_async(chunk)
+
+    def poll(self, token) -> None:
+        # tokens stay valid across an escalation: hybrid adopts the SAME
+        # operator the tokens were dispatched on
+        self._inner.poll(token)
+
+    def finalize(self) -> Table:
+        if self._inner is None:
+            raise ValueError("GroupByPlan executed over zero chunks")
+        return self._inner.finalize()
+
+
+# ---------------------------------------------------------------------------
 # concurrent: the scan route (streams natively)
 
 
@@ -346,6 +553,269 @@ class _ScanExecutor(_ExecutorBase):
 
     def event_counts(self):
         return self._op.event_counts() if self._op.collect_events else None
+
+
+# ---------------------------------------------------------------------------
+# concurrent with direct ticketing (streams natively)
+
+
+class _DirectExecutor(_ExecutorBase):
+    """Strategy ``concurrent`` with perfect-hash (direct) ticketing: ticket
+    == key, so tickets are stable across chunks and under domain growth;
+    each chunk folds straight into the carried ``AggState`` (in place) and
+    no chunk is retained.
+
+    RAISE / UNCHECKED consume with no host sync: out-of-domain rows and
+    tickets past the bound accumulate in device-side sticky flags, read
+    once at finalize by RAISE.  GROW reads both per chunk BEFORE updating:
+    an out-of-range chunk widens the domain to cover its largest key
+    (rows-bounded, as every other grow), pads the accumulators and
+    re-tickets the chunk."""
+
+    strategy_label = "direct"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        if not plan.raw_keys:
+            # hash-combined keys leave the bounded domain: every row would miss
+            raise ValueError(
+                "ticketing='direct' requires raw_keys=True (a single "
+                "bounded-domain uint32 key column)"
+            )
+        self._plan = plan
+        self._device = device
+        ex = plan.execution
+        self._domain = ex.key_domain or plan.max_groups
+        self._bound = plan.max_groups
+        if ex.kernel == "scan_body":
+            # the segment kernel, as the scan route's operator runs it
+            from repro_torch.kernels import ops as kops
+
+            strategy = ex.update if ex.update in ("scatter", "onehot") else "scatter"
+            self._update_fn = kops.make_scan_update_fn(strategy=strategy)
+        else:
+            self._update_fn = up.get_update_fn(ex.update or "scatter")
+        self._state = None
+        self._rows = 0
+        self._dropped = torch.zeros((), dtype=torch.bool, device=device)  # sticky
+        self._max_ticket = torch.full((), -1, dtype=torch.int32, device=device)
+
+    def consume(self, chunk: Table) -> None:
+        p = self._plan
+        keys, vals = _chunk_keys_values(p, chunk, self._device)
+        self._rows += int(keys.shape[0])
+        if self._state is None:
+            self._state = up.init_agg_state(expand_agg_specs(p.aggs), self._bound,
+                                            device=self._device)
+        tickets, _, _ = tk.direct_ticketing(keys, self._domain)
+        valid = keys != EMPTY_I32
+        top = tickets.max() if tickets.numel() else tickets.new_full((), -1)
+        if p.saturation == SaturationPolicy.GROW:
+            dropped, used = torch.stack([
+                ((tickets < 0) & valid).any().to(torch.int64),
+                top.to(torch.int64) + 1,
+            ]).tolist()
+            if dropped or used > self._bound:
+                # the domain must cover the largest observed key VALUE
+                u = keys.to(torch.int64) & 0xFFFFFFFF
+                kmax = int(torch.where(valid, u, torch.zeros_like(u)).max())
+                limit = max(4 * self._rows, 65536)
+                if kmax + 1 > limit:
+                    raise GroupByOverflowError(
+                        f"direct-ticketing overflow: observed key {kmax} "
+                        f"needs domain {kmax + 1}, past the rows-bounded "
+                        f"growth limit {limit} — the key space is too "
+                        "sparse for perfect-hash ticketing; use "
+                        "ticketing='hash' instead."
+                    )
+                self._domain = max(kmax + 1, self._domain)
+                # the bound never shrinks: earlier chunks committed slots
+                self._bound = max(self._domain, self._bound, 64)
+                self._state = up.grow_agg_state(self._state, self._bound)
+                tickets, _, _ = tk.direct_ticketing(keys, self._domain)
+        else:
+            self._dropped |= ((tickets < 0) & valid).any()
+            self._max_ticket = torch.maximum(self._max_ticket, top)
+        self._state = up.update_agg_state(self._state, tickets, vals, self._update_fn)
+
+    def finalize(self) -> Table:
+        p = self._plan
+        if self._state is None:
+            raise ValueError("GroupByPlan executed over zero chunks")
+        domain, max_groups = self._domain, self._bound
+        _, kbt, count = tk.direct_ticketing(
+            torch.zeros((0,), dtype=torch.int32, device=self._device), domain
+        )
+        if p.saturation == SaturationPolicy.RAISE:
+            dropped, used = bool(self._dropped), int(self._max_ticket) + 1
+            if dropped or used > max_groups:
+                raise GroupByOverflowError(
+                    "direct-ticketing overflow: keys outside "
+                    f"domain={domain} or past max_groups={max_groups} "
+                    "would be dropped. Use SaturationPolicy.GROW or "
+                    "declare a larger key_domain/max_groups."
+                )
+        if p.saturation != SaturationPolicy.UNCHECKED:
+            # checked reads promise count ≤ materialized rows
+            count = torch.clamp(count, max=max_groups)
+        return build_result_table(p.aggs, self._state.get, kbt, count, max_groups)
+
+    def device_table_bytes(self) -> int:
+        if self._state is None:
+            return 0
+        return sum(_nbytes(a) for a in self._state.accs)
+
+
+# ---------------------------------------------------------------------------
+# hybrid: heavy-hitter registers + the scan route's tail (streams natively)
+
+
+def _heavy_tensor(heavy, device: torch.device) -> torch.Tensor:
+    """Heavy keys (uint32 values or int32 bit patterns, EMPTY-padded) → an
+    int32 bit-pattern tensor on ``device``; no live key may repeat (the
+    register fold gives a row one register).  An empty set becomes one
+    EMPTY register, as in the reference."""
+    t = heavy if isinstance(heavy, torch.Tensor) else torch.as_tensor(
+        np.asarray(heavy).astype(np.int64))
+    t = to_i32_bits(t.reshape(-1)).to(device)
+    if t.shape[0] == 0:
+        return torch.full((1,), EMPTY_I32, dtype=torch.int32, device=device)
+    live = t[t != EMPTY_I32]
+    if torch.unique(live).numel() != live.numel():
+        raise ValueError("hybrid heavy_keys repeat a key: each live key takes one register")
+    return t
+
+
+class _HybridExecutor(_ExecutorBase):
+    """Strategy ``hybrid``: rows of a small heavy-hitter candidate set fold
+    into dense per-key registers (``kernels.hybrid_registers``: the
+    hand-written kernel on a card, its plain version on the CPU), which
+    also strips them from the chunk; the tail flows through the scan
+    route's :class:`GroupByOperator`.  Streams natively: ``grow`` rides the
+    tail operator's in-stream bound growth and no chunk is retained.  The
+    heavy keys own the tail table's first tickets, and the registers merge
+    into the tail accumulators at finalize (a read: consume may go on)."""
+
+    strategy_label = "hybrid"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        self._plan = plan
+        self._device = device
+        self._specs = expand_agg_specs(plan.aggs)
+        self._kinds = tuple(k for _, k in self._specs)
+        self._vcols = value_columns(plan.aggs)
+        hk = plan.execution.heavy_keys
+        self._heavy = None if hk is None else _heavy_tensor(hk, device)
+        self._regs = None   # (S, R) float32, one row per accumulator spec
+        self._op = None
+
+    def _init_regs(self) -> None:
+        r = self._heavy.shape[0]
+        self._regs = torch.stack([up.init_acc(r, k, device=self._device)
+                                  for k in self._kinds])
+
+    @classmethod
+    def adopt(cls, plan: GroupByPlan, op: GroupByOperator) -> "_HybridExecutor":
+        """Mid-stream escalation: adopt a live scan-route operator (table,
+        accumulators, grown bound; in-flight tokens stay valid) as the tail
+        pipeline.  The heavy keys (``plan.execution.heavy_keys``) get
+        tickets now (idempotent for keys already seen); the registers start
+        at identity, because every pre-switch heavy row is already counted
+        in the tail accumulators.  All of it is ordered on the card's one
+        stream after the launches already in flight."""
+        self = cls(plan, op._device)
+        if self._heavy is None:
+            raise ValueError("adopt() requires pinned heavy_keys")
+        # the tail now arrives as the combined key column: the operator
+        # switches to the raw ``__key__`` convention (same key space)
+        op.key_columns = ["__key__"]
+        op.raw_keys = True
+        if _instrument(plan) and not op.collect_events:
+            # pre-switch counts are lost; post-switch counts are exact
+            op.collect_events = True
+            op._events = obs_metrics.zero_event_vector(op._device)
+        if op.grow_bound:
+            op._grow(int(self._heavy.shape[0]))  # headroom for the inserts
+        _, op._table = tk.get_or_insert(op._table, self._heavy)
+        self._op = op
+        self._init_regs()
+        return self
+
+    def _make_op(self, max_groups: int) -> GroupByOperator:
+        p, ex = self._plan, self._plan.execution
+        op = GroupByOperator(
+            key_columns=["__key__"], aggs=list(p.aggs), max_groups=max_groups,
+            morsel_rows=ex.morsel_rows, update=ex.update or "scatter",
+            use_kernel=ex.kernel == "scan_body", load_factor=ex.load_factor,
+            pipeline=ex.pipeline, capacity=ex.capacity, raw_keys=True,
+            check_overflow=p.saturation != SaturationPolicy.UNCHECKED,
+            grow_bound=p.saturation == SaturationPolicy.GROW,
+            collect_events=_instrument(p), device=str(self._device),
+        )
+        # heavy keys own the FIRST tickets: a key whose every row the
+        # registers absorb still gets its group
+        _, op._table = tk.get_or_insert(op._table, self._heavy)
+        return op
+
+    def consume(self, chunk: Table) -> None:
+        self.poll(self.consume_async(chunk))
+
+    def consume_async(self, chunk: Table):
+        from repro_torch.core.hybrid import detect_heavy_hitters
+        from repro_torch.kernels.hybrid_registers import hybrid_registers
+
+        keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
+        if self._heavy is None:
+            self._heavy = _heavy_tensor(
+                detect_heavy_hitters(keys, self._plan.execution.num_registers), self._device)
+        if self._op is None:
+            self._init_regs()
+            self._op = self._make_op(self._plan.max_groups)
+        planes = [None if kind == "count" else vals[col] for col, kind in self._specs]
+        tail = hybrid_registers(keys, self._heavy, planes, self._regs, kinds=self._kinds)
+        tail_chunk = Table({"__key__": tail, **{c: vals[c] for c in self._vcols}})
+        return self._op.consume_async(tail_chunk)
+
+    def poll(self, token) -> None:
+        if token is not None:
+            self._op.poll(token)
+
+    def _merged_state(self) -> up.AggState:
+        """Copies of the tail accumulators with the registers folded into
+        their tickets' slots: a pure read of the live state, so
+        ``finalize`` stays idempotent."""
+        op = self._op
+        heavy_tickets = tk.lookup(op._table, self._heavy)  # -1 for padding
+        accs = []
+        for s, ((_, kind), acc) in enumerate(zip(op._state.specs, op._state.accs)):
+            merge_kind = "sum" if kind in ("sum", "count") else kind
+            accs.append(up.scatter_update(acc.clone(), heavy_tickets, self._regs[s],
+                                          kind=merge_kind))
+        return up.AggState(op._state.specs, tuple(accs))
+
+    def finalize(self) -> Table:
+        if self._op is None:
+            raise ValueError("GroupByPlan executed over zero chunks")
+        op = self._op
+        tail_state = op._state
+        op._state = self._merged_state()
+        try:
+            return op.finalize()
+        finally:
+            # registers stay separate: consume may continue after a read
+            op._state = tail_state
+
+    def device_table_bytes(self) -> int:
+        if self._op is None:
+            return 0
+        return (resize.table_nbytes(self._op._table)
+                + sum(_nbytes(a) for a in self._op._state.accs) + _nbytes(self._regs))
+
+    def event_counts(self):
+        if self._op is None or not self._op.collect_events:
+            return None
+        # tail-pipeline counts only: register-absorbed rows never enter
+        # the scan, so ``rows`` reads as "tail rows"
+        return self._op.event_counts()
 
 
 # ---------------------------------------------------------------------------

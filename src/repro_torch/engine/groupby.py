@@ -521,10 +521,14 @@ def groupby(
     saturation: str | None = None,
     device: str | None = None,
 ) -> Table:
-    """One-shot GROUP BY through the plan API.  The reference's default
-    ``strategy="auto"`` (estimate → choose → run) is not ported yet and
-    raises ``NotImplementedError`` (ROADMAP modules item 5); an explicit
-    ``strategy="concurrent"`` with ``max_groups`` runs the scan route."""
+    """One-shot GROUP BY with adaptive strategy selection through the plan
+    API (the paper's estimate → choose → run): ``strategy="auto"`` samples
+    the keys, picks the route (the reference's Table 1 policy; on a CUDA
+    device the scan route with the segment kernel, see
+    ``engine.executors.cuda_route``) and runs it.  ``saturation=None``
+    defers to the plan API's default: ``grow`` when ``max_groups`` is
+    estimated, ``raise`` for an explicit bound.  ``device``: None →
+    ``"cuda"``."""
     from repro_torch.engine.plan_api import ExecutionPolicy, GroupByPlan, execute
 
     plan = GroupByPlan(

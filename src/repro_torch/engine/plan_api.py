@@ -15,11 +15,13 @@ streaming executor (``open → consume* → finalize``), and
     partial = handle.snapshot()    # idempotent mid-stream materialize
     result = handle.result()       # drain the source, finalize
 
-The port runs ``strategy="concurrent"`` with hash ticketing and an
-explicit ``max_groups`` on every kernel route (None / "off" / "scan_body":
-the scan route; "split"; "fused"); every other plan makes
-``make_executor`` raise ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+The port runs the default plan (``strategy="auto"``, ``max_groups=None``,
+resolved from a sample of each stream's first chunk), ``strategy=
+"concurrent"`` with hash ticketing on every kernel route (None / "off" /
+"scan_body": the scan route; "split"; "fused") or with direct ticketing,
+and ``strategy="hybrid"``; every other plan (partitioned, sharded, sort
+ticketing, spill) makes ``make_executor`` raise ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -99,9 +101,9 @@ class GroupByPlan:
       aggs: list of :class:`AggSpec` (sum/count/min/max/mean over columns).
       strategy: ``auto`` or ``concurrent | partitioned | hybrid | pallas |
         sharded``.
-      max_groups: cardinality bound.
+      max_groups: cardinality bound; None → estimated from a sample.
       saturation: :class:`SaturationPolicy`; None → ``raise`` for an
-        explicit bound.
+        explicit bound, ``grow`` for an estimated one.
       execution: :class:`ExecutionPolicy`.
       raw_keys: the single key column already IS the uint32 key space.
     """

@@ -8,6 +8,9 @@ fused_groupby — ticketing + aggregation in one kernel against a table
   carried across chunks (``csrc/fused_groupby.cu``, ``kernel="fused"``),
   and ``scan_ticket``, the scan route's ticket stage (``kernel`` None /
   "off" / "scan_body"), a kernel of its own in the same source.
+hybrid_registers — fold of a chunk's heavy-hitter rows into dense
+  registers and the tail key column without them
+  (``csrc/hybrid_registers.cu``, ``strategy="hybrid"``).
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

@@ -28,6 +28,7 @@ from repro_torch.core.hashing import slot_hash, table_capacity
 from repro_torch.engine import plan_api as api
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_groupby as fk
+from repro_torch.kernels import hybrid_registers as hr
 from repro_torch.kernels import segment_agg as sa
 from repro_torch.kernels import ticket_hash as th
 
@@ -459,6 +460,9 @@ def test_failed_build_raises_and_never_falls_back(cuda, monkeypatch, tmp_path):
         th.ticket_hash(keys, capacity=2048, max_groups=M)
     with pytest.raises(RuntimeError, match="forced by the test"):
         sa.segment_agg(keys, torch.ones(M, device=cuda), num_groups=M)
+    regs = torch.zeros((1, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="forced by the test"):
+        hr.hybrid_registers(keys, keys[:8], [None], regs, kinds=("count",))
 
 
 @pytest.mark.gpu
@@ -696,3 +700,120 @@ def test_serialized_kernel_matches_plain(cuda, kind):
     torch.cuda.synchronize()
     assert got is acc and sa.serialized_agg.launches == before + 1
     assert torch.equal(got.cpu(), want)  # one order of float adds: exact
+
+
+# -- the hybrid register fold and the default plan ------------------------------
+
+HR_KINDS = ("count", "sum", "min", "max")
+
+
+def _hybrid_case(dev, case, rows, R, seed):
+    """Keys of one class (int32 bit patterns), R heavy keys (the class's
+    most frequent keys, EMPTY-padded) and one value column with -0.0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if case == "unique":
+        keys = torch.randperm(rows, generator=g, device=dev)
+    elif case == "heavy_unique":
+        keys = torch.randperm(rows, generator=g, device=dev)
+        keys[torch.rand(rows, generator=g, device=dev) < 1 / 3] = 7
+    else:
+        keys = torch.randint(0, 1000 if case == "low" else 50000, (rows,), generator=g,
+                             device=dev)
+        if case == "heavy":
+            keys[torch.rand(rows, generator=g, device=dev) < 0.5] = 0x9E3779B9
+    keys = keys.to(torch.int64)
+    keys[:5] = 0xFFFFFFFF  # EMPTY rows never hit a register
+    k32 = torch.where(keys >= 1 << 31, keys - (1 << 32), keys).to(torch.int32)
+    uk, cnt = torch.unique(k32[k32 != -1], return_counts=True)
+    heavy = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    top = uk[torch.argsort(cnt, descending=True)][: R - 1]  # one EMPTY pad at least
+    heavy[: top.numel()] = top
+    vals = torch.randn(rows, generator=g, device=dev)
+    vals[::97] = -0.0
+    return k32, heavy, vals
+
+
+def _assert_registers_match(got_regs, want_regs, got_tail, want_tail, keys, heavy, vals):
+    assert torch.equal(got_tail, want_tail)
+    for s, kind in enumerate(HR_KINDS):
+        if kind == "sum":
+            hit = keys[None, :] == heavy[:, None]
+            absum = torch.where(hit, vals.abs()[None, :], 0.0).sum(dim=1)
+            assert bool(((got_regs[s] - want_regs[s]).abs() <= 1e-4 * absum + 1e-6).all())
+        else:
+            assert torch.equal(got_regs[s], want_regs[s]), kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [8, 64, 256])
+@pytest.mark.parametrize("case", ["low", "heavy", "unique", "heavy_unique"])
+def test_hybrid_registers_kernel_matches_plain(cuda, case, R):
+    keys, heavy, vals = _hybrid_case(cuda, case, 1 << 18, R, 61 + R)
+    regs0 = torch.stack([torch.full((R,), sa._NEUTRAL[k], device=cuda) for k in HR_KINDS])
+    regs0[1] = 3.0  # carried state folds in place
+    planes = [None, vals, vals, vals]
+    want_regs = regs0.clone()
+    want_tail = hr.hybrid_registers_plain(keys, heavy, planes, want_regs, kinds=HR_KINDS)
+    got_regs = regs0.clone()
+    before = hr.hybrid_registers.launches
+    got_tail = hr.hybrid_registers(keys, heavy, planes, got_regs, kinds=HR_KINDS)
+    torch.cuda.synchronize()
+    assert hr.hybrid_registers.launches == before + 1
+    _assert_registers_match(got_regs, want_regs, got_tail, want_tail, keys, heavy, vals)
+
+
+@pytest.mark.gpu
+def test_hybrid_registers_kernel_edges(cuda):
+    keys = torch.arange(3000, dtype=torch.int32, device=cuda) % 5  # a ragged last tile
+    heavy = torch.tensor([3, 3, -1, 1], dtype=torch.int32, device=cuda)  # a repeated key
+    regs = torch.zeros((1, 4), device=cuda)
+    want = torch.zeros((1, 4), device=cuda)
+    tail = hr.hybrid_registers(keys, heavy, [None], regs, kinds=("count",))
+    want_tail = hr.hybrid_registers_plain(keys, heavy, [None], want, kinds=("count",))
+    torch.cuda.synchronize()
+    assert torch.equal(regs, want) and regs[0].tolist() == [600.0, 0.0, 0.0, 600.0]
+    assert torch.equal(tail, want_tail)
+    before = hr.hybrid_registers.launches
+    out = hr.hybrid_registers(keys[:0], heavy, [None], regs, kinds=("count",))
+    assert out.numel() == 0 and hr.hybrid_registers.launches == before  # nothing to launch
+    with pytest.raises(ValueError, match="MAX_REGISTERS"):
+        hr.hybrid_registers(keys, keys[:hr.MAX_REGISTERS + 1], [None],
+                            torch.zeros((1, hr.MAX_REGISTERS + 1), device=cuda),
+                            kinds=("count",))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["auto_low", "auto_heavy_unique", "hybrid", "direct"])
+def test_default_plans_on_the_default_device(cuda, case):
+    rows = 1 << 18
+    g = torch.Generator(device=cuda).manual_seed(71)
+    if case == "auto_low" or case == "direct":
+        keys = torch.randint(0, 1000, (rows,), generator=g, device=cuda)
+    else:
+        keys = torch.randperm(rows, generator=g, device=cuda)
+        keys[torch.rand(rows, generator=g, device=cuda) < 1 / 3] = 7
+    vals = torch.randn(rows, generator=g, device=cuda)
+    ex = api.ExecutionPolicy(ticketing="direct", key_domain=1000) if case == "direct" \
+        else api.ExecutionPolicy()
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("max", "v")),
+                           strategy="hybrid" if case == "hybrid" else "auto", raw_keys=True,
+                           execution=ex)
+    h0, s0 = hr.hybrid_registers.launches, sa.segment_agg.launches
+    handle = plan.stream([api.Table({"k": keys[i:i + 65536], "v": vals[i:i + 65536]})
+                          for i in range(0, rows, 65536)])
+    out = handle.result()
+    inner = handle.executor._inner
+    assert handle.executor._device.type == "cuda"
+    assert handle.executor._resolved.execution.kernel == "scan_body"
+    assert sa.segment_agg.launches > s0
+    if case in ("auto_heavy_unique", "hybrid"):
+        assert type(inner).__name__ == "_HybridExecutor"
+        assert hr.hybrid_registers.launches > h0
+    uk, inv, cnt = torch.unique(keys, return_inverse=True, return_counts=True)
+    mx = torch.full((uk.numel(),), float("-inf"), device=cuda).scatter_reduce_(
+        0, inv, vals, "amax")
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+    assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+    assert torch.equal(out["max(v)"][:n][order], mx)

@@ -394,14 +394,10 @@ def test_groupby_kernel_front_door(kind):
 
 
 OUT_OF_SLICE = {
-    "strategy_auto": dict(strategy="auto"),
-    "strategy_hybrid": dict(strategy="hybrid", execution=dict(kernel=None)),
     "strategy_partitioned": dict(strategy="partitioned", execution=dict(kernel=None)),
     "strategy_sharded": dict(strategy="sharded", execution=dict(kernel=None)),
     "ticketing_sort": dict(execution=dict(kernel=None, ticketing="sort")),
-    "ticketing_direct": dict(execution=dict(kernel=None, ticketing="direct")),
     "saturation_spill": dict(saturation="spill", execution=dict(kernel=None)),
-    "max_groups_none": dict(max_groups=None),
 }
 
 

@@ -342,16 +342,33 @@ def test_concurrent_groupby_two_value_columns_and_as_group_result(small):
 
 
 def test_unported_ticketings_and_auto_name_item_5(small):
+    """Sort ticketing still raises, naming item 5b; direct ticketing and
+    ``groupby()``'s default ``strategy="auto"`` run, as in the reference."""
     keys, vals = small
-    for kw in (dict(ticketing="sort"), dict(ticketing="direct")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tagg.concurrent_groupby(_tt(keys), _tt(vals), max_groups=64, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgb.groupby(TTable({"k": _tt(keys)}), ["k"], [tgb.AggSpec("count")], max_groups=64,
-                    device="cpu")
-    out = tgb.groupby(TTable({"k": _tt(keys)}), ["k"], [tgb.AggSpec("count")], max_groups=64,
-                      strategy="concurrent", device="cpu")
-    assert int(out["__num_groups__"][0]) == np.unique(keys).size
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        tagg.concurrent_groupby(_tt(keys), _tt(vals), max_groups=64, device="cpu",
+                                ticketing="sort")
+    j = jagg.concurrent_groupby(jnp.asarray(keys), jnp.asarray(vals), kind="sum",
+                                max_groups=128, ticketing="direct")
+    t = tagg.concurrent_groupby(_tt(keys), _tt(vals), kind="sum", max_groups=128,
+                                ticketing="direct", device="cpu")
+    assert int(t.num_groups) == int(j.num_groups) == 128
+    assert np.array_equal(t.keys.numpy(), np.asarray(j.keys).astype(np.int64))
+    np.testing.assert_allclose(t.values.numpy(), np.asarray(j.values), rtol=1e-5, atol=1e-5)
+    jout = jgb.groupby(JTable({"k": jnp.asarray(keys)}), ["k"], [jgb.AggSpec("count")])
+    for strategy in ("auto", "concurrent"):
+        kw = {} if strategy == "auto" else dict(strategy="concurrent", max_groups=64)
+        out = tgb.groupby(TTable({"k": _tt(keys)}), ["k"], [tgb.AggSpec("count")],
+                          device="cpu", **kw)
+        assert int(out["__num_groups__"][0]) == np.unique(keys).size
+        if strategy == "auto":
+            assert _table_map(out, "count(*)") == _table_map(jout, "count(*)")
+
+
+def _table_map(out, col):
+    n = int(np.asarray(out["__num_groups__"])[0])
+    return dict(zip(np.asarray(out["key"])[:n].astype(np.int64).tolist(),
+                    np.asarray(out[col])[:n].tolist()))
 
 
 # -- stage primitives -------------------------------------------------------------

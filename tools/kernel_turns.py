@@ -4,11 +4,13 @@ card.
 
     python3 tools/kernel_turns.py SRC_DIR
 
-Times three kernels on ``chip_smoke.py``'s phase-4 chunks (seed 0: one
+Times the kernels on ``chip_smoke.py``'s phase-4 chunks (seed 0: one
 2^21-row main-path chunk per class, with the bound of the class's stream)
 with its own helpers, importing ``repro_torch`` from ``SRC_DIR``: the fused
-kernel at P = 1 (``kernel_timing``), the ticket kernel, and
-``scan_ticket`` (4096-row morsels, the table reset before each call).
+kernel at P = 1 (``kernel_timing``), the ticket kernel,
+``scan_ticket`` (4096-row morsels, the table reset before each call), and,
+where ``SRC_DIR`` has it, ``hybrid_registers`` (the main path's planes,
+the heavy keys ``detect_heavy_hitters`` names, and a heavy-unique chunk).
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  To compare a parent tree with the
@@ -19,6 +21,7 @@ run them in turns (from the repository root):
     for t in build/parent/src src src build/parent/src; do
         python3 tools/kernel_turns.py $t | tail -1; done
 """
+import importlib.util
 import json
 import os
 import sys
@@ -34,6 +37,29 @@ from repro_torch.core import ticketing as tk  # noqa: E402
 from repro_torch.core.hashing import table_capacity  # noqa: E402
 from repro_torch.kernels import fused_groupby as fk  # noqa: E402
 from repro_torch.kernels import ticket_hash as th  # noqa: E402
+
+
+def hybrid_times(classes, vals, dev):
+    """``hybrid_registers`` as chip_smoke's phase 4 launches it, three
+    timings a class."""
+    from repro_torch.core.hybrid import detect_heavy_hitters
+    from repro_torch.kernels import hybrid_registers as hr
+
+    chunks = {name: keys for name, (keys, _) in classes.items()}
+    chunks["heavy_unique"] = cs.heavy_unique_keys(
+        vals.numel(), torch.Generator(device=dev).manual_seed(1), dev)
+    kinds, planes = ("count", "sum", "count", "max"), [None, vals, None, vals]
+    fresh = torch.stack([torch.full((8,), v, device=dev) for v in (0.0, 0.0, 0.0, -float("inf"))])
+    regs = fresh.clone()
+    out = {}
+    for _ in range(3):
+        for name, keys in chunks.items():
+            k32 = keys.to(torch.int32)
+            heavy = torch.from_numpy(detect_heavy_hitters(k32, 8).view("int32")).to(dev)
+            ms = cs.time_cuda(lambda: hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds),
+                              5, lambda: regs.copy_(fresh))
+            out.setdefault(name, []).append(ms)
+    return out
 
 
 def main() -> int:
@@ -55,6 +81,8 @@ def main() -> int:
             ms = cs.time_cuda(lambda: fk.scan_ticket(work, km, todo, **skw), 5, reset)
             out["scan_ticket"].setdefault(name, []).append(ms)
             del work
+    if importlib.util.find_spec("repro_torch.kernels.hybrid_registers") is not None:
+        out["hybrid_registers"] = hybrid_times(classes, vals, dev)
     print(sys.argv[1], json.dumps(out))
     return 0
 
