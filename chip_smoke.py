@@ -7,10 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's four CUDA sources (``fused_groupby``,
-   ``ticket_hash``, ``segment_agg``, ``hybrid_registers``), one ``nvcc``
-   each, all started together, and print the commands, the seconds and
-   ``-Xptxas -v``.
+1. build — compile the port's five CUDA sources (``fused_groupby``,
+   ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``), one
+   ``nvcc`` each, all started together, and print the commands, the
+   seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
    program): 2^20 rows of uniform, zipf and heavy-hitter keys at P = 1
@@ -39,7 +39,12 @@ Four phases, each of which fails the run:
    the low, high, unique, heavy-hitter and heavy-unique classes (keys
    spread over all 32 bits, EMPTY rows), R = 8 and 64 heavy keys, a plane
    of every kind: tail keys equal, COUNT / MIN / MAX exact, SUM within
-   1e-4·Σ|v|.
+   1e-4·Σ|v|.  ``preagg`` (the partitioned route's pre-aggregation): 2^20
+   rows of the uniform-1000, zipf, unique and heavy-hitter classes (keys
+   over all 32 bits, EMPTY rows), W = 8 and 132 workers, C = 1024 and 64,
+   morsel None and 1024, every kind: table keys, spill mask and cnts
+   equal, COUNT / MIN / MAX exact, SUM within 1e-4·Σ|v|; the spilled share
+   printed (unique at W = 8, C = 1024 spills at least 99%).
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -69,6 +74,19 @@ Four phases, each of which fails the run:
    scan executor after two chunks, an escalated hybrid at the end); and
    direct ticketing over a declared domain of 1000 keys (direct_low), then
    with a last chunk over 2000 keys (direct_low_grow, the domain grows).
+   The partitioned route (``strategy="partitioned"``, one aggregate, the
+   preagg kernel once per chunk and once per rerun): part_low (count(*)),
+   part_low_sum, part_high and part_unique (sum(v), RAISE) and
+   part_high_grow (uniform over N / 10 keys from a bound of 2^16, GROW),
+   each with its pre-aggregation + exchange + partition-wise sort timed
+   apart from the host merge.  Sort ticketing (scan_body updates, every
+   chunk buffered): sort_low, sort_high, sort_unique.  Spill
+   (``saturation="spill"``, scan_body): spill_low (budget 2048 over 1000
+   keys: nothing spills and the map equals scan_low's), spill_high (4096),
+   spill_unique (2^20 over 2^24 keys) and spill_auto_high (strategy
+   auto, 128 partitions), each with ``stats()["spill"]``, peak device table bytes at most
+   twice the residency, a hot table that never migrates, and the host
+   seconds of routing and of finalize.
    Every stream sets the launch counts to 0 just before it and reads them
    just after, and must launch exactly the kernels of its route.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
@@ -94,12 +112,17 @@ Four phases, each of which fails the run:
    (the whole call, the wrapper's host work before the launch on the host
    clock, the launch alone) and swept over CTA sizes (256, 512, 1024).
    One ``torch.profiler`` session (a second one records nothing) gives the
-   device time of every kernel of one ticket call and one ``scan_ticket``
-   call per class.  The serialized kernel on one chunk of its stream (8192
+   device time of every kernel of one ticket call, one ``scan_ticket``
+   call, one ``hybrid_registers`` call and one ``preagg`` call per class.  The serialized kernel on one chunk of its stream (8192
    rows), beside ``index_add_``.  ``hybrid_registers`` on the low, high,
    unique and heavy-unique chunks with the main path's planes and the
    heavy keys ``detect_heavy_hitters`` names, beside its plain version
    (held against it) and its bytes bound; no library call computes it.
+   ``preagg`` on the low, high and unique chunks at W = 8 and 132, C =
+   1024, kind sum, beside its plain version (held against it) and its
+   bytes bound, its device time from the same profiler session; and one
+   partitioned chunk of the high class split into pre-aggregation,
+   exchange, partition-wise sort and the host merge.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -121,7 +144,8 @@ SRC = os.path.join(HERE, "src")
 M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
-KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers")  # CUDA sources
+KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers",
+           "preagg")  # CUDA sources
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
@@ -730,6 +754,97 @@ def phase2_hybrid(hr, gen, device, n=1 << 20):
     return err
 
 
+PA_KINDS = ("sum", "count", "min", "max")
+PA_C = 1024                     # the pre-aggregation table (ExecutionPolicy default)
+
+
+def to_i32(keys):
+    """int64 key values (any 32-bit pattern) → int32 bit patterns."""
+    import torch
+
+    u = keys & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def preagg_layout(k32, vals, w, multiple):
+    """A chunk as the executor lays it out: EMPTY / zero padded to a
+    multiple of ``multiple`` rows, then (W, R)."""
+    import torch
+
+    pad = (-k32.numel()) % multiple
+    if pad:
+        k32 = torch.cat([k32, k32.new_full((pad,), -1)])
+        vals = torch.cat([vals, vals.new_zeros(pad)])
+    return k32.reshape(w, -1).contiguous(), vals.reshape(w, -1).contiguous()
+
+
+def check_preagg(got, want, kw, vw, kind, capacity, label):
+    """The pre-aggregation kernel vs its plain version: table keys, spill
+    mask and cnts equal; COUNT / MIN / MAX vals exact; SUM within
+    SUM_RTOL · Σ|v| of the rows each slot folded.  Returns the largest
+    |Δ| of any slot."""
+    import torch
+
+    from repro_torch.core.hashing import slot_hash
+
+    for what, a, b in zip(("table keys", "cnts", "spill mask"), got[:1] + got[2:],
+                          want[:1] + want[2:]):
+        check(torch.equal(a, b), f"{label}: {what} differ in {int((a != b).sum())} places")
+    d = (got[1] - want[1]).abs()
+    d = torch.where(torch.isinf(want[1]) & (got[1] == want[1]), torch.zeros_like(d), d)
+    err = float(d.max())
+    if kind != "sum":
+        check(torch.equal(got[1], want[1]), f"{label}: {kind.upper()} differs")
+        return err
+    fold = (kw != -1) & ~want[3]
+    w = torch.arange(kw.shape[0], device=kw.device)[:, None].expand_as(kw)
+    absum = torch.zeros(kw.shape[0] * capacity, dtype=torch.float64, device=kw.device)
+    absum.index_add_(0, (w * capacity + slot_hash(kw, capacity))[fold], vw[fold].double().abs())
+    check(bool((d.reshape(-1).double() <= SUM_RTOL * absum + 1e-6).all()),
+          f"{label}: SUM outside {SUM_RTOL}·Σ|v|")
+    return err
+
+
+def phase2_preagg(pa, gen, device, n=1 << 20):
+    """The pre-aggregation kernel vs its plain version on 2^20 rows of the
+    uniform-1000, zipf, unique and heavy-hitter classes (keys spread over
+    all 32 bits, 1% EMPTY rows), W = 8 and 132 workers × C = 1024 and 64 ×
+    morsel None and 1024, one kind each in turn (every kind twice a
+    class).  Prints each class's spilled share of
+    the live rows; unique at W = 8, C = 1024 must spill at least 99%.
+    Returns the largest |Δ| of any slot."""
+    import torch
+
+    classes = {"uniform": gen_keys(n, "low", "uniform", gen, device),
+               "zipf": gen_keys(n, "high", "zipf", gen, device),
+               "unique": gen_keys(n, "unique", "uniform", gen, device),
+               "heavy": gen_keys(n, "low", "heavy", gen, device)}
+    vals = torch.randn(n, generator=gen, device=device)
+    vals[::97] = -0.0
+    err = 0.0
+    configs = [(w, c, m) for w in (8, 132) for c in (PA_C, 64) for m in (None, 1024)]
+    for name, keys in classes.items():
+        k32 = to_i32(keys * 0x9E3779B1)
+        k32[torch.rand(n, generator=gen, device=device) < 0.01] = -1
+        live = int((k32 != -1).sum())
+        for i, (w, c, morsel) in enumerate(configs):
+            # each configuration one kind, in turn: every kind twice a class
+            kind = PA_KINDS[i % len(PA_KINDS)]
+            kw, vw = preagg_layout(k32, vals, w, w * 1024)
+            label = f"phase2 preagg {name} W={w} C={c} morsel={morsel} {kind}"
+            got = pa.preagg(kw, vw, kind=kind, capacity=c, morsel=morsel)
+            want = pa.preagg_plain(kw, vw, kind=kind, capacity=c, morsel=morsel)
+            sync(device)
+            err = max(err, check_preagg(got, want, kw, vw, kind, c, label))
+            share = int(got[3].sum()) / live
+            log(f"{label}: spilled {share:.4f} of {live} live rows; keys, spill, cnts "
+                f"equal, {'SUM within tolerance' if kind == 'sum' else kind.upper() + ' exact'} ok")
+            if name == "unique" and w == 8 and c == PA_C:
+                check(share >= 0.99, f"phase2 preagg unique: spilled {share:.4f} < 0.99 "
+                      f"at W=8, C={PA_C}")
+    return err
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
@@ -768,6 +883,12 @@ def executor_path(ex):
     name = type(ex).__name__
     if name == "_ResolvingExecutor":
         return executor_path(ex._inner)
+    if name == "_PartitionedExecutor":
+        return ("preagg",)
+    if name == "_SortExecutor":
+        return ("segment_agg",) if ex._plan.execution.kernel == "scan_body" else ()
+    if name == "SpillExecutor":
+        return ("scan_ticket",) + (("segment_agg",) if ex._op.use_kernel else ())
     if name == "_HybridExecutor":
         return ("hybrid_registers", "scan_ticket") + (
             ("segment_agg",) if ex._op.use_kernel else ())
@@ -779,28 +900,36 @@ def executor_path(ex):
 
 def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None,
                programs=1, kernel="fused", update=None, chunks=8, pipeline="scan",
-               plan=None, hashed=False, probe=None):
+               plan=None, hashed=False, probe=None, strategy="concurrent",
+               aggs_spec=AGGS_SPEC, keep=False, **execution):
     """One stream of the main path through the plan API, held to the
-    oracle.  ``plan`` replaces the concurrent plan built from the keyword
-    arguments (the default-plan streams); ``hashed``: the plan hashes the
-    key column, so the oracle groups the hashed keys; ``probe(handle)``
-    runs after the first two chunks.  The launch counts are set to 0 just before the
-    stream and read just after; the split route's host-side merge is timed
-    apart (synchronized on both sides, so those times include the device
-    work it waits for)."""
+    oracle.  ``plan`` replaces the plan built from the keyword arguments
+    (``strategy``, ``aggs_spec`` and ``execution``, the extra
+    ExecutionPolicy fields; the default-plan streams); ``hashed``: the
+    plan hashes the key column, so the oracle groups the hashed keys;
+    ``probe(handle)`` runs after the first two chunks; ``keep`` keeps the
+    result table under ``"_out"``.  The launch counts are set to 0 just
+    before the stream and read just after; the host-side merge of the
+    split and partitioned routes is timed apart from the chunk pipeline
+    (synchronized on both sides, so those times include the device work
+    they wait for), and so are the spill executor's routing and
+    finalize."""
     import torch
 
+    from repro_torch.core.hashing import table_capacity
+    from repro_torch.engine import spill as tsp
+
     device = keys.device
-    aggs = tuple(api.AggSpec(k, c) for k, c in AGGS_SPEC)
+    aggs = tuple(api.AggSpec(k, c) for k, c in aggs_spec)
     default_plan = plan is not None
     if plan is None:
         plan = api.GroupByPlan(
-            keys=("k",), aggs=aggs, strategy="concurrent", max_groups=max_groups,
+            keys=("k",), aggs=aggs, strategy=strategy, max_groups=max_groups,
             saturation=saturation, raw_keys=True,
             execution=api.ExecutionPolicy(kernel=kernel, morsel_size=M,
                                           kernel_programs=programs, instrument=True,
                                           update=update, device=device.type,
-                                          pipeline=pipeline),
+                                          pipeline=pipeline, **execution),
         )
     n = keys.shape[0]
     step = n // chunks
@@ -812,23 +941,43 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    merge = {"s": 0.0, "calls": 0}
+    merge = {"s": 0.0, "calls": 0, "chunk_s": 0.0}
     reset_launches(kmods)
     t0 = time.perf_counter()
     handle = plan.stream(source())
     ex = handle.executor
-    if kernel == "split":
-        inner = ex._merge
 
-        def timed_merge(partial):
+    def synced(fn, key, count=None, table=merge, wait_after=True):
+        def run(*a):
             sync(device)
             m0 = time.perf_counter()
-            inner(partial)
-            sync(device)
-            merge["s"] += time.perf_counter() - m0
-            merge["calls"] += 1
+            r = fn(*a)
+            if wait_after:
+                sync(device)
+            table[key] += time.perf_counter() - m0
+            if count:
+                table[count] += 1
+            return r
+        return run
 
-        ex._merge = timed_merge
+    if hasattr(ex, "_merge"):
+        ex._merge = synced(ex._merge, "s", "calls")
+        ex._chunk_partial = synced(ex._chunk_partial, "chunk_s")
+    # the spill executor's host routing (consume_async: the lookup's one
+    # blocking read, admission, partitioning, staging; not synchronized at
+    # its end, so the hot operator's launches are not counted) and finalize
+    spill_host = {"route_s": 0.0, "admit_s": 0.0, "finalize_s": 0.0, "finalizes": 0}
+    spill_methods = {m: getattr(tsp.SpillExecutor, m)
+                     for m in ("consume_async", "_admit", "finalize")}
+    tsp.SpillExecutor.consume_async = lambda se, c: synced(
+        lambda: spill_methods["consume_async"](se, c), "route_s", table=spill_host,
+        wait_after=False)()
+    tsp.SpillExecutor._admit = lambda se, *a: synced(
+        lambda: spill_methods["_admit"](se, *a), "admit_s", table=spill_host,
+        wait_after=False)()
+    tsp.SpillExecutor.finalize = lambda se: synced(
+        lambda: spill_methods["finalize"](se), "finalize_s", "finalizes",
+        table=spill_host)()
     host = {"observe_s": 0.0, "grow_s": 0.0, "grows": 0}
     restore = None
     if default_plan:
@@ -863,6 +1012,8 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
     finally:
         if restore is not None:
             GroupByOperator._grow = restore
+        for m, fn in spill_methods.items():
+            setattr(tsp.SpillExecutor, m, fn)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -889,15 +1040,7 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
     rk = out["key"][rows]
     order = rows[torch.argsort(rk)]
     check(torch.equal(out["key"][order], o["keys"]), f"{name}: key set differs from the oracle")
-    cnt = out["count(*)"][order]
-    check(torch.equal(cnt.double(), o["count"].double()), f"{name}: COUNT not exact")
-    check(torch.equal(out["max(v)"][order], o["max"]), f"{name}: MAX not exact")
-    tol = SUM_RTOL * o["abs"]
-    d_sum = (out["sum(v)"][order].double() - o["sum"]).abs()
-    check(bool((d_sum <= tol).all()), f"{name}: SUM outside {SUM_RTOL}·Σ|v|")
-    c64 = o["count"].double()
-    d_mean = (out["mean(v)"][order].double() - o["sum"] / c64).abs()
-    check(bool((d_mean <= tol / c64).all()), f"{name}: MEAN outside tolerance")
+    err_sum = check_against_oracle(out, order, o, name)
     path = executor_path(ex)
     for k in path:
         check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
@@ -909,8 +1052,10 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
         "groups": g, "max_groups": max_groups, "saturation": saturation,
         "programs": programs, "wall_s": wall, "rows_per_s": n / wall,
         "max_memory_allocated": peak, "launches": launches,
-        "max_sum_err_over_abs": float((d_sum / o["abs"].clamp_min(1e-30)).max()),
+        "max_sum_err_over_abs": err_sum, "aggs": [a.name for a in plan.aggs],
     }
+    inner = getattr(ex, "_inner", ex)
+    iname = type(inner).__name__
     if default_plan:
         inner = getattr(ex, "_inner", ex)
         res = getattr(ex, "_resolved", plan)
@@ -938,6 +1083,38 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
             check(launches["fused_groupby"] == chunks and dev["pauses"] == 0,
                   f"{name}: a RAISE stream paused ({launches['fused_groupby']} launches "
                   f"for {chunks} chunks, {dev['pauses']} pauses)")
+    elif iname == "_PartitionedExecutor":
+        rec.update(strategy="partitioned", kernel=None, preagg_exchange_final_s=merge["chunk_s"],
+                   merge_s=merge["s"], merges=merge["calls"], reruns=inner.reruns,
+                   chunk_bound=inner._chunk_bound, carried_bound=inner._max_groups,
+                   table_capacity=inner._table.capacity)
+        # one pre-aggregation launch per chunk, and one per rerun
+        check(launches["preagg"] == chunks + inner.reruns,
+              f"{name}: {launches['preagg']} preagg launches for {chunks} chunks and "
+              f"{inner.reruns} reruns")
+    elif iname == "_SortExecutor":
+        rec.update(ticketing="sort", peak_buffered_chunks=handle.peak_buffered_chunks)
+        check(handle.peak_buffered_chunks == chunks,
+              f"{name}: peak_buffered_chunks {handle.peak_buffered_chunks}, not {chunks}")
+    elif iname == "SpillExecutor":
+        spill = handle.stats()["spill"]
+        op = inner._op
+        rec.update(saturation="spill", spill=spill, device_groups=inner._host_count,
+                   hot_capacity=op._table.capacity, hot_migrations=op.migrations,
+                   **spill_host)
+        check(spill["peak_device_table_bytes"] <= 2 * spill["residency_bytes"],
+              f"{name}: peak device table bytes {spill['peak_device_table_bytes']} > 2 x "
+              f"residency {spill['residency_bytes']}")
+        check(op.migrations == 0
+              and op._table.capacity == table_capacity(spill["residency_budget"]),
+              f"{name}: the hot table migrated ({op.migrations} migrations, capacity "
+              f"{op._table.capacity})")
+        check(inner._host_count <= spill["residency_budget"],
+              f"{name}: {inner._host_count} device groups past the budget")
+        if default_plan or strategy == "auto":
+            rec.update(resolved_strategy=ex._resolved.strategy,
+                       kernel=ex._resolved.execution.kernel,
+                       max_groups=ex._resolved.max_groups)
     elif kernel in SCAN_KERNELS:
         planes = len(ex._op._state.specs)
         rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
@@ -959,7 +1136,35 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
                    carried_bound=ex._max_groups,
                    table_capacity=ex._table.capacity)
     log("phase3 " + json.dumps(rec))
+    if keep:
+        rec["_out"] = out
     return rec
+
+
+def check_against_oracle(out, order, o, name):
+    """Every aggregate column of ``out`` (rows in ``order``, sorted by key)
+    against the oracle: COUNT and MAX exact, SUM within SUM_RTOL · Σ|v|,
+    MEAN within that over the count.  Returns the largest SUM error over
+    Σ|v| (None without a SUM column)."""
+    import torch
+
+    cols = out.columns
+    if "count(*)" in cols:
+        check(torch.equal(out["count(*)"][order].double(), o["count"].double()),
+              f"{name}: COUNT not exact")
+    if "max(v)" in cols:
+        check(torch.equal(out["max(v)"][order], o["max"]), f"{name}: MAX not exact")
+    tol = SUM_RTOL * o["abs"]
+    err = None
+    if "sum(v)" in cols:
+        d_sum = (out["sum(v)"][order].double() - o["sum"]).abs()
+        check(bool((d_sum <= tol).all()), f"{name}: SUM outside {SUM_RTOL}·Σ|v|")
+        err = float((d_sum / o["abs"].clamp_min(1e-30)).max())
+    if "mean(v)" in cols:
+        c64 = o["count"].double()
+        d_mean = (out["mean(v)"][order].double() - o["sum"] / c64).abs()
+        check(bool((d_mean <= tol / c64).all()), f"{name}: MEAN outside tolerance")
+    return err
 
 
 def phase3(kmods, api, gen, device, n=1 << 24):
@@ -1001,7 +1206,100 @@ def phase3(kmods, api, gen, device, n=1 << 24):
                            saturation="raise", kernel="split", update="onehot"))
     recs += phase3_scan(kmods, api, gen, device, low, vals, n)
     recs += phase3_default(kmods, api, gen, device, low, vals, n, recs)
+    recs += phase3_more(kmods, api, gen, device, low, vals, n, recs)
     return recs
+
+
+def same_map(out, ref, o, name):
+    """Two result tables hold the same map: the same keys, COUNT and MAX
+    equal, SUM and MEAN within SUM_RTOL · Σ|v| (the oracle's) of each
+    other."""
+    import torch
+
+    def rows(t):
+        n = int(t["__num_groups__"][0])
+        return torch.argsort(t["key"][:n])
+
+    a, b = rows(out), rows(ref)
+    check(torch.equal(out["key"][a], ref["key"][b]), f"{name}: key set differs")
+    for col in ("count(*)", "max(v)"):
+        check(torch.equal(out[col][a], ref[col][b]), f"{name}: {col} differs")
+    tol = SUM_RTOL * o["abs"]
+    for col, scale in (("sum(v)", 1.0), ("mean(v)", o["count"].double())):
+        d = (out[col][a].double() - ref[col][b].double()).abs()
+        check(bool((d <= tol / scale).all()), f"{name}: {col} outside tolerance")
+
+
+def phase3_more(kmods, api, gen, device, low, vals, n, recs):
+    """The plans of the last single-device slice.  Partitioned
+    (``strategy="partitioned"``: the preagg kernel per chunk, one
+    aggregate): part_low (count(*)), part_low_sum, part_high and
+    part_unique (sum(v), the class's bound, RAISE) and part_high_grow
+    (uniform over N / 10 keys from a bound of 2^16, GROW: chunk reruns).
+    Sort ticketing (one-shot, scan_body updates): sort_low, sort_high,
+    sort_unique.  Spill (``saturation="spill"``, scan_body): spill_low (a
+    budget of 2048 over 1000 keys: nothing spills, the map equals
+    scan_low's), spill_high (4096 over ~1.4e4 groups), spill_unique (2^20
+    over 2^24 keys), spill_auto_high (strategy auto)."""
+    import torch
+
+    out = []
+    sum_v = (("sum", "v"),)
+    part = dict(strategy="partitioned", kernel=None)
+    out.append(run_stream(kmods, api, "part_low", low, vals, max_groups=1024,
+                          saturation="raise", aggs_spec=(("count", None),), **part))
+    out.append(run_stream(kmods, api, "part_low_sum", low, vals, max_groups=1024,
+                          saturation="raise", aggs_spec=sum_v, **part))
+    out.append(run_stream(kmods, api, "sort_low", low, vals, max_groups=1024,
+                          saturation="raise", kernel="scan_body", ticketing="sort"))
+    rec = run_stream(kmods, api, "spill_low", low, vals, max_groups=2048, saturation="spill",
+                     kernel="scan_body", keep=True)
+    check(rec["spill"]["spilled_rows"] == 0, f"spill_low: {rec['spill']['spilled_rows']} "
+          "rows spilled under a budget above the key count")
+    scan_low = next(r for r in recs if r["stream"] == "scan_low")
+    same_map(rec.pop("_out"), scan_low.pop("_out"), oracle(low, vals), "spill_low vs scan_low")
+    log("phase3 spill_low: no row spilled; the map equals scan_low's ok")
+    out.append(rec)
+    high = gen_keys(n, "high", "zipf", gen, device)
+    out.append(run_stream(kmods, api, "part_high", high, vals, max_groups=n // 10,
+                          saturation="raise", aggs_spec=sum_v, **part))
+    out.append(run_stream(kmods, api, "sort_high", high, vals, max_groups=n // 10,
+                          saturation="raise", kernel="scan_body", ticketing="sort"))
+    out.append(run_stream(kmods, api, "spill_high", high, vals, max_groups=4096,
+                          saturation="spill", kernel="scan_body"))
+    # the planner's budget (a few hundred groups from the first chunk's
+    # sample) is far below the default 32 partitions' share of ~1.4e4
+    # groups; 128 partitions keep each partition's cardinality within the
+    # budget, the premise of the ≤ 2x residency invariant
+    out.append(run_stream(kmods, api, "spill_auto_high", high, vals, saturation="spill",
+                          strategy="auto", kernel=None, spill_partitions=128))
+    check(out[-1]["kernel"] == "scan_body", f"spill_auto_high: resolved kernel "
+          f"{out[-1]['kernel']}, not scan_body")
+    del high
+    uniq = gen_keys(n, "unique", "uniform", gen, device)
+    out.append(run_stream(kmods, api, "part_unique", uniq, vals, max_groups=n,
+                          saturation="raise", aggs_spec=sum_v, **part))
+    out.append(run_stream(kmods, api, "sort_unique", uniq, vals, max_groups=n,
+                          saturation="raise", kernel="scan_body", ticketing="sort"))
+    out.append(run_stream(kmods, api, "spill_unique", uniq, vals, max_groups=1 << 20,
+                          saturation="spill", kernel="scan_body"))
+    del uniq
+    high_u = gen_keys(n, "high", "uniform", gen, device)
+    rec = run_stream(kmods, api, "part_high_grow", high_u, vals, max_groups=1 << 16,
+                     saturation="grow", aggs_spec=sum_v, **part)
+    check(rec["reruns"] >= 1, "part_high_grow: expected a chunk rerun")
+    out.append(rec)
+    del high_u
+    for r in out:
+        if r["stream"].startswith("part_"):
+            log(f"phase3 {r['stream']}: wall {r['wall_s']:.4f} s = preagg + exchange + final "
+                f"sort {r['preagg_exchange_final_s']:.4f} s and host merge {r['merge_s']:.4f} s "
+                f"({r['merges']} merges, {r['reruns']} reruns)")
+        elif r["stream"].startswith("spill_"):
+            log(f"phase3 {r['stream']}: wall {r['wall_s']:.4f} s; host routing "
+                f"{r['route_s']:.4f} s (admission {r['admit_s']:.4f} s), finalize "
+                f"{r['finalize_s']:.4f} s; stats()['spill'] {json.dumps(r['spill'])}")
+    return out
 
 
 def phase3_scan(kmods, api, gen, device, low, vals, n):
@@ -1009,7 +1307,7 @@ def phase3_scan(kmods, api, gen, device, low, vals, n):
     recs = []
     for kernel, prefix in (("off", "scan_"), ("scan_body", "body_")):
         recs.append(run_stream(kmods, api, prefix + "low", low, vals, max_groups=1024,
-                               saturation="raise", kernel=kernel))
+                               saturation="raise", kernel=kernel, keep=prefix == "scan_"))
     recs.append(run_stream(kmods, api, "scan_low_onehot", low, vals, max_groups=1024,
                            saturation="raise", kernel="off", update="onehot"))
     recs.append(run_stream(kmods, api, "scan_low_unchecked", low, vals, max_groups=1024,
@@ -1764,7 +2062,84 @@ def phase4_hybrid(hr, thy, chunk_classes, vals, gen, device, reps=5):
                    "max_abs_err": worst, "per_class": per_class}
 
 
-def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls):
+def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
+    """The pre-aggregation kernel on one 2^21-row main-path chunk of each
+    class at W = 8 and 132 workers, C = 1024, the whole worker slice as one
+    morsel, kind sum (the part_* streams' shape): CUDA events, median of
+    ``reps``, beside its plain version (held against it) and its bytes
+    bound (keys and values read once, the spill mask and the W·C tables
+    written once).  No PyTorch call computes this function.  Then one
+    chunk of the high class through the whole partitioned pipeline at W =
+    8: pre-aggregation, exchange and partition-wise sort (CUDA events
+    each), and the merge into a fresh carried table (host clock,
+    synchronized).  Returns (the calls that :func:`phase4_profiles`
+    traces, label → fn; the record)."""
+    import torch
+
+    from repro_torch.core import partitioned as tp
+    from repro_torch.engine import executors as tex
+
+    rows = vals.numel()
+    per_class, calls = {}, {}
+    worst = 0.0
+    for name, (keys, _) in chunk_classes.items():
+        k32 = to_i32(keys)
+        for w in (8, 132):
+            kw, vw = preagg_layout(k32, vals, w, w)
+            ms = time_cuda(lambda: pa.preagg(kw, vw, kind="sum", capacity=PA_C), reps)
+            got = pa.preagg(kw, vw, kind="sum", capacity=PA_C)
+            want, p_s = timed(pa.preagg_plain, kw, vw, kind="sum", capacity=PA_C)
+            label = f"preagg_{name}_w{w}"
+            err = check_preagg(got, want, kw, vw, "sum", PA_C, "phase4 " + label)
+            worst = max(worst, err)
+            nbytes = kw.numel() * (4 + 4 + 1) + w * PA_C * 12
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            spilled = int(got[3].sum()) / kw.numel()
+            per_class[label] = {"kernel_ms": ms, "plain_ms": p_s * 1e3, "bound_ms": b_ms,
+                                "bound_by": "bytes", "library_ms": None, "max_abs_err": err,
+                                "rows": kw.numel(), "workers": w, "capacity": PA_C,
+                                "spilled_share": spilled}
+
+            def call(kw=kw, vw=vw):
+                # a fill after the kernel, so the profile tells the calls apart
+                pa.preagg(kw, vw, kind="sum", capacity=PA_C)[3][:1].zero_()
+
+            calls[label] = call
+            log(f"phase4 preagg {name} W={w}: kernel {ms:.4f} ms for {kw.numel()} rows "
+                f"(spilled {spilled:.4f}), bound {b_ms:.4f} ms (bytes), plain "
+                f"{p_s * 1e3:.2f} ms, no library call; max|Δ|={err:.3g} ok")
+    # one partitioned chunk, stage by stage (the part_high stream's shape)
+    keys, bound = chunk_classes["high"]
+    k32 = to_i32(keys)
+    kw, vw = preagg_layout(k32, vals, 8, 8)
+    tkeys, tvals, _, spill = pa.preagg(kw, vw, kind="sum", capacity=PA_C)
+    allk, allv = tp.exchange(kw.reshape(-1), vw.reshape(-1), tkeys, tvals, spill, "sum")
+    split = {
+        "preagg_ms": per_class["preagg_high_w8"]["kernel_ms"],
+        "exchange_ms": time_cuda(lambda: tp.exchange(kw.reshape(-1), vw.reshape(-1), tkeys,
+                                                     tvals, spill, "sum"), reps),
+        "partition_wise_ms": time_cuda(lambda: tp.partition_wise(allk, allv, "sum", bound),
+                                       reps),
+    }
+    res = tp.partition_wise(allk, allv, "sum", bound)
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("sum", "v"),),
+                           strategy="partitioned", max_groups=bound, saturation="raise",
+                           raw_keys=True, execution=api.ExecutionPolicy(device=device.type))
+    ex = tex.make_executor(plan)
+    partial = (res.keys, {("v", "sum"): res.values}, res.num_groups,
+               res.num_groups > bound)
+    _, merge_s = timed(ex._merge, partial)
+    split["merge_ms"] = merge_s * 1e3
+    split["groups"] = int(res.num_groups)
+    log("phase4 partitioned chunk (high, W=8, 2^21 rows): " + json.dumps(split))
+    log("phase4 preagg " + json.dumps(per_class))
+    hi = per_class["preagg_high_w8"]
+    return calls, {"ms": hi["kernel_ms"], "plain_ms": hi["plain_ms"],
+                   "bound_ms": hi["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                   "max_abs_err": worst, "per_class": per_class, "partitioned_chunk": split}
+
+
+def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls):
     """``torch.profiler``'s device time per kernel of one ticket call per
     class (and the zipf chunk at C = 2^25), one ``scan_ticket`` call per
     class and one ``hybrid_registers`` call per class, in the process's one
@@ -1772,11 +2147,18 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls):
     calls = dict(ticket_calls)
     calls.update({"scan_" + name: fn for name, fn in scan_calls.items()})
     calls.update(hybrid_calls)
+    calls.update(preagg_calls)
     # a ticket call starts with the sample or the fill; a scan_ticket call
-    # with its scratch fill; a register call with its kernel
+    # with its scratch fill; a register or pre-aggregation call with its
+    # kernel
     profiles = device_profiles(calls, ("ticket_sample_kernel", "ticket_fill_kernel",
-                                       "scan_fill_kernel", "hybrid_registers_kernel"))
+                                       "scan_fill_kernel", "hybrid_registers_kernel",
+                                       "preagg_kernel"))
     for label, rows_ms in profiles.items():
+        if label.startswith("preagg_"):
+            timing["preagg"]["per_class"][label]["profile_ms"] = rows_ms
+            log(f"phase4 preagg profile {label[7:]}: " + json.dumps(rows_ms))
+            continue
         if label.startswith("hybrid_"):
             timing["hybrid_registers"]["per_class"][label[7:]]["profile_ms"] = rows_ms
             log(f"phase4 hybrid_registers profile {label[7:]}: " + json.dumps(rows_ms))
@@ -1825,6 +2207,7 @@ def main(argv=None) -> int:
     from repro_torch.core import hybrid as thy
     from repro_torch.kernels import fused_groupby as fk
     from repro_torch.kernels import hybrid_registers as hr
+    from repro_torch.kernels import preagg as pa
     from repro_torch.kernels import segment_agg as sa
     from repro_torch.kernels import ticket_hash as th
 
@@ -1832,7 +2215,7 @@ def main(argv=None) -> int:
     kmods = {"fused_groupby": (fk, "fused_consume"), "ticket_hash": (th, "ticket_hash"),
              "segment_agg": (sa, "segment_agg"), "scan_ticket": (fk, "scan_ticket"),
              "segment_agg_serialized": (sa, "serialized_agg"),
-             "hybrid_registers": (hr, "hybrid_registers")}
+             "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -1858,6 +2241,7 @@ def main(argv=None) -> int:
     split_err = phase2_split(th, sa, gen, device)
     split_err.update(phase2_scan(fk, sa, gen, device))
     split_err["hybrid_registers"] = phase2_hybrid(hr, gen, device)
+    split_err["preagg"] = phase2_preagg(pa, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -1880,7 +2264,8 @@ def main(argv=None) -> int:
     scan_block_sweep(fk, tk, chunk_classes, device)
     hybrid_calls, timing["hybrid_registers"] = phase4_hybrid(hr, thy, chunk_classes,
                                                              chunk_vals, gen, device)
-    phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls)
+    preagg_calls, timing["preagg"] = phase4_preagg(pa, api, chunk_classes, chunk_vals, device)
+    phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
         f_ms = timing["fused_groupby"]["per_class"][name]["kernel_ms"]
@@ -1893,14 +2278,15 @@ def main(argv=None) -> int:
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
-    # the scan route's two kernels and the register fold replace plain jnp,
-    # not a Pallas kernel
+    # the scan route's two kernels, the register fold and the
+    # pre-aggregation replace plain jnp, not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
                 "scan_ticket": "src/repro/engine/groupby.py:144",
                 "segment_agg_serialized": "src/repro/core/updates.py:226",
-                "hybrid_registers": "src/repro/engine/executors.py:884"}
+                "hybrid_registers": "src/repro/engine/executors.py:884",
+                "preagg": "src/repro/core/partitioned.py:48"}
     source = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
     kernels = [{
         "name": name,

@@ -48,9 +48,8 @@ def concurrent_groupby(
       update: scatter | onehot | sort_segment | serialized (§3.2).
       max_groups: the bound on unique keys.
       morsel_size: rows per morsel; None → one morsel (the whole column).
-      ticketing: hash | direct (ticket == key over ``[0, max_groups)``);
-        sort is not ported yet (ROADMAP modules item 5b) and raises
-        ``NotImplementedError``.
+      ticketing: hash | sort (one-shot: the column is sorted as a whole) |
+        direct (ticket == key over ``[0, max_groups)``).
       capacity: hash-table slots; default ``table_capacity``.
       saturation: unchecked (the legacy default: truncate past the bound)
         | raise | grow.

@@ -21,6 +21,7 @@ EMPTY_KEY = 0xFFFFFFFF  # uint32 value
 EMPTY_I32 = -1          # int32 bit pattern of EMPTY_KEY
 
 _MASK = 0xFFFFFFFF
+_LOW31 = (1 << 31) - 1
 
 
 def table_capacity(max_groups: int, load_factor: float = 0.5) -> int:
@@ -73,6 +74,20 @@ def murmur3_fmix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def murmur3_fmix64(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3 64-bit finalizer on int64 tensors holding the uint64 bit
+    pattern (the reference's uint64 version needs x64 mode).  ``>> 33`` is
+    made logical by masking the arithmetic shift to 31 bits; int64
+    multiplication wraps exactly as uint64 multiplication does.  int32 key
+    bit patterns are widened as their uint32 values."""
+    x = as_u32(x) if x.dtype == torch.int32 else x.to(torch.int64)
+    for c in (0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53, None):
+        x = x ^ ((x >> 33) & _LOW31)
+        if c is not None:
+            x = x * (c - (1 << 64))
+    return x
+
+
 def xxhash32_mix(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """xxhash32-style avalanche with a seed."""
     x = (as_u32(x) + ((seed * 0x9E3779B1) & _MASK)) & _MASK
@@ -82,6 +97,13 @@ def xxhash32_mix(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
     x = _mul32(x, 0xC2B2AE3D)
     x = x ^ (x >> 16)
     return x
+
+
+def multiply_shift(x: torch.Tensor, log2_buckets: int, seed: int = 0) -> torch.Tensor:
+    """Dietzfelbinger multiply-shift: a bucket index in ``[0,
+    2**log2_buckets)`` from one 32-bit multiply and one shift (int64)."""
+    a = (0x9E3779B1 + 2 * seed + 1) & _MASK
+    return _mul32(as_u32(x), a) >> (32 - log2_buckets)
 
 
 def slot_hash(keys: torch.Tensor, table_size: int, seed: int = 0) -> torch.Tensor:

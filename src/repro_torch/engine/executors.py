@@ -35,13 +35,25 @@ saturation policies:
   * ``strategy="concurrent"``, ``ticketing="direct"`` —
     :class:`_DirectExecutor`: ticket == key over a bounded domain, one
     update per plane per chunk into a carried accumulator;
+  * ``strategy="concurrent"``, ``ticketing="sort"`` —
+    :class:`_SortExecutor`: sorting is a pipeline breaker, so chunks
+    buffer and ``finalize`` runs sort ticketing and the chosen update over
+    the whole stream (the one one-shot executor);
   * ``strategy="hybrid"`` — :class:`_HybridExecutor`: heavy-hitter rows
     fold into registers (the ``hybrid_registers`` kernel on a card), the
-    tail runs through the scan route's operator.
+    tail runs through the scan route's operator;
+  * ``strategy="partitioned"`` — :class:`_PartitionedExecutor`: the
+    Leis-style pre-aggregation (the ``preagg`` kernel on a card) →
+    exchange → partition-wise pipeline per chunk, each chunk's partial
+    merged into a carried table;
+  * ``saturation="spill"`` — ``engine.spill.SpillExecutor``: the scan
+    route with a bounded device residency and host-spilled cold
+    partitions, merged exactly at ``finalize`` (``strategy="auto"``
+    resolves to it through :class:`_ResolvingExecutor`).
 
-Every other plan (strategy partitioned or sharded, ticketing sort,
-saturation spill) raises ``NotImplementedError`` naming the ROADMAP item
-that ports it; none quietly runs something else.
+``strategy="sharded"`` raises ``NotImplementedError`` naming ROADMAP item
+9, and stream checkpoints (``plan_api``) name item 8; no plan quietly runs
+something else.
 
 Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
 chunk there.  ``device=None`` means ``"cuda"`` and raises ``RuntimeError``
@@ -120,7 +132,6 @@ def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
 # Where each plan outside the ported slice will be ported (ROADMAP.md,
 # "Modules to port").
 _STRATEGY_ITEM = {
-    "partitioned": "item 5b (the remaining single-device strategies)",
     "sharded": "item 9 (multi-device sharding)",
 }
 
@@ -170,16 +181,8 @@ def make_executor(plan: GroupByPlan):
                 "table is the probe table the spill router classifies "
                 "against)"
             )
-    for unported, what, item in (
-        (plan.saturation == SaturationPolicy.SPILL, "saturation='spill'",
-         "item 6 (out-of-core spill)"),
-        (plan.strategy in _STRATEGY_ITEM, f"strategy={plan.strategy!r}",
-         _STRATEGY_ITEM.get(plan.strategy)),
-        (ex.ticketing == "sort", "ticketing='sort'",
-         "item 5b (_SortExecutor, the remaining single-device strategies)"),
-    ):
-        if unported:
-            raise _not_ported(what, item)
+    if plan.strategy in _STRATEGY_ITEM:
+        raise _not_ported(f"strategy={plan.strategy!r}", _STRATEGY_ITEM[plan.strategy])
     device = resolve_device(ex.device)
     if plan.saturation is None:
         # THE saturation default: an estimated bound recovers (a sample
@@ -188,10 +191,19 @@ def make_executor(plan: GroupByPlan):
             SaturationPolicy.GROW if plan.max_groups is None
             else SaturationPolicy.RAISE
         ))
+    if (plan.saturation == SaturationPolicy.SPILL and plan.strategy == "concurrent"
+            and plan.max_groups is not None):
+        from repro_torch.engine.spill import SpillExecutor
+
+        return SpillExecutor(plan, device)
     if plan.strategy == "auto" or plan.max_groups is None:
         return _ResolvingExecutor(plan, device)
     if plan.strategy == "hybrid":
         return _HybridExecutor(plan, device)
+    if plan.strategy == "partitioned":
+        return _PartitionedExecutor(plan, device)
+    if ex.ticketing == "sort":
+        return _SortExecutor(plan, device)
     if ex.ticketing == "direct":
         return _DirectExecutor(plan, device)
     if kernel == "split":
@@ -321,6 +333,28 @@ def _overflow_error(count, max_groups) -> GroupByOverflowError:
     )
 
 
+def _single_agg(plan: GroupByPlan, strategy: str):
+    if len(plan.aggs) != 1 or plan.aggs[0].kind == "mean":
+        raise ValueError(
+            f"strategy {strategy!r} supports exactly one non-mean aggregate "
+            "per plan; use strategy='concurrent' for multi-aggregate queries"
+        )
+    return plan.aggs[0]
+
+
+def _update_fn_of(ex):
+    """The update a whole-chunk ticket vector folds through: with
+    ``kernel="scan_body"`` the segment kernel (``update`` "onehot" or
+    else "scatter"), as the scan route's operator runs it; otherwise the
+    named strategy of ``core/updates.py``."""
+    if ex.kernel == "scan_body":
+        from repro_torch.kernels import ops as kops
+
+        strategy = ex.update if ex.update in ("scatter", "onehot") else "scatter"
+        return kops.make_scan_update_fn(strategy=strategy)
+    return up.get_update_fn(ex.update or "scatter")
+
+
 # ---------------------------------------------------------------------------
 # auto resolution (estimate → choose → run → re-plan)
 
@@ -343,7 +377,10 @@ def cuda_route(plan: GroupByPlan, resolved: GroupByPlan) -> GroupByPlan:
     device), its caller left ``kernel`` None and its ``update`` is None or
     ``"scatter"``, the resolved plan takes ``kernel="scan_body"`` and
     ``update="scatter"``, whichever of concurrent hash, direct or hybrid
-    Table 1 picked.  Every other plan keeps the reference's resolution,
+    Table 1 picked.  That includes ``saturation="spill"``: it resolves to
+    concurrent hash, so ``engine.spill.SpillExecutor`` runs its hot
+    operator and its partition replays on scan_ticket + the segment
+    kernel.  Every other plan keeps the reference's resolution,
     field for field.  Measured ground (chip_smoke phase 3 walls on one H100
     80GB HBM3 at 700.00 W, 2^24 rows in 8 chunks, PERF.md §5): body_* at
     0.0054–0.0083 s per stream against 0.0101–0.0669 s for ``kernel="off"``
@@ -556,6 +593,66 @@ class _ScanExecutor(_ExecutorBase):
 
 
 # ---------------------------------------------------------------------------
+# concurrent with sort ticketing (one-shot: chunks buffer)
+
+
+class _BufferedExecutor(_ExecutorBase):
+    """Chunk-buffering consume for a ONE-SHOT strategy: the pipeline is a
+    breaker over the full input, so chunks accumulate (on the executor's
+    device) and the pipeline runs at ``finalize``.  Tracks its buffer
+    high-water marks."""
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        self._plan = plan
+        self._device = device
+        self._keys, self._vals, self._rows = [], [], 0
+        self.peak_buffered_chunks = 0
+        self.peak_retained_bytes = 0
+
+    def consume(self, chunk: Table) -> None:
+        keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
+        self._rows += int(keys.shape[0])
+        self._keys.append(keys)
+        self._vals.append(vals)
+        self.peak_buffered_chunks = max(self.peak_buffered_chunks, len(self._keys))
+        self.peak_retained_bytes += _nbytes(keys) + sum(_nbytes(v) for v in vals.values())
+
+    def _gathered(self):
+        if not self._keys:
+            raise ValueError("GroupByPlan executed over zero chunks")
+        keys = torch.cat(self._keys)
+        vals = {c: torch.cat([v[c] for v in self._vals])
+                for c in value_columns(self._plan.aggs)}
+        return keys, vals
+
+
+class _SortExecutor(_BufferedExecutor):
+    """Strategy ``concurrent`` with sort-based ticketing.  Tickets are
+    global sort ranks, so sorting is a genuine pipeline breaker: chunks
+    buffer and ``finalize`` runs ``tk.sort_ticketing`` over the whole
+    stream, then the chosen update (``_update_fn_of``).  RAISE raises when
+    the issued count passes the bound; GROW widens the bound to it.
+    ``finalize`` is a read: consume may go on after it."""
+
+    strategy_label = "sort"
+
+    def finalize(self) -> Table:
+        p = self._plan
+        keys, vals = self._gathered()
+        max_groups = p.max_groups
+        tickets, kbt, count = tk.sort_ticketing(keys)
+        if p.saturation != SaturationPolicy.UNCHECKED:
+            issued = int(count)
+            if issued > max_groups:
+                if p.saturation == SaturationPolicy.RAISE:
+                    raise _overflow_error(issued, max_groups)
+                max_groups = _next_bound(max_groups, self._rows, issued=issued)
+        state = up.init_agg_state(expand_agg_specs(p.aggs), max_groups, device=self._device)
+        state = up.update_agg_state(state, tickets, vals, _update_fn_of(p.execution))
+        return build_result_table(p.aggs, state.get, kbt, count, max_groups)
+
+
+# ---------------------------------------------------------------------------
 # concurrent with direct ticketing (streams natively)
 
 
@@ -586,14 +683,7 @@ class _DirectExecutor(_ExecutorBase):
         ex = plan.execution
         self._domain = ex.key_domain or plan.max_groups
         self._bound = plan.max_groups
-        if ex.kernel == "scan_body":
-            # the segment kernel, as the scan route's operator runs it
-            from repro_torch.kernels import ops as kops
-
-            strategy = ex.update if ex.update in ("scatter", "onehot") else "scatter"
-            self._update_fn = kops.make_scan_update_fn(strategy=strategy)
-        else:
-            self._update_fn = up.get_update_fn(ex.update or "scatter")
+        self._update_fn = _update_fn_of(ex)
         self._state = None
         self._rows = 0
         self._dropped = torch.zeros((), dtype=torch.bool, device=device)  # sticky
@@ -890,8 +980,10 @@ class _IncrementalMergeExecutor(_ExecutorBase):
                 )
         tickets, self._table = tk.get_or_insert(self._table, kbt)
         for spec, acc in partials.items():
+            # a partial may hold more slots than keys (partitioned: fewer
+            # exchanged rows than the bound); the keys' slots lead
             self._accs[spec] = up.scatter_update(
-                self._accs[spec], tickets, acc, kind=_MERGE_KIND[spec[1]]
+                self._accs[spec], tickets, acc[:kbt.shape[0]], kind=_MERGE_KIND[spec[1]]
             )
         if grow:
             self._host_count = int(self._table.count)
@@ -1011,6 +1103,55 @@ class _PallasExecutor(_IncrementalMergeExecutor):
                 strategy=ex.update or "scatter", morsel_size=ex.morsel_size,
             )
         return kbt, partials, count, ovf
+
+
+class _PartitionedExecutor(_IncrementalMergeExecutor):
+    """Strategy ``partitioned``: the Leis-style pre-aggregation → exchange
+    → partition-wise pipeline (``core/partitioned.py``; the ``preagg``
+    kernel on a card) runs per chunk (each chunk IS a morsel batch through
+    local pre-aggregation) and the chunk's partial groups merge into the
+    carried table.  One non-mean aggregate per plan (the pre-agg table
+    carries a single partial).  Each chunk is padded with EMPTY rows to a
+    multiple of ``num_workers``.  GROW reruns the CHUNK with the issued
+    count as its bound (``_next_bound``; ``reruns`` counts them) and
+    raises when the bound already covers the rows and the count."""
+
+    strategy_label = "partitioned"
+
+    def __init__(self, plan: GroupByPlan, device: torch.device):
+        super().__init__(plan, device)
+        self._agg = _single_agg(plan, "partitioned")
+        self.reruns = 0
+
+    def _chunk_partial(self, keys, vals):
+        from repro_torch.core.partitioned import _partitioned_impl
+
+        p, ex = self._plan, self._plan.execution
+        v = (vals[self._agg.column] if self._agg.column
+             else torch.ones(keys.shape, dtype=torch.float32, device=self._device))
+        rem = (-int(keys.shape[0])) % ex.num_workers
+        if rem:
+            keys = torch.cat([keys, keys.new_full((rem,), EMPTY_I32)])
+            v = torch.cat([v, v.new_zeros((rem,))])
+        bound = self._chunk_bound
+        while True:
+            res = _partitioned_impl(
+                keys, v, kind=self._agg.kind, max_groups=bound,
+                num_workers=ex.num_workers, preagg_capacity=ex.preagg_capacity,
+                morsel_size=ex.preagg_morsel,
+            )
+            ovf = res.num_groups > bound
+            if p.saturation != SaturationPolicy.GROW:
+                break
+            issued = int(res.num_groups)
+            if issued <= bound:
+                break
+            if bound >= max(self._rows, issued):
+                raise _overflow_error(issued, bound)
+            bound = _next_bound(bound, self._rows, issued=issued)
+            self.reruns += 1
+        self._chunk_bound = bound
+        return res.keys, {self._specs[0]: res.values}, res.num_groups, ovf
 
 
 # ---------------------------------------------------------------------------

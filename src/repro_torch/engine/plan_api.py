@@ -15,13 +15,16 @@ streaming executor (``open → consume* → finalize``), and
     partial = handle.snapshot()    # idempotent mid-stream materialize
     result = handle.result()       # drain the source, finalize
 
-The port runs the default plan (``strategy="auto"``, ``max_groups=None``,
-resolved from a sample of each stream's first chunk), ``strategy=
-"concurrent"`` with hash ticketing on every kernel route (None / "off" /
-"scan_body": the scan route; "split"; "fused") or with direct ticketing,
-and ``strategy="hybrid"``; every other plan (partitioned, sharded, sort
-ticketing, spill) makes ``make_executor`` raise ``NotImplementedError``
-naming the ROADMAP item that ports it.
+The port runs every single-device plan of the reference: the default
+plan (``strategy="auto"``, ``max_groups=None``, resolved from a sample of
+each stream's first chunk), ``strategy="concurrent"`` with hash ticketing
+on every kernel route (None / "off" / "scan_body": the scan route;
+"split"; "fused"), with sort or direct ticketing, ``strategy="hybrid"``,
+``strategy="partitioned"`` and ``saturation="spill"``.  Only
+``strategy="sharded"`` makes ``make_executor`` raise
+``NotImplementedError`` (ROADMAP item 9), and stream checkpoints
+(``StreamHandle.save`` / ``GroupByPlan.restore``) raise it naming item
+8.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ class SaturationPolicy:
     RAISE = "raise"          # refuse to materialize truncated results
     GROW = "grow"            # pause → grow → resume, then materialize
     UNCHECKED = "unchecked"  # paper's perfect-estimate regime: no check
-    SPILL = "spill"          # out-of-core (not ported yet)
+    SPILL = "spill"          # out-of-core: max_groups is a device residency budget
 
     ALL = (RAISE, GROW, UNCHECKED, SPILL)
 

@@ -11,6 +11,9 @@ fused_groupby — ticketing + aggregation in one kernel against a table
 hybrid_registers — fold of a chunk's heavy-hitter rows into dense
   registers and the tail key column without them
   (``csrc/hybrid_registers.cu``, ``strategy="hybrid"``).
+preagg — each worker's local pre-aggregation into a small direct-mapped
+  table, spilling the rows that miss it (``csrc/preagg.cu``,
+  ``strategy="partitioned"``).
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

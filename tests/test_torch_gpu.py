@@ -29,6 +29,7 @@ from repro_torch.engine import plan_api as api
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_groupby as fk
 from repro_torch.kernels import hybrid_registers as hr
+from repro_torch.kernels import preagg as pa
 from repro_torch.kernels import segment_agg as sa
 from repro_torch.kernels import ticket_hash as th
 
@@ -817,3 +818,142 @@ def test_default_plans_on_the_default_device(cuda, case):
     assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
     assert torch.equal(out["count(*)"][:n][order].long(), cnt)
     assert torch.equal(out["max(v)"][:n][order], mx)
+
+
+# -- the partitioned route's pre-aggregation kernel, and the new routes --------
+
+PA_KINDS = ("sum", "count", "min", "max")
+
+
+def _preagg_case(dev, case, W, rows, seed):
+    """(W, R) int32 keys spread over all 32 bits (EMPTY rows included) and
+    float32 values with -0.0 and ±inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if case == "uniform":
+        k = torch.randint(0, 1000, (rows,), generator=g, device=dev)
+    elif case == "hot":
+        k = torch.randint(0, rows // 10, (rows,), generator=g, device=dev)
+        k[torch.rand(rows, generator=g, device=dev) < 0.5] = 7
+    else:
+        k = torch.randperm(rows, generator=g, device=dev)
+    k = (k * 2654435761) & 0xFFFFFFFF
+    k[torch.rand(rows, generator=g, device=dev) < 0.05] = 0xFFFFFFFF
+    keys = torch.where(k >= 1 << 31, k - (1 << 32), k).to(torch.int32).reshape(W, -1)
+    vals = torch.randn(rows, generator=g, device=dev)
+    vals[:7] = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), -1.5, 2.5, -0.0])
+    return keys, vals.reshape(W, -1)
+
+
+def _assert_preagg_match(got, want, keys, vals, kind, capacity):
+    """Table keys, spill mask and cnts equal; COUNT / MIN / MAX vals equal,
+    SUM within 1e-4 of Σ|v| over the rows each slot folded."""
+    for a, b in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        assert torch.equal(a, b)
+    if kind != "sum":
+        assert torch.equal(got[1], want[1])
+        return
+    fold = (keys != -1) & ~want[3]
+    w = torch.arange(keys.shape[0], device=keys.device)[:, None].expand_as(keys)
+    at = (w * capacity + slot_hash(keys, capacity))[fold]
+    absum = torch.zeros(keys.shape[0] * capacity, dtype=torch.float64, device=keys.device)
+    absum.index_add_(0, at, vals[fold].double().abs())
+    a, b = got[1].reshape(-1), want[1].reshape(-1)
+    d = (a - b).abs().double()
+    # a slot that folded ±inf holds the same non-finite sum on both sides
+    assert bool(((a == b) | (a.isnan() & b.isnan()) | (d <= 1e-4 * absum + 1e-6)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("morsel", [None, 1024])
+@pytest.mark.parametrize("C", [64, 1024, 16384])
+@pytest.mark.parametrize("W", [8, 132])
+@pytest.mark.parametrize("case", ["uniform", "hot", "unique"])
+def test_preagg_kernel_matches_plain(cuda, case, W, C, morsel):
+    # C = 16384 takes 256 KiB of tables: the global-memory path
+    keys, vals = _preagg_case(cuda, case, W, W * 2048, 81 + W + C)
+    for kind in PA_KINDS:
+        before = pa.preagg.launches
+        got = pa.preagg(keys, vals, kind=kind, capacity=C, morsel=morsel)
+        want = pa.preagg_plain(keys, vals, kind=kind, capacity=C, morsel=morsel)
+        torch.cuda.synchronize()
+        assert pa.preagg.launches == before + 1
+        _assert_preagg_match(got, want, keys, vals, kind, C)
+
+
+@pytest.mark.gpu
+def test_preagg_kernel_edges(cuda):
+    keys = torch.full((8, 0), -1, dtype=torch.int32, device=cuda)
+    tk_, tv, tc, sp = pa.preagg(keys, None, kind="count", capacity=64)
+    torch.cuda.synchronize()
+    assert bool((tk_ == -1).all()) and bool((tc == 0).all()) and sp.shape == (8, 0)
+    keys = (torch.arange(3000, device=cuda, dtype=torch.int32) % 5).reshape(1, -1)
+    got = pa.preagg(keys, None, kind="count", capacity=16)  # values unread for count
+    want = pa.preagg_plain(keys, None, kind="count", capacity=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[2].sum()) + int(got[3].sum()) == 3000  # every row folded or spilled
+    with pytest.raises(ValueError, match="power of 2"):
+        pa.preagg(keys, None, kind="count", capacity=48)
+    with pytest.raises(ValueError, match="multiple of morsel"):
+        pa.preagg(keys, None, kind="count", capacity=16, morsel=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["partitioned", "partitioned_grow", "sort", "spill",
+                                   "spill_auto"])
+def test_new_routes_on_the_card(cuda, route):
+    from repro_torch.engine import spill as tsp
+
+    rows = 1 << 18
+    g = torch.Generator(device=cuda).manual_seed(91)
+    card = 20000 if route in ("partitioned_grow", "spill", "spill_auto") else 1000
+    keys = torch.randint(0, card, (rows,), generator=g, device=cuda) * 2654435761 & 0xFFFFFFFF
+    vals = torch.randn(rows, generator=g, device=cuda)
+    if route.startswith("partitioned"):
+        aggs = (api.AggSpec("max", "v"),)
+        plan = api.GroupByPlan(keys=("k",), aggs=aggs, strategy="partitioned",
+                               max_groups=1024 if route == "partitioned" else 256,
+                               saturation="raise" if route == "partitioned" else "grow",
+                               raw_keys=True)
+    elif route == "sort":
+        aggs = (api.AggSpec("count"), api.AggSpec("max", "v"))
+        plan = api.GroupByPlan(keys=("k",), aggs=aggs, strategy="concurrent",
+                               max_groups=1024, raw_keys=True,
+                               execution=api.ExecutionPolicy(ticketing="sort",
+                                                             kernel="scan_body"))
+    else:
+        aggs = (api.AggSpec("count"), api.AggSpec("max", "v"))
+        plan = api.GroupByPlan(keys=("k",), aggs=aggs,
+                               strategy="auto" if route == "spill_auto" else "concurrent",
+                               max_groups=None if route == "spill_auto" else 2048,
+                               saturation="spill", raw_keys=True,
+                               execution=api.ExecutionPolicy(
+                                   kernel=None if route == "spill_auto" else "scan_body"))
+    p0, s0, t0 = pa.preagg.launches, sa.segment_agg.launches, fk.scan_ticket.launches
+    handle = plan.stream([api.Table({"k": keys[i:i + 65536], "v": vals[i:i + 65536]})
+                          for i in range(0, rows, 65536)])
+    out = handle.result()
+    torch.cuda.synchronize()
+    if route.startswith("partitioned"):
+        assert pa.preagg.launches - p0 >= 4 and sa.segment_agg.launches == s0
+        assert fk.scan_ticket.launches == t0
+    elif route == "sort":
+        assert handle.peak_buffered_chunks == 4 and pa.preagg.launches == p0
+        assert sa.segment_agg.launches > s0
+    else:
+        ex = handle.executor
+        inner = getattr(ex, "_inner", ex)
+        assert isinstance(inner, tsp.SpillExecutor)
+        assert sa.segment_agg.launches > s0 and fk.scan_ticket.launches > t0
+        st = handle.stats()
+        assert st["spilled_rows"] > 0 and st["device_groups"] <= inner._budget
+        assert st["peak_device_table_bytes"] <= 2 * st["residency_bytes"]
+        assert inner._op.migrations == 0
+    uk, inv, cnt = torch.unique(keys, return_inverse=True, return_counts=True)
+    mx = torch.full((uk.numel(),), float("-inf"), device=cuda).scatter_reduce_(
+        0, inv, vals, "amax")
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+    assert torch.equal(out["max(v)"][:n][order], mx)
+    if "count(*)" in out.columns:
+        assert torch.equal(out["count(*)"][:n][order].long(), cnt)

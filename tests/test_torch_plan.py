@@ -394,10 +394,7 @@ def test_groupby_kernel_front_door(kind):
 
 
 OUT_OF_SLICE = {
-    "strategy_partitioned": dict(strategy="partitioned", execution=dict(kernel=None)),
     "strategy_sharded": dict(strategy="sharded", execution=dict(kernel=None)),
-    "ticketing_sort": dict(execution=dict(kernel=None, ticketing="sort")),
-    "saturation_spill": dict(saturation="spill", execution=dict(kernel=None)),
 }
 
 
@@ -412,6 +409,43 @@ def test_out_of_slice_plans_raise_not_implemented(case):
         max_groups=kw.pop("max_groups", 64), execution=tapi.ExecutionPolicy(**ex), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tex.make_executor(plan)
+
+
+# once out of the slice, now ported (tests/test_torch_partitioned.py,
+# tests/test_torch_spill.py): each runs against the oracle and the JAX plan
+ONCE_OUT_OF_SLICE = {
+    "strategy_partitioned": dict(strategy="partitioned"),
+    "ticketing_sort": dict(execution=dict(ticketing="sort")),
+    "saturation_spill": dict(saturation="spill", max_groups=64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_OUT_OF_SLICE))
+def test_once_out_of_slice_plans_run_against_the_oracle_and_jax(case):
+    rng = np.random.default_rng(43)
+    keys = rng.integers(0, 300, size=4096).astype(np.uint32)
+    keys[::5] += np.uint32(1 << 31)
+    vals = rng.integers(0, 100, size=4096).astype(np.float32)  # exact in any order
+    kw = dict(ONCE_OUT_OF_SLICE[case])
+    ex = kw.pop("execution", {})
+    outs = []
+    for api in (tapi, japi):
+        plan = api.GroupByPlan(
+            keys=("k",), aggs=(api.AggSpec("sum", "v"),),
+            strategy=kw.get("strategy", "concurrent"), max_groups=kw.get("max_groups", 1024),
+            saturation=kw.get("saturation", "raise"), raw_keys=True,
+            execution=api.ExecutionPolicy(**ex, **({"device": "cpu"} if api is tapi else {})))
+        if api is tapi:
+            chunks = [tcol.Table({"k": torch.from_numpy(keys[i:i + 1024].view(np.int32)),
+                                  "v": torch.from_numpy(vals[i:i + 1024])})
+                      for i in range(0, 4096, 1024)]
+        else:
+            chunks = [jcol.Table({"k": jnp.asarray(keys[i:i + 1024]),
+                                  "v": jnp.asarray(vals[i:i + 1024])})
+                      for i in range(0, 4096, 1024)]
+        outs.append(_map(plan.collect(chunks), "sum(v)"))
+    want = _np_sums(keys, vals)
+    assert outs[0] == want and outs[1] == want
 
 
 # spill plans that the reference rejects with ValueError (not merely unported)
@@ -439,12 +473,13 @@ def test_invalid_spill_plans_raise_value_error_as_in_the_reference(case):
                                execution=api.ExecutionPolicy(**ex))
         with pytest.raises(ValueError, match="spill"):
             make(plan)
-    # a valid concurrent hash spill plan is still unported
+    # a valid concurrent hash spill plan runs (engine/spill.py)
     plan = tapi.GroupByPlan(keys=("k",), aggs=(tapi.AggSpec("count"),), strategy="concurrent",
-                            max_groups=64, saturation="spill",
+                            max_groups=64, saturation="spill", raw_keys=True,
                             execution=tapi.ExecutionPolicy(kernel=None, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tex.make_executor(plan)
+    keys = torch.arange(300, dtype=torch.int32).repeat(3)
+    out = plan.collect(tcol.Table({"k": keys}))
+    assert _map(out, "count(*)") == {k: 3.0 for k in range(300)}
 
 
 # once out of the slice, now the scan route (tests/test_torch_scan.py)

@@ -342,12 +342,16 @@ def test_concurrent_groupby_two_value_columns_and_as_group_result(small):
 
 
 def test_unported_ticketings_and_auto_name_item_5(small):
-    """Sort ticketing still raises, naming item 5b; direct ticketing and
+    """Sort ticketing (ported with item 5b), direct ticketing and
     ``groupby()``'s default ``strategy="auto"`` run, as in the reference."""
     keys, vals = small
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tagg.concurrent_groupby(_tt(keys), _tt(vals), max_groups=64, device="cpu",
-                                ticketing="sort")
+    js = jagg.concurrent_groupby(jnp.asarray(keys), jnp.asarray(vals), kind="sum",
+                                 max_groups=64, ticketing="sort")
+    ts = tagg.concurrent_groupby(_tt(keys), _tt(vals), kind="sum", max_groups=64,
+                                 ticketing="sort", device="cpu")
+    assert int(ts.num_groups) == int(js.num_groups)
+    assert np.array_equal(ts.keys.numpy(), np.asarray(js.keys).astype(np.int64))
+    np.testing.assert_allclose(ts.values.numpy(), np.asarray(js.values), rtol=1e-5, atol=1e-5)
     j = jagg.concurrent_groupby(jnp.asarray(keys), jnp.asarray(vals), kind="sum",
                                 max_groups=128, ticketing="direct")
     t = tagg.concurrent_groupby(_tt(keys), _tt(vals), kind="sum", max_groups=128,
