@@ -113,16 +113,21 @@ Four phases, each of which fails the run:
    clock, the launch alone) and swept over CTA sizes (256, 512, 1024).
    One ``torch.profiler`` session (a second one records nothing) gives the
    device time of every kernel of one ticket call, one ``scan_ticket``
-   call, one ``hybrid_registers`` call and one ``preagg`` call per class.  The serialized kernel on one chunk of its stream (8192
-   rows), beside ``index_add_``.  ``hybrid_registers`` on the low, high,
+   call, one ``hybrid_registers`` call and three ``preagg`` calls per
+   class and worker count.  The serialized kernel on one chunk of its
+   stream (8192 rows), beside ``index_add_``.  ``hybrid_registers`` on the low, high,
    unique and heavy-unique chunks with the main path's planes and the
    heavy keys ``detect_heavy_hitters`` names, beside its plain version
    (held against it) and its bytes bound; no library call computes it.
    ``preagg`` on the low, high and unique chunks at W = 8 and 132, C =
    1024, kind sum, beside its plain version (held against it) and its
-   bytes bound, its device time from the same profiler session; and one
-   partitioned chunk of the high class split into pre-aggregation,
-   exchange, partition-wise sort and the host merge.
+   bytes bound, its device time from CUDA-graph replays, and from the
+   same profiler session split into the scratch fill, pass 1 and pass 2,
+   and each pass's flush as the difference of its device time with and
+   without it; swept over tile sizes (2048–16384 rows beside the
+   automatic tile); and one partitioned chunk of the high class split
+   into pre-aggregation, exchange, partition-wise sort and the host
+   merge.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -809,8 +814,8 @@ def phase2_preagg(pa, gen, device, n=1 << 20):
     """The pre-aggregation kernel vs its plain version on 2^20 rows of the
     uniform-1000, zipf, unique and heavy-hitter classes (keys spread over
     all 32 bits, 1% EMPTY rows), W = 8 and 132 workers × C = 1024 and 64 ×
-    morsel None and 1024, one kind each in turn (every kind twice a
-    class).  Prints each class's spilled share of
+    morsel None and 1024, and W = 131 (R = 8005, odd), one kind each in
+    turn (every kind at least twice a class).  Prints each class's spilled share of
     the live rows; unique at W = 8, C = 1024 must spill at least 99%.
     Returns the largest |Δ| of any slot."""
     import torch
@@ -822,15 +827,17 @@ def phase2_preagg(pa, gen, device, n=1 << 20):
     vals = torch.randn(n, generator=gen, device=device)
     vals[::97] = -0.0
     err = 0.0
-    configs = [(w, c, m) for w in (8, 132) for c in (PA_C, 64) for m in (None, 1024)]
+    # (workers, C, morsel, rows padded to a multiple of)
+    configs = [(w, c, m, w * 1024) for w in (8, 132) for c in (PA_C, 64) for m in (None, 1024)]
+    configs.append((131, PA_C, None, 131))  # R = 8005: worker bases off 16 bytes
     for name, keys in classes.items():
         k32 = to_i32(keys * 0x9E3779B1)
         k32[torch.rand(n, generator=gen, device=device) < 0.01] = -1
         live = int((k32 != -1).sum())
-        for i, (w, c, morsel) in enumerate(configs):
+        for i, (w, c, morsel, multiple) in enumerate(configs):
             # each configuration one kind, in turn: every kind twice a class
             kind = PA_KINDS[i % len(PA_KINDS)]
-            kw, vw = preagg_layout(k32, vals, w, w * 1024)
+            kw, vw = preagg_layout(k32, vals, w, multiple)
             label = f"phase2 preagg {name} W={w} C={c} morsel={morsel} {kind}"
             got = pa.preagg(kw, vw, kind=kind, capacity=c, morsel=morsel)
             want = pa.preagg_plain(kw, vw, kind=kind, capacity=c, morsel=morsel)
@@ -1472,6 +1479,38 @@ def time_cuda(fn, reps, setup=None, warm_s=0.05):
     return times[len(times) // 2]
 
 
+def time_graph(fn, calls=20, reps=5):
+    """Median milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``calls`` calls (CUDA events around each replay): the device time of a
+    call with the gaps between its kernels, without the host's launch
+    work.  ``fn`` must have run once before (first-use set-up is not
+    captured)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def kernel_timing(fk, keys, vals, *, max_groups, programs, device, reps=5):
     """The kernel over one main-path chunk from a fresh state, as the
     executor launches it (RAISE, events on).  Returns (ms, launch args)."""
@@ -2066,9 +2105,12 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
     """The pre-aggregation kernel on one 2^21-row main-path chunk of each
     class at W = 8 and 132 workers, C = 1024, the whole worker slice as one
     morsel, kind sum (the part_* streams' shape): CUDA events, median of
-    ``reps``, beside its plain version (held against it) and its bytes
-    bound (keys and values read once, the spill mask and the W·C tables
-    written once).  No PyTorch call computes this function.  Then one
+    ``reps``, and the device time of a call from CUDA-graph replays
+    (:func:`time_graph`), beside its plain version (held against it) and
+    its bytes bound (keys and values read once, the spill mask and the W·C
+    tables written once).  No PyTorch call computes this function.  Three calls
+    per class and W for the profile (whole, and without pass 1's or pass
+    2's flush), and the tile sweep (:func:`preagg_tile_sweep`).  Then one
     chunk of the high class through the whole partitioned pipeline at W =
     8: pre-aggregation, exchange and partition-wise sort (CUDA events
     each), and the merge into a fresh carried table (host clock,
@@ -2087,6 +2129,7 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
         for w in (8, 132):
             kw, vw = preagg_layout(k32, vals, w, w)
             ms = time_cuda(lambda: pa.preagg(kw, vw, kind="sum", capacity=PA_C), reps)
+            graph_ms = time_graph(lambda: pa.preagg(kw, vw, kind="sum", capacity=PA_C))
             got = pa.preagg(kw, vw, kind="sum", capacity=PA_C)
             want, p_s = timed(pa.preagg_plain, kw, vw, kind="sum", capacity=PA_C)
             label = f"preagg_{name}_w{w}"
@@ -2095,18 +2138,23 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
             nbytes = kw.numel() * (4 + 4 + 1) + w * PA_C * 12
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
             spilled = int(got[3].sum()) / kw.numel()
-            per_class[label] = {"kernel_ms": ms, "plain_ms": p_s * 1e3, "bound_ms": b_ms,
+            per_class[label] = {"kernel_ms": ms, "graph_ms": graph_ms, "plain_ms": p_s * 1e3,
+                                "bound_ms": b_ms,
                                 "bound_by": "bytes", "library_ms": None, "max_abs_err": err,
                                 "rows": kw.numel(), "workers": w, "capacity": PA_C,
-                                "spilled_share": spilled}
+                                "spilled_share": spilled, "grid": list(pa.launch.grid)}
+            for variant, skip in (("", None), (":noflush_first", "first"),
+                                  (":noflush_fold", "fold")):
+                def call(kw=kw, vw=vw, skip=skip):
+                    # the result is dropped; the next call's scratch fill
+                    # starts its group in the profile
+                    pa.launch(kw, vw, "sum", PA_C, skip_flush=skip)
 
-            def call(kw=kw, vw=vw):
-                # a fill after the kernel, so the profile tells the calls apart
-                pa.preagg(kw, vw, kind="sum", capacity=PA_C)[3][:1].zero_()
-
-            calls[label] = call
-            log(f"phase4 preagg {name} W={w}: kernel {ms:.4f} ms for {kw.numel()} rows "
-                f"(spilled {spilled:.4f}), bound {b_ms:.4f} ms (bytes), plain "
+                calls[label + variant] = call
+            log(f"phase4 preagg {name} W={w}: kernel {ms:.4f} ms (graph replay "
+                f"{graph_ms:.4f} ms) for {kw.numel()} rows (spilled {spilled:.4f}; grid "
+                f"{pa.launch.grid[0]} CTAs of {pa.launch.grid[1]} rows), bound {b_ms:.4f} ms "
+                f"(bytes), plain "
                 f"{p_s * 1e3:.2f} ms, no library call; max|Δ|={err:.3g} ok")
     # one partitioned chunk, stage by stage (the part_high stream's shape)
     keys, bound = chunk_classes["high"]
@@ -2132,11 +2180,65 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
     split["merge_ms"] = merge_s * 1e3
     split["groups"] = int(res.num_groups)
     log("phase4 partitioned chunk (high, W=8, 2^21 rows): " + json.dumps(split))
+    preagg_tile_sweep(pa, chunk_classes, vals, reps)
     log("phase4 preagg " + json.dumps(per_class))
     hi = per_class["preagg_high_w8"]
     return calls, {"ms": hi["kernel_ms"], "plain_ms": hi["plain_ms"],
                    "bound_ms": hi["bound_ms"], "bound_by": "bytes", "library_ms": None,
                    "max_abs_err": worst, "per_class": per_class, "partitioned_chunk": split}
+
+
+def preagg_tile_sweep(pa, chunk_classes, vals, reps, sizes=(2048, 4096, 8192, 16384)):
+    """``preagg``'s device time per main-path chunk (:func:`time_graph`)
+    at W = 8 and 132, C = 1024, kind sum, at each fixed tile size beside
+    the launcher's automatic one, each result held to the automatic
+    tile's (keys, spill, cnts equal, SUM within SUM_RTOL · Σ|v|)."""
+    out = {}
+    default = pa.TILE_ROWS
+    try:
+        for name, (keys, _) in chunk_classes.items():
+            k32 = to_i32(keys)
+            for w in (8, 132):
+                kw, vw = preagg_layout(k32, vals, w, w)
+                row = {}
+                for tile in (None,) + sizes:
+                    pa.TILE_ROWS = tile
+                    got = pa.preagg(kw, vw, kind="sum", capacity=PA_C)
+                    if tile is None:
+                        ref = got
+                    check_preagg(got, ref, kw, vw, "sum", PA_C,
+                                 f"preagg tile sweep {name} W={w} tile={tile}")
+                    row[tile or "auto"] = {
+                        "graph_ms": time_graph(
+                            lambda: pa.preagg(kw, vw, kind="sum", capacity=PA_C), reps=reps),
+                        "grid": list(pa.launch.grid)}
+                out[f"{name}_w{w}"] = row
+    finally:
+        pa.TILE_ROWS = default
+    log("phase4 preagg tile sweep " + json.dumps(out))
+    return out
+
+
+def preagg_profile_split(per_class):
+    """Pass 1, pass 2 and the scratch fill as device time from the profile
+    of one call, and each pass's flush as the difference of that pass's
+    device time with and without its flush (one profiled call each)."""
+    def ms_of(rows, part):
+        return sum(ms for name, ms in rows if part in name)
+
+    for label, rec in per_class.items():
+        full = rec.get("profile_ms") or []
+        nf1 = rec.get("profile_ms_noflush_first") or []
+        nf2 = rec.get("profile_ms_noflush_fold") or []
+        if not (full and nf1 and nf2):
+            continue
+        p1, p2 = ms_of(full, "preagg_first"), ms_of(full, "preagg_fold")
+        rec["device_split_ms"] = {
+            "fill": ms_of(full, "Memset"), "pass1_first": p1, "pass2_fold": p2,
+            "device_total": ms_of(full, "Memset") + p1 + p2,
+            "pass1_flush": p1 - ms_of(nf1, "preagg_first"),
+            "pass2_flush": p2 - ms_of(nf2, "preagg_fold")}
+        log(f"phase4 preagg device split {label[7:]}: " + json.dumps(rec["device_split_ms"]))
 
 
 def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls):
@@ -2149,14 +2251,17 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls
     calls.update(hybrid_calls)
     calls.update(preagg_calls)
     # a ticket call starts with the sample or the fill; a scan_ticket call
-    # with its scratch fill; a register or pre-aggregation call with its
-    # kernel
+    # with its scratch fill; a register call with its kernel; a
+    # pre-aggregation call with its scratch memset (or, should the profiler
+    # not list memsets, its first pass)
     profiles = device_profiles(calls, ("ticket_sample_kernel", "ticket_fill_kernel",
                                        "scan_fill_kernel", "hybrid_registers_kernel",
-                                       "preagg_kernel"))
+                                       "Memset", "preagg_first_kernel"))
     for label, rows_ms in profiles.items():
         if label.startswith("preagg_"):
-            timing["preagg"]["per_class"][label]["profile_ms"] = rows_ms
+            base, _, variant = label.partition(":")
+            key = "profile_ms_" + variant if variant else "profile_ms"
+            timing["preagg"]["per_class"][base][key] = rows_ms
             log(f"phase4 preagg profile {label[7:]}: " + json.dumps(rows_ms))
             continue
         if label.startswith("hybrid_"):
@@ -2172,6 +2277,7 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls
                else timing["region_selection"]["high"])
         rec["profile_ms"] = rows_ms
         log(f"phase4 ticket profile {label}: " + json.dumps(rows_ms))
+    preagg_profile_split(timing["preagg"]["per_class"])
     log("phase4 split " + json.dumps(timing["per_class"]))
     log("phase4 scan " + json.dumps(timing["scan_per_class"]))
 
@@ -2284,7 +2390,7 @@ def main(argv=None) -> int:
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
                 "scan_ticket": "src/repro/engine/groupby.py:144",
-                "segment_agg_serialized": "src/repro/core/updates.py:226",
+                "segment_agg_serialized": "src/repro/core/updates.py:219",
                 "hybrid_registers": "src/repro/engine/executors.py:884",
                 "preagg": "src/repro/core/partitioned.py:48"}
     source = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}

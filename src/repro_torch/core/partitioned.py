@@ -9,12 +9,12 @@ every row spills and is aggregated twice: the overhead that fully
 concurrent aggregation removes (Fig. 6 / Table 2).
 
 A "worker" is a row of a ``(W, R)`` layout of the chunk.  The
-pre-aggregation is ``kernels.preagg.preagg``: the hand-written kernel (one
-CTA per worker) on CUDA tensors, its plain version on CPU tensors.  The
-exchange is a concatenation (the final phase is order-insensitive, so this
-single-device form behaves as the reference's), and the partition-wise
-phase is sort ticketing (``core.ticketing.sort_ticketing``) +
-``core.updates.sort_segment_update``.
+pre-aggregation is ``kernels.preagg.preagg``: the hand-written kernels
+(many CTAs per worker, by the first-row rule) on CUDA tensors, its plain
+version on CPU tensors.  The exchange is a concatenation (the final
+phase is order-insensitive, so this single-device form behaves as the
+reference's), and the partition-wise phase is sort ticketing
+(``core.ticketing.sort_ticketing``) + ``core.updates.sort_segment_update``.
 """
 from __future__ import annotations
 

@@ -17,15 +17,22 @@ chunk's keys and values laid out as ``(W, R)`` (worker ``w`` owns row
     table (their slot held another key, or they lost the install vote to
     another key).
 
-Per morsel, every live row whose slot is free votes with its lane (its
-row index in the morsel), the lowest lane installs its key, and every live
-row whose slot then holds its own key folds into it: the reference's two
-claim rounds, resolved in full.  So ``keys``, ``spill`` and ``cnts`` equal
-the reference's bit for bit, and ``vals`` up to the order of float sums.
+The result does not depend on the morsel size: the first-row rule.  The
+reference takes a worker's rows morsel by morsel and, per morsel, lets
+every live row whose slot is free vote with its lane; the lowest lane
+installs its key, and every live row whose slot then holds its own key
+folds.  A key never leaves its slot, and (morsel, lane) order is the
+worker's row order, so slot ``s`` ends up holding the key of the worker's
+first live row whose ``slot_hash`` is ``s``, and a live row folds iff its
+slot holds its key; the rest spill.  So ``keys``, ``spill`` and ``cnts``
+equal the reference's bit for bit at every morsel size, and ``vals`` up
+to the order of float sums.  ``morsel`` is still checked (R a multiple of
+it) and drives the plain version's steps, but the kernel never reads it.
 
 :func:`preagg` is the wrapper: CUDA tensors launch the hand-written Hopper
-kernel ``csrc/preagg.cu`` (one CTA per worker; built at first use; counted
-in ``preagg.launches``) and raise if they cannot; CPU tensors run
+kernels of ``csrc/preagg.cu`` (:func:`launch`: a vote pass and a fold pass,
+each over many CTAs per worker; built at first use; counted in
+``preagg.launches``) and raise if they cannot; CPU tensors run
 :func:`preagg_plain`.
 """
 from __future__ import annotations
@@ -48,7 +55,10 @@ def _prepare(keys, values, kind, capacity, msize):
         raise ValueError(f"unknown kind {kind!r}; available: {KINDS}")
     if capacity < 1 or capacity & (capacity - 1):
         raise ValueError(f"capacity must be a power of 2, got {capacity}")
-    keys = torch.as_tensor(keys)
+    # (each call below is skipped where it would be a no-op: the card path
+    # runs this on every chunk, with the device idle until the launch)
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.as_tensor(keys)
     if keys.dtype != torch.int32 or keys.dim() != 2:
         raise ValueError(f"keys must be a (W, R) int32 tensor, got {tuple(keys.shape)} "
                          f"{keys.dtype}")
@@ -59,18 +69,24 @@ def _prepare(keys, values, kind, capacity, msize):
     if kind == "count":
         values = None
     else:
-        values = torch.as_tensor(values)
+        if not isinstance(values, torch.Tensor):
+            values = torch.as_tensor(values)
         if values.shape != keys.shape or values.device != keys.device:
             raise ValueError(f"values {tuple(values.shape)} on {values.device} do not match "
                              f"keys {tuple(keys.shape)} on {keys.device}")
-        values = values.to(torch.float32).contiguous()
-    return keys.contiguous(), values, msize
+        if values.dtype != torch.float32:
+            values = values.to(torch.float32)
+        if not values.is_contiguous():
+            values = values.contiguous()
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
+    return keys, values, msize
 
 
 def preagg(keys: torch.Tensor, values: torch.Tensor | None, *, kind: str, capacity: int,
            morsel: int | None = None):
     """Pre-aggregate each worker's rows (see the module docstring).  CUDA
-    tensors launch the Hopper kernel; CPU tensors run
+    tensors launch the Hopper kernels; CPU tensors run
     :func:`preagg_plain`; any other device raises.  Returns ``(keys, vals,
     cnts, spill)``."""
     keys, values, msize = _prepare(keys, values, kind, capacity, morsel)
@@ -79,32 +95,52 @@ def preagg(keys: torch.Tensor, values: torch.Tensor | None, *, kind: str, capaci
         return _plain(keys, values, kind, capacity, msize)
     if dev.type != "cuda":
         raise ValueError(f"preagg runs on cuda or cpu tensors, not {dev}")
+    return launch(keys, values, kind, capacity)
+
+
+preagg.launches = 0  # launches of the kernel pair (CUDA tensors only)
+
+# rows of a CTA's tile (None: about two CTAs an SM, chosen by the launcher)
+TILE_ROWS: int | None = None
+_SKIP_FLUSH = {None: 0, "first": 1, "fold": 2}
+
+
+def launch(keys: torch.Tensor, values: torch.Tensor | None, kind: str, capacity: int, *,
+           skip_flush: str | None = None):
+    """The kernel pair on checked ``(W, R)`` CUDA tensors (int32 keys,
+    float32 values or None for count, both contiguous): the scratch fill
+    and the two passes on the current stream.  The key table is also the
+    passes' scratch (each slot's first row, then its key), with W done
+    counters in the rows after it; vals and cnts share one allocation.  The
+    device waits on this host work, so it is three allocations and two
+    views.  ``skip_flush`` ("first" or "fold") names a pass whose flush is
+    left out, for timing only (the result is then wrong).  Records ``(CTAs per pass, tile
+    rows)`` in ``launch.grid``."""
     w, r = keys.shape
+    dev = keys.device
     lib = _kernel_library()
-    tkeys = torch.empty((w, capacity), dtype=torch.int32, device=dev)
-    tvals = torch.empty((w, capacity), dtype=torch.float32, device=dev)
-    tcnts = torch.empty((w, capacity), dtype=torch.float32, device=dev)
+    tkeys = torch.empty((w + -(-w // capacity), capacity), dtype=torch.int32, device=dev)
+    tables = torch.empty((2, w, capacity), dtype=torch.float32, device=dev)
     spill = torch.empty((w, r), dtype=torch.bool, device=dev)
-    claim = None
-    with torch.cuda.device(dev):
-        if lib.preagg_smem_bytes(capacity) > lib.preagg_smem_optin():
-            # the tables do not fit shared memory: the same passes run on
-            # global memory, with a claim buffer per worker
-            claim = torch.empty((w, capacity), dtype=torch.int32, device=dev)
-        err = lib.preagg_launch(
-            keys.data_ptr(), 0 if values is None else values.data_ptr(), w, r, msize,
-            capacity, _KIND_CODE[kind], tkeys.data_ptr(), tvals.data_ptr(),
-            tcnts.data_ptr(), 0 if claim is None else claim.data_ptr(), spill.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    grid = (ctypes.c_int * 2)()
+    at = tables.data_ptr()
+    err = lib.preagg_launch(
+        keys.data_ptr(), None if values is None else values.data_ptr(), w, r, capacity,
+        _KIND_CODE[kind], TILE_ROWS or 0, _SKIP_FLUSH[skip_flush], tkeys.data_ptr(),
+        at, at + 4 * w * capacity, spill.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(), grid,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError("preagg kernel launch failed: "
                            + lib.preagg_error_string(err).decode())
     preagg.launches += 1
-    return tkeys, tvals, tcnts, spill
+    launch.grid = (grid[0], grid[1])
+    tvals, tcnts = tables.unbind()
+    return tkeys[:w], tvals, tcnts, spill
 
 
-preagg.launches = 0  # kernel launches (CUDA tensors only)
+launch.grid = (0, 0)
 
 
 def _kernel_library() -> ctypes.CDLL:
@@ -114,12 +150,9 @@ def _kernel_library() -> ctypes.CDLL:
     fn = lib.preagg_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr, i32, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32,
+                       ctypes.POINTER(ctypes.c_int), ptr]
         fn.restype = ctypes.c_int
-        lib.preagg_smem_bytes.argtypes = [i32]
-        lib.preagg_smem_bytes.restype = i64
-        lib.preagg_smem_optin.argtypes = []
-        lib.preagg_smem_optin.restype = i64
         lib.preagg_error_string.argtypes = [i32]
         lib.preagg_error_string.restype = ctypes.c_char_p
     return lib

@@ -881,6 +881,44 @@ def test_preagg_kernel_matches_plain(cuda, case, W, C, morsel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case,W,R,C", [
+    ("odd_rows", 3, 1001, 1024),         # worker bases off 16 bytes: ragged quads
+    ("many_tiles", 1, (1 << 20) + 3, 1024),  # one worker over hundreds of tiles
+    ("under_one_tile", 4, 100, 64),
+    ("c16", 8, 4096, 16),
+    ("c8192", 8, 8192, 8192),            # the last shared-memory size
+    ("one_key", 8, 4096, 1024),
+    ("empty_worker", 4, 3000, 1024),
+    ("offset_view", 2, 5000, 1024),      # keys and values 4 bytes past 16-byte alignment
+])
+def test_preagg_kernel_tiles_match_plain(cuda, case, W, R, C):
+    g = torch.Generator(device=cuda).manual_seed(R + C)
+    keys, vals = _preagg_case(cuda, "hot" if case == "many_tiles" else "uniform", W, W * R,
+                              97 + W)
+    if case == "one_key":
+        keys = torch.full_like(keys, 123456789)
+    elif case == "empty_worker":
+        keys[1] = -1
+    elif case == "offset_view":
+        kk = torch.randint(-2**31, 2**31 - 1, (W * R + 1,), generator=g, device=cuda,
+                           dtype=torch.int64).to(torch.int32) % 3001
+        vv = torch.randn(W * R + 1, generator=g, device=cuda)
+        keys, vals = kk[1:].view(W, R), vv[1:].view(W, R)
+        assert keys.data_ptr() % 16 == 4
+    for kind in PA_KINDS:
+        before = pa.preagg.launches
+        got = pa.preagg(keys, vals, kind=kind, capacity=C)
+        want = pa.preagg_plain(keys, vals, kind=kind, capacity=C)
+        torch.cuda.synchronize()
+        assert pa.preagg.launches == before + 1
+        _assert_preagg_match(got, want, keys, vals, kind, C)
+    if case == "many_tiles":
+        assert pa.launch.grid[0] > 100
+    if case == "empty_worker":
+        assert bool((got[0][1] == -1).all()) and not bool(got[3][1].any())
+
+
+@pytest.mark.gpu
 def test_preagg_kernel_edges(cuda):
     keys = torch.full((8, 0), -1, dtype=torch.int32, device=cuda)
     tk_, tv, tc, sp = pa.preagg(keys, None, kind="count", capacity=64)

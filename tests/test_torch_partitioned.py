@@ -143,6 +143,60 @@ def test_preagg_plain_matches_jax(workers, capacity, morsel, kind):
     assert all(torch.equal(a, b) for a, b in zip(again, (tk_, tv, tc, ts)))
 
 
+def _first_row_rule(keys, vals, kind, capacity):
+    """The card kernel's closed form: slot s of worker w holds the key of w's
+    first live row whose slot_hash is s; a live row folds iff its slot
+    holds its key, else it spills."""
+    w, r = keys.shape
+    live = keys != th.EMPTY_I32
+    slot = (torch.arange(w)[:, None] * capacity + th.slot_hash(keys, capacity)).reshape(-1)
+    park = w * capacity
+    row = torch.arange(r).expand(w, r).reshape(-1)
+    first = torch.full((park + 1,), r, dtype=torch.int64)
+    first.scatter_reduce_(0, torch.where(live.reshape(-1), slot, park), row, "amin")
+    first = first[:park].reshape(w, capacity)
+    tkeys = torch.where(first < r, keys.gather(1, first.clamp(max=max(r - 1, 0))),
+                        th.EMPTY_I32)
+    fold = live & (tkeys.reshape(-1)[slot].reshape(w, r) == keys)
+    at = torch.where(fold.reshape(-1), slot, park)
+    cnts = torch.zeros(park + 1).index_add_(0, at, fold.reshape(-1).float())[:park]
+    if kind in ("sum", "count"):
+        v = torch.ones(w * r) if kind == "count" else vals.reshape(-1)
+        tvals = torch.zeros(park + 1).index_add_(0, at, torch.where(fold.reshape(-1), v, 0.0))
+    else:
+        neutral = float("inf") if kind == "min" else float("-inf")
+        tvals = torch.full((park + 1,), neutral).scatter_reduce_(
+            0, at, vals.reshape(-1), "amin" if kind == "min" else "amax")
+    return (tkeys, tvals[:park].reshape(w, capacity), cnts.reshape(w, capacity),
+            live & ~fold)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("morsel", [None, 1, 64])
+@pytest.mark.parametrize("capacity", [16, 1024])
+@pytest.mark.parametrize("workers", [1, 8])
+def test_first_row_rule_matches_jax(workers, capacity, morsel, kind):
+    """The rule the card kernel computes, whatever the morsel size: equal to
+    JAX ``preagg_morsel`` under its vmap + lax.scan at that morsel size, and
+    to ``preagg_plain``."""
+    rng = np.random.default_rng(workers * 13 + capacity + (morsel or 0))
+    n = 1 << 11
+    keys = _keys(rng, n, 400, empty=0.05).reshape(workers, -1)
+    vals = rng.normal(size=n).astype(np.float32).reshape(workers, -1)
+    rk, rv, rc, rs = _first_row_rule(_t(keys), torch.from_numpy(vals), kind, capacity)
+    jk, jv, jc, js = _jax_preagg(keys, vals, kind, capacity, morsel)
+    pk, pv, pc, ps = pa.preagg_plain(_t(keys), torch.from_numpy(vals), kind=kind,
+                                     capacity=capacity, morsel=morsel)
+    assert np.array_equal(rk.numpy().view(np.uint32), jk) and torch.equal(rk, pk)
+    assert np.array_equal(rs.numpy(), js) and torch.equal(rs, ps)
+    assert np.array_equal(rc.numpy(), jc) and torch.equal(rc, pc)
+    if kind == "sum":
+        np.testing.assert_allclose(rv.numpy(), jv, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(rv.numpy(), pv.numpy(), rtol=1e-5, atol=1e-5)
+    else:
+        assert np.array_equal(rv.numpy(), jv) and torch.equal(rv, pv)
+
+
 def test_preagg_morsel_carries_state_like_jax():
     """Mirror of test_system's headline claim: at high cardinality a small
     pre-aggregation table spills most rows — the port's one-morsel step,

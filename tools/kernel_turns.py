@@ -2,7 +2,7 @@
 """Phase-4 kernel times of one source tree, for comparing two trees on one
 card.
 
-    python3 tools/kernel_turns.py SRC_DIR
+    python3 tools/kernel_turns.py SRC_DIR [KERNEL ...]
 
 Times the kernels on ``chip_smoke.py``'s phase-4 chunks (seed 0: one
 2^21-row main-path chunk per class, with the bound of the class's stream)
@@ -10,10 +10,13 @@ with its own helpers, importing ``repro_torch`` from ``SRC_DIR``: the fused
 kernel at P = 1 (``kernel_timing``), the ticket kernel,
 ``scan_ticket`` (4096-row morsels, the table reset before each call), and,
 where ``SRC_DIR`` has it, ``hybrid_registers`` (the main path's planes,
-the heavy keys ``detect_heavy_hitters`` names, and a heavy-unique chunk).
+the heavy keys ``detect_heavy_hitters`` names, and a heavy-unique chunk)
+and ``preagg`` (W = 8 and 132 workers, C = 1024, kind sum; also its
+device time from CUDA-graph replays, as ``preagg_graph``).
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
-{kernel: {class: [ms, ...]}}``.  To compare a parent tree with the
+{kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
+only ones timed.  To compare a parent tree with the
 working tree on one card, unpack the parent into an ignored directory and
 run them in turns (from the repository root):
 
@@ -62,27 +65,56 @@ def hybrid_times(classes, vals, dev):
     return out
 
 
+def preagg_times(classes, vals):
+    """``preagg`` as chip_smoke's phase 4 launches it (W = 8 and 132, C =
+    1024, kind sum, one morsel a worker), three timings a class: the
+    event-timed call, and the device time from CUDA-graph replays."""
+    from repro_torch.kernels import preagg as pa
+
+    event, graph = {}, {}
+    for _ in range(3):
+        for name, (keys, _) in classes.items():
+            k32 = cs.to_i32(keys)
+            for w in (8, 132):
+                kw, vw = cs.preagg_layout(k32, vals, w, w)
+                call = lambda: pa.preagg(kw, vw, kind="sum", capacity=cs.PA_C)  # noqa: E731
+                event.setdefault(f"{name}_w{w}", []).append(cs.time_cuda(call, 5))
+                graph.setdefault(f"{name}_w{w}", []).append(cs.time_graph(call))
+    return event, graph
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    only = set(sys.argv[2:])
+
+    def wanted(kernel):
+        return (not only or kernel in only) and importlib.util.find_spec(
+            "repro_torch.kernels." + kernel.replace("scan_ticket", "fused_groupby")) is not None
+
     classes, vals = cs.phase4_chunks(torch.Generator(device=dev).manual_seed(0), dev)
-    out = {"fused_groupby": {}, "ticket_hash": {}, "scan_ticket": {}}
-    for _ in range(3):
+    out = {k: {} for k in ("fused_groupby", "ticket_hash", "scan_ticket") if wanted(k)}
+    for _ in range(3 if out else 0):
         for name, (keys, g) in classes.items():
-            ms, _ = cs.kernel_timing(fk, keys, vals, max_groups=g, programs=1, device=dev)
-            out["fused_groupby"].setdefault(name, []).append(ms)
             k32 = keys.to(torch.int32)
-            kw = dict(capacity=table_capacity(g), max_groups=g, morsel_size=cs.M)
-            ms = cs.time_cuda(lambda: th.ticket_hash(k32, **kw), 5)
-            out["ticket_hash"].setdefault(name, []).append(ms)
-            km, _, work, todo, skw, reset = cs.scan_launch(fk, tk, k32, g, dev)
-            ms = cs.time_cuda(lambda: fk.scan_ticket(work, km, todo, **skw), 5, reset)
-            out["scan_ticket"].setdefault(name, []).append(ms)
-            del work
-    if importlib.util.find_spec("repro_torch.kernels.hybrid_registers") is not None:
+            if wanted("fused_groupby"):
+                ms, _ = cs.kernel_timing(fk, keys, vals, max_groups=g, programs=1, device=dev)
+                out["fused_groupby"].setdefault(name, []).append(ms)
+            if wanted("ticket_hash"):
+                kw = dict(capacity=table_capacity(g), max_groups=g, morsel_size=cs.M)
+                ms = cs.time_cuda(lambda: th.ticket_hash(k32, **kw), 5)
+                out["ticket_hash"].setdefault(name, []).append(ms)
+            if wanted("scan_ticket"):
+                km, _, work, todo, skw, reset = cs.scan_launch(fk, tk, k32, g, dev)
+                ms = cs.time_cuda(lambda: fk.scan_ticket(work, km, todo, **skw), 5, reset)
+                out["scan_ticket"].setdefault(name, []).append(ms)
+                del work
+    if wanted("hybrid_registers"):
         out["hybrid_registers"] = hybrid_times(classes, vals, dev)
+    if wanted("preagg"):
+        out["preagg"], out["preagg_graph"] = preagg_times(classes, vals)
     print(sys.argv[1], json.dumps(out))
     return 0
 
