@@ -34,12 +34,18 @@ Four phases, each of which fails the run:
    ``scan_ticket_discrepancies``; a forced GROW pause (the committed
    morsels whole, no ticket past the bound) and its replay after growing
    the bound; an unchecked, saturated table, which must end.  The
-   serialized update's one-thread kernel against its row loop, exactly.
+   serialized update's kernel (one thread folds every row) against its
+   row loop bit for bit, every kind: G = 3000, G at the shared-memory
+   plane's cap and just past it, the unique class's G = 2^24, a ragged
+   row count and columns 4 bytes off a 16-byte boundary, with tickets
+   repeated one and two rows apart, -1 and >= G, and -0.0 and ±inf.
    ``hybrid_registers`` (the hybrid route's register fold): 2^20 rows of
    the low, high, unique, heavy-hitter and heavy-unique classes (keys
-   spread over all 32 bits, EMPTY rows), R = 8 and 64 heavy keys, a plane
-   of every kind: tail keys equal, COUNT / MIN / MAX exact, SUM within
-   1e-4·Σ|v|.  ``preagg`` (the partitioned route's pre-aggregation): 2^20
+   spread over all 32 bits, EMPTY rows) in each size path of the kernel
+   (R = 8 at S = 4 and 8: per-thread copies, keys compared in registers;
+   R = 16 and 64 at S = 4 and R = 8 at S = 16: per-warp copies), the planes
+   cycling over every kind: tail keys equal, COUNT / MIN / MAX exact, SUM
+   within 1e-4·Σ|v|.  ``preagg`` (the partitioned route's pre-aggregation): 2^20
    rows of the uniform-1000, zipf, unique and heavy-hitter classes (keys
    over all 32 bits, EMPTY rows), W = 8 and 132 workers, C = 1024 and 64,
    morsel None and 1024, every kind: table keys, spill mask and cnts
@@ -61,7 +67,9 @@ Four phases, each of which fails the run:
    stream off; low, high and unique scan_body (a RAISE stream makes one
    ticket launch per chunk and, scan_body, one segment launch per plane
    and chunk); ``update="onehot"`` on low, ``"sort_segment"`` on high, an
-   unchecked stream on low; and on 2^16 rows only, ``pipeline="host"``
+   unchecked stream on low; hybrid_high (``strategy="hybrid"`` on the
+   high class, bound N / 10, RAISE, a scan_body tail: one register launch
+   per chunk); and on 2^16 rows only, ``pipeline="host"``
    (scan_body) and ``update="serialized"``.  The default plan
    (``GroupByPlan(keys, aggs)``: strategy auto, max_groups None,
    saturation GROW, hashed keys) on low (twice: auto_low_again shows the
@@ -114,11 +122,13 @@ Four phases, each of which fails the run:
    One ``torch.profiler`` session (a second one records nothing) gives the
    device time of every kernel of one ticket call, one ``scan_ticket``
    call, one ``hybrid_registers`` call and three ``preagg`` calls per
-   class and worker count.  The serialized kernel on one chunk of its
-   stream (8192 rows), beside ``index_add_``.  ``hybrid_registers`` on the low, high,
-   unique and heavy-unique chunks with the main path's planes and the
-   heavy keys ``detect_heavy_hitters`` names, beside its plain version
-   (held against it) and its bytes bound; no library call computes it.
+   class and worker count, and the serialized kernel.  The serialized
+   kernel on one chunk of its stream (8192 rows), beside ``index_add_``.
+   ``hybrid_registers`` on the low, high, unique and heavy-unique chunks
+   with the main path's planes and the heavy keys ``detect_heavy_hitters``
+   names, beside its plain version (held against it) and its bytes bound
+   (no library call computes it), its event-timed call less its device
+   time printed per class.
    ``preagg`` on the low, high and unique chunks at W = 8 and 132, C =
    1024, kind sum, beside its plain version (held against it) and its
    bytes bound, its device time from CUDA-graph replays, and from the
@@ -668,19 +678,39 @@ def phase2_scan(fk, sa, gen, device, n=1 << 20):
         f"unresolved {int((k[0] < 0).sum())}, kernel ended in {k_s:.3f} s ok")
 
     # the serialized update: one thread, rows in order, against its row loop
-    t = torch.randint(-1, 3100, (1 << 14,), generator=gen, device=device, dtype=torch.int32)
-    v = torch.randn(1 << 14, generator=gen, device=device)
-    for kind in KINDS4:
-        acc = torch.full((3000,), float("inf") if kind == "min" else
-                         float("-inf") if kind == "max" else 0.0, device=device)
-        want = sa.serialized_agg_plain(acc.cpu().clone(), t.cpu(), v.cpu(), kind=kind)
-        got = sa.serialized_agg(acc, t, v, kind=kind).cpu()
-        d = (got - want).abs()
-        d = d[torch.isfinite(d)]
-        err = float(d.max()) if d.numel() else 0.0
-        check(torch.equal(got, want), f"phase2 serialized {kind}: differs from the row loop")
-        worst["segment_agg_serialized"] = max(worst["segment_agg_serialized"], err)
-        log(f"phase2 serialized {kind}: 16384 rows, G=3000, exact ok")
+    # bit for bit: the accumulator plane in shared memory (G = 3000, G at
+    # the cap) and in device memory (just past it, and the unique class's
+    # 2^24); tickets repeated one and two rows apart (the register forward),
+    # -1 and >= G; a ragged row count; columns 4 bytes off a 16-byte
+    # boundary; -0.0 and ±inf for min / max
+    cap = sa.MAX_SERIALIZED_SHARED_GROUPS
+    for case, rows, g in (("random", 1 << 14, 3000), ("shared_cap", 1 << 13, cap),
+                          ("past_cap", 1 << 13, cap + 1), ("unique_g", 1 << 13, 1 << 24),
+                          ("ragged", 3 * 1024 + 5, 700), ("misaligned", 2 * 1024 + 3, 300)):
+        t = torch.randint(-1, g + 100, (rows + 1,), generator=gen, device=device,
+                          dtype=torch.int32)
+        t[1::5] = t[0::5][: t[1::5].numel()]
+        t[2::7] = t[0::7][: t[2::7].numel()]
+        v = torch.randn(rows + 1, generator=gen, device=device)
+        # one row in: both columns 4 bytes past a 16-byte boundary
+        rows_of = slice(1, None) if case == "misaligned" else slice(0, rows)
+        for kind in KINDS4:
+            vk = v.clone()
+            if kind in ("min", "max"):
+                vk[::17], vk[5::19], vk[6::23], vk[7::29] = -0.0, 0.0, float("inf"), float("-inf")
+            tk_, vk = t[rows_of], vk[rows_of]
+            acc = torch.full((g,), float("inf") if kind == "min" else
+                             float("-inf") if kind == "max" else 0.0, device=device)
+            want = sa.serialized_agg_plain(acc.cpu().clone(), tk_.cpu(), vk.cpu(), kind=kind)
+            before = sa.serialized_agg.launches
+            got = sa.serialized_agg(acc, tk_, vk, kind=kind).cpu()
+            check(sa.serialized_agg.launches == before + 1,
+                  f"phase2 serialized {case} {kind}: the kernel was not launched")
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"phase2 serialized {case} {kind}: differs from the row loop "
+                  f"({int((got.view(torch.int32) != want.view(torch.int32)).sum())} groups)")
+        log(f"phase2 serialized {case}: {rows} rows, G={g} "
+            f"({'shared' if g <= cap else 'device'} memory plane), every kind bit for bit ok")
     return worst
 
 
@@ -725,9 +755,12 @@ def check_registers(keys, heavy, vals, got, want, tail_k, tail_p, kinds, label):
 
 def phase2_hybrid(hr, gen, device, n=1 << 20):
     """The register kernel vs its plain version on a 2^20-row chunk of
-    every class, R = 8 and 64, one plane of every kind; keys spread over
-    all 32 bits (an odd multiplier, so the classes keep their shape) with
-    EMPTY rows.  Returns the largest |Δ| of any register."""
+    every class, in each of its size paths: R = 8, S = 4 and 8 (per-thread
+    copies, keys compared in registers, the second at their S x R limit of
+    64), R = 16 and 64, S = 4 and R = 8, S = 16 (per-warp copies, keys
+    probed in a shared table); the planes cycle over every kind; keys spread
+    over all 32 bits (an odd multiplier, so the classes keep their shape)
+    with EMPTY rows.  Returns the largest |Δ| of any register."""
     import torch
 
     classes = {"low": gen_keys(n, "low", "uniform", gen, device),
@@ -743,16 +776,17 @@ def phase2_hybrid(hr, gen, device, n=1 << 20):
         u = (keys * 0x9E3779B1) & 0xFFFFFFFF
         k32 = torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
         k32[:7] = -1
-        for r in (8, 64):
+        for r, s in ((8, 4), (8, 8), (16, 4), (64, 4), (8, 16)):
             heavy = top_keys(k32, r)
+            kinds = HR_KINDS * (s // 4)
             fresh = torch.stack([torch.full((r,), v, device=device)
-                                 for v in (0.0, 0.0, float("inf"), float("-inf"))])
+                                 for v in (0.0, 0.0, float("inf"), float("-inf"))] * (s // 4))
             got, want = fresh.clone(), fresh.clone()
-            tail_k = hr.hybrid_registers(k32, heavy, planes, got, kinds=HR_KINDS)
-            tail_p = hr.hybrid_registers_plain(k32, heavy, planes, want, kinds=HR_KINDS)
+            tail_k = hr.hybrid_registers(k32, heavy, planes * (s // 4), got, kinds=kinds)
+            tail_p = hr.hybrid_registers_plain(k32, heavy, planes * (s // 4), want, kinds=kinds)
             sync(device)
-            label = f"phase2 hybrid_registers {name} R={r}"
-            e = check_registers(k32, heavy, vals, got, want, tail_k, tail_p, HR_KINDS, label)
+            label = f"phase2 hybrid_registers {name} R={r} S={s}"
+            e = check_registers(k32, heavy, vals, got, want, tail_k, tail_p, kinds, label)
             err = max(err, e)
             log(f"{label}: {int((tail_k == -1).sum()) - 7} rows on registers, "
                 f"max|Δreg|={e:.3g}, tail equal, count/min/max exact ok")
@@ -1332,6 +1366,14 @@ def phase3_scan(kmods, api, gen, device, low, vals, n):
                                saturation="raise", kernel=kernel))
     recs.append(run_stream(kmods, api, "scan_high_sort", high, vals, max_groups=n // 10,
                            saturation="raise", kernel="off", update="sort_segment"))
+    # the register fold on many heavy keys (8 registers take ≈88% of the
+    # rows) beside body_high, with no grow in the wall
+    rec = run_stream(kmods, api, "hybrid_high", high, vals, max_groups=n // 10,
+                     saturation="raise", kernel="scan_body", strategy="hybrid")
+    check(rec["launches"]["hybrid_registers"] == rec["chunks"],
+          f"hybrid_high: {rec['launches']['hybrid_registers']} register launches for "
+          f"{rec['chunks']} chunks")
+    recs.append(rec)
     del high
     uniq = gen_keys(n, "unique", "uniform", gen, device)
     for kernel, prefix in (("off", "scan_"), ("scan_body", "body_")):
@@ -2033,6 +2075,14 @@ def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class,
            "max_abs_err": 0.0, "rows": rows}
     log(f"phase4 serialized: {s_ms:.4f} ms for {rows} rows (one thread), index_add_ "
         f"{lib:.4f} ms, plain {p_s * 1e3:.1f} ms, bound {ser['bound_ms']:.5f} ms, exact ok")
+
+    def serialized_call():
+        # the reset runs after the kernel, so the profile can tell the
+        # calls apart by their first kernel
+        sa.serialized_agg(acc, t, v, kind="sum")
+        acc.zero_()
+
+    profile_calls["serialized"] = serialized_call
     high = out["high"]
     return profile_calls, {
         "scan_ticket": {"ms": high["kernel_ms"], "plain_ms": high["plain_ms"],
@@ -2255,7 +2305,8 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls
     # pre-aggregation call with its scratch memset (or, should the profiler
     # not list memsets, its first pass)
     profiles = device_profiles(calls, ("ticket_sample_kernel", "ticket_fill_kernel",
-                                       "scan_fill_kernel", "hybrid_registers_kernel",
+                                       "scan_fill_kernel", "hybrid_thread_copies_kernel",
+                                       "hybrid_warp_copies_kernel", "segment_serialized_kernel",
                                        "Memset", "preagg_first_kernel"))
     for label, rows_ms in profiles.items():
         if label.startswith("preagg_"):
@@ -2265,8 +2316,20 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls
             log(f"phase4 preagg profile {label[7:]}: " + json.dumps(rows_ms))
             continue
         if label.startswith("hybrid_"):
-            timing["hybrid_registers"]["per_class"][label[7:]]["profile_ms"] = rows_ms
-            log(f"phase4 hybrid_registers profile {label[7:]}: " + json.dumps(rows_ms))
+            rec = timing["hybrid_registers"]["per_class"][label[7:]]
+            rec["profile_ms"] = rows_ms
+            # the event-timed call less its kernel's device time: the host
+            # work before the launch
+            dev_ms = sum(ms for k, ms in rows_ms if "hybrid_" in k)
+            rec["device_ms"] = dev_ms if rows_ms else None
+            rec["event_minus_device_ms"] = rec["kernel_ms"] - dev_ms if rows_ms else None
+            log(f"phase4 hybrid_registers profile {label[7:]}: " + json.dumps(rows_ms)
+                + (f"; event {rec['kernel_ms']:.4f} ms - device {dev_ms:.4f} ms = "
+                   f"{rec['kernel_ms'] - dev_ms:.4f} ms" if rows_ms else ""))
+            continue
+        if label == "scan_serialized":
+            timing["segment_agg_serialized"]["profile_ms"] = rows_ms
+            log("phase4 serialized profile (8192 rows, G=1024): " + json.dumps(rows_ms))
             continue
         if label.startswith("scan_"):
             timing["scan_per_class"][label[5:]]["breakdown"]["profile_ms"] = rows_ms

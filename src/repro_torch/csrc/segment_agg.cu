@@ -41,14 +41,36 @@
 //     memory, folds its rows with block-scope shared-memory atomics, and
 //     flushes the entries it touched once with device-scope atomics.  It
 //     takes G <= kMaxOnehotGroups (224 KiB of the 227 KiB a block may use).
-//   serialized: one thread folds the rows in row order, each a plain read,
-//     op and write of its accumulator.  It replaces no Pallas kernel: its
-//     reference is core/updates.py `serialized_update`
-//     (src/repro/core/updates.py:226, a jax.lax.fori_loop), the paper's
-//     fine-grained-locking stand-in, which exists to measure what full
-//     serialization costs.  Its bound is latency, one dependent
-//     read-modify-write a row; min / max replace the accumulator only when
-//     v < a (v > a), as the plain row loop does.
+//   serialized: one thread folds the rows in row order, one at a time.  It
+//     replaces no Pallas kernel: its reference is core/updates.py
+//     `serialized_update` (src/repro/core/updates.py:219, a
+//     jax.lax.fori_loop), the paper's fine-grained-locking stand-in, which
+//     exists to measure what full serialization costs; so one thread still
+//     does every fold, and min / max replace the accumulator only when
+//     v < a (v > a), as the plain row loop does.  Its bound is the folding
+//     thread's latency, not bytes, so nothing else may wait on the fold:
+//     no row's ticket, value or accumulator read may stand in line behind
+//     the previous row's write (about 73 ns a row on an H100 80GB HBM3 at
+//     700 W, one L2 round trip, when they went to device memory one after
+//     the other).  One CTA: its warps 1.. stage the next tile of
+//     kSerialTileRows tickets and values into shared memory (16-byte loads
+//     where aligned) while thread 0 folds the current one (double
+//     buffered, one barrier a tile).  As they stage, those warps clean the
+//     tickets (a row outside [0, G) gets a ticket that folds nothing) and
+//     mark, per 32-row block, the rows whose ticket an earlier row of the
+//     block holds (one __match_any_sync a block).  When the G accumulators
+//     fit beside the two tiles (G <= kMaxSerialSharedGroups, 208 KiB), the
+//     plane lives in shared memory, loaded at the start and written back at
+//     the end; above that it stays in device memory, rows still staged.
+//     The folding thread takes a block at a time: it issues the reads of
+//     its 32 accumulators together, then folds and stores the rows in row
+//     order, reading a marked row's accumulator again after the earlier
+//     row's store.  Each accumulator still sees its rows in row order, so
+//     sums round as the row loop rounds them.  Rows that fold nothing
+//     take slot G of the shared plane (zeroed at the start, never written
+//     back), so the folding thread's common path has no predicate; the
+//     ticket compares stay off the folding thread, which has no other warp
+//     to hide them.
 // Float min/max are integer atomics on the bits, split by the sign bit:
 // non-negative floats order like their int bits, negative floats reversed
 // as unsigned bits; correct against the ±inf neutrals and for -0.0.  The
@@ -73,6 +95,16 @@ constexpr int kMaxOnehotGroups = 56 * 1024;
 // onehot: each CTA takes at least this many rows per group it may flush,
 // so the flush stays a small share of the atomics
 constexpr int kOnehotRowsPerGroup = 8;
+// serialized: the rows of a staged tile (ticket + value: 8 KiB, two of
+// them, and a repeat mask a 32-row block), the staging warps (one 128-row
+// span each) beside the folding warp, and the largest G whose accumulator
+// plane lives in shared memory beside the two tiles (208 + 16.25 of 227 KiB)
+constexpr int kSerialTileRows = 1024;
+constexpr int kSerialBlocks = kSerialTileRows / 32;          // repeat masks a tile
+constexpr int kStagers = kSerialTileRows / 128;              // staging warps: a span each
+constexpr int kSerialThreads = 32 * (1 + kStagers);
+constexpr int kMaxSerialSharedGroups = 52 * 1024;
+constexpr int kSerialTileBytes = 2 * (kSerialTileRows * 8 + kSerialBlocks * 4);
 
 template <int Kind>
 __device__ __forceinline__ float neutral() {
@@ -277,30 +309,187 @@ __global__ void __launch_bounds__(kOnehotThreads) segment_onehot_kernel(
 }
 
 template <int Kind>
-__global__ void segment_serialized_kernel(const int* __restrict__ tickets,
-                                          const float* __restrict__ values,
-                                          float* __restrict__ acc, long long n, int G) {
-  for (long long r = 0; r < n; ++r) {
-    const int t = tickets[r];
-    if (t < 0 || t >= G) continue;
-    const float v = Kind == kCount ? 1.0f : values[r];
-    float* a = acc + t;
-    if (Kind == kSum || Kind == kCount) {
-      *a = __fadd_rn(*a, v);
-    } else if (Kind == kMin) {
-      if (v < *a) *a = v;
-    } else if (v > *a) {
-      *a = v;
+__device__ __forceinline__ float fold_one(float a, float v) {
+  if (Kind == kSum || Kind == kCount) return __fadd_rn(a, Kind == kCount ? 1.0f : v);
+  if (Kind == kMin) return v < a ? v : a;
+  return v > a ? v : a;
+}
+
+// Stage rows [base, base + m) of the columns into a tile, by the staging
+// warps (1..): warp w takes the 128-row spans w - 1, w - 1 + kStagers, ...
+// of the tile, with 16-byte loads where the columns are aligned and the
+// span is whole.  Then, per 32-row block, each ticket is cleaned (`skip`
+// when outside [0, G) or past m) and the block's repeat mask is written:
+// bit l when row l holds the ticket of an earlier row of the block.
+template <int Kind>
+__device__ __forceinline__ void stage_tile(const int* __restrict__ tickets,
+                                           const float* __restrict__ values, long long base,
+                                           int m, int G, int skip, bool vec, int* st,
+                                           float* sv, unsigned* sflags) {
+  const int lane = threadIdx.x & 31;
+  for (int span = (threadIdx.x >> 5) - 1; span * 128 < m; span += kStagers) {
+    const int r0 = span * 128 + 4 * lane;  // this lane's four rows of the span
+    if (vec && span * 128 + 128 <= m) {
+      *reinterpret_cast<int4*>(st + r0) =
+          __ldg(reinterpret_cast<const int4*>(tickets + base + r0));
+      if (Kind != kCount) {
+        *reinterpret_cast<float4*>(sv + r0) =
+            __ldg(reinterpret_cast<const float4*>(values + base + r0));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + e;
+        st[r] = r < m ? __ldg(tickets + base + r) : -1;
+        if (Kind != kCount) sv[r] = r < m ? __ldg(values + base + r) : 0.0f;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = span * 128 + 32 * c + lane;
+      const int t = st[r];
+      const bool ok = r < m && t >= 0 && t < G;
+      // rows that fold nothing get keys of their own: never a repeat
+      const unsigned peers = __match_any_sync(kFull, ok ? t : -1 - lane);
+      const unsigned repeat = __ballot_sync(kFull, (peers & ((1u << lane) - 1u)) != 0);
+      st[r] = ok ? t : skip;
+      if (lane == 0) sflags[r >> 5] = repeat;
+    }
+    __syncwarp();
+  }
+}
+
+// The folding thread's fold of one staged 32-row block (cleaned tickets t,
+// values v, repeat mask) into the accumulators `a`: the reads of all 32
+// accumulators issued together, then the folds and stores in row order.  A
+// row that repeats an earlier row's ticket reads its accumulator again,
+// after that row's store, so each accumulator sees its rows in row order.
+// kSharedAcc: `a` is the shared-memory plane, whose slot G takes the rows
+// that fold nothing (no predicate a row); else device memory, where those
+// rows hold -1 and touch nothing.
+template <int Kind, bool kSharedAcc>
+__device__ __forceinline__ void fold_block(const int* st, const float* sv, unsigned repeat,
+                                           float* a) {
+  int t[32];
+  float v[32], cur[32];
+#pragma unroll
+  for (int q = 0; q < 32; q += 4) {
+    const int4 t4 = *reinterpret_cast<const int4*>(st + q);
+    t[q] = t4.x, t[q + 1] = t4.y, t[q + 2] = t4.z, t[q + 3] = t4.w;
+    if (Kind != kCount) {
+      const float4 v4 = *reinterpret_cast<const float4*>(sv + q);
+      v[q] = v4.x, v[q + 1] = v4.y, v[q + 2] = v4.z, v[q + 3] = v4.w;
+    } else {
+      v[q] = v[q + 1] = v[q + 2] = v[q + 3] = 1.0f;
     }
   }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) cur[j] = kSharedAcc || t[j] >= 0 ? a[t[j]] : 0.0f;
+  if (repeat == 0) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (kSharedAcc || t[j] >= 0) a[t[j]] = fold_one<Kind>(cur[j], v[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float x = (repeat >> j) & 1u ? a[t[j]] : cur[j];
+      if (kSharedAcc || t[j] >= 0) a[t[j]] = fold_one<Kind>(x, v[j]);
+    }
+  }
+}
+
+// Copy G floats between device and shared memory with the whole CTA, 16
+// loads in flight a thread.
+__device__ __forceinline__ void copy_plane(float* dst, const float* src, int G) {
+  constexpr int kBatch = 16;
+  for (int g = threadIdx.x; g < G; g += kSerialThreads * kBatch) {
+    float x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = g + u * kSerialThreads;
+      x[u] = i < G ? src[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = g + u * kSerialThreads;
+      if (i < G) dst[i] = x[u];
+    }
+  }
+}
+
+template <int Kind, bool kSharedAcc>
+__global__ void __launch_bounds__(kSerialThreads) segment_serialized_kernel(
+    const int* __restrict__ tickets, const float* __restrict__ values, float* __restrict__ acc,
+    long long n, int G, bool vec) {
+  extern __shared__ int serial_smem[];
+  int* st = serial_smem;                                                          // (2, tile)
+  float* sv = reinterpret_cast<float*>(serial_smem + 2 * kSerialTileRows);        // (2, tile)
+  unsigned* sflags = reinterpret_cast<unsigned*>(serial_smem + 4 * kSerialTileRows);
+  float* sacc = reinterpret_cast<float*>(serial_smem + 4 * kSerialTileRows +
+                                         2 * kSerialBlocks);                      // (G + 1,)
+  const int skip = kSharedAcc ? G : -1;  // the ticket of a row that folds nothing
+  if (kSharedAcc) {
+    copy_plane(sacc, acc, G);
+    if (threadIdx.x == 0) sacc[G] = 0.0f;  // folded into, never written back
+  }
+  const long long tiles = (n + kSerialTileRows - 1) / kSerialTileRows;
+  const auto rows_of = [&](long long k) {
+    const long long left = n - k * kSerialTileRows;
+    return static_cast<int>(left < kSerialTileRows ? left : kSerialTileRows);
+  };
+  if (threadIdx.x >= 32) {
+    stage_tile<Kind>(tickets, values, 0, rows_of(0), G, skip, vec, st, sv, sflags);
+  }
+  __syncthreads();
+  for (long long k = 0; k < tiles; ++k) {
+    const int b = static_cast<int>(k & 1);
+    if (threadIdx.x == 0) {
+      const int m = rows_of(k);
+      float* a = kSharedAcc ? sacc : acc;
+      for (int blk = 0; blk * 32 < m; ++blk) {
+        const int at = b * kSerialTileRows + 32 * blk;
+        fold_block<Kind, kSharedAcc>(st + at, sv + at, sflags[b * kSerialBlocks + blk], a);
+      }
+    } else if (threadIdx.x >= 32 && k + 1 < tiles) {
+      const int nb = 1 - b;
+      stage_tile<Kind>(tickets, values, (k + 1) * kSerialTileRows, rows_of(k + 1), G, skip,
+                       vec, st + nb * kSerialTileRows, sv + nb * kSerialTileRows,
+                       sflags + nb * kSerialBlocks);
+    }
+    __syncthreads();
+  }
+  if (kSharedAcc) copy_plane(acc, sacc, G);
+}
+
+template <int Kind, bool kSharedAcc>
+cudaError_t launch_serialized(const int* tickets, const float* values, float* acc, long long n,
+                              int G, int dev, cudaStream_t stream) {
+  static bool opted_in[64];
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (kSharedAcc && !opted_in[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_serialized_kernel<Kind, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSerialTileBytes + (kMaxSerialSharedGroups + 1) * 4);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  const bool vec = ((reinterpret_cast<uintptr_t>(tickets) |
+                     reinterpret_cast<uintptr_t>(values)) & 15u) == 0;
+  const size_t smem = kSerialTileBytes + (kSharedAcc ? (static_cast<size_t>(G) + 1) * 4 : 0);
+  segment_serialized_kernel<Kind, kSharedAcc><<<1, kSerialThreads, smem, stream>>>(
+      tickets, values, acc, n, G, vec);
+  return cudaGetLastError();
 }
 
 template <int Kind>
 cudaError_t launch(int strategy, const int* tickets, const float* values, float* acc,
                    long long n, int G, int dev, int sms, cudaStream_t stream) {
   if (strategy == kSerialized) {
-    segment_serialized_kernel<Kind><<<1, 1, 0, stream>>>(tickets, values, acc, n, G);
-    return cudaGetLastError();
+    return G <= kMaxSerialSharedGroups
+               ? launch_serialized<Kind, true>(tickets, values, acc, n, G, dev, stream)
+               : launch_serialized<Kind, false>(tickets, values, acc, n, G, dev, stream);
   }
   if (strategy == kScatter) {
     // the shared-memory opt-in and the occupancy, once per device

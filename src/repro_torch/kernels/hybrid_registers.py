@@ -21,21 +21,27 @@ most :data:`MAX_PLANES`; past either, ``ValueError`` on every device.
 :func:`hybrid_registers` is the wrapper: CUDA tensors launch the
 hand-written Hopper kernel ``csrc/hybrid_registers.cu`` (built at first
 use; counted in ``hybrid_registers.launches``) and raise if they cannot;
-CPU tensors run :func:`hybrid_registers_plain`.  The kernel adds in
+CPU tensors run :func:`hybrid_registers_plain`.  Inputs that already fit
+the kernel launch it with no conversion (the kind and pointer arrays are
+built once per kind tuple); others go through the checks and conversions
+of the plain path first.  The kernel adds in
 another order than the plain version, so SUM agrees to float tolerance
 and COUNT / MIN / MAX and the tail keys exactly.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Sequence
 
 import torch
 
 from repro_torch.core.hashing import EMPTY_I32
+from repro_torch.kernels import build
 
 KINDS = ("sum", "count", "min", "max")
 _KIND_CODE = {k: i for i, k in enumerate(KINDS)}
+_COUNT = _KIND_CODE["count"]
 MAX_REGISTERS = 256   # csrc kMaxRegisters
 MAX_PLANES = 16       # csrc kMaxPlanes
 # rows per block of the plain version's (R × rows) compare
@@ -96,24 +102,80 @@ def hybrid_registers(keys: torch.Tensor, heavy: torch.Tensor,
     value column of plane ``s`` (ignored, and may be None, for a count
     plane).  CUDA tensors launch the Hopper kernel; CPU tensors run
     :func:`hybrid_registers_plain`; any other device raises."""
+    if regs.is_cuda:
+        call = _lean_call(keys, heavy, values, regs, kinds)
+        if call is None:  # an input to convert, or one to refuse
+            keys, heavy, planes, kinds = _prepare(keys, heavy, values, regs, kinds)
+            call = _lean_call(keys, heavy, planes, regs, kinds)
+        return _launch(*call)
     keys, heavy, planes, kinds = _prepare(keys, heavy, values, regs, kinds)
-    dev = regs.device
-    if dev.type == "cpu":
+    if regs.device.type == "cpu":
         return _plain(keys, heavy, planes, regs, kinds)
-    if dev.type != "cuda":
-        raise ValueError(f"hybrid_registers runs on cuda or cpu tensors, not {dev}")
-    tail = torch.empty_like(keys)
+    raise ValueError(f"hybrid_registers runs on cuda or cpu tensors, not {regs.device}")
+
+
+hybrid_registers.launches = 0  # kernel launches (CUDA tensors only)
+
+# per thread, kinds tuple → (S, the kind codes, a pointer array filled per
+# call): built once
+_CALLS = threading.local()
+
+
+def _call_of(kinds):
+    """The kind tuple's (S, kind codes, pointer array), or None for an
+    unknown kind or an S past the kernel's."""
+    calls = _CALLS.__dict__.setdefault("by_kinds", {})
+    c = calls.get(kinds)
+    if c is None:
+        if not (1 <= len(kinds) <= MAX_PLANES and all(k in _KIND_CODE for k in kinds)):
+            return None
+        codes = (ctypes.c_int * len(kinds))(*(_KIND_CODE[k] for k in kinds))
+        c = calls[kinds] = (len(kinds), codes, (ctypes.c_void_p * len(kinds))())
+    return c
+
+
+def _lean_call(keys, heavy, values, regs, kinds):
+    """The launch's arguments when every input already fits the kernel
+    (int32 contiguous 1-D keys and heavy keys, contiguous float32 value
+    columns of the keys' length, the registers' shape, the registers'
+    device), with no conversion and no copy; None when one does not."""
+    c = _call_of(kinds if type(kinds) is tuple else tuple(kinds))
+    if (c is None or len(values) != c[0] or not isinstance(keys, torch.Tensor)
+            or not isinstance(heavy, torch.Tensor)):
+        return None
+    s, codes, ptrs = c
+    idx = regs.get_device()
+    r = heavy.shape[0] if heavy.dim() == 1 else 0
+    if (keys.dtype != torch.int32 or heavy.dtype != torch.int32 or keys.dim() != 1
+            or not 1 <= r <= MAX_REGISTERS or not keys.is_contiguous()
+            or not heavy.is_contiguous() or keys.get_device() != idx
+            or heavy.get_device() != idx or regs.dtype != torch.float32
+            or regs.shape != (s, r) or not regs.is_contiguous()):
+        return None
     n = keys.shape[0]
+    seen = seen_ptr = None  # a column that several planes share is checked once
+    for i, v in enumerate(values):
+        if codes[i] == _COUNT:
+            ptrs[i] = None
+            continue
+        if v is not seen:
+            if not (isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.dim() == 1
+                    and v.shape[0] == n and v.is_contiguous() and v.get_device() == idx):
+                return None
+            seen, seen_ptr = v, v.data_ptr()
+        ptrs[i] = seen_ptr
+    return keys, heavy, regs, s, codes, ptrs, idx
+
+
+def _launch(keys, heavy, regs, s, codes, ptrs, idx):
+    n = keys.shape[0]
+    tail = torch.empty(n, dtype=torch.int32, device=regs.device)
     if n == 0:
         return tail
     lib = _kernel_library()
-    s = len(kinds)
-    ptrs = (ctypes.c_void_p * s)(*(0 if p is None else p.data_ptr() for p in planes))
-    codes = (ctypes.c_int * s)(*(_KIND_CODE[k] for k in kinds))
     err = lib.hybrid_registers_launch(
         keys.data_ptr(), heavy.data_ptr(), heavy.shape[0], ptrs, codes, s,
-        regs.data_ptr(), tail.data_ptr(), n,
-        torch.cuda.current_stream(dev).cuda_stream,
+        regs.data_ptr(), tail.data_ptr(), n, torch._C._cuda_getCurrentRawStream(idx),
     )
     if err != 0:
         raise RuntimeError("hybrid_registers kernel launch failed: "
@@ -122,12 +184,7 @@ def hybrid_registers(keys: torch.Tensor, heavy: torch.Tensor,
     return tail
 
 
-hybrid_registers.launches = 0  # kernel launches (CUDA tensors only)
-
-
 def _kernel_library() -> ctypes.CDLL:
-    from repro_torch.kernels import build
-
     lib = build.load_library("hybrid_registers")
     fn = lib.hybrid_registers_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:

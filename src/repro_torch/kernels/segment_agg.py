@@ -20,8 +20,12 @@ out-of-range index.  Two strategies, as in the reference:
 ``out=`` folds into a caller's accumulator in place instead of a fresh
 one (the scan route's carried accumulators).  :func:`serialized_agg` folds
 rows one at a time in row order (the reference's ``serialized_update``, a
-measurement of full serialization): a one-thread kernel of the same source
-on CUDA tensors, :func:`serialized_agg_plain`'s row loop on CPU tensors.
+measurement of full serialization): on CUDA tensors a kernel of the same
+source in which one thread does every fold, from tiles of rows that the
+CTA's other warps stage in shared memory, into an accumulator plane held
+in shared memory up to :data:`MAX_SERIALIZED_SHARED_GROUPS` groups (in
+device memory past it); :func:`serialized_agg_plain`'s row loop on CPU
+tensors.
 
 :func:`segment_agg` is the wrapper: CUDA tensors launch the hand-written
 Hopper kernel ``csrc/segment_agg.cu`` (built at first use) and raise if
@@ -46,6 +50,9 @@ _SERIALIZED_CODE = 2  # csrc kSerialized: one thread, rows in order
 # One CTA's private accumulator lives in dynamic shared memory: 224 KiB of
 # the 227 KiB a Hopper block may hold (csrc kMaxOnehotGroups).
 MAX_ONEHOT_GROUPS = 56 * 1024
+# The serialized kernel keeps the plane in shared memory beside its two
+# staged tiles up to this many groups (csrc kMaxSerialSharedGroups).
+MAX_SERIALIZED_SHARED_GROUPS = 52 * 1024
 _INT32_MAX = 0x7FFFFFFF
 
 
@@ -98,7 +105,7 @@ def _launch(tickets, values, acc, num_groups, kind, strategy_code) -> None:
     err = lib.segment_agg_launch(
         tickets.data_ptr(), values.data_ptr(), acc.data_ptr(), tickets.shape[0],
         num_groups, _KIND_CODE[kind], strategy_code,
-        torch.cuda.current_stream(tickets.device).cuda_stream,
+        torch._C._cuda_getCurrentRawStream(tickets.get_device()),
     )
     if err != 0:
         raise RuntimeError(
@@ -176,12 +183,19 @@ def segment_agg_plain(tickets: torch.Tensor, values: torch.Tensor, *,
     return up._combine_(out, acc[:num_groups], kind)
 
 
+def _column(x, dtype):
+    """``x`` as a contiguous 1-D ``dtype`` tensor; ``x`` itself when it is one."""
+    if isinstance(x, torch.Tensor) and x.dtype == dtype and x.dim() == 1 and x.is_contiguous():
+        return x
+    return torch.as_tensor(x).to(dtype).reshape(-1).contiguous()
+
+
 def _check_serialized(acc, tickets, values):
     if acc.dim() != 1 or acc.dtype != torch.float32 or not acc.is_contiguous():
         raise ValueError(f"acc must be a contiguous 1-D float32 tensor, got "
                          f"{tuple(acc.shape)} {acc.dtype}")
-    tickets = torch.as_tensor(tickets).to(torch.int32).reshape(-1).contiguous()
-    values = torch.as_tensor(values).to(torch.float32).reshape(-1).contiguous()
+    tickets = _column(tickets, torch.int32)
+    values = _column(values, torch.float32)
     if values.shape != tickets.shape:
         raise ValueError(f"tickets {tuple(tickets.shape)} and values "
                          f"{tuple(values.shape)} must be the same length")
@@ -195,7 +209,8 @@ def serialized_agg(acc: torch.Tensor, tickets: torch.Tensor, values: torch.Tenso
     """Fold ``(tickets, values)`` rows into ``acc`` IN PLACE one row at a
     time, in row order; rows whose ticket is < 0 or >= ``len(acc)`` are
     skipped and ``count`` adds 1.0 a row.  CUDA tensors launch the
-    one-thread kernel of ``csrc/segment_agg.cu`` (strategy 2, counted in
+    serialized kernel of ``csrc/segment_agg.cu`` (strategy 2: one thread
+    folds every row; counted in
     ``serialized_agg.launches``) and raise if they cannot; CPU tensors run
     :func:`serialized_agg_plain`; any other device raises."""
     if kind not in _KIND_CODE:

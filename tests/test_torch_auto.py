@@ -282,6 +282,44 @@ def test_hybrid_registers_plain_matches_reference(case, R):
     np.testing.assert_array_equal(tail.numpy()[~mask], keys.view(np.int32)[~mask])
 
 
+@pytest.mark.parametrize("R", [8, 256])
+def test_hybrid_registers_plain_matches_reference_with_sixteen_planes(R):
+    """S = 16 planes (every kind four times, each over a value column of
+    its own) at R = 8 and 256: the kernel's per-warp-copy sizes.  Registers
+    exact for count / min / max, sum within 1e-5 relative; the same heavy
+    mask."""
+    rng = np.random.default_rng(29 + R)
+    n, morsel = 4096, 512
+    keys = (rng.zipf(1.2, size=n) % 3000).astype(np.uint32)
+    keys[rng.random(n) < 0.02] = EMPTY
+    heavy = np.full(R, EMPTY, np.uint32)
+    uk, cnt = np.unique(keys[keys != EMPTY], return_counts=True)
+    top = uk[np.argsort(cnt)[::-1]][: R - 1]
+    heavy[: top.size] = top
+    kinds = ("count", "sum", "min", "max") * 4
+    vals = [(rng.normal(size=n) * (1 + s)).astype(np.float32) for s in range(16)]
+    init = {"count": 1.0, "sum": -0.5, "min": np.inf, "max": -np.inf}
+    regs0 = np.stack([np.full(R, init[k], np.float32) for k in kinds])
+    jregs, hmask = jex._hybrid_registers(
+        jnp.asarray(heavy), jnp.asarray(keys.reshape(-1, morsel)),
+        tuple(jnp.asarray(v.reshape(-1, morsel)) for v in vals),
+        tuple(jnp.asarray(r) for r in regs0), kinds=kinds)
+    regs = torch.from_numpy(regs0.copy())
+    tail = thr.hybrid_registers(torch.from_numpy(keys.view(np.int32)),
+                                torch.from_numpy(heavy.view(np.int32)),
+                                [None if k == "count" else torch.from_numpy(v)
+                                 for k, v in zip(kinds, vals)], regs, kinds=kinds)
+    for s, kind in enumerate(kinds):
+        want = np.asarray(jregs[s])
+        if kind == "sum":
+            np.testing.assert_allclose(regs[s].numpy(), want, rtol=SUM_RTOL, atol=SUM_RTOL)
+        else:
+            np.testing.assert_array_equal(regs[s].numpy(), want)
+    mask = np.asarray(hmask).reshape(-1)
+    np.testing.assert_array_equal(tail.numpy() == -1, mask | (keys == EMPTY))
+    np.testing.assert_array_equal(tail.numpy()[~mask], keys.view(np.int32)[~mask])
+
+
 def test_hybrid_registers_plain_gives_a_row_one_register():
     """A repeated live heavy key: its rows fold into the first register
     that holds it, as the kernel folds them (EMPTY rows into none)."""

@@ -19,6 +19,7 @@ replayed is held to the plain version's.  The split route's
 ticket kernel is held the same way (one ticket per key, gap-free, the same
 key set and count, the same unresolved rows), its segment kernel with
 COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
+import numpy as np
 import pytest
 import torch
 
@@ -703,6 +704,53 @@ def test_serialized_kernel_matches_plain(cuda, kind):
     assert torch.equal(got.cpu(), want)  # one order of float adds: exact
 
 
+def _serialized_edges(rng, n, g, kind):
+    """n (ticket, value) rows over g groups, with a ticket repeated on the
+    next row and two rows on, tickets of -1 and >= g, and, for min / max,
+    values of -0.0, +0.0 and ±inf; and a starting accumulator."""
+    t = rng.integers(0, g, size=n).astype(np.int32)
+    t[1::5] = t[0::5][: t[1::5].size]   # the previous row's ticket
+    t[2::7] = t[0::7][: t[2::7].size]   # the ticket of two rows before
+    t[3::11] = -1
+    t[4::13] = g + (np.arange(t[4::13].size) % 3)
+    v = rng.normal(size=n).astype(np.float32)
+    acc = (rng.normal(size=g) * 2).astype(np.float32)
+    if kind in ("min", "max"):
+        v[::17], v[5::19], v[6::23], v[7::29] = -0.0, 0.0, np.inf, -np.inf
+        acc[::3] = np.inf if kind == "min" else -np.inf
+        acc[1::5] = -0.0
+    elif kind == "count":
+        acc = np.zeros(g, np.float32)
+    return t, v, acc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sum", "count", "min", "max"])
+@pytest.mark.parametrize("case", ["shared_cap", "past_cap", "forwarding", "ragged", "misaligned"])
+def test_serialized_kernel_edges_bit_for_bit(cuda, case, kind):
+    """The accumulator in shared memory at its cap, in device memory just
+    past it; tickets repeated one and two rows apart (the register
+    forward); a row count that is no multiple of the tile or the group;
+    columns that are not 16-byte aligned (4-byte staging)."""
+    cap = sa.MAX_SERIALIZED_SHARED_GROUPS
+    n, g = {"shared_cap": (1 << 14, cap), "past_cap": (1 << 14, cap + 1),
+            "forwarding": (1 << 13, 24), "ragged": (3 * 1024 + 5, 700),
+            "misaligned": (2 * 1024 + 3, 300)}[case]
+    rng = np.random.default_rng(91 + len(case) + 7 * KINDS.index(kind))
+    t, v, acc0 = _serialized_edges(rng, n + 1, g, kind)
+    t_d, v_d = torch.from_numpy(t).to(cuda), torch.from_numpy(v).to(cuda)
+    # a view one row in: 4 bytes past a 16-byte boundary
+    t_d, v_d = (t_d[1:], v_d[1:]) if case == "misaligned" else (t_d[:n], v_d[:n])
+    want = sa.serialized_agg_plain(torch.from_numpy(acc0.copy()), t_d.cpu(), v_d.cpu(),
+                                   kind=kind)
+    acc = torch.from_numpy(acc0).to(cuda)
+    before = sa.serialized_agg.launches
+    got = sa.serialized_agg(acc, t_d, v_d, kind=kind)
+    torch.cuda.synchronize()
+    assert got is acc and sa.serialized_agg.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))  # bit for bit
+
+
 # -- the hybrid register fold and the default plan ------------------------------
 
 HR_KINDS = ("count", "sum", "min", "max")
@@ -781,6 +829,82 @@ def test_hybrid_registers_kernel_edges(cuda):
         hr.hybrid_registers(keys, keys[:hr.MAX_REGISTERS + 1], [None],
                             torch.zeros((1, hr.MAX_REGISTERS + 1), device=cuda),
                             kinds=("count",))
+
+
+def _planes_of(vals, S):
+    """S planes cycling over the kinds, each with a value column of its own."""
+    kinds = tuple(HR_KINDS[s % 4] for s in range(S))
+    planes = [None if k == "count" else vals * (1.0 + s) - s for s, k in enumerate(kinds)]
+    regs0 = torch.stack([torch.full((1,), sa._NEUTRAL[k], device=vals.device) for k in kinds])
+    return kinds, planes, regs0
+
+
+def _assert_planes_match(kinds, planes, got_regs, want_regs, got_tail, want_tail, keys,
+                         heavy):
+    assert torch.equal(got_tail, want_tail)
+    hit = (keys[None, :] == heavy[:, None]) & (keys != -1)[None, :]
+    for s, kind in enumerate(kinds):
+        if kind == "sum":
+            absum = torch.where(hit, planes[s].abs()[None, :], 0.0).sum(dim=1)
+            assert bool(((got_regs[s] - want_regs[s]).abs() <= 1e-4 * absum + 1e-6).all())
+        else:
+            assert torch.equal(got_regs[s], want_regs[s]), (s, kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,S", [(8, 8), (8, 7), (8, 9), (7, 4), (9, 4), (16, 4), (64, 1),
+                                 (65, 1), (8, 16), (1, 4), (1, 16)])
+def test_hybrid_registers_kernel_size_paths(cuda, R, S):
+    """The per-thread copies' limits (R <= 8 keys compared in registers,
+    S x R <= 64): at them, just under them and just past each (per-warp
+    copies), S = 16 and R = 1."""
+    keys, _, vals = _hybrid_case(cuda, "low", 1 << 17, R, 83 + R + S)
+    uk, cnt = torch.unique(keys[keys != -1], return_counts=True)
+    heavy = uk[torch.argsort(cnt, descending=True)][:R].contiguous()  # R live keys
+    kinds, planes, regs0 = _planes_of(vals, S)
+    regs0 = regs0.expand(S, R).contiguous()
+    want_regs, got_regs = regs0.clone(), regs0.clone()
+    want_tail = hr.hybrid_registers_plain(keys, heavy, planes, want_regs, kinds=kinds)
+    before = hr.hybrid_registers.launches
+    got_tail = hr.hybrid_registers(keys, heavy, planes, got_regs, kinds=kinds)
+    torch.cuda.synchronize()
+    assert hr.hybrid_registers.launches == before + 1
+    assert int((got_tail == -1).sum()) > 5  # rows folded, beside the 5 EMPTY rows
+    _assert_planes_match(kinds, planes, got_regs, want_regs, got_tail, want_tail, keys, heavy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [8, 64])
+@pytest.mark.parametrize("layout", ["eight_per_warp", "ragged", "misaligned"])
+def test_hybrid_registers_kernel_row_layouts(cuda, layout, R):
+    """Every warp's 32 rows hit 8 registers; a row count that is no
+    multiple of the tile or of the 4-row key vector; a key column that is
+    not 16-byte aligned (4-byte rows).  R = 8: per-thread copies; R = 64 at
+    S = 4: per-warp copies."""
+    g = torch.Generator(device=cuda).manual_seed(97 + R)
+    rows = {"eight_per_warp": 1 << 16, "ragged": 3 * 4096 + 7, "misaligned": 5 * 1024 + 2}[layout]
+    heavy = torch.randint(-(1 << 31), 1 << 31, (R,), generator=g, device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+    heavy[heavy == -1] = 5
+    keys = torch.randint(0, 1 << 20, (rows + 1,), generator=g, device=cuda).to(torch.int32)
+    if layout == "eight_per_warp":
+        # row i of lane l's vector: register (5 l + i) % 8, so each of the
+        # warp's four row steps meets all 8, as does each thread's vector
+        at = torch.arange(rows // 2, device=cuda)
+        keys[: rows // 2] = heavy[(at // 4 + at) % 8]
+    else:
+        hot = torch.rand(rows + 1, generator=g, device=cuda) < 0.6
+        keys = torch.where(hot, heavy[torch.randint(0, R, (rows + 1,), generator=g,
+                                                    device=cuda)], keys)
+    keys = keys[1:] if layout == "misaligned" else keys[:rows]
+    vals = torch.randn(rows, generator=g, device=cuda)
+    kinds, planes, regs0 = _planes_of(vals, 4)
+    regs0 = regs0.expand(4, R).contiguous()
+    want_regs, got_regs = regs0.clone(), regs0.clone()
+    want_tail = hr.hybrid_registers_plain(keys, heavy, planes, want_regs, kinds=kinds)
+    got_tail = hr.hybrid_registers(keys, heavy, planes, got_regs, kinds=kinds)
+    torch.cuda.synchronize()
+    _assert_planes_match(kinds, planes, got_regs, want_regs, got_tail, want_tail, keys, heavy)
 
 
 @pytest.mark.gpu

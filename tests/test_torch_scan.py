@@ -35,7 +35,10 @@ from repro_torch.engine import plan_api as tapi
 from repro_torch.engine.columns import Table as TTable
 from repro_torch.engine.columns import combine_keys as tcombine
 from repro_torch.kernels import fused_groupby as tfk
+from repro_torch.kernels import segment_agg as tsa
 from repro_torch.obs import metrics as tmet
+
+from test_torch_gpu import _serialized_edges
 
 jgb = importlib.import_module("repro.engine.groupby")
 tgb = importlib.import_module("repro_torch.engine.groupby")
@@ -395,6 +398,24 @@ def test_update_fns_match_reference(kind, update):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     else:
         assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,g", [(3 * 1024 + 5, 24), (2 * 1024 + 3, 53 * 1024 + 1)])
+def test_serialized_plain_matches_reference_on_edges(kind, n, g):
+    """The serialized kernel's plain version (its oracle on the card) vs
+    JAX ``serialized_update``, exactly: both fold rows one at a time in row
+    order.  A ticket repeated one and two rows apart, tickets of -1 and
+    >= g, a row count that is no multiple of the kernel's 1024-row tile,
+    -0.0 and ±inf for min / max, and a plane past the kernel's
+    shared-memory cap.  Compared by value (-0.0 == 0.0: XLA's scatter
+    min / max may keep either zero of a tie)."""
+    rng = np.random.default_rng(17 + KINDS.index(kind) + n)
+    t, v, acc0 = _serialized_edges(rng, n, g, kind)
+    want = np.asarray(jup.serialized_update(jnp.asarray(acc0), jnp.asarray(t), jnp.asarray(v),
+                                            kind=kind))
+    got = tsa.serialized_agg_plain(torch.from_numpy(acc0.copy()), _tt(t), _tt(v), kind=kind)
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_agg_state_init_grow_update():

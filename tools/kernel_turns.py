@@ -10,9 +10,13 @@ with its own helpers, importing ``repro_torch`` from ``SRC_DIR``: the fused
 kernel at P = 1 (``kernel_timing``), the ticket kernel,
 ``scan_ticket`` (4096-row morsels, the table reset before each call), and,
 where ``SRC_DIR`` has it, ``hybrid_registers`` (the main path's planes,
-the heavy keys ``detect_heavy_hitters`` names, and a heavy-unique chunk)
-and ``preagg`` (W = 8 and 132 workers, C = 1024, kind sum; also its
-device time from CUDA-graph replays, as ``preagg_graph``).
+the heavy keys ``detect_heavy_hitters`` names, a heavy-unique chunk, and
+R = 64 and 256 on the high chunk), ``segment_agg_serialized`` (8192 rows
+into G = 1024, and into the unique class's G = 2^24) and ``preagg`` (W =
+8 and 132 workers, C = 1024, kind sum); each of the last three also with
+its device time from CUDA-graph replays, as ``<kernel>_graph``, and the
+first two with that time after an L2 flush (``<kernel>_cold``);
+``hybrid_registers_host_us`` is the wrapper's host time a call.
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
@@ -28,6 +32,7 @@ import importlib.util
 import json
 import os
 import sys
+import time
 
 SRC = os.path.abspath(sys.argv[1])
 sys.path.insert(0, SRC)
@@ -42,26 +47,82 @@ from repro_torch.kernels import fused_groupby as fk  # noqa: E402
 from repro_torch.kernels import ticket_hash as th  # noqa: E402
 
 
-def hybrid_times(classes, vals, dev):
-    """``hybrid_registers`` as chip_smoke's phase 4 launches it, three
-    timings a class."""
+def graph_cold(call, flush):
+    """Device ms of ``call`` replayed from a CUDA graph after a 64 MiB
+    write that evicts the 50 MB L2 (the write's own graph time taken
+    off): the call as it finds a chunk fresh from device memory."""
+    return cs.time_graph(lambda: (flush.zero_(), call())) - cs.time_graph(flush.zero_)
+
+
+def host_us(call, reps=400):
+    """Host microseconds per call, on the host clock over ``reps`` calls
+    (synchronizing every 50, so the queue never fills)."""
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        call()
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def hybrid_times(classes, vals, dev, flush):
+    """``hybrid_registers`` as chip_smoke's phase 4 launches it (R = 8,
+    and R = 64 and 256 on the high chunk), three timings a class: the
+    event-timed call, the device time from CUDA-graph replays (the
+    registers fold on across replays; the fold's work does not depend on
+    their values), the same after an L2 flush, and the wrapper's host
+    microseconds per call."""
     from repro_torch.core.hybrid import detect_heavy_hitters
     from repro_torch.kernels import hybrid_registers as hr
 
-    chunks = {name: keys for name, (keys, _) in classes.items()}
-    chunks["heavy_unique"] = cs.heavy_unique_keys(
-        vals.numel(), torch.Generator(device=dev).manual_seed(1), dev)
+    chunks = {name: (keys, 8) for name, (keys, _) in classes.items()}
+    chunks["heavy_unique"] = (cs.heavy_unique_keys(
+        vals.numel(), torch.Generator(device=dev).manual_seed(1), dev), 8)
+    chunks["high_r64"] = (classes["high"][0], 64)
+    chunks["high_r256"] = (classes["high"][0], 256)
     kinds, planes = ("count", "sum", "count", "max"), [None, vals, None, vals]
-    fresh = torch.stack([torch.full((8,), v, device=dev) for v in (0.0, 0.0, 0.0, -float("inf"))])
-    regs = fresh.clone()
-    out = {}
+    out = {k: {} for k in ("event", "graph", "cold", "host_us")}
     for _ in range(3):
-        for name, keys in chunks.items():
+        for name, (keys, r) in chunks.items():
             k32 = keys.to(torch.int32)
-            heavy = torch.from_numpy(detect_heavy_hitters(k32, 8).view("int32")).to(dev)
-            ms = cs.time_cuda(lambda: hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds),
-                              5, lambda: regs.copy_(fresh))
-            out.setdefault(name, []).append(ms)
+            heavy = torch.from_numpy(detect_heavy_hitters(k32, r).view("int32")).to(dev)
+            fresh = torch.stack([torch.full((r,), v, device=dev)
+                                 for v in (0.0, 0.0, 0.0, -float("inf"))])
+            regs = fresh.clone()
+            call = lambda: hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds)  # noqa: E731
+            out["event"].setdefault(name, []).append(
+                cs.time_cuda(call, 5, lambda: regs.copy_(fresh)))
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["cold"].setdefault(name, []).append(graph_cold(call, flush))
+            out["host_us"].setdefault(name, []).append(host_us(call))
+    return out
+
+
+def serialized_times(classes, vals, dev, flush):
+    """The serialized update as chip_smoke's phase 4 launches it (8192
+    rows of the low chunk into G = 1024, kind sum) and on the first 8192
+    rows of the unique chunk into its class's G = 2^24 (past the
+    shared-memory plane), three timings each: the event-timed call, the
+    device time from CUDA-graph replays, and the same after an L2 flush."""
+    from repro_torch.kernels import segment_agg as sa
+
+    rows = 8192
+    v = vals[:rows].contiguous()
+    cases = {"low_g1024": (classes["low"][0], 1024),
+             "unique_g2e24": (classes["unique"][0], classes["unique"][1])}
+    out = {k: {} for k in ("event", "graph", "cold")}
+    for _ in range(3):
+        for name, (keys, g) in cases.items():
+            t = keys[:rows].to(torch.int32)
+            acc = torch.zeros(g, device=dev)
+            call = lambda: sa.serialized_agg(acc, t, v, kind="sum")  # noqa: E731
+            out["event"].setdefault(name, []).append(cs.time_cuda(call, 5, acc.zero_))
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["cold"].setdefault(name, []).append(graph_cold(call, flush))
     return out
 
 
@@ -90,9 +151,11 @@ def main() -> int:
     dev = torch.device("cuda")
     only = set(sys.argv[2:])
 
+    module = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
+
     def wanted(kernel):
         return (not only or kernel in only) and importlib.util.find_spec(
-            "repro_torch.kernels." + kernel.replace("scan_ticket", "fused_groupby")) is not None
+            "repro_torch.kernels." + module.get(kernel, kernel)) is not None
 
     classes, vals = cs.phase4_chunks(torch.Generator(device=dev).manual_seed(0), dev)
     out = {k: {} for k in ("fused_groupby", "ticket_hash", "scan_ticket") if wanted(k)}
@@ -111,8 +174,12 @@ def main() -> int:
                 ms = cs.time_cuda(lambda: fk.scan_ticket(work, km, todo, **skw), 5, reset)
                 out["scan_ticket"].setdefault(name, []).append(ms)
                 del work
-    if wanted("hybrid_registers"):
-        out["hybrid_registers"] = hybrid_times(classes, vals, dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for kernel, times in (("hybrid_registers", hybrid_times),
+                          ("segment_agg_serialized", serialized_times)):
+        if wanted(kernel):
+            for kind, per_class in times(classes, vals, dev, flush).items():
+                out[kernel if kind == "event" else f"{kernel}_{kind}"] = per_class
     if wanted("preagg"):
         out["preagg"], out["preagg_graph"] = preagg_times(classes, vals)
     print(sys.argv[1], json.dumps(out))
