@@ -51,6 +51,13 @@ Four phases, each of which fails the run:
    morsel None and 1024, every kind: table keys, spill mask and cnts
    equal, COUNT / MIN / MAX exact, SUM within 1e-4·Σ|v|; the spilled share
    printed (unique at W = 8, C = 1024 spills at least 99%).
+   ``scan_ticket_batched`` (the serving layer's ticket stage for N lanes
+   in one launch, ``scan_ticket_batched_kernel`` of
+   ``csrc/fused_groupby.cu``): one launch over 8 lanes of 2^18 rows (3
+   uniform over 1000 keys, 3 zipf over 2^15, 2 unique), each against its
+   own table, one of them migrated to 2C; then a RAISE round in which one
+   lane alone overflows its G; every lane held by
+   ``scan_ticket_discrepancies``, its info row and its overflow flag.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -95,6 +102,14 @@ Four phases, each of which fails the run:
    auto, 128 partitions), each with ``stats()["spill"]``, peak device table bytes at most
    twice the residency, a hot table that never migrates, and the host
    seconds of routing and of finalize.
+   The serving layer (``serve.AggregationServer``): serve_small
+   (bench_serve's shape: 8 queries of 16 chunks × 128 rows) and serve_low
+   (16 queries of 2^20 rows in chunks of 2^16, uniform over 1000 keys,
+   RAISE), each batched, solo and as N sequential ``plan.collect``, every
+   query held to the oracle and the batched results to the sequential
+   ones; the batched rounds must launch ``scan_ticket_batched`` and fewer
+   ``scan_ticket``; serve_budget: a tenant budget of 64 groups fails only
+   its own query.
    Every stream sets the launch counts to 0 just before it and reads them
    just after, and must launch exactly the kernels of its route.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
@@ -137,7 +152,13 @@ Four phases, each of which fails the run:
    without it; swept over tile sizes (2048–16384 rows beside the
    automatic tile); and one partitioned chunk of the high class split
    into pre-aggregation, exchange, partition-wise sort and the host
-   merge.
+   merge.  The register fold also at R = 64 and 256 on the high chunk,
+   beside its bytes bound; ``index_add_`` into the unique class's G =
+   2^24 beside the serialized kernel's row.  ``scan_ticket_batched`` at N
+   = 8 and 16 lanes × one 2^16-row chunk of serve_low's shape (CUDA
+   events, and CUDA-graph replays) beside N ``scan_ticket`` launches timed
+   the same two ways, N ``torch.unique(return_inverse=True)`` calls, its
+   plain version (held against it) and its bytes bound.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -714,6 +735,111 @@ def phase2_scan(fk, sa, gen, device, n=1 << 20):
     return worst
 
 
+def batched_pair(fk, km, tables, **kw):
+    """``scan_ticket_batched`` and its plain version, each on its own
+    copy of ``tables`` (the room checks of the scan executor: a load
+    threshold of C / 2 and a slack of G - 4096): [(tickets, tables, todo,
+    info), ...] kernel first, and the plain version's host seconds."""
+    import torch
+
+    from repro_torch.core import ticketing as tk
+
+    out, secs = [], []
+    for fn in (fk.scan_ticket_batched, fk.scan_ticket_batched_plain):
+        copies = [tk.TicketTable(*(x.clone() for x in t)) for t in tables]
+        todo = torch.ones(km.shape[:2], dtype=torch.int32, device=km.device)
+        (tickets, info), sec = timed(
+            fn, copies, km, todo, thresholds=[t.capacity // 2 for t in tables],
+            bound_slacks=[t.max_groups - SCAN_M for t in tables], **kw)
+        out.append((tickets, copies, todo, info))
+        secs.append(sec)
+    return out, secs[1]
+
+
+def check_batched(fk, km, pair, label):
+    """Every lane of a batched launch against the plain version's: the
+    same info row and overflow flag, every morsel committed, 0
+    discrepancies (``scan_ticket_discrepancies``).  Returns the largest."""
+    import torch
+
+    (kt, ktab, ktodo, kinfo), (pt, ptab, _, pinfo) = pair
+    check(torch.equal(kinfo, pinfo), f"{label}: info differs {kinfo.tolist()} vs "
+          f"{pinfo.tolist()}")
+    check(not bool(ktodo.any()), f"{label}: morsels left todo")
+    worst = 0
+    for i in range(km.shape[0]):
+        bad = fk.scan_ticket_discrepancies(km[i], (kt[i], ktab[i]), (pt[i], ptab[i]))
+        check(bad == 0, f"{label} lane {i}: {bad} discrepancies")
+        check(bool(ktab[i].overflowed) == bool(ptab[i].overflowed),
+              f"{label} lane {i}: overflow flag differs")
+        worst = max(worst, bad)
+    return worst
+
+
+def phase2_batched(fk, gen, device, rows=1 << 18):
+    """``scan_ticket_batched`` (the serving layer's multi-table ticket
+    launch) against its plain version on the card: one launch over 8 lanes
+    of 2^18 rows (3 uniform over 1000 keys, 3 zipf s = 1.8 over 2^15, 2
+    unique), each lane against its own table (bounds and capacities of its
+    class; lane 1 migrated to 2C after a first launch on 4 of its morsels);
+    then a RAISE round of 8 lanes of 2^16 rows in which lane 5 alone issues
+    more tickets than its G.  Returns the largest discrepancy."""
+    import torch
+
+    from repro_torch.core import resize
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core.hashing import table_capacity
+
+    classes = [("low", 1000)] * 3 + [("zipf", 1 << 15)] * 3 + [("unique", rows)] * 2
+    keys = []
+    for i, (cls, k) in enumerate(classes):
+        if cls == "low":
+            x = torch.randint(0, k, (rows,), generator=gen, device=device)
+        elif cls == "zipf":
+            x = torch.remainder(zipf(rows, 1.8, gen, device) - 1.0, k).to(torch.int64)
+        else:
+            x = torch.randperm(rows, generator=gen, device=device) + i * rows
+        keys.append(x.to(torch.int32).reshape(-1, SCAN_M))
+    km = torch.stack(keys).contiguous()
+    km[:, 0, :333] = -1  # EMPTY rows
+    tables = []
+    for i, (cls, k) in enumerate(classes):
+        g = rows if cls == "unique" else k + 64
+        t = tk.make_table(table_capacity(g), g, device=device)
+        if i == 1:
+            fk.scan_ticket(t, km[i, :4].contiguous(),
+                           torch.ones(4, dtype=torch.int32, device=device),
+                           threshold=t.capacity // 2)
+            t = resize.migrate(t, 2 * t.capacity)
+        tables.append(t)
+    before = fk.scan_ticket_batched.launches
+    pair, p_s = batched_pair(fk, km, tables)
+    check(fk.scan_ticket_batched.launches == before + 1,
+          "phase2 scan_ticket_batched: not one launch for 8 lanes")
+    worst = check_batched(fk, km, pair, "phase2 scan_ticket_batched")
+    log(f"phase2 scan_ticket_batched: 8 lanes x {rows} rows, capacities "
+        f"{[t.capacity for t in tables]}, grid {fk.scan_ticket_batched.grid}, counts "
+        f"{pair[0][3][:, 0].tolist()}; plain {p_s:.2f} s; 0 discrepancies, info equal ok")
+
+    # RAISE: lane 5 takes 3000 keys against G = 1024 (8192 slots: no pause)
+    r2 = 1 << 16
+    km = torch.randint(0, 1000, (8, r2 // SCAN_M, SCAN_M), generator=gen, device=device,
+                       dtype=torch.int32)
+    km[5] = torch.randperm(r2, generator=gen, device=device).to(torch.int32).reshape(
+        -1, SCAN_M) % 3000
+    tables = [tk.make_table(8192 if i == 5 else table_capacity(1024), 1024, device=device)
+              for i in range(8)]
+    pair, _ = batched_pair(fk, km, tables)
+    worst = max(worst, check_batched(fk, km, pair, "phase2 scan_ticket_batched raise"))
+    over = (pair[0][3][:, fk.INFO_COUNT] > 1024).tolist()
+    check(over == [i == 5 for i in range(8)]
+          and [bool(t.overflowed) for t in pair[0][1]] == over,
+          f"phase2 scan_ticket_batched raise: overflow on lanes {over}, expected lane 5 only")
+    log(f"phase2 scan_ticket_batched raise: counts {pair[0][3][:, 0].tolist()} against "
+        f"G=1024, overflow on lane 5 only ok")
+    return worst
+
+
 HR_KINDS = ("count", "sum", "min", "max")
 
 
@@ -1264,9 +1390,12 @@ def same_map(out, ref, o, name):
     a, b = rows(out), rows(ref)
     check(torch.equal(out["key"][a], ref["key"][b]), f"{name}: key set differs")
     for col in ("count(*)", "max(v)"):
-        check(torch.equal(out[col][a], ref[col][b]), f"{name}: {col} differs")
+        if col in out.columns:
+            check(torch.equal(out[col][a], ref[col][b]), f"{name}: {col} differs")
     tol = SUM_RTOL * o["abs"]
     for col, scale in (("sum(v)", 1.0), ("mean(v)", o["count"].double())):
+        if col not in out.columns:
+            continue
         d = (out[col][a].double() - ref[col][b].double()).abs()
         check(bool((d <= tol / scale).all()), f"{name}: {col} outside tolerance")
 
@@ -1384,6 +1513,120 @@ def phase3_scan(kmods, api, gen, device, low, vals, n):
     rec = run_stream(kmods, api, "scan_high_grow", high_u, vals, max_groups=n >> 8,
                      saturation="grow", kernel="off")
     check(rec["bound_grows"] >= 2, f"scan_high_grow: {rec['bound_grows']} bound grows")
+    recs.append(rec)
+    return recs
+
+
+# name, queries, rows a query, chunk rows, key cardinality, max_groups,
+# saturation, aggregates, morsel rows
+SERVE_STREAMS = (
+    ("serve_small", 8, 16 * 128, 128, 128, 256, "unchecked", (("sum", "v"), ("count", None)),
+     128),
+    ("serve_low", 16, 1 << 20, 1 << 16, 1000, 1024, "raise", AGGS_SPEC, 4096),
+)
+
+
+def phase3_serve(kmods, api, gen, device):
+    """The serving layer: N concurrent queries through ``AggregationServer``
+    (``serve/query_server.py``), each stream run three ways — batched
+    (``batch_queries=True``: one ``scan_ticket_batched`` launch a round),
+    solo (``batch_queries=False``) and N sequential ``plan.collect`` — with
+    the launch counts set to 0 just before each and read just after, the
+    wall on the host clock ending in a synchronize, and the peak device
+    memory.  serve_small is bench_serve's shape (8 queries of 16 chunks ×
+    128 rows, keys uniform over 128, max_groups 256, unchecked, morsel
+    128); serve_low 16 queries of 2^20 rows in 16 chunks of 2^16 (uniform
+    over 1000, max_groups 1024, raise, morsel 4096; 128 MiB of input on the
+    card).  Every query is held to the oracle, and the batched and
+    sequential results to each other as maps.  Then serve_budget: a
+    tenant with ``max_groups=64`` fails its own query with
+    ``GroupByOverflowError`` while another tenant's completes."""
+    import torch
+
+    from repro_torch.engine.groupby import GroupByOverflowError
+    from repro_torch.serve import AggregationServer
+
+    def chunks(k, v, rows):
+        return [api.Table({"k": k[i:i + rows], "v": v[i:i + rows]})
+                for i in range(0, k.shape[0], rows)]
+
+    def held(out, o, label):
+        n = int(out["__num_groups__"][0])
+        check(n == o["keys"].numel(), f"{label}: {n} groups, the oracle has {o['keys'].numel()}")
+        order = torch.argsort(out["key"][:n])
+        check(torch.equal(out["key"][:n][order], o["keys"]), f"{label}: key set differs")
+        sub = api.Table({c: t[:n] for c, t in out.columns.items()})
+        return check_against_oracle(sub, order, o, label)
+
+    recs, data = [], None
+    for name, nq, rows, chunk, card, bound, sat, spec, morsel in SERVE_STREAMS:
+        data = [(torch.randint(0, card, (rows,), generator=gen, device=device,
+                               dtype=torch.int32),
+                 torch.randn(rows, generator=gen, device=device)) for _ in range(nq)]
+        oracles = [oracle(k.long(), v) for k, v in data]
+        plan = api.GroupByPlan(
+            keys=("k",), aggs=tuple(api.AggSpec(a, c) for a, c in spec),
+            strategy="concurrent", max_groups=bound, saturation=sat, raw_keys=True,
+            execution=api.ExecutionPolicy(update="scatter", morsel_rows=morsel))
+        results = {}
+        for mode in ("batched", "solo", "sequential"):
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)  # the queries' input among it
+            reset_launches(kmods)
+            t0 = time.perf_counter()
+            if mode == "sequential":
+                outs = [plan.collect(chunks(k, v, chunk)) for k, v in data]
+            else:
+                server = AggregationServer(slots=nq, batch_queries=mode == "batched")
+                handles = [server.submit(plan, chunks(k, v, chunk)) for k, v in data]
+                server.run_until_idle()
+                outs = [h.result() for h in handles]
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = read_launches(kmods)
+            errs = [held(out, o, f"{name}_{mode} query {q}")
+                    for q, (out, o) in enumerate(zip(outs, oracles))]
+            rec = {"stream": f"{name}_{mode}", "wall_s": wall, "queries": nq,
+                   "rows": nq * rows, "chunk_rows": chunk, "launches": launches,
+                   "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20,
+                   "peak_added_mib": (torch.cuda.max_memory_allocated(device) - base) / 2**20,
+                   "max_sum_err": max(e for e in errs if e is not None)}
+            log("phase3 " + json.dumps(rec))
+            recs.append(rec)
+            results[mode] = outs
+        for q, (a, b, o) in enumerate(zip(results["batched"], results["sequential"], oracles)):
+            same_map(a, b, o, f"{name} query {q}: batched vs sequential")
+        b, s = recs[-3]["launches"], recs[-2]["launches"]
+        check(b["scan_ticket_batched"] > 0 and b["scan_ticket"] < s["scan_ticket"]
+              and s["scan_ticket_batched"] == 0,
+              f"{name}: batched rounds launched {b['scan_ticket_batched']} batched and "
+              f"{b['scan_ticket']} solo ticket kernels (solo stepping {s['scan_ticket']})")
+        log(f"phase3 {name}: walls batched {recs[-3]['wall_s']:.4f} s, solo "
+            f"{recs[-2]['wall_s']:.4f} s, sequential {recs[-1]['wall_s']:.4f} s; "
+            f"scan_ticket_batched {b['scan_ticket_batched']}, scan_ticket {b['scan_ticket']} "
+            f"vs {s['scan_ticket']}; every query held to the oracle ok")
+
+    # a tenant budget of 64 groups fails only that tenant's query
+    k, v = data[0]
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"),), strategy="concurrent",
+                           max_groups=1024, raw_keys=True)
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    server = AggregationServer(slots=2)
+    server.set_budget("small", max_groups=64)
+    over = server.submit(plan, chunks(k, v, 1 << 16), tenant="small")
+    fine = server.submit(plan, chunks(k, v, 1 << 16), tenant="other")
+    server.run_until_idle()
+    sync(device)
+    check(over.status == "failed" and isinstance(over.error, GroupByOverflowError)
+          and fine.status == "done", f"serve_budget: {over.status} ({over.error!r}), "
+          f"{fine.status}")
+    held(fine.result(), oracle(k.long(), v), "serve_budget other tenant")
+    rec = {"stream": "serve_budget", "wall_s": time.perf_counter() - t0,
+           "launches": read_launches(kmods)}
+    log("phase3 " + json.dumps(rec) + "; the budgeted query failed with "
+        "GroupByOverflowError, the other completed ok")
     recs.append(rec)
     return recs
 
@@ -2075,6 +2318,15 @@ def phase4_scan(fk, sa, classes, vals, device, fused_per_class, split_per_class,
            "max_abs_err": 0.0, "rows": rows}
     log(f"phase4 serialized: {s_ms:.4f} ms for {rows} rows (one thread), index_add_ "
         f"{lib:.4f} ms, plain {p_s * 1e3:.1f} ms, bound {ser['bound_ms']:.5f} ms, exact ok")
+    # the unique class's G = 2^24 (a device-memory plane): index_add_ into
+    # a plane allocated beforehand and zeroed before each call, untimed
+    t24 = classes["unique"][0][:rows].to(torch.int32)
+    acc24 = torch.zeros(classes["unique"][1], device=device)
+    ser["library_ms_g2e24"] = time_cuda(lambda: acc24.index_add_(0, t24.long(), v), reps,
+                                        acc24.zero_)
+    del acc24
+    log(f"phase4 serialized G=2^24: index_add_ {ser['library_ms_g2e24']:.4f} ms for {rows} "
+        "rows")
 
     def serialized_call():
         # the reset runs after the kernel, so the profile can tell the
@@ -2144,6 +2396,24 @@ def phase4_hybrid(hr, thy, chunk_classes, vals, gen, device, reps=5):
         log(f"phase4 hybrid_registers {name}: kernel {ms:.4f} ms for {rows} rows "
             f"({hits} on {per_class[name]['registers']} registers), bound {b_ms:.4f} ms "
             f"(bytes), plain {p_s * 1e3:.2f} ms, no library call; max|Δreg|={err:.3g} ok")
+    # R = 64 and 256 on the high chunk (the per-warp copies), timed and
+    # bounded as above
+    k32 = chunk_classes["high"][0].to(torch.int32)
+    for r in (64, 256):
+        heavy = torch.from_numpy(thy.detect_heavy_hitters(k32, r).view("int32")).to(device)
+        fresh = torch.stack([torch.full((r,), x, device=device)
+                             for x in (0.0, 0.0, 0.0, float("-inf"))])
+        regs = fresh.clone()
+        ms = time_cuda(lambda: hr.hybrid_registers(k32, heavy, planes, regs, kinds=kinds),
+                       reps, lambda: regs.copy_(fresh))
+        hits = int((hr.hybrid_registers(k32, heavy, planes, fresh.clone(), kinds=kinds)
+                    == -1).sum())
+        b_ms = (8 * rows + 4 * hits) / HBM_BYTES_PER_S * 1e3
+        per_class[f"high_r{r}"] = {"kernel_ms": ms, "bound_ms": b_ms, "bound_by": "bytes",
+                                   "rows": rows, "registers": int((heavy != -1).sum()),
+                                   "rows_on_registers": hits}
+        log(f"phase4 hybrid_registers high R={r}: kernel {ms:.4f} ms ({hits} rows on "
+            f"{per_class[f'high_r{r}']['registers']} registers), bound {b_ms:.4f} ms (bytes)")
     log("phase4 hybrid " + json.dumps(per_class))
     hu = per_class["heavy_unique"]
     return calls, {"ms": hu["kernel_ms"], "plain_ms": hu["plain_ms"],
@@ -2236,6 +2506,99 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
     return calls, {"ms": hi["kernel_ms"], "plain_ms": hi["plain_ms"],
                    "bound_ms": hi["bound_ms"], "bound_by": "bytes", "library_ms": None,
                    "max_abs_err": worst, "per_class": per_class, "partitioned_chunk": split}
+
+
+def phase4_batched(fk, gen, device, reps=5, rows=1 << 16):
+    """``scan_ticket_batched`` at N = 8 and 16 lanes × one 2^16-row chunk
+    of serve_low's shape (uniform over 1000 keys, G = 1024, 4096-row
+    morsels, RAISE), each call from fresh tables: CUDA events, and device
+    time by CUDA-graph replay (a graph of reset + call less a graph of the
+    reset alone); beside N ``scan_ticket`` launches timed the same two
+    ways, N ``torch.unique(return_inverse=True)`` calls, the plain version
+    and the bytes bound (each lane's keys read and tickets written once,
+    per distinct key its slot and key_by_ticket entry written once).  The
+    call is also split into the wrapper's host work before the launch
+    (``prepare_scan_ticket_batched``, host clock) and the launch alone
+    (``launch_scan_ticket_batched``, events).  Each N is also held against
+    its plain version.  Returns the record."""
+    import torch
+
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core.hashing import table_capacity
+
+    g = 1024
+    cap = table_capacity(g)
+    per_n, worst = {}, 0
+    for n in (8, 16):
+        km = torch.randint(0, 1000, (n, rows // SCAN_M, SCAN_M), generator=gen,
+                           device=device, dtype=torch.int32)
+        fresh = [tk.make_table(cap, g, device=device) for _ in range(n)]
+        work = [tk.TicketTable(*(t.clone() for t in f)) for f in fresh]
+        todo = torch.ones(km.shape[:2], dtype=torch.int32, device=device)
+        kw = dict(thresholds=[cap // 2] * n, bound_slacks=[g - SCAN_M] * n)
+
+        def reset():
+            for w, f in zip(work, fresh):
+                for a, b in zip(w, f):
+                    a.copy_(b)
+            todo.fill_(1)
+
+        def batched():
+            return fk.scan_ticket_batched(work, km, todo, **kw)
+
+        def solo():
+            return [fk.scan_ticket(work[i], km[i], todo[i], threshold=cap // 2,
+                                   bound_slack=g - SCAN_M) for i in range(n)]
+
+        b_ms = time_cuda(batched, reps, reset)
+        grid = list(fk.scan_ticket_batched.grid)
+        # the call split: the wrapper's host work before the launch (host
+        # clock) and the launch alone on a call prepared beforehand (events)
+        held, host = {}, []
+
+        def prepared():
+            reset()
+            sync()
+            held["call"] = fk.prepare_scan_ticket_batched(work, km, todo, **kw)
+            sync()
+
+        launch_ms = time_cuda(lambda: fk.launch_scan_ticket_batched(held["call"]), reps,
+                              prepared)
+        for _ in range(reps):
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            fk.prepare_scan_ticket_batched(work, km, todo, **kw)
+            host.append((time.perf_counter() - t0) * 1e3)
+            sync()
+        held.clear()
+        host_ms = sorted(host)[len(host) // 2]
+        s_ms = time_cuda(solo, reps, reset)
+        reset_ms = time_graph(reset, reps=reps)
+        b_graph = time_graph(lambda: (reset(), batched()), reps=reps) - reset_ms
+        s_graph = time_graph(lambda: (reset(), solo()), reps=reps) - reset_ms
+        lib_ms = time_cuda(lambda: [torch.unique(km[i], return_inverse=True)
+                                    for i in range(n)], reps)
+        pair, p_s = batched_pair(fk, km, fresh)
+        worst = max(worst, check_batched(fk, km, pair, f"phase4 scan_ticket_batched N={n}"))
+        d = [int(torch.unique(km[i]).numel()) for i in range(n)]
+        bound_ms = (8 * n * rows + 12 * sum(d)) / HBM_BYTES_PER_S * 1e3
+        per_n[n] = {"kernel_ms": b_ms, "graph_ms": b_graph, "prepare_host_ms": host_ms,
+                    "launch_ms": launch_ms, "solo_launches_ms": s_ms,
+                    "solo_launches_graph_ms": s_graph, "library_ms": lib_ms,
+                    "plain_ms": p_s * 1e3, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "rows": n * rows, "groups": sum(d), "grid": grid}
+        log(f"phase4 scan_ticket_batched N={n}: kernel {b_ms:.4f} ms (graph {b_graph:.4f}; "
+            f"host work before the launch {host_ms:.4f} ms, launch alone {launch_ms:.4f} ms) "
+            f"beside {n} scan_ticket launches {s_ms:.4f} ms (graph {s_graph:.4f}), {n} "
+            f"torch.unique {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain "
+            f"{p_s * 1e3:.1f} ms; grid {grid}; 0 discrepancies ok")
+        del work, fresh, pair
+    log("phase4 scan_ticket_batched " + json.dumps(per_n))
+    head = per_n[16]
+    return {"ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": head["library_ms"], "max_abs_err": worst, "per_n": per_n}
 
 
 def preagg_tile_sweep(pa, chunk_classes, vals, reps, sizes=(2048, 4096, 8192, 16384)):
@@ -2383,6 +2746,7 @@ def main(argv=None) -> int:
     # name → (module, wrapper) whose ``launches`` counts that kernel
     kmods = {"fused_groupby": (fk, "fused_consume"), "ticket_hash": (th, "ticket_hash"),
              "segment_agg": (sa, "segment_agg"), "scan_ticket": (fk, "scan_ticket"),
+             "scan_ticket_batched": (fk, "scan_ticket_batched"),
              "segment_agg_serialized": (sa, "serialized_agg"),
              "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg")}
     device = torch.device("cuda", 0)
@@ -2411,11 +2775,15 @@ def main(argv=None) -> int:
     split_err.update(phase2_scan(fk, sa, gen, device))
     split_err["hybrid_registers"] = phase2_hybrid(hr, gen, device)
     split_err["preagg"] = phase2_preagg(pa, gen, device)
+    split_err["scan_ticket_batched"] = phase2_batched(fk, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
     t0 = time.perf_counter()
     recs = phase3(kmods, api, gen, device)
+    t_serve = time.perf_counter()
+    recs += phase3_serve(kmods, api, gen, device)
+    log(f"phase3 serving streams in {time.perf_counter() - t_serve:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
@@ -2434,6 +2802,7 @@ def main(argv=None) -> int:
     hybrid_calls, timing["hybrid_registers"] = phase4_hybrid(hr, thy, chunk_classes,
                                                              chunk_vals, gen, device)
     preagg_calls, timing["preagg"] = phase4_preagg(pa, api, chunk_classes, chunk_vals, device)
+    timing["scan_ticket_batched"] = phase4_batched(fk, gen, device)
     phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
@@ -2447,16 +2816,19 @@ def main(argv=None) -> int:
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
-    # the scan route's two kernels, the register fold and the
-    # pre-aggregation replace plain jnp, not a Pallas kernel
+    # the scan route's two kernels, the register fold, the
+    # pre-aggregation and the batched ticket launch replace plain jnp, not a
+    # Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
                 "scan_ticket": "src/repro/engine/groupby.py:144",
                 "segment_agg_serialized": "src/repro/core/updates.py:219",
                 "hybrid_registers": "src/repro/engine/executors.py:884",
-                "preagg": "src/repro/core/partitioned.py:48"}
-    source = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
+                "preagg": "src/repro/core/partitioned.py:48",
+                "scan_ticket_batched": "src/repro/engine/executors.py:613"}
+    source = {"scan_ticket": "fused_groupby", "scan_ticket_batched": "fused_groupby",
+              "segment_agg_serialized": "segment_agg"}
     kernels = [{
         "name": name,
         "route": "cuda",

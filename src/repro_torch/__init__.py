@@ -1,13 +1,18 @@
 """PyTorch/CUDA port of the ``repro`` GROUP BY engine.
 
 The package mirrors ``src/repro/`` module for module (``core/``,
-``engine/``, ``kernels/``, ``obs/``, ``data/``) and imports neither JAX nor
-anything of ``repro``.  It runs ``GroupByPlan(strategy="concurrent")``
-with hash ticketing and an explicit ``max_groups`` on three routes: the
-fused kernel (``kernel="fused"``, ``csrc/fused_groupby.cu``), the split
-ticket + segment kernels (``kernel="split"``), and the scan route
-(``kernel`` None / "off" / "scan_body": ``scan_ticket_kernel`` of the
-same source, then the update strategies or the segment kernel per plane).
+``engine/``, ``kernels/``, ``obs/``, ``data/``, ``serve/``, ``train/``),
+exports the same names from each package, and imports neither JAX nor
+anything of ``repro``.  ``from repro_torch.engine import GroupByPlan,
+AggSpec, Table`` is the front door.  Every single-device plan of the
+reference runs: the default plan (``strategy="auto"``), the concurrent
+hash pipeline on its three kernel routes (the scan route, ``kernel``
+None / "off" / "scan_body"; ``"split"``; ``"fused"``), sort and direct
+ticketing, ``strategy="hybrid"``, ``strategy="partitioned"`` and
+``saturation="spill"``.  ``serve.AggregationServer`` multiplexes many
+streaming queries over one scheduler and co-dispatches same-shape scan
+queries through one multi-table ticket launch.  The hand-written Hopper
+kernels live in ``csrc/`` (see ``kernels/``).
 
 Conventions that differ from the JAX package:
 
@@ -18,3 +23,4 @@ Conventions that differ from the JAX package:
   ``"cuda"``); only an explicit ``device="cpu"`` runs on the CPU, where
   every kernel wrapper takes its plain PyTorch version.
 """
+__version__ = "1.0.0"

@@ -433,13 +433,15 @@ __device__ int probe_on(int key, unsigned* slot, int* tick, int* tkeys, const in
   return kNone;
 }
 
-// scan_ticket_kernel: the scan route's ticket stage (see the file comment).
-// Persistent CTAs of T threads take morsels from the device-scope counter,
-// as the fused kernel's do, and ticket each morsel in tiles of T × kScanRows
-// rows by the tile protocol of hash_probe.cuh, against the carried table's
-// two int32 arrays.
+// The body of the scan route's ticket stage (see the file comment), run by
+// each of `ctas` persistent CTAs of T threads that share one table: they
+// take morsels from the device-scope counter, as the fused kernel's do,
+// and ticket each morsel in tiles of T × kScanRows rows by the tile
+// protocol of hash_probe.cuh, against the carried table's two int32
+// arrays.  scan_ticket_kernel runs it with every CTA of its grid on one
+// table; scan_ticket_batched_kernel with each lane's CTAs on that lane's.
 template <int T>
-__global__ void __launch_bounds__(T) scan_ticket_kernel(
+__device__ __forceinline__ void scan_ticket_cta(
     const int* __restrict__ keys,   // (npm, M)
     int* todo,                      // (npm,) 1 = still to commit
     int* tkeys,                     // (C,) EMPTY where free
@@ -452,7 +454,7 @@ __global__ void __launch_bounds__(T) scan_ticket_kernel(
     int* __restrict__ out_tickets,  // (npm, M) 0-based or -1
     unsigned char* overflowed,      // () bool, sticky
     int npm, int M, int C, int G, int checked, int grow_bound, int threshold,
-    int bound_slack, int collect_events) {
+    int bound_slack, int collect_events, int ctas) {
   constexpr int R = kScanRows;
   __shared__ unsigned long long s_cache[kCacheSlots];
   __shared__ int s_warp[T / 32];
@@ -656,7 +658,7 @@ __global__ void __launch_bounds__(T) scan_ticket_kernel(
   // -- the last CTA writes info and the sticky overflow flag ---------------
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_flag = atomicAdd(scratch + kDone, 1) == static_cast<int>(gridDim.x) - 1;
+  if (tid == 0) s_flag = atomicAdd(scratch + kDone, 1) == ctas - 1;
   __syncthreads();
   if (!s_flag) return;
   __threadfence();
@@ -682,23 +684,101 @@ __global__ void __launch_bounds__(T) scan_ticket_kernel(
   }
 }
 
+// scan_ticket_kernel: one table, every CTA of the grid on it.
+template <int T>
+__global__ void __launch_bounds__(T) scan_ticket_kernel(
+    const int* __restrict__ keys, int* todo, int* tkeys, int* ttks, int* __restrict__ kbt,
+    int* count, int* events, int* __restrict__ info, int* scratch,
+    int* __restrict__ out_tickets, unsigned char* overflowed, int npm, int M, int C, int G,
+    int checked, int grow_bound, int threshold, int bound_slack, int collect_events) {
+  scan_ticket_cta<T>(keys, todo, tkeys, ttks, kbt, count, events, info, scratch, out_tickets,
+                     overflowed, npm, M, C, G, checked, grow_bound, threshold, bound_slack,
+                     collect_events, static_cast<int>(gridDim.x));
+}
+
+// scan_ticket_batched_kernel (`scan_ticket_batched_launch`): the ticket
+// stage of N <= kMaxLanes served queries in one launch.  Its reference is
+// the batched jnp dispatch of the serving layer
+// (src/repro/engine/executors.py:613, _batched_consume), which runs each
+// lane's scan body unrolled inside one jit.
+//
+// Each lane is one query's chunk against that query's carried table, with
+// its own capacity C, bound G and room check (threshold, bound_slack); the
+// lanes share npm, M and the checked flag (one batch signature, never
+// GROW: grow_bound is 0).  The lane descriptors travel by value in the kernel's
+// parameters (__grid_constant__, 96 B a lane, about 3 KB at kMaxLanes),
+// so nothing is copied to the card for them.
+//
+// Its bound: bytes, the sum of N scan_ticket launches' (each lane's keys
+// read and tickets written once, per distinct key its slot and
+// key_by_ticket entry written once).  What it saves over N launches is
+// the launches themselves: N - 1 fills and N - 1 kernels, and the card's
+// drain between them, which dominate a round of small chunks.
+//
+// Design: the persistent CTAs are split evenly over the lanes (`cpl` a
+// lane, as the fused kernel splits them over programs), and each lane's
+// CTAs run scan_ticket_cta on that lane alone: its own morsel counter,
+// reservation and finished-CTA count in its scratch row, so the last of
+// ITS CTAs writes its info row and overflow flag.  A CTA never leaves its
+// lane, so its key cache (s_cache) only ever holds that lane's table.
+// Events are not counted (an instrumented plan is never batched).
+constexpr int kMaxLanes = 32;
+
+struct ScanLane {
+  const int* keys;  // (npm, M)
+  int* todo;        // (npm,)
+  int* tkeys;       // (C,)
+  int* ttks;        // (C,)
+  int* kbt;         // (G,)
+  int* count;       // (1,)
+  int* info;        // (kInfoLen,)
+  int* scratch;     // (kScratch,)
+  int* out;         // (npm, M)
+  unsigned char* overflowed;
+  int C, G, threshold, bound_slack;
+};
+
+struct ScanLanes {
+  ScanLane lane[kMaxLanes];
+  int n, cpl, npm, M, checked;
+};
+
+template <int T>
+__global__ void __launch_bounds__(T)
+    scan_ticket_batched_kernel(const __grid_constant__ ScanLanes lanes) {
+  const ScanLane& L = lanes.lane[blockIdx.x / lanes.cpl];
+  scan_ticket_cta<T>(L.keys, L.todo, L.tkeys, L.ttks, L.kbt, L.count, nullptr, L.info,
+                     L.scratch, L.out, L.overflowed, lanes.npm, lanes.M, L.C, L.G,
+                     lanes.checked, 0, L.threshold, L.bound_slack, 0, lanes.cpl);
+}
+
 // The launch scratch of scan_ticket_kernel: morsel counter, finished CTAs
 // and saturation flag 0, the reservation at the count.
 __global__ void scan_fill_kernel(int* scratch, const int* count) {
   if (threadIdx.x < kScratch) scratch[threadIdx.x] = threadIdx.x == kReserved ? *count : 0;
 }
 
+// Every lane's scratch row at once (kMaxLanes × kScratch threads).
+__global__ void scan_fill_batched_kernel(const __grid_constant__ ScanLanes lanes) {
+  const int l = threadIdx.x / kScratch, j = threadIdx.x % kScratch;
+  if (l < lanes.n) lanes.lane[l].scratch[j] = j == kReserved ? *lanes.lane[l].count : 0;
+}
+
 template <int T>
-cudaError_t scan_occupancy(int* per_sm) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, scan_ticket_kernel<T>, T, 0);
+cudaError_t scan_occupancy(int batched, int* per_sm) {
+  return batched ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       per_sm, scan_ticket_batched_kernel<T>, T, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, scan_ticket_kernel<T>,
+                                                                 T, 0);
 }
 
 // The device's SM count and the resident CTAs per SM of scan_ticket_kernel
-// at each block size, queried once per device and block size.
+// (batched = 0) or scan_ticket_batched_kernel (1) at each block size,
+// queried once per device, kernel and block size.
 constexpr int kScanBlocks[3] = {256, 512, 1024};
 
-cudaError_t scan_limits(int threads, int* sms, int* per_sm) {
-  static int cached_sms[64], cached_per_sm[64][3];
+cudaError_t scan_limits(int batched, int threads, int* sms, int* per_sm) {
+  static int cached_sms[64], cached_per_sm[64][2][3];
   int b = 0;
   while (b < 3 && kScanBlocks[b] != threads) ++b;
   int dev = 0;
@@ -708,15 +788,16 @@ cudaError_t scan_limits(int threads, int* sms, int* per_sm) {
   if (cached_sms[dev] == 0) {
     err = cudaDeviceGetAttribute(&cached_sms[dev], cudaDevAttrMultiProcessorCount, dev);
   }
-  if (err == cudaSuccess && cached_per_sm[dev][b] == 0) {
-    err = b == 0   ? scan_occupancy<256>(&cached_per_sm[dev][b])
-          : b == 1 ? scan_occupancy<512>(&cached_per_sm[dev][b])
-                   : scan_occupancy<1024>(&cached_per_sm[dev][b]);
+  int* cached = &cached_per_sm[dev][batched != 0][b];
+  if (err == cudaSuccess && *cached == 0) {
+    err = b == 0   ? scan_occupancy<256>(batched, cached)
+          : b == 1 ? scan_occupancy<512>(batched, cached)
+                   : scan_occupancy<1024>(batched, cached);
   }
   if (err != cudaSuccess) return err;
-  if (cached_per_sm[dev][b] < 1) return cudaErrorInvalidConfiguration;
+  if (*cached < 1) return cudaErrorInvalidConfiguration;
   *sms = cached_sms[dev];
-  *per_sm = cached_per_sm[dev][b];
+  *per_sm = *cached;
   return cudaSuccess;
 }
 
@@ -814,7 +895,7 @@ int scan_ticket_launch(const void* keys, void* todo, void* tkeys, void* ttks, vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int sms = 0, per_sm = 0;
-  cudaError_t err = scan_limits(threads, &sms, &per_sm);
+  cudaError_t err = scan_limits(0, threads, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ctas = sms * per_sm < npm ? sms * per_sm : npm;
   grid_out[0] = grid_out[1] = ctas;
@@ -834,6 +915,55 @@ int scan_ticket_launch(const void* keys, void* todo, void* tkeys, void* ttks, vo
     scan_ticket_kernel<1024><<<ctas, 1024, 0, s>>>(SCAN_TICKET_ARGS);
   }
 #undef SCAN_TICKET_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One ticket-stage pass over n (1..kMaxLanes) lanes, each npm >= 1
+// morsels of M rows against its own carried table, on `stream`:
+// scan_fill_batched_kernel writes every lane's scratch row, then
+// scan_ticket_batched_kernel runs on `threads` (256, 512 or 1024) threads
+// a CTA.  `lanes` points at n host ScanLane descriptors (copied into the
+// launch's parameters); each lane's outputs are scan_ticket_launch's.
+// grid_out gets (CTAs, CTAs a lane).  Returns a cudaError_t as an int (0 =
+// launched).  The caller checks shapes, types and devices.
+int scan_ticket_batched_launch(const void* lanes, int n, int npm, int M, int checked,
+                               int threads, int* grid_out, void* stream) {
+  if (lanes == nullptr || n < 1 || n > kMaxLanes || npm < 1 || M < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ScanLanes b = {};
+  for (int l = 0; l < n; ++l) {
+    const ScanLane& L = static_cast<const ScanLane*>(lanes)[l];
+    if (L.C < 1 || (L.C & (L.C - 1)) != 0 || L.G < 0 || L.keys == nullptr ||
+        L.todo == nullptr || L.tkeys == nullptr || L.ttks == nullptr || L.kbt == nullptr ||
+        L.count == nullptr || L.info == nullptr || L.scratch == nullptr || L.out == nullptr ||
+        L.overflowed == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    b.lane[l] = L;
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = scan_limits(1, threads, &sms, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int cpl = sms * per_sm / n;
+  if (cpl > npm) cpl = npm;
+  if (cpl < 1) cpl = 1;
+  b.n = n;
+  b.cpl = cpl;
+  b.npm = npm;
+  b.M = M;
+  b.checked = checked;
+  grid_out[0] = n * cpl;
+  grid_out[1] = cpl;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  scan_fill_batched_kernel<<<1, kMaxLanes * kScratch, 0, s>>>(b);
+  if (threads == 256) {
+    scan_ticket_batched_kernel<256><<<n * cpl, 256, 0, s>>>(b);
+  } else if (threads == 512) {
+    scan_ticket_batched_kernel<512><<<n * cpl, 512, 0, s>>>(b);
+  } else {
+    scan_ticket_batched_kernel<1024><<<n * cpl, 1024, 0, s>>>(b);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,11 +7,12 @@ synthetic LM stream (``SyntheticLM``) comes with the LM stack.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Mapping, Protocol, runtime_checkable
+from typing import TYPE_CHECKING, Iterator, Mapping, Protocol, runtime_checkable
 
 import torch
 
-from repro_torch.engine.columns import Table
+if TYPE_CHECKING:  # the engine imports this module (spill readback)
+    from repro_torch.engine.columns import Table
 
 
 @runtime_checkable
@@ -43,6 +44,8 @@ class ArraySource:
     chunk_rows: int = 1 << 16
 
     def chunks(self) -> Iterator[Table]:
+        from repro_torch.engine.columns import Table
+
         n = next(iter(self.columns.values())).shape[0]
         for start in range(0, n, self.chunk_rows):
             end = min(start + self.chunk_rows, n)
@@ -57,5 +60,7 @@ class BlockSource:
     blocks: tuple
 
     def chunks(self) -> Iterator[Table]:
+        from repro_torch.engine.columns import Table
+
         for block in self.blocks:
             yield Table({k: torch.as_tensor(v) for k, v in block.items()})

@@ -593,6 +593,108 @@ class _ScanExecutor(_ExecutorBase):
 
 
 # ---------------------------------------------------------------------------
+# batched co-dispatch: N same-shape queries, ONE ticket launch per round
+#
+# The serving scheduler (serve/scheduler.py) co-schedules slot tasks that
+# share a ``batch_key``.  For GROUP BY streams the key is ``batch_signature``
+# below: plans with equal signatures run the scan route's operator with the
+# same bound, capacity rule, morsel size, update and checks, so one chunk of
+# each of N queries can share ONE ticket launch
+# (``fused_groupby.scan_ticket_batched``) and one blocking read of its info
+# rows, where solo stepping costs N launches and N reads.
+
+
+def batch_signature(plan: GroupByPlan):
+    """Hashable co-dispatch key, or ``None`` when the plan is ineligible.
+
+    Eligible, as in the reference: the concurrent scan pipeline with hash
+    ticketing and a fixed bound, ``kernel`` None or "off" and no
+    ``use_kernel``, RAISE or UNCHECKED saturation, not instrumented.  GROW
+    needs per-query host control flow mid-chunk, the kernel routes have
+    launches of their own, sort / direct ticketing carry no probe table,
+    and the batched launch counts no events.  The key also holds the
+    device, so that a round's lanes live on one device."""
+    if _instrument(plan):
+        return None
+    ex = plan.execution
+    saturation = plan.saturation or (
+        SaturationPolicy.GROW if plan.max_groups is None else SaturationPolicy.RAISE
+    )
+    if (
+        plan.strategy != "concurrent"
+        or plan.max_groups is None
+        or ex.ticketing != "hash"
+        or ex.pipeline != "scan"
+        or ex.use_kernel
+        or ex.kernel not in (None, "off")
+        or saturation not in (SaturationPolicy.RAISE, SaturationPolicy.UNCHECKED)
+    ):
+        return None
+    return (
+        "scan",
+        plan.max_groups,
+        ex.capacity or table_capacity(plan.max_groups, ex.load_factor),
+        ex.morsel_rows,
+        ex.update or "scatter",
+        expand_agg_specs(plan.aggs),
+        saturation == SaturationPolicy.RAISE,
+        str(resolve_device(ex.device)),
+    )
+
+
+def consume_batched(executors, chunks) -> None:
+    """Consume ``chunks[i]`` into ``executors[i]`` with ONE ticket launch
+    for the round.  Every executor comes from a plan of the SAME
+    ``batch_signature`` (the scheduler guarantees it).
+
+    Each lane is staged as its solo consume stages it (key column,
+    morsels), the ticket stage of every lane runs in one
+    ``scan_ticket_batched`` call, and each lane then folds its tickets
+    through its own update, plane by plane.  A checked round reads the
+    lanes' info rows once; a lane that paused or overflowed resolves
+    through its operator's own ``poll``.  A lane already poisoned by an
+    overflow is skipped, as its solo consume skips it.  The fast path needs
+    the round's chunks to share a row count and carry no ``__mask__``;
+    other rounds consume lane by lane.  Each lane's result is its solo
+    stream's (on the CPU bit for bit: the plain version runs the lanes in
+    order)."""
+    assert len(executors) == len(chunks) >= 1
+    from repro_torch.kernels import fused_groupby as fk
+
+    ops = [x._op for x in executors]
+    if (
+        len(ops) == 1
+        or len({c.num_rows for c in chunks}) != 1
+        or any("__mask__" in c.columns for c in chunks)
+    ):
+        for x, chunk in zip(executors, chunks):
+            x.consume(chunk)
+        return
+    live = [(op, chunk) for op, chunk in zip(ops, chunks) if not op.poisoned]
+    if not live:
+        return
+    ops = [op for op, _ in live]
+    staged = [op.scan_morsels(chunk) for op, chunk in live]
+    keys = torch.stack([km for km, _ in staged])
+    todo = torch.ones(keys.shape[:2], dtype=torch.int32, device=keys.device)
+    bounds = [op._table.max_groups for op in ops]
+    rooms = [op.room() for op in ops]
+    checked = ops[0].check_overflow
+    tickets, info = fk.scan_ticket_batched(
+        [op._table for op in ops], keys, todo, checked=checked,
+        thresholds=[r[0] for r in rooms], bound_slacks=[r[1] for r in rooms],
+    )
+    for i, (op, (_, vm)) in enumerate(zip(ops, staged)):
+        op.update_planes(tickets[i], vm)
+    if not checked:
+        return
+    rows = info.tolist()  # the round's one blocking read
+    for i, (op, (km, vm)) in enumerate(zip(ops, staged)):
+        if rows[i][fk.INFO_HALTED] or rows[i][fk.INFO_COUNT] > bounds[i]:
+            op.poll([km, vm, todo[i], info[i:i + 1], bounds[i]])
+
+
+# ---------------------------------------------------------------------------
 # concurrent with sort ticketing (one-shot: chunks buffer)
 
 

@@ -308,24 +308,52 @@ class GroupByOperator:
         dispatched while an earlier one is paused re-checks the room at
         every morsel, so it commits nothing past the pause point until the
         host catches up."""
-        if self._overflowed and self.check_overflow:
-            return None  # poisoned: finalize raises anyway
-        moved = Table({k: torch.as_tensor(v).to(self._device)
-                       for k, v in chunk.columns.items()})
-        keys, cols = chunk_key_column(moved, self.key_columns, self.raw_keys)
-        km, vm, num = morselize_chunk(
-            keys, {c: cols[c] for c in self._value_cols}, self.morsel_rows
-        )
+        if self.poisoned:
+            return None  # finalize raises anyway
         if self.pipeline == "host":
-            self._consume_host_loop(km, vm, num)
+            self._consume_host_loop(*self._morselize(chunk))
             return None
-        km, vm = self._kernel_morsels(km, vm)
+        km, vm = self.scan_morsels(chunk)
         todo = torch.ones((km.shape[0],), dtype=torch.int32, device=self._device)
         bound = self._table.max_groups
         info = self._run_stages(km, vm, todo, checked=self.check_overflow)
         if not self.check_overflow:
             return None
         return [km, vm, todo, info, bound]
+
+    @property
+    def poisoned(self) -> bool:
+        """A checked stream whose bound overflowed: it consumes nothing
+        more, and ``finalize`` raises."""
+        return self._overflowed and self.check_overflow
+
+    def _morselize(self, chunk: Table):
+        moved = Table({k: torch.as_tensor(v).to(self._device)
+                       for k, v in chunk.columns.items()})
+        keys, cols = chunk_key_column(moved, self.key_columns, self.raw_keys)
+        return morselize_chunk(keys, {c: cols[c] for c in self._value_cols},
+                               self.morsel_rows)
+
+    def scan_morsels(self, chunk: Table):
+        """One chunk staged for the ticket stage: ``(km, vm)``, the key
+        morsels and value planes :meth:`_kernel_morsels` gives (the solo
+        path's staging, which ``executors.consume_batched`` shares)."""
+        km, vm, _ = self._morselize(chunk)
+        return self._kernel_morsels(km, vm)
+
+    def room(self) -> tuple:
+        """The ticket stage's §4.4 room check against the current table:
+        ``(threshold, bound_slack)``."""
+        t = self._table
+        return int(self.load_factor * t.capacity), t.max_groups - self.morsel_rows
+
+    def update_planes(self, tickets, vm) -> None:
+        """The update stage: fold one launch's ticket vector into every
+        accumulator plane (rows at -1 are parked)."""
+        self._state = up.update_agg_state(
+            self._state, tickets.reshape(-1),
+            {c: v.reshape(-1) for c, v in vm.items()}, self._update_fn,
+        )
 
     def _kernel_morsels(self, km, vm):
         """The morsels the ticket stage runs: on the card, a morsel past
@@ -351,17 +379,14 @@ class GroupByOperator:
         """One ticket launch over the todo morsels, then one update of every
         accumulator plane over the launch's ticket vector.  Returns the
         launch's info vector (not read here)."""
-        t = self._table
+        threshold, bound_slack = self.room()
         tickets, info = self._fk.scan_ticket(
-            t, km, todo, checked=checked, grow_bound=checked and self.grow_bound,
-            threshold=int(self.load_factor * t.capacity),
-            bound_slack=t.max_groups - self.morsel_rows,
-            collect_events=self.collect_events, events=self._events,
+            self._table, km, todo, checked=checked,
+            grow_bound=checked and self.grow_bound, threshold=threshold,
+            bound_slack=bound_slack, collect_events=self.collect_events,
+            events=self._events,
         )
-        self._state = up.update_agg_state(
-            self._state, tickets.reshape(-1),
-            {c: v.reshape(-1) for c, v in vm.items()}, self._update_fn,
-        )
+        self.update_planes(tickets, vm)
         return info
 
     def poll(self, token) -> None:

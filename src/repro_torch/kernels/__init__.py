@@ -20,13 +20,15 @@ Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``ops.groupby_kernel`` is the one front door for direct kernel callers
 (``fused=`` selects the route); the legacy direct entry points
 (``groupby_pallas``, ``ticket``, ``segment_aggregate``) warn once per
-process.  (The fused module's one-shot ``fused_groupby`` function is not
-re-exported: its name is the submodule's.)  Nothing here builds or
-imports a compiler at import time.
+process.  The fused module's one-shot ``fused_groupby`` function is
+exported under the reference's name, ``fused_groupby_pallas`` (its own
+name is the submodule's).  Nothing here builds or imports a compiler at
+import time.
 """
 from repro_torch.kernels.fused_groupby import (
     FusedState,
     fused_consume,
+    fused_groupby_pallas,
     grow_fused_state,
     init_fused_state,
     merge_fused_state,
@@ -44,6 +46,7 @@ from repro_torch.kernels.ops import (
 __all__ = [
     "FusedState",
     "fused_consume",
+    "fused_groupby_pallas",
     "groupby_kernel",
     "groupby_pallas",
     "grow_fused_state",

@@ -40,6 +40,12 @@ other row.  Its plain version is
 :func:`fused_consume_plain` with S = 0 and the same ticket output; the
 per-morsel step of the plain version is the scan route's own
 ``engine.groupby.make_pause_scan_body``.
+
+:func:`scan_ticket_batched` is the serving layer's ticket stage: N lanes,
+each one query's chunk against that query's table, in one launch of
+``scan_ticket_batched_kernel`` (the same per-CTA body, each lane's CTAs on
+its own table) with one ``(N, INFO_LEN)`` info tensor; its plain version
+runs :func:`scan_ticket_plain` lane by lane.
 """
 from __future__ import annotations
 
@@ -374,6 +380,9 @@ def _kernel_library() -> ctypes.CDLL:
         scan = lib.scan_ticket_launch
         scan.argtypes = [ptr] * 11 + [i32] * 10 + [ints, ptr]
         scan.restype = ctypes.c_int
+        batched = lib.scan_ticket_batched_launch
+        batched.argtypes = [ptr] + [i32] * 5 + [ints, ptr]
+        batched.restype = ctypes.c_int
     return lib
 
 
@@ -628,6 +637,151 @@ def scan_ticket_plain(
     return tickets, info
 
 
+MAX_BATCH_LANES = 32  # lanes one batched launch takes (csrc kMaxLanes)
+
+
+class _ScanLane(ctypes.Structure):
+    """One lane's descriptor (csrc ``ScanLane``): ten pointers, four ints."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "keys", "todo", "tkeys", "ttks", "kbt", "count", "info", "scratch", "out",
+        "overflowed")] + [(name, ctypes.c_int) for name in (
+            "C", "G", "threshold", "bound_slack")]
+
+
+def scan_ticket_batched(
+    tables: Sequence[tk.TicketTable],
+    keys: torch.Tensor,    # (N, npm, M) int32, EMPTY_I32-padded
+    todo: torch.Tensor,    # (N, npm) int32 — 1: morsel still to commit
+    *,
+    thresholds: Sequence[int],
+    bound_slacks: Sequence[int],
+    checked: bool = True,
+):
+    """:func:`scan_ticket` over N lanes at once (never under a GROW bound,
+    which no batched plan has): lane ``i`` is
+    ``keys[i]`` against ``tables[i]`` with ``todo[i]`` and the room check
+    ``(thresholds[i], bound_slacks[i])``, each table and todo row updated in
+    place exactly as a solo :func:`scan_ticket` call updates them (no event
+    counts).  Returns ``(tickets, info)``: tickets ``(N, npm, M)`` and ONE
+    ``(N, INFO_LEN)`` info tensor, so a single read resolves the round.
+
+    CUDA tensors launch ``scan_ticket_batched_kernel`` of
+    ``csrc/fused_groupby.cu``, one launch per :data:`MAX_BATCH_LANES` lanes
+    (counted in ``scan_ticket_batched.launches``; grid of the latest in
+    ``scan_ticket_batched.grid``), and raise if they cannot; each lane has
+    :func:`scan_ticket`'s contract.  CPU tensors run
+    :func:`scan_ticket_batched_plain`, one :func:`scan_ticket_plain` per
+    lane."""
+    if keys.device.type == "cpu":
+        return scan_ticket_batched_plain(tables, keys, todo, thresholds=thresholds,
+                                         bound_slacks=bound_slacks, checked=checked)
+    return launch_scan_ticket_batched(prepare_scan_ticket_batched(
+        tables, keys, todo, thresholds=thresholds, bound_slacks=bound_slacks,
+        checked=checked))
+
+
+def prepare_scan_ticket_batched(tables, keys, todo, *, thresholds, bound_slacks,
+                                checked=True):
+    """The host work of one :func:`scan_ticket_batched` call on CUDA
+    tensors: the checks, the tickets, one allocation holding every lane's
+    info row and launch scratch (filled on the card), and the lane
+    descriptors, one array per launch.  :func:`launch_scan_ticket_batched`
+    runs the launches on it; the two split the call to time them apart."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"scan_ticket_batched runs on cuda or cpu tensors, not {dev}")
+    n = len(tables)
+    if (keys.dim() != 3 or keys.shape[0] != n or tuple(todo.shape) != keys.shape[:2]
+            or len(thresholds) != n or len(bound_slacks) != n or n == 0):
+        raise ValueError(f"keys {tuple(keys.shape)} / todo {tuple(todo.shape)} are not "
+                         f"(N, npm, M) / (N, npm) for N = {n} tables and room checks")
+    for t, dtype in ((keys, torch.int32), (todo, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"scan_ticket_batched takes contiguous {dtype} tensors on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+    for t in tables:
+        for a, dtype in zip(t[:4], (torch.int32,) * 4):
+            if a.device != dev or a.dtype != dtype or not a.is_contiguous():
+                raise ValueError(f"a TicketTable of scan_ticket_batched holds {a.dtype} on "
+                                 f"{a.device}, not contiguous {dtype} on {dev}")
+        C = t.capacity
+        if (C & (C - 1) or tuple(t.tickets.shape) != (C,) or t.count.numel() != 1
+                or t.overflowed.numel() != 1 or t.overflowed.dtype != torch.bool
+                or t.overflowed.device != dev):
+            raise ValueError("inconsistent TicketTable shapes")
+    for v in (*thresholds, *bound_slacks):
+        if not -_INT32_MAX <= v <= _INT32_MAX:
+            raise ValueError(f"room check {v} does not fit int32")
+    _, npm, M = keys.shape
+    aux = torch.empty((n * (INFO_LEN + _SCAN_SCRATCH),), dtype=torch.int32, device=dev)
+    info = aux[: n * INFO_LEN].view(n, INFO_LEN)
+    if npm == 0:  # no morsel: nothing to launch, nothing todo
+        info[:, INFO_COUNT] = torch.stack([t.count.reshape(()) for t in tables])
+        info[:, INFO_FIRST_HALT:] = torch.tensor([NO_HALT, 0, 0], dtype=torch.int32)
+        return keys.new_empty(keys.shape), info, [], ()
+    tickets = torch.empty((n, npm, M), dtype=torch.int32, device=dev)
+    scratch = aux[n * INFO_LEN:].view(n, _SCAN_SCRATCH)
+    rows, lane_bytes = npm * M * 4, npm * 4
+    descs = []
+    for i, t in enumerate(tables):
+        descs.append(_ScanLane(
+            keys.data_ptr() + i * rows, todo.data_ptr() + i * lane_bytes,
+            t.keys.data_ptr(), t.tickets.data_ptr(), t.key_by_ticket.data_ptr(),
+            t.count.data_ptr(), info[i].data_ptr(), scratch[i].data_ptr(),
+            tickets.data_ptr() + i * rows, t.overflowed.data_ptr(),
+            t.capacity, t.max_groups, int(thresholds[i]), int(bound_slacks[i]),
+        ))
+    launches = []
+    for lo in range(0, n, MAX_BATCH_LANES):
+        part = descs[lo:lo + MAX_BATCH_LANES]
+        launches.append(((_ScanLane * len(part))(*part), len(part)))
+    args = (npm, M, int(checked))
+    # the tensors behind the pointers stay referenced until the launch
+    return tickets, info, [(arr, k) + args for arr, k in launches], (aux, keys, todo, tables)
+
+
+def launch_scan_ticket_batched(call):
+    """Launch the kernel on :func:`prepare_scan_ticket_batched`'s call on
+    the current stream, one launch per :data:`MAX_BATCH_LANES` lanes (each
+    counted), and return :func:`scan_ticket_batched`'s ``(tickets,
+    info)``.  Raises if the kernel cannot be built or launched."""
+    tickets, info, launches, _ = call
+    if not launches:
+        return tickets, info
+    grid = (ctypes.c_int * 2)()
+    lib = _kernel_library()
+    stream = torch.cuda.current_stream(tickets.device).cuda_stream
+    for arr, n, npm, M, checked in launches:
+        err = lib.scan_ticket_batched_launch(ctypes.addressof(arr), n, npm, M, checked,
+                                             SCAN_BLOCK_THREADS, grid, stream)
+        if err != 0:
+            raise RuntimeError("scan_ticket_batched kernel launch failed: "
+                               + lib.fused_groupby_error_string(err).decode())
+        scan_ticket_batched.launches += 1
+        scan_ticket_batched.grid = (grid[0], grid[1])
+    return tickets, info
+
+
+scan_ticket_batched.launches = 0  # kernel launches (CUDA tensors only)
+scan_ticket_batched.grid = None   # (CTAs, CTAs a lane) of the latest launch
+
+
+def scan_ticket_batched_plain(tables, keys, todo, *, thresholds, bound_slacks,
+                              checked=True):
+    """The plain version of :func:`scan_ticket_batched`, on any device, with
+    its signature and in-place updates: one :func:`scan_ticket_plain` per
+    lane, in lane order."""
+    outs = [
+        scan_ticket_plain(t, keys[i], todo[i], checked=checked,
+                          threshold=int(thresholds[i]), bound_slack=int(bound_slacks[i]))
+        for i, t in enumerate(tables)
+    ]
+    tickets = torch.stack([o[0] for o in outs]) if outs else keys.new_empty(keys.shape)
+    info = torch.cat([o[1] for o in outs]) if outs else keys.new_empty((0, INFO_LEN))
+    return tickets, info
+
+
 def fused_groupby(
     keys: torch.Tensor,
     values: torch.Tensor,
@@ -658,6 +812,9 @@ def fused_groupby(
     if kind in ("min", "max"):
         acc = torch.where(torch.isinf(acc), torch.full_like(acc, float("nan")), acc)
     return state.kbt[0].to(torch.int64) & 0xFFFFFFFF, acc, state.count[0]
+
+
+fused_groupby_pallas = fused_groupby  # the reference's name
 
 
 def from_jax_state(arrays: Sequence[np.ndarray], device=None) -> FusedState:

@@ -1119,3 +1119,153 @@ def test_new_routes_on_the_card(cuda, route):
     assert torch.equal(out["max(v)"][:n][order], mx)
     if "count(*)" in out.columns:
         assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+
+
+# -- the serving layer's batched ticket launch ------------------------------------------
+
+
+def _batched_lanes(cuda, n_lanes, rows, seed, cards=(1000, 30000, 300), bound=None):
+    """``n_lanes`` lanes of ``rows`` keys in 4096-row morsels, each against
+    its own carried table: capacities cycle over 3 sizes, and every fourth
+    lane was migrated to twice its capacity after a first chunk.  Returns
+    (keys (N, npm, M), [(table, threshold, bound_slack)])."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    km = torch.stack([
+        torch.randint(0, cards[i % len(cards)], (rows,), generator=gen, device=cuda,
+                      dtype=torch.int32).reshape(-1, 4096)
+        for i in range(n_lanes)])
+    km[:, 0, :100] = -1  # EMPTY rows
+    lanes = []
+    for i in range(n_lanes):
+        g = bound or cards[i % len(cards)] + 64
+        table = tk.make_table(table_capacity(g) << (i % 3), g, device=cuda)
+        if i % 4 == 3:
+            first = km[i, :2].contiguous()
+            fk.scan_ticket(table, first, torch.ones(2, dtype=torch.int32, device=cuda),
+                           threshold=table.capacity // 2)
+            table = resize.migrate(table, 2 * table.capacity)
+        lanes.append((table, table.capacity // 2, g - 4096))
+    return km, lanes
+
+
+def _batched_pair(km, lanes, **kw):
+    """scan_ticket_batched and its plain version on copies of the same
+    lanes: ((tickets, tables, todo, info) each)."""
+    out = []
+    for fn in (fk.scan_ticket_batched, fk.scan_ticket_batched_plain):
+        tables = [tk.TicketTable(*(x.clone() for x in t)) for t, _, _ in lanes]
+        todo = torch.ones(km.shape[:2], dtype=torch.int32, device=km.device)
+        tickets, info = fn(tables, km, todo, thresholds=[th for _, th, _ in lanes],
+                           bound_slacks=[b for _, _, b in lanes], **kw)
+        out.append((tickets, tables, todo, info))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lanes", [5, 40])
+def test_scan_ticket_batched_matches_plain(cuda, n_lanes):
+    """Lanes of different capacities (one in four migrated to 2C) in one
+    round; 40 lanes cross the 32-lane cap and take two launches.  Each
+    lane keeps scan_ticket's contract with the plain version."""
+    km, lanes = _batched_lanes(cuda, n_lanes, 16 * 4096, 71)
+    before = fk.scan_ticket_batched.launches
+    (kt, ktab, ktodo, kinfo), (pt, ptab, ptodo, pinfo) = _batched_pair(km, lanes)
+    assert fk.scan_ticket_batched.launches - before == -(-n_lanes // fk.MAX_BATCH_LANES)
+    assert torch.equal(kinfo, pinfo) and not bool(ktodo.any())
+    for i in range(n_lanes):
+        assert fk.scan_ticket_discrepancies(km[i], (kt[i], ktab[i]), (pt[i], ptab[i])) == 0, i
+        assert bool(ktab[i].overflowed) == bool(ptab[i].overflowed)
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_raise_round_with_one_overflowing_lane(cuda):
+    """Under RAISE, exactly one lane issues more tickets than its G: only
+    its info row shows a count past G and only its overflow flag is set,
+    while every lane commits every morsel."""
+    km, lanes = _batched_lanes(cuda, 6, 8 * 4096, 72, cards=(500,), bound=1024)
+    km[2] = torch.arange(km[2].numel(), device=cuda, dtype=torch.int32).reshape(km[2].shape) % 3000
+    big = tk.make_table(8192, 1024, device=cuda)  # room for 3000 keys: no pause
+    lanes[2] = (big, big.capacity // 2, 1024 - 4096)
+    (kt, ktab, ktodo, kinfo), (pt, ptab, _, pinfo) = _batched_pair(km, lanes)
+    assert torch.equal(kinfo, pinfo) and not bool(ktodo.any())
+    over = kinfo[:, fk.INFO_COUNT] > 1024
+    assert over.tolist() == [i == 2 for i in range(6)]
+    assert [bool(t.overflowed) for t in ktab] == over.tolist()
+    for i in range(6):
+        assert fk.scan_ticket_discrepancies(km[i], (kt[i], ktab[i]), (pt[i], ptab[i])) == 0, i
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_failed_launch_raises_and_never_falls_back(cuda, monkeypatch,
+                                                                        tmp_path):
+    km, lanes = _batched_lanes(cuda, 3, 2 * 4096, 73)
+    tables = [t for t, _, _ in lanes]
+    copies = [tk.TicketTable(*(x.clone() for x in t)) for t in tables]
+    todo = torch.ones(km.shape[:2], dtype=torch.int32, device=cuda)
+    kw = dict(thresholds=[th for _, th, _ in lanes], bound_slacks=[b for _, _, b in lanes])
+    before = fk.scan_ticket_batched.launches
+    monkeypatch.setattr(fk, "SCAN_BLOCK_THREADS", 96)  # no kernel of that size
+    with pytest.raises(RuntimeError, match="scan_ticket_batched kernel launch failed"):
+        fk.scan_ticket_batched(tables, km, todo, **kw)
+    monkeypatch.undo()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (forced by the test)")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="forced by the test"):
+        fk.scan_ticket_batched(tables, km, todo, **kw)
+    torch.cuda.synchronize()
+    assert fk.scan_ticket_batched.launches == before and bool(todo.all())
+    for t, c in zip(tables, copies):  # nothing ran, on the card or on the host
+        assert all(torch.equal(a, b) for a, b in zip(t, c))
+
+
+@pytest.mark.gpu
+def test_serve_on_the_card_batched_matches_solo(cuda):
+    """Six queries on the default device through AggregationServer: the
+    batched rounds launch scan_ticket_batched and fewer scan_ticket
+    launches than solo stepping, and every query's map equals its solo
+    run's and its sequential collect's."""
+    from repro_torch.serve import AggregationServer
+
+    gen = torch.Generator(device=cuda).manual_seed(74)
+    rows, chunk = 1 << 16, 1 << 14
+    data = [(torch.randint(0, 1000, (rows,), generator=gen, device=cuda, dtype=torch.int32),
+             torch.randn(rows, generator=gen, device=cuda)) for _ in range(6)]
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("sum", "v"),
+                                              api.AggSpec("max", "v")),
+                           strategy="concurrent", max_groups=1024, raw_keys=True,
+                           execution=api.ExecutionPolicy(morsel_rows=4096))
+
+    def chunks(k, v):
+        return [api.Table({"k": k[i:i + chunk], "v": v[i:i + chunk]})
+                for i in range(0, rows, chunk)]
+
+    runs = {}
+    for batched in (True, False):
+        b0, s0 = fk.scan_ticket_batched.launches, fk.scan_ticket.launches
+        server = AggregationServer(slots=6, batch_queries=batched)
+        handles = [server.submit(plan, chunks(k, v)) for k, v in data]
+        server.run_until_idle()
+        runs[batched] = ([h.result() for h in handles],
+                         fk.scan_ticket_batched.launches - b0, fk.scan_ticket.launches - s0)
+    assert runs[True][1] > 0 and runs[False][1] == 0
+    assert runs[True][2] < runs[False][2]
+    for (k, v), got, solo in zip(data, runs[True][0], runs[False][0]):
+        want = plan.collect(chunks(k, v))
+        for out in (got, solo):
+            n = int(out["__num_groups__"][0])
+            order = torch.argsort(out["key"][:n])
+            wn = int(want["__num_groups__"][0])
+            worder = torch.argsort(want["key"][:wn])
+            assert n == wn and torch.equal(out["key"][:n][order], want["key"][:wn][worder])
+            for col in ("count(*)", "max(v)"):
+                assert torch.equal(out[col][:n][order], want[col][:wn][worder]), col
+            tol = 1e-4 * torch.zeros(n, device=cuda).index_add_(
+                0, torch.searchsorted(out["key"][:n][order], k.long()), v.abs())
+            assert bool(((out["sum(v)"][:n][order] - want["sum(v)"][:wn][worder]).abs()
+                         <= tol).all())

@@ -1,5 +1,6 @@
-"""repro_torch stands alone: importing every module of the port, and
-chip_smoke.py, loads neither JAX nor anything of the JAX package."""
+"""repro_torch stands alone: importing every module of the port (the
+serving and training packages included), and chip_smoke.py, loads neither
+JAX nor anything of the JAX package, and builds or loads no kernel."""
 import os
 import subprocess
 import sys
@@ -20,8 +21,11 @@ _PROBE = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
-    print(len(names), "modules;", "leaked:", bad)
-    sys.exit(1 if bad or len(names) < 15 else 0)
+    from repro_torch.kernels import build
+    built = sorted(build.BUILD_INFO) + sorted(build._LIBS)
+    print(len(names), "modules;", "leaked:", bad, "built:", built)
+    print("walked:", " ".join(names))
+    sys.exit(1 if bad or built or len(names) < 15 else 0)
 """)
 
 
@@ -32,4 +36,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "leaked: []" in proc.stdout
+    assert "leaked: [] built: []" in proc.stdout
+    walked = proc.stdout.split("walked:")[1].split()
+    for module in ("repro_torch.serve.query_server", "repro_torch.serve.scheduler",
+                   "repro_torch.train.elastic"):
+        assert module in walked, module

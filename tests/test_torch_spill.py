@@ -3,9 +3,10 @@
 JAX spill plans and the oracle: the exactness matrix, multi-aggregate
 with mean, a mid-stream snapshot taken twice, forced tiny residency, zero
 spill equal to the concurrent scan, auto + spill resolving, rejected
-plans and the memory-telemetry surface; plus ``partition_of`` bit for bit
-on keys of 2^31 and above, and the spill spans.  (The server-budget test
-waits for the serving layer, ROADMAP item 7.)
+plans, the memory-telemetry surface and the server budget (a spilling
+query honours it as device residency, a plain one raises); plus
+``partition_of`` bit for bit on keys of 2^31 and above, and the spill
+spans.
 
 Values are integer-valued float32, so any summation order is exact and
 SUM compares bit for bit, as in the reference's tests."""
@@ -249,6 +250,44 @@ def test_stream_stats_dict():
     bstats = base.stats()
     assert bstats["peak_buffered_chunks"] == 0
     assert bstats["peak_retained_bytes"] == 0
+
+
+# -- server composition: budgets spill instead of raising ---------------------------
+
+
+def test_server_budget_spills_instead_of_raising():
+    """A tenant budget of 48 groups: the spilling query keeps it as its
+    device residency and completes exactly (its map equal to the oracle's
+    and to the JAX server's), the plain query hits the hard RAISE
+    contract, in both packages."""
+    from repro.engine.groupby import GroupByOverflowError as JOverflow
+    from repro.serve.query_server import AggregationServer as JServer
+    from repro_torch.engine.groupby import GroupByOverflowError
+    from repro_torch.serve.query_server import AggregationServer
+
+    keys, vals = gen_keys("uniform", 0), int_vals(0)
+    want = oracle_map(keys, vals, kind="sum")
+    maps = []
+    for server_cls, api, chunks, overflow, ex in (
+            (AggregationServer, tapi, torch_chunks, GroupByOverflowError, {"device": "cpu"}),
+            (JServer, japi, jax_chunks, JOverflow, {})):
+        server = server_cls(slots=4)
+        server.set_budget("alice", max_groups=48)
+        spilling = api.GroupByPlan(
+            keys=("k",), aggs=(api.AggSpec("sum", "v"),), saturation="spill",
+            raw_keys=True,
+            execution=api.ExecutionPolicy(morsel_rows=256, spill_partitions=8, **ex))
+        capped = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("sum", "v"),),
+                                 raw_keys=True, execution=api.ExecutionPolicy(**ex))
+        h_spill = server.submit(spilling, chunks(keys, vals), tenant="alice")
+        h_raise = server.submit(capped, chunks(keys, vals), tenant="alice")
+        out = h_spill.result()
+        maps.append(table_map(out, "sum(v)"))
+        stats = h_spill.stats()
+        assert stats["device_groups"] <= 48 and stats["spilled_rows"] > 0
+        with pytest.raises(overflow):
+            h_raise.result()
+    assert maps[0] == want == maps[1]
 
 
 def test_partition_of_bit_exact_past_2_31():
