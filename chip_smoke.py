@@ -51,13 +51,16 @@ Four phases, each of which fails the run:
    morsel None and 1024, every kind: table keys, spill mask and cnts
    equal, COUNT / MIN / MAX exact, SUM within 1e-4·Σ|v|; the spilled share
    printed (unique at W = 8, C = 1024 spills at least 99%).
-   ``scan_ticket_batched`` (the serving layer's ticket stage for N lanes
-   in one launch, ``scan_ticket_batched_kernel`` of
-   ``csrc/fused_groupby.cu``): one launch over 8 lanes of 2^18 rows (3
-   uniform over 1000 keys, 3 zipf over 2^15, 2 unique), each against its
-   own table, one of them migrated to 2C; then a RAISE round in which one
-   lane alone overflows its G; every lane held by
-   ``scan_ticket_discrepancies``, its info row and its overflow flag.
+   ``scan_ticket_batched`` (the serving layer's round for N lanes in one
+   launch, ``scan_ticket_batched_kernel`` of ``csrc/fused_groupby.cu``):
+   one launch over 8 lanes of 2^18 rows (3 uniform over 1000 keys, 3 zipf
+   over 2^15, 2 unique), each against its own table, one of them migrated
+   to 2C; then a RAISE round in which one lane alone overflows its G;
+   every lane held by ``scan_ticket_discrepancies``, its info row and its
+   overflow flag.  Both rounds again in fold mode (count, sum, min and max
+   of each lane's values folded in the launch, the scatter round): each
+   lane of both versions held to the oracle (gap-free tickets, COUNT /
+   MIN / MAX exact, SUM within 1e-4·Σ|v|), and the two to each other.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -105,7 +108,8 @@ Four phases, each of which fails the run:
    The serving layer (``serve.AggregationServer``): serve_small
    (bench_serve's shape: 8 queries of 16 chunks × 128 rows) and serve_low
    (16 queries of 2^20 rows in chunks of 2^16, uniform over 1000 keys,
-   RAISE), each batched, solo and as N sequential ``plan.collect``, every
+   RAISE), each batched (every round ⌈N / 32⌉ folding launches and no
+   ``update_planes`` call), solo and as N sequential ``plan.collect``, every
    query held to the oracle and the batched results to the sequential
    ones; the batched rounds must launch ``scan_ticket_batched`` and fewer
    ``scan_ticket``; serve_budget: a tenant budget of 64 groups fails only
@@ -154,11 +158,14 @@ Four phases, each of which fails the run:
    into pre-aggregation, exchange, partition-wise sort and the host
    merge.  The register fold also at R = 64 and 256 on the high chunk,
    beside its bytes bound; ``index_add_`` into the unique class's G =
-   2^24 beside the serialized kernel's row.  ``scan_ticket_batched`` at N
-   = 8 and 16 lanes × one 2^16-row chunk of serve_low's shape (CUDA
-   events, and CUDA-graph replays) beside N ``scan_ticket`` launches timed
-   the same two ways, N ``torch.unique(return_inverse=True)`` calls, its
-   plain version (held against it) and its bytes bound.
+   2^24 beside the serialized kernel's row.  ``scan_ticket_batched``'s
+   folding launch at N = 8 and 16 lanes × one 2^16-row chunk of
+   serve_low's shape and planes (CUDA events, and CUDA-graph replays)
+   beside the two-stage round it replaces (the ticket launch and N × S
+   scatter updates) timed the same two ways, the ticket launch alone,
+   N × (``torch.unique(return_inverse=True)`` + one ``index_add_`` /
+   ``scatter_reduce_`` a plane), its plain version (held against it) and
+   its bytes bound.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -776,6 +783,100 @@ def check_batched(fk, km, pair, label):
     return worst
 
 
+FOLD_SPECS = ((None, "count"), ("v", "sum"), ("v", "min"), ("v", "max"))
+
+
+def fold_pair(fk, km, vals, tables, specs=FOLD_SPECS, **kw):
+    """``scan_ticket_batched`` in fold mode and its plain version, each on
+    its own copy of ``tables`` and fresh accumulators (the room checks of
+    :func:`batched_pair`), lane ``i`` folding value plane ``vals[i]``:
+    [(tables, states, todo, info), ...] kernel first, and the plain
+    version's host seconds."""
+    import torch
+
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core import updates as up
+
+    out, secs = [], []
+    for fn in (fk.scan_ticket_batched, fk.scan_ticket_batched_plain):
+        copies = [tk.TicketTable(*(x.clone() for x in t)) for t in tables]
+        states = [up.init_agg_state(specs, t.max_groups, device=km.device) for t in tables]
+        todo = torch.ones(km.shape[:2], dtype=torch.int32, device=km.device)
+        (tickets, info), sec = timed(
+            fn, copies, list(km), todo, thresholds=[t.capacity // 2 for t in tables],
+            bound_slacks=[t.max_groups - SCAN_M for t in tables], states=states,
+            values=[{"v": vals[i]} for i in range(km.shape[0])], specs=specs, **kw)
+        check(tickets is None, "fold mode returned tickets")
+        out.append((copies, states, todo, info))
+        secs.append(sec)
+    return out, secs[1]
+
+
+def check_fold_lane(keys, vals, table, state, specs, label):
+    """One lane's table and planes against the oracle over its rows:
+    gap-free tickets naming their slots' keys, every key ticketed, and per
+    ticket below G its key's COUNT / MIN / MAX exactly and SUM within
+    SUM_RTOL · Σ|v|; the planes past the count neutral."""
+    import torch
+
+    keys, vals = keys.reshape(-1), vals.reshape(-1)
+    live = keys != -1
+    o = oracle(keys[live].long(), vals[live])
+    n, G = int(table.count), table.max_groups
+    g = min(n, G)
+    occ = table.tickets > 0
+    t = table.tickets[occ]
+    check(torch.equal(torch.sort(t).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32)),
+          f"{label}: tickets are not 1..{n}")
+    inb = t <= G
+    check(torch.equal(table.key_by_ticket[(t[inb] - 1).long()], table.keys[occ][inb]),
+          f"{label}: key_by_ticket disagrees with the table")
+    check(o["keys"].numel() == n, f"{label}: {n} groups, the oracle has {o['keys'].numel()}")
+    kb = table.key_by_ticket[:g].long()
+    idx = torch.searchsorted(o["keys"], kb)
+    for s, (_, kind) in enumerate(specs):
+        a = state.accs[s]
+        if kind == "sum":
+            check(bool(((a[:g].double() - o["sum"][idx]).abs()
+                        <= SUM_RTOL * o["abs"][idx]).all()), f"{label}: SUM outside tolerance")
+        else:
+            want = o["count"][idx].float() if kind == "count" else o[kind][idx]
+            check(torch.equal(a[:g], want), f"{label}: {kind.upper()} differs")
+        neutral = {"sum": 0.0, "count": 0.0, "min": float("inf"), "max": float("-inf")}[kind]
+        check(bool((a[g:] == neutral).all()), f"{label}: {kind} folded past the count")
+
+
+def check_fold(fk, km, vals, pair, specs, label):
+    """Every lane of a folding launch against the plain version's: the same
+    info rows and overflow flags, every morsel committed, each version's
+    lane held to the oracle (:func:`check_fold_lane`), the same key set
+    where the count is within G, and the planes of the keys both ticket
+    below G equal by key (COUNT / MIN / MAX exact, SUM within SUM_RTOL ·
+    Σ|v|).  Returns the largest |Δ| of any plane between the two."""
+    import torch
+
+    (ktab, kst, ktodo, kinfo), (ptab, pst, _, pinfo) = pair
+    check(torch.equal(kinfo, pinfo), f"{label}: info differs {kinfo.tolist()} vs "
+          f"{pinfo.tolist()}")
+    check(not bool(ktodo.any()), f"{label}: morsels left todo")
+    err = 0.0
+    for i in range(km.shape[0]):
+        kt, pt = ktab[i], ptab[i]
+        check(bool(kt.overflowed) == bool(pt.overflowed), f"{label} lane {i}: overflow differs")
+        for side, t, st in (("kernel", kt, kst[i]), ("plain", pt, pst[i])):
+            check_fold_lane(km[i], vals[i], t, st, specs, f"{label} lane {i} {side}")
+        g = min(int(kt.count), kt.max_groups)
+        kk, ko = torch.sort(kt.key_by_ticket[:g].long())
+        pk, po = torch.sort(pt.key_by_ticket[:g].long())
+        if int(kt.count) <= kt.max_groups:
+            check(torch.equal(kk, pk), f"{label} lane {i}: key sets differ")
+        mk, mp = torch.isin(kk, pk), torch.isin(pk, kk)
+        for a, b in zip(kst[i].accs, pst[i].accs):
+            d = (a[:g][ko][mk] - b[:g][po][mp]).abs()
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
 def phase2_batched(fk, gen, device, rows=1 << 18):
     """``scan_ticket_batched`` (the serving layer's multi-table ticket
     launch) against its plain version on the card: one launch over 8 lanes
@@ -783,7 +884,12 @@ def phase2_batched(fk, gen, device, rows=1 << 18):
     unique), each lane against its own table (bounds and capacities of its
     class; lane 1 migrated to 2C after a first launch on 4 of its morsels);
     then a RAISE round of 8 lanes of 2^16 rows in which lane 5 alone issues
-    more tickets than its G.  Returns the largest discrepancy."""
+    more tickets than its G.  Both rounds again in fold mode (the scatter
+    round: count, sum, min and max of each lane's values folded in the
+    launch; the first round past the shared plane's cap, the second
+    through it), each version's lanes held to the oracle and to each
+    other (:func:`check_fold`).  Returns the largest discrepancy or plane
+    |Δ|."""
     import torch
 
     from repro_torch.core import resize
@@ -812,6 +918,7 @@ def phase2_batched(fk, gen, device, rows=1 << 18):
                            threshold=t.capacity // 2)
             t = resize.migrate(t, 2 * t.capacity)
         tables.append(t)
+    km8, tables8 = km, tables
     before = fk.scan_ticket_batched.launches
     pair, p_s = batched_pair(fk, km, tables)
     check(fk.scan_ticket_batched.launches == before + 1,
@@ -837,6 +944,21 @@ def phase2_batched(fk, gen, device, rows=1 << 18):
           f"phase2 scan_ticket_batched raise: overflow on lanes {over}, expected lane 5 only")
     log(f"phase2 scan_ticket_batched raise: counts {pair[0][3][:, 0].tolist()} against "
         f"G=1024, overflow on lane 5 only ok")
+
+    # fold mode (the scatter round): the same two rounds, each lane folding
+    # count, sum, min and max of its own values
+    for label, fkm, ftables in (("", km8, tables8), (" raise", km, tables)):
+        fvals = torch.randn(fkm.shape, generator=gen, device=device)
+        before = fk.scan_ticket_batched.launches
+        fpair, fp_s = fold_pair(fk, fkm, fvals, ftables)
+        check(fk.scan_ticket_batched.launches == before + 1,
+              f"phase2 scan_ticket_batched fold{label}: not one launch for 8 lanes")
+        worst = max(worst, check_fold(fk, fkm, fvals, fpair, FOLD_SPECS,
+                                      f"phase2 scan_ticket_batched fold{label}"))
+        log(f"phase2 scan_ticket_batched fold{label}: 8 lanes, counts "
+            f"{fpair[0][3][:, 0].tolist()}, grid {fk.scan_ticket_batched.grid}, planes "
+            f"{[k for _, k in FOLD_SPECS]}; plain {fp_s:.2f} s; every lane held to the oracle "
+            f"and the plain version ok (largest |d| {worst:.3g})")
     return worst
 
 
@@ -1538,13 +1660,27 @@ def phase3_serve(kmods, api, gen, device):
     128); serve_low 16 queries of 2^20 rows in 16 chunks of 2^16 (uniform
     over 1000, max_groups 1024, raise, morsel 4096; 128 MiB of input on the
     card).  Every query is held to the oracle, and the batched and
-    sequential results to each other as maps.  Then serve_budget: a
+    sequential results to each other as maps.  Both streams use the
+    scatter update, so a batched round tickets and folds in its launch:
+    it must make ⌈N / 32⌉ ``scan_ticket_batched`` launches, no
+    ``scan_ticket`` launch and no ``GroupByOperator.update_planes`` call
+    (counted in every mode).  Then serve_budget: a
     tenant with ``max_groups=64`` fails its own query with
     ``GroupByOverflowError`` while another tenant's completes."""
+    import importlib
+
     import torch
 
     from repro_torch.engine.groupby import GroupByOverflowError
     from repro_torch.serve import AggregationServer
+
+    gb = importlib.import_module("repro_torch.engine.groupby")
+    real_update = gb.GroupByOperator.update_planes
+    plane_updates = [0]
+
+    def counted_update(self, *a, **kw):  # the update stage's calls outside the round's launch
+        plane_updates[0] += 1
+        return real_update(self, *a, **kw)
 
     def chunks(k, v, rows):
         return [api.Table({"k": k[i:i + rows], "v": v[i:i + rows]})
@@ -1558,6 +1694,7 @@ def phase3_serve(kmods, api, gen, device):
         sub = api.Table({c: t[:n] for c, t in out.columns.items()})
         return check_against_oracle(sub, order, o, label)
 
+    fk_lanes = kmods["scan_ticket_batched"][0].MAX_BATCH_LANES
     recs, data = [], None
     for name, nq, rows, chunk, card, bound, sat, spec, morsel in SERVE_STREAMS:
         data = [(torch.randint(0, card, (rows,), generator=gen, device=device,
@@ -1574,15 +1711,20 @@ def phase3_serve(kmods, api, gen, device):
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)  # the queries' input among it
             reset_launches(kmods)
+            plane_updates[0] = 0
+            gb.GroupByOperator.update_planes = counted_update
             t0 = time.perf_counter()
-            if mode == "sequential":
-                outs = [plan.collect(chunks(k, v, chunk)) for k, v in data]
-            else:
-                server = AggregationServer(slots=nq, batch_queries=mode == "batched")
-                handles = [server.submit(plan, chunks(k, v, chunk)) for k, v in data]
-                server.run_until_idle()
-                outs = [h.result() for h in handles]
-            sync(device)
+            try:
+                if mode == "sequential":
+                    outs = [plan.collect(chunks(k, v, chunk)) for k, v in data]
+                else:
+                    server = AggregationServer(slots=nq, batch_queries=mode == "batched")
+                    handles = [server.submit(plan, chunks(k, v, chunk)) for k, v in data]
+                    server.run_until_idle()
+                    outs = [h.result() for h in handles]
+                sync(device)
+            finally:
+                gb.GroupByOperator.update_planes = real_update
             wall = time.perf_counter() - t0
             launches = read_launches(kmods)
             errs = [held(out, o, f"{name}_{mode} query {q}")
@@ -1591,6 +1733,7 @@ def phase3_serve(kmods, api, gen, device):
                    "rows": nq * rows, "chunk_rows": chunk, "launches": launches,
                    "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20,
                    "peak_added_mib": (torch.cuda.max_memory_allocated(device) - base) / 2**20,
+                   "update_planes_calls": plane_updates[0],
                    "max_sum_err": max(e for e in errs if e is not None)}
             log("phase3 " + json.dumps(rec))
             recs.append(rec)
@@ -1602,10 +1745,20 @@ def phase3_serve(kmods, api, gen, device):
               and s["scan_ticket_batched"] == 0,
               f"{name}: batched rounds launched {b['scan_ticket_batched']} batched and "
               f"{b['scan_ticket']} solo ticket kernels (solo stepping {s['scan_ticket']})")
+        # scatter rounds fold in their launch: ceil(N / 32) launches a round
+        # (every round batched, none pauses) and no update call
+        rounds, per_round = rows // chunk, -(-nq // fk_lanes)
+        ups = recs[-3]["update_planes_calls"]
+        check(b["scan_ticket_batched"] == rounds * per_round and b["scan_ticket"] == 0
+              and ups == 0,
+              f"{name}: batched rounds made {b['scan_ticket_batched']} batched launches "
+              f"({rounds} rounds x {per_round} expected), {b['scan_ticket']} solo ticket "
+              f"launches and {ups} update_planes calls (0 expected)")
         log(f"phase3 {name}: walls batched {recs[-3]['wall_s']:.4f} s, solo "
             f"{recs[-2]['wall_s']:.4f} s, sequential {recs[-1]['wall_s']:.4f} s; "
-            f"scan_ticket_batched {b['scan_ticket_batched']}, scan_ticket {b['scan_ticket']} "
-            f"vs {s['scan_ticket']}; every query held to the oracle ok")
+            f"scan_ticket_batched {b['scan_ticket_batched']} ({rounds} rounds), update_planes "
+            f"calls {ups} batched vs {recs[-2]['update_planes_calls']} solo, scan_ticket "
+            f"{b['scan_ticket']} vs {s['scan_ticket']}; every query held to the oracle ok")
 
     # a tenant budget of 64 groups fails only that tenant's query
     k, v = data[0]
@@ -2511,46 +2664,81 @@ def phase4_preagg(pa, api, chunk_classes, vals, device, reps=5):
 def phase4_batched(fk, gen, device, reps=5, rows=1 << 16):
     """``scan_ticket_batched`` at N = 8 and 16 lanes × one 2^16-row chunk
     of serve_low's shape (uniform over 1000 keys, G = 1024, 4096-row
-    morsels, RAISE), each call from fresh tables: CUDA events, and device
-    time by CUDA-graph replay (a graph of reset + call less a graph of the
-    reset alone); beside N ``scan_ticket`` launches timed the same two
-    ways, N ``torch.unique(return_inverse=True)`` calls, the plain version
-    and the bytes bound (each lane's keys read and tickets written once,
-    per distinct key its slot and key_by_ticket entry written once).  The
-    call is also split into the wrapper's host work before the launch
-    (``prepare_scan_ticket_batched``, host clock) and the launch alone
-    (``launch_scan_ticket_batched``, events).  Each N is also held against
-    its plain version.  Returns the record."""
+    morsels, RAISE, its four planes: count(*), sum(v), mean(v)'s count,
+    max(v)), each call from fresh tables and accumulators.  The folding
+    launch (the scatter round) by CUDA events and by CUDA-graph replay (a
+    graph of reset + call less a graph of the reset alone), beside the
+    two-stage round it replaces (the ticket launch, then N × S
+    ``update_agg_state`` scatter updates, as ``update_planes`` runs them)
+    timed the same two ways, the ticket launch alone by graph replay, the
+    library (N × ``torch.unique(return_inverse=True)`` and one
+    ``index_add_`` / ``scatter_reduce_`` per plane), its plain version and
+    its bytes bound (each lane's keys and value plane read once, per
+    distinct key its slot, key_by_ticket entry and S accumulators written
+    once).  The folding call is also split into the wrapper's host work
+    before the launch (``prepare_scan_ticket_batched``, host clock) and
+    the launch alone (``launch_scan_ticket_batched``, events).  Each N is
+    also held against its plain version (:func:`check_fold`).  Returns the
+    record."""
     import torch
 
     from repro_torch.core import ticketing as tk
+    from repro_torch.core import updates as up
     from repro_torch.core.hashing import table_capacity
+    from repro_torch.engine import plan_api as api
+    from repro_torch.engine.groupby import expand_agg_specs
 
     g = 1024
     cap = table_capacity(g)
-    per_n, worst = {}, 0
+    specs = expand_agg_specs(tuple(api.AggSpec(a, c) for a, c in AGGS_SPEC))
+    per_n, worst = {}, 0.0
     for n in (8, 16):
         km = torch.randint(0, 1000, (n, rows // SCAN_M, SCAN_M), generator=gen,
                            device=device, dtype=torch.int32)
+        vals = torch.randn(km.shape, generator=gen, device=device)
         fresh = [tk.make_table(cap, g, device=device) for _ in range(n)]
         work = [tk.TicketTable(*(t.clone() for t in f)) for f in fresh]
+        neutral = up.init_agg_state(specs, g, device=device)
+        states = [up.init_agg_state(specs, g, device=device) for _ in range(n)]
+        lanes, values = list(km), [{"v": vals[i]} for i in range(n)]
         todo = torch.ones(km.shape[:2], dtype=torch.int32, device=device)
         kw = dict(thresholds=[cap // 2] * n, bound_slacks=[g - SCAN_M] * n)
+        fold_kw = dict(kw, states=states, values=values, specs=specs)
 
         def reset():
             for w, f in zip(work, fresh):
                 for a, b in zip(w, f):
                     a.copy_(b)
+            for st in states:
+                for a, b in zip(st.accs, neutral.accs):
+                    a.copy_(b)
             todo.fill_(1)
 
-        def batched():
+        def fold():
+            return fk.scan_ticket_batched(work, lanes, todo, **fold_kw)
+
+        def ticket():
             return fk.scan_ticket_batched(work, km, todo, **kw)
 
-        def solo():
-            return [fk.scan_ticket(work[i], km[i], todo[i], threshold=cap // 2,
-                                   bound_slack=g - SCAN_M) for i in range(n)]
+        def two_stage():
+            tickets, info = ticket()
+            for i in range(n):
+                up.update_agg_state(states[i], tickets[i].reshape(-1),
+                                    {"v": vals[i].reshape(-1)}, up.scatter_update)
+            return info
 
-        b_ms = time_cuda(batched, reps, reset)
+        def library():
+            for i in range(n):
+                uk, inv = torch.unique(km[i], return_inverse=True)
+                v = vals[i].reshape(-1)
+                for _, kind in specs:
+                    if kind in ("sum", "count"):
+                        torch.zeros(uk.numel(), device=device).index_add_(0, inv.reshape(-1), v)
+                    else:
+                        torch.full((uk.numel(),), float("-inf"), device=device).scatter_reduce_(
+                            0, inv.reshape(-1), v, "amax")
+
+        f_ms = time_cuda(fold, reps, reset)
         grid = list(fk.scan_ticket_batched.grid)
         # the call split: the wrapper's host work before the launch (host
         # clock) and the launch alone on a call prepared beforehand (events)
@@ -2559,7 +2747,7 @@ def phase4_batched(fk, gen, device, reps=5, rows=1 << 16):
         def prepared():
             reset()
             sync()
-            held["call"] = fk.prepare_scan_ticket_batched(work, km, todo, **kw)
+            held["call"] = fk.prepare_scan_ticket_batched(work, lanes, todo, **fold_kw)
             sync()
 
         launch_ms = time_cuda(lambda: fk.launch_scan_ticket_batched(held["call"]), reps,
@@ -2568,32 +2756,35 @@ def phase4_batched(fk, gen, device, reps=5, rows=1 << 16):
             reset()
             sync()
             t0 = time.perf_counter()
-            fk.prepare_scan_ticket_batched(work, km, todo, **kw)
+            fk.prepare_scan_ticket_batched(work, lanes, todo, **fold_kw)
             host.append((time.perf_counter() - t0) * 1e3)
             sync()
         held.clear()
         host_ms = sorted(host)[len(host) // 2]
-        s_ms = time_cuda(solo, reps, reset)
+        two_ms = time_cuda(two_stage, reps, reset)
         reset_ms = time_graph(reset, reps=reps)
-        b_graph = time_graph(lambda: (reset(), batched()), reps=reps) - reset_ms
-        s_graph = time_graph(lambda: (reset(), solo()), reps=reps) - reset_ms
-        lib_ms = time_cuda(lambda: [torch.unique(km[i], return_inverse=True)
-                                    for i in range(n)], reps)
-        pair, p_s = batched_pair(fk, km, fresh)
-        worst = max(worst, check_batched(fk, km, pair, f"phase4 scan_ticket_batched N={n}"))
+        f_graph = time_graph(lambda: (reset(), fold()), reps=reps) - reset_ms
+        two_graph = time_graph(lambda: (reset(), two_stage()), reps=reps) - reset_ms
+        t_graph = time_graph(lambda: (reset(), ticket()), reps=reps) - reset_ms
+        lib_ms = time_cuda(library, reps)
+        pair, p_s = fold_pair(fk, km, vals, fresh, specs)
+        worst = max(worst, check_fold(fk, km, vals, pair, specs,
+                                      f"phase4 scan_ticket_batched fold N={n}"))
         d = [int(torch.unique(km[i]).numel()) for i in range(n)]
-        bound_ms = (8 * n * rows + 12 * sum(d)) / HBM_BYTES_PER_S * 1e3
-        per_n[n] = {"kernel_ms": b_ms, "graph_ms": b_graph, "prepare_host_ms": host_ms,
-                    "launch_ms": launch_ms, "solo_launches_ms": s_ms,
-                    "solo_launches_graph_ms": s_graph, "library_ms": lib_ms,
-                    "plain_ms": p_s * 1e3, "bound_ms": bound_ms, "bound_by": "bytes",
-                    "rows": n * rows, "groups": sum(d), "grid": grid}
-        log(f"phase4 scan_ticket_batched N={n}: kernel {b_ms:.4f} ms (graph {b_graph:.4f}; "
-            f"host work before the launch {host_ms:.4f} ms, launch alone {launch_ms:.4f} ms) "
-            f"beside {n} scan_ticket launches {s_ms:.4f} ms (graph {s_graph:.4f}), {n} "
-            f"torch.unique {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain "
-            f"{p_s * 1e3:.1f} ms; grid {grid}; 0 discrepancies ok")
-        del work, fresh, pair
+        bound_ms = (8 * n * rows + (12 + 4 * len(specs)) * sum(d)) / HBM_BYTES_PER_S * 1e3
+        per_n[n] = {"kernel_ms": f_ms, "graph_ms": f_graph, "prepare_host_ms": host_ms,
+                    "launch_ms": launch_ms, "two_stage_ms": two_ms,
+                    "two_stage_graph_ms": two_graph, "ticket_graph_ms": t_graph,
+                    "library_ms": lib_ms, "plain_ms": p_s * 1e3, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "rows": n * rows, "groups": sum(d), "planes": len(specs),
+                    "grid": grid}
+        log(f"phase4 scan_ticket_batched fold N={n}: kernel {f_ms:.4f} ms (graph "
+            f"{f_graph:.4f}; host work before the launch {host_ms:.4f} ms, launch alone "
+            f"{launch_ms:.4f} ms) beside the two-stage round {two_ms:.4f} ms (graph "
+            f"{two_graph:.4f}; its ticket launch alone graph {t_graph:.4f}), library "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain {p_s * 1e3:.1f} ms; "
+            f"grid {grid}; held to the plain version ok")
+        del work, fresh, pair, states
     log("phase4 scan_ticket_batched " + json.dumps(per_n))
     head = per_n[16]
     return {"ms": head["kernel_ms"], "plain_ms": head["plain_ms"],

@@ -408,6 +408,40 @@ __global__ void __launch_bounds__(1024) fused_groupby_kernel(
   }
 }
 
+// One lane of scan_ticket_batched_kernel (see there): one query's staged
+// chunk against its own carried table.  In fold mode `acc` holds the
+// lane's S accumulator planes and `val` its V staged value planes, and
+// `out` is unused.
+constexpr int kMaxLanes = 32;
+constexpr int kMaxMorselRows = 4096;  // fold mode: a morsel's tickets in shared memory
+constexpr int kDirectBytes = 32 * 1024;  // fold mode: the (S, G) shared plane's cap
+
+struct ScanLane {
+  const int* keys;  // (npm, M)
+  int* todo;        // (npm,)
+  int* tkeys;       // (C,)
+  int* ttks;        // (C,)
+  int* kbt;         // (G,)
+  int* count;       // (1,)
+  int* info;        // (kInfoLen,)
+  int* scratch;     // (kScratch,)
+  int* out;         // (npm, M), ticket mode
+  unsigned char* overflowed;
+  int C, G, threshold, bound_slack;
+  float* acc[kMaxSpecs];        // (G,) each, fold mode
+  const float* val[kMaxSpecs];  // (npm, M) each, fold mode
+};
+
+// A lane's descriptor as the host passes it: kLaneWords 64-bit words
+// (the pointers and ints above), then its S + V plane pointers.
+constexpr int kLaneWords = 14;
+
+struct ScanLanes {
+  ScanLane lane[kMaxLanes];
+  Specs specs;  // fold mode: every lane's planes (one batch signature)
+  int n, cpl, npm, M, checked, direct;
+};
+
 // Probe on from the slot after *slot, until C slots were probed in all;
 // never waits.  Returns the row's outcome (kNone: the table is full); *plen
 // gets the slots probed.
@@ -440,7 +474,13 @@ __device__ int probe_on(int key, unsigned* slot, int* tick, int* tkeys, const in
 // protocol of hash_probe.cuh, against the carried table's two int32
 // arrays.  scan_ticket_kernel runs it with every CTA of its grid on one
 // table; scan_ticket_batched_kernel with each lane's CTAs on that lane's.
-template <int T>
+// With kFold (the batched kernel's fold mode) the morsel's tickets go to
+// `s_tk` (M ints of shared memory) instead of `out_tickets`, and a morsel
+// that commits folds its rows into the lane's planes (`fold`): into the
+// CTA's (S, G) shared plane `s_plane`, flushed when the CTA ends, or, when
+// s_plane is null, by device atomics.  Without kFold the code is the
+// ticket stage alone, as scan_ticket_kernel compiled before fold mode.
+template <int T, bool kFold>
 __device__ __forceinline__ void scan_ticket_cta(
     const int* __restrict__ keys,   // (npm, M)
     int* todo,                      // (npm,) 1 = still to commit
@@ -454,7 +494,11 @@ __device__ __forceinline__ void scan_ticket_cta(
     int* __restrict__ out_tickets,  // (npm, M) 0-based or -1
     unsigned char* overflowed,      // () bool, sticky
     int npm, int M, int C, int G, int checked, int grow_bound, int threshold,
-    int bound_slack, int collect_events, int ctas) {
+    int bound_slack, int collect_events, int ctas,
+    const ScanLane* lane = nullptr,   // kFold: the lane's planes
+    const Specs* specs = nullptr,     // kFold: their plane indices and kinds
+    int* s_tk = nullptr,              // kFold: (M,) the morsel's tickets
+    float* s_plane = nullptr) {       // kFold: (S, G) shared plane, or null
   constexpr int R = kScanRows;
   __shared__ unsigned long long s_cache[kCacheSlots];
   __shared__ int s_warp[T / 32];
@@ -466,6 +510,11 @@ __device__ __forceinline__ void scan_ticket_cta(
   const unsigned mask = static_cast<unsigned>(C - 1);
   for (int h = tid; h < kCacheSlots; h += T) s_cache[h] = kFreeSlot;
   if (tid < kThreadSums) s_ev[tid] = s_mev[tid] = 0;
+  if constexpr (kFold) {
+    if (s_plane != nullptr) {  // ordered before its first use by the dispatch barrier
+      for (int j = tid; j < specs->n * G; j += T) s_plane[j] = neutral(specs->kind[j / G]);
+    }
+  }
   int n_morsels = 0, n_saturations = 0;  // CTA-uniform
 
   for (;;) {
@@ -493,10 +542,16 @@ __device__ __forceinline__ void scan_ticket_cta(
     const int i = s_i, st = s_state;
     __syncthreads();  // every thread read s_i / s_state before the next write
     if (st == kEnd) break;
-    int* out = out_tickets + static_cast<size_t>(i) * M;
-    if (st == kSkip || st == kPause) {
-      for (int r = tid; r < M; r += T) out[r] = -1;
-      continue;
+    int* out;
+    if constexpr (kFold) {
+      out = s_tk;
+      if (st == kSkip || st == kPause) continue;  // folds nothing, writes nothing
+    } else {
+      out = out_tickets + static_cast<size_t>(i) * M;
+      if (st == kSkip || st == kPause) {
+        for (int r = tid; r < M; r += T) out[r] = -1;
+        continue;
+      }
     }
     const int* in = keys + static_cast<size_t>(i) * M;
 
@@ -636,11 +691,37 @@ __device__ __forceinline__ void scan_ticket_cta(
     }
     if (sat) ++n_saturations;
     if (!commit) {  // inserts stay, every row -1 (earlier tiles too), still todo
-      for (int r = tid; r < M; r += T) out[r] = -1;
-      continue;
+      if constexpr (!kFold) {
+        for (int r = tid; r < M; r += T) out[r] = -1;
+      }
+      continue;  // fold mode: folds nothing
     }
     ++n_morsels;
     if (tid == 0) todo[i] = 0;  // committed
+    if constexpr (kFold) {
+      // the committed morsel's rows: every s_tk write is behind the
+      // barriers above, and the next write to s_tk behind the dispatch's
+      const size_t row0 = static_cast<size_t>(i) * M;
+      for (int r = tid; r < M; r += T) {
+        const int t = s_tk[r];
+        if (t < 0 || t >= G) continue;  // masked, unresolved, or past the bound
+        for (int s = 0; s < specs->n; ++s) {
+          const int plane = specs->plane[s];
+          const float v = plane < 0 ? 1.0f : lane->val[plane][row0 + r];
+          fold(s_plane != nullptr ? s_plane + s * G + t : lane->acc[s] + t, specs->kind[s], v);
+        }
+      }
+    }
+  }
+  if constexpr (kFold) {
+    if (s_plane != nullptr) {  // flush the CTA's plane: one atomic a touched group and plane
+      __syncthreads();
+      for (int j = tid; j < specs->n * G; j += T) {
+        const int s = j / G, kind = specs->kind[s];
+        const float v = s_plane[j];
+        if (v != neutral(kind)) fold(lane->acc[s] + (j - s * G), kind, v);
+      }
+    }
   }
 
   if (collect_events && tid == 0) {
@@ -691,29 +772,45 @@ __global__ void __launch_bounds__(T) scan_ticket_kernel(
     int* count, int* events, int* __restrict__ info, int* scratch,
     int* __restrict__ out_tickets, unsigned char* overflowed, int npm, int M, int C, int G,
     int checked, int grow_bound, int threshold, int bound_slack, int collect_events) {
-  scan_ticket_cta<T>(keys, todo, tkeys, ttks, kbt, count, events, info, scratch, out_tickets,
-                     overflowed, npm, M, C, G, checked, grow_bound, threshold, bound_slack,
-                     collect_events, static_cast<int>(gridDim.x));
+  scan_ticket_cta<T, false>(keys, todo, tkeys, ttks, kbt, count, events, info, scratch,
+                            out_tickets, overflowed, npm, M, C, G, checked, grow_bound,
+                            threshold, bound_slack, collect_events, static_cast<int>(gridDim.x));
 }
 
-// scan_ticket_batched_kernel (`scan_ticket_batched_launch`): the ticket
-// stage of N <= kMaxLanes served queries in one launch.  Its reference is
-// the batched jnp dispatch of the serving layer
+// scan_ticket_batched_kernel (`scan_ticket_batched_launch`): the serving
+// layer's round, N <= kMaxLanes served queries in one launch.  Its
+// reference is the batched jnp dispatch of the serving layer
 // (src/repro/engine/executors.py:613, _batched_consume), which runs each
-// lane's scan body unrolled inside one jit.
+// lane's scan body (get_or_insert, then update_agg_state) unrolled inside
+// one jit.
 //
 // Each lane is one query's chunk against that query's carried table, with
 // its own capacity C, bound G and room check (threshold, bound_slack); the
-// lanes share npm, M and the checked flag (one batch signature, never
-// GROW: grow_bound is 0).  The lane descriptors travel by value in the kernel's
-// parameters (__grid_constant__, 96 B a lane, about 3 KB at kMaxLanes),
-// so nothing is copied to the card for them.
+// lanes share npm, M, the checked flag and the planes' specs (one batch
+// signature, never GROW: grow_bound is 0).  Two modes:
+//   * fold (kFold, the "scatter" update): the fused kernel's steps 1-4 on
+//     each lane's carried table.  A morsel's tickets stay in shared memory
+//     (M <= kMaxMorselRows ints), and a morsel that commits folds every row
+//     whose 0-based ticket is in [0, G) into the lane's S accumulator
+//     planes (sum / count add, min / max as sign-split atomics: `fold`); a
+//     morsel that pauses, or saturates under `checked`, folds nothing and
+//     stays todo (its inserts stay; the host replays it through the solo
+//     path, which folds).  No ticket vector is written.
+//   * ticket (the other updates): scan_ticket_kernel's output per lane,
+//     each row's ticket for the committed morsels and -1 elsewhere.
+// The lane descriptors travel by value in the kernel's parameters
+// (__grid_constant__, 352 B a lane with S and V pointers for up to
+// kMaxSpecs planes each, 11.4 KB at kMaxLanes): this relies on the 32,764
+// bytes of kernel parameters that CUDA >= 12.1 gives sm_90, so that
+// nothing is copied to the card for them and no lane is dropped; a round
+// of more than kMaxLanes lanes takes one launch per kMaxLanes.
 //
-// Its bound: bytes, the sum of N scan_ticket launches' (each lane's keys
-// read and tickets written once, per distinct key its slot and
-// key_by_ticket entry written once).  What it saves over N launches is
-// the launches themselves: N - 1 fills and N - 1 kernels, and the card's
-// drain between them, which dominate a round of small chunks.
+// Its bound: bytes, the sum of N scan_ticket launches' without the ticket
+// writes, plus the value planes: each lane's keys and value planes read
+// once, per distinct key its slot, key_by_ticket entry and S accumulators
+// written once.  What it saves over the two-stage round (a ticket launch,
+// then N × S update calls of ~10 small launches each) is those launches'
+// host work and the ticket vector's round trip through device memory.
 //
 // Design: the persistent CTAs are split evenly over the lanes (`cpl` a
 // lane, as the fused kernel splits them over programs), and each lane's
@@ -721,35 +818,25 @@ __global__ void __launch_bounds__(T) scan_ticket_kernel(
 // reservation and finished-CTA count in its scratch row, so the last of
 // ITS CTAs writes its info row and overflow flag.  A CTA never leaves its
 // lane, so its key cache (s_cache) only ever holds that lane's table.
+// Fold mode folds equal tickets in shared memory before the device atomic:
+// where S × G floats fit kDirectBytes (serve_low: G = 1024, S = 4, 16 KB)
+// each CTA keeps a direct-indexed (S, G) plane, neutral-filled at its
+// start and flushed once at its end (one device atomic per touched group
+// and plane, so 16 CTAs a lane cost 16 atomics a group, not one a row);
+// past that cap rows fold by device atomics.  Dynamic shared memory: M
+// ints of tickets plus the plane, beside s_cache's 32 KB (at most 80 KB
+// a CTA); the launcher asks the occupancy API at that size.
 // Events are not counted (an instrumented plan is never batched).
-constexpr int kMaxLanes = 32;
-
-struct ScanLane {
-  const int* keys;  // (npm, M)
-  int* todo;        // (npm,)
-  int* tkeys;       // (C,)
-  int* ttks;        // (C,)
-  int* kbt;         // (G,)
-  int* count;       // (1,)
-  int* info;        // (kInfoLen,)
-  int* scratch;     // (kScratch,)
-  int* out;         // (npm, M)
-  unsigned char* overflowed;
-  int C, G, threshold, bound_slack;
-};
-
-struct ScanLanes {
-  ScanLane lane[kMaxLanes];
-  int n, cpl, npm, M, checked;
-};
-
-template <int T>
+template <int T, bool kFold>
 __global__ void __launch_bounds__(T)
     scan_ticket_batched_kernel(const __grid_constant__ ScanLanes lanes) {
+  extern __shared__ int s_dyn[];  // kFold: (M,) tickets, then the (S, G) plane
   const ScanLane& L = lanes.lane[blockIdx.x / lanes.cpl];
-  scan_ticket_cta<T>(L.keys, L.todo, L.tkeys, L.ttks, L.kbt, L.count, nullptr, L.info,
-                     L.scratch, L.out, L.overflowed, lanes.npm, lanes.M, L.C, L.G,
-                     lanes.checked, 0, L.threshold, L.bound_slack, 0, lanes.cpl);
+  float* s_plane = kFold && lanes.direct ? reinterpret_cast<float*>(s_dyn + lanes.M) : nullptr;
+  scan_ticket_cta<T, kFold>(L.keys, L.todo, L.tkeys, L.ttks, L.kbt, L.count, nullptr, L.info,
+                            L.scratch, L.out, L.overflowed, lanes.npm, lanes.M, L.C, L.G,
+                            lanes.checked, 0, L.threshold, L.bound_slack, 0, lanes.cpl, &L,
+                            &lanes.specs, s_dyn, s_plane);
 }
 
 // The launch scratch of scan_ticket_kernel: morsel counter, finished CTAs
@@ -759,40 +846,64 @@ __global__ void scan_fill_kernel(int* scratch, const int* count) {
 }
 
 // Every lane's scratch row at once (kMaxLanes × kScratch threads).
-__global__ void scan_fill_batched_kernel(const __grid_constant__ ScanLanes lanes) {
+struct ScanFill {
+  int* scratch[kMaxLanes];
+  const int* count[kMaxLanes];
+  int n;
+};
+
+__global__ void scan_fill_batched_kernel(const __grid_constant__ ScanFill fill) {
   const int l = threadIdx.x / kScratch, j = threadIdx.x % kScratch;
-  if (l < lanes.n) lanes.lane[l].scratch[j] = j == kReserved ? *lanes.lane[l].count : 0;
+  if (l < fill.n) fill.scratch[l][j] = j == kReserved ? *fill.count[l] : 0;
 }
 
+// The resident CTAs per SM of scan_ticket_kernel (batched = 0),
+// scan_ticket_batched_kernel in ticket mode (1) or in fold mode (2) with
+// `smem` bytes of dynamic shared memory.
 template <int T>
-cudaError_t scan_occupancy(int batched, int* per_sm) {
+cudaError_t scan_occupancy(int batched, size_t smem, int* per_sm) {
+  if (batched == 2) {
+    // fold mode may take more than the 48 KB a CTA gets without opting in
+    cudaError_t err = cudaFuncSetAttribute(
+        scan_ticket_batched_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (kMaxMorselRows + kDirectBytes / 4) * static_cast<int>(sizeof(int)));
+    return err != cudaSuccess ? err
+                              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                    per_sm, scan_ticket_batched_kernel<T, true>, T, smem);
+  }
   return batched ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       per_sm, scan_ticket_batched_kernel<T>, T, 0)
+                       per_sm, scan_ticket_batched_kernel<T, false>, T, 0)
                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, scan_ticket_kernel<T>,
                                                                  T, 0);
 }
 
-// The device's SM count and the resident CTAs per SM of scan_ticket_kernel
-// (batched = 0) or scan_ticket_batched_kernel (1) at each block size,
-// queried once per device, kernel and block size.
+// The device's SM count and the resident CTAs per SM of one kernel (see
+// scan_occupancy) at each block size, queried once per device, kernel,
+// block size and, in fold mode, dynamic shared memory in 1 KB steps.
 constexpr int kScanBlocks[3] = {256, 512, 1024};
+constexpr int kSmemSteps = (kMaxMorselRows * 4 + kDirectBytes) / 1024 + 1;
 
-cudaError_t scan_limits(int batched, int threads, int* sms, int* per_sm) {
-  static int cached_sms[64], cached_per_sm[64][2][3];
+cudaError_t scan_limits(int batched, int threads, size_t smem, int* sms, int* per_sm) {
+  static int cached_sms[64], cached_per_sm[64][2][3], cached_fold[64][3][kSmemSteps];
   int b = 0;
   while (b < 3 && kScanBlocks[b] != threads) ++b;
   int dev = 0;
   cudaError_t err = b < 3 ? cudaGetDevice(&dev) : cudaErrorInvalidValue;
   if (err == cudaSuccess && dev >= 64) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess && smem > static_cast<size_t>(kMaxMorselRows * 4 + kDirectBytes)) {
+    err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   if (cached_sms[dev] == 0) {
     err = cudaDeviceGetAttribute(&cached_sms[dev], cudaDevAttrMultiProcessorCount, dev);
   }
-  int* cached = &cached_per_sm[dev][batched != 0][b];
+  // fold mode: the occupancy at the next whole KB (at least as much memory)
+  const size_t step = (smem + 1023) / 1024;
+  int* cached = batched == 2 ? &cached_fold[dev][b][step] : &cached_per_sm[dev][batched != 0][b];
   if (err == cudaSuccess && *cached == 0) {
-    err = b == 0   ? scan_occupancy<256>(batched, cached)
-          : b == 1 ? scan_occupancy<512>(batched, cached)
-                   : scan_occupancy<1024>(batched, cached);
+    err = b == 0   ? scan_occupancy<256>(batched, step * 1024, cached)
+          : b == 1 ? scan_occupancy<512>(batched, step * 1024, cached)
+                   : scan_occupancy<1024>(batched, step * 1024, cached);
   }
   if (err != cudaSuccess) return err;
   if (*cached < 1) return cudaErrorInvalidConfiguration;
@@ -895,7 +1006,7 @@ int scan_ticket_launch(const void* keys, void* todo, void* tkeys, void* ttks, vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int sms = 0, per_sm = 0;
-  cudaError_t err = scan_limits(0, threads, &sms, &per_sm);
+  cudaError_t err = scan_limits(0, threads, 0, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int ctas = sms * per_sm < npm ? sms * per_sm : npm;
   grid_out[0] = grid_out[1] = ctas;
@@ -918,53 +1029,121 @@ int scan_ticket_launch(const void* keys, void* todo, void* tkeys, void* ttks, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// One ticket-stage pass over n (1..kMaxLanes) lanes, each npm >= 1
-// morsels of M rows against its own carried table, on `stream`:
-// scan_fill_batched_kernel writes every lane's scratch row, then
+// One round of the serving layer over n >= 1 lanes, each npm >= 1 morsels
+// of M rows against its own carried table, on `stream`: per kMaxLanes
+// lanes, scan_fill_batched_kernel writes every lane's scratch row, then
 // scan_ticket_batched_kernel runs on `threads` (256, 512 or 1024) threads
-// a CTA.  `lanes` points at n host ScanLane descriptors (copied into the
-// launch's parameters); each lane's outputs are scan_ticket_launch's.
-// grid_out gets (CTAs, CTAs a lane).  Returns a cudaError_t as an int (0 =
-// launched).  The caller checks shapes, types and devices.
-int scan_ticket_batched_launch(const void* lanes, int n, int npm, int M, int checked,
-                               int threads, int* grid_out, void* stream) {
-  if (lanes == nullptr || n < 1 || n > kMaxLanes || npm < 1 || M < 1) {
+// a CTA.  `words` holds n lane descriptors of kLaneWords + num_specs +
+// num_values 64-bit words each: keys, todo, tkeys, ttks, kbt, count, info,
+// scratch, out, overflowed, C, G, threshold, bound_slack, then the lane's
+// num_specs accumulator planes and its num_values value planes.  With
+// num_specs = 0 the launch tickets (each lane's outputs are
+// scan_ticket_launch's); with 1..kMaxSpecs it folds (`out` unused, M <=
+// kMaxMorselRows, spec s reads value plane spec_planes[s] < num_values, or
+// none when -1, and folds by spec_kinds[s]).  Every lane is checked before
+// the first launch, so a refused round changes nothing.  grid_out gets
+// (CTAs, CTAs a lane) of the last launch and the number of launches.
+// Returns a cudaError_t as an int (0 = launched).  The caller checks
+// shapes, types and devices.
+int scan_ticket_batched_launch(const long long* words, int n, int num_specs, int num_values,
+                               const int* spec_planes, const int* spec_kinds, int npm, int M,
+                               int checked, int threads, int* grid_out, void* stream) {
+  const bool fold = num_specs > 0;
+  if (words == nullptr || n < 1 || npm < 1 || M < 1 || num_specs < 0 ||
+      num_specs > kMaxSpecs || num_values < 0 || num_values > kMaxSpecs ||
+      (fold && (M > kMaxMorselRows || spec_planes == nullptr || spec_kinds == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ScanLanes b = {};
-  for (int l = 0; l < n; ++l) {
-    const ScanLane& L = static_cast<const ScanLane*>(lanes)[l];
-    if (L.C < 1 || (L.C & (L.C - 1)) != 0 || L.G < 0 || L.keys == nullptr ||
-        L.todo == nullptr || L.tkeys == nullptr || L.ttks == nullptr || L.kbt == nullptr ||
-        L.count == nullptr || L.info == nullptr || L.scratch == nullptr || L.out == nullptr ||
-        L.overflowed == nullptr) {
+  b.specs.n = num_specs;
+  for (int s = 0; s < num_specs; ++s) {
+    b.specs.plane[s] = spec_planes[s];
+    b.specs.kind[s] = spec_kinds[s];
+    if (spec_planes[s] < -1 || spec_planes[s] >= num_values || spec_kinds[s] < kSum ||
+        spec_kinds[s] > kMax) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    b.lane[l] = L;
   }
+  // every lane checked, and the largest G, before anything launches
+  const int width = kLaneWords + num_specs + num_values;
+  int g_max = 0;
+  for (int l = 0; l < n; ++l) {
+    const long long* w = words + static_cast<size_t>(l) * width;
+    bool ok = w[10] >= 1 && w[10] <= (1ll << 30) && (w[10] & (w[10] - 1)) == 0 &&
+              w[11] >= 0 && w[11] <= 0x7FFFFFFFll && w[12] == static_cast<int>(w[12]) &&
+              w[13] == static_cast<int>(w[13]);
+    for (int j = 0; j < 10; ++j) ok = ok && (w[j] != 0 || (j == 8 && fold));
+    for (int j = kLaneWords; j < width; ++j) ok = ok && w[j] != 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (w[11] > g_max) g_max = static_cast<int>(w[11]);
+  }
+  b.direct = fold && static_cast<long long>(g_max) * num_specs * 4 <= kDirectBytes;
+  const size_t smem =
+      fold ? (static_cast<size_t>(M) + (b.direct ? static_cast<size_t>(g_max) * num_specs : 0)) *
+                 sizeof(int)
+           : 0;
   int sms = 0, per_sm = 0;
-  cudaError_t err = scan_limits(1, threads, &sms, &per_sm);
+  cudaError_t err = scan_limits(fold ? 2 : 1, threads, smem, &sms, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int cpl = sms * per_sm / n;
-  if (cpl > npm) cpl = npm;
-  if (cpl < 1) cpl = 1;
-  b.n = n;
-  b.cpl = cpl;
   b.npm = npm;
   b.M = M;
   b.checked = checked;
-  grid_out[0] = n * cpl;
-  grid_out[1] = cpl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  scan_fill_batched_kernel<<<1, kMaxLanes * kScratch, 0, s>>>(b);
-  if (threads == 256) {
-    scan_ticket_batched_kernel<256><<<n * cpl, 256, 0, s>>>(b);
-  } else if (threads == 512) {
-    scan_ticket_batched_kernel<512><<<n * cpl, 512, 0, s>>>(b);
-  } else {
-    scan_ticket_batched_kernel<1024><<<n * cpl, 1024, 0, s>>>(b);
+  grid_out[2] = 0;
+  for (int lo = 0; lo < n; lo += kMaxLanes) {
+    const int k = n - lo < kMaxLanes ? n - lo : kMaxLanes;
+    ScanFill f = {};
+    for (int l = 0; l < k; ++l) {
+      const long long* w = words + static_cast<size_t>(lo + l) * width;
+      ScanLane& L = b.lane[l];
+      L.keys = reinterpret_cast<const int*>(w[0]);
+      L.todo = reinterpret_cast<int*>(w[1]);
+      L.tkeys = reinterpret_cast<int*>(w[2]);
+      L.ttks = reinterpret_cast<int*>(w[3]);
+      L.kbt = reinterpret_cast<int*>(w[4]);
+      L.count = reinterpret_cast<int*>(w[5]);
+      L.info = reinterpret_cast<int*>(w[6]);
+      L.scratch = reinterpret_cast<int*>(w[7]);
+      L.out = reinterpret_cast<int*>(w[8]);
+      L.overflowed = reinterpret_cast<unsigned char*>(w[9]);
+      L.C = static_cast<int>(w[10]);
+      L.G = static_cast<int>(w[11]);
+      L.threshold = static_cast<int>(w[12]);
+      L.bound_slack = static_cast<int>(w[13]);
+      for (int j = 0; j < num_specs; ++j) L.acc[j] = reinterpret_cast<float*>(w[kLaneWords + j]);
+      for (int j = 0; j < num_values; ++j) {
+        L.val[j] = reinterpret_cast<const float*>(w[kLaneWords + num_specs + j]);
+      }
+      f.scratch[l] = L.scratch;
+      f.count[l] = L.count;
+    }
+    b.n = f.n = k;
+    int cpl = sms * per_sm / k;
+    if (cpl > npm) cpl = npm;
+    if (cpl < 1) cpl = 1;
+    b.cpl = cpl;
+    grid_out[0] = k * cpl;
+    grid_out[1] = cpl;
+    scan_fill_batched_kernel<<<1, kMaxLanes * kScratch, 0, s>>>(f);
+#define SCAN_BATCHED(T)                                                   \
+  if (fold) {                                                             \
+    scan_ticket_batched_kernel<T, true><<<k * cpl, T, smem, s>>>(b);      \
+  } else {                                                                \
+    scan_ticket_batched_kernel<T, false><<<k * cpl, T, 0, s>>>(b);        \
   }
-  return static_cast<int>(cudaGetLastError());
+    if (threads == 256) {
+      SCAN_BATCHED(256)
+    } else if (threads == 512) {
+      SCAN_BATCHED(512)
+    } else {
+      SCAN_BATCHED(1024)
+    }
+#undef SCAN_BATCHED
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++grid_out[2];
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 const char* fused_groupby_error_string(int err) {

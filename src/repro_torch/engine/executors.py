@@ -642,17 +642,26 @@ def batch_signature(plan: GroupByPlan):
     )
 
 
+def read_round_info(info) -> list:
+    """A batched round's one blocking read: every lane's info row."""
+    return info.tolist()
+
+
 def consume_batched(executors, chunks) -> None:
-    """Consume ``chunks[i]`` into ``executors[i]`` with ONE ticket launch
-    for the round.  Every executor comes from a plan of the SAME
-    ``batch_signature`` (the scheduler guarantees it).
+    """Consume ``chunks[i]`` into ``executors[i]`` with ONE
+    ``scan_ticket_batched`` call for the round.  Every executor comes from
+    a plan of the SAME ``batch_signature`` (the scheduler guarantees it).
 
     Each lane is staged as its solo consume stages it (key column,
-    morsels), the ticket stage of every lane runs in one
-    ``scan_ticket_batched`` call, and each lane then folds its tickets
-    through its own update, plane by plane.  A checked round reads the
-    lanes' info rows once; a lane that paused or overflowed resolves
-    through its operator's own ``poll``.  A lane already poisoned by an
+    morsels).  With the signature's update ``"scatter"`` (the default)
+    the call tickets AND folds every lane's committed morsels into its
+    accumulators, as the reference's ``_batched_consume`` does in one
+    dispatch: the round makes no update call of its own.  With the other
+    updates the call tickets every lane, and each lane then folds its
+    tickets through its own update, plane by plane.  A checked round
+    reads the lanes' info rows once; a lane that paused or overflowed
+    resolves through its operator's own ``poll`` (whose replay of the
+    morsels left todo folds them).  A lane already poisoned by an
     overflow is skipped, as its solo consume skips it.  The fast path needs
     the round's chunks to share a row count and carry no ``__mask__``;
     other rounds consume lane by lane.  Each lane's result is its solo
@@ -675,20 +684,25 @@ def consume_batched(executors, chunks) -> None:
         return
     ops = [op for op, _ in live]
     staged = [op.scan_morsels(chunk) for op, chunk in live]
-    keys = torch.stack([km for km, _ in staged])
-    todo = torch.ones(keys.shape[:2], dtype=torch.int32, device=keys.device)
+    npm, dev = staged[0][0].shape[0], staged[0][0].device
+    todo = torch.ones((len(ops), npm), dtype=torch.int32, device=dev)
     bounds = [op._table.max_groups for op in ops]
     rooms = [op.room() for op in ops]
     checked = ops[0].check_overflow
-    tickets, info = fk.scan_ticket_batched(
-        [op._table for op in ops], keys, todo, checked=checked,
-        thresholds=[r[0] for r in rooms], bound_slacks=[r[1] for r in rooms],
-    )
-    for i, (op, (_, vm)) in enumerate(zip(ops, staged)):
-        op.update_planes(tickets[i], vm)
+    room = dict(checked=checked, thresholds=[r[0] for r in rooms],
+                bound_slacks=[r[1] for r in rooms])
+    tables, keys = [op._table for op in ops], [km for km, _ in staged]
+    if ops[0].update == "scatter":  # ticket and fold in the one call
+        _, info = fk.scan_ticket_batched(
+            tables, keys, todo, states=[op._state for op in ops],
+            values=[vm for _, vm in staged], specs=ops[0]._state.specs, **room)
+    else:
+        tickets, info = fk.scan_ticket_batched(tables, keys, todo, **room)
+        for i, (op, (_, vm)) in enumerate(zip(ops, staged)):
+            op.update_planes(tickets[i], vm)
     if not checked:
         return
-    rows = info.tolist()  # the round's one blocking read
+    rows = read_round_info(info)  # the round's one blocking read
     for i, (op, (km, vm)) in enumerate(zip(ops, staged)):
         if rows[i][fk.INFO_HALTED] or rows[i][fk.INFO_COUNT] > bounds[i]:
             op.poll([km, vm, todo[i], info[i:i + 1], bounds[i]])

@@ -41,22 +41,27 @@ other row.  Its plain version is
 per-morsel step of the plain version is the scan route's own
 ``engine.groupby.make_pause_scan_body``.
 
-:func:`scan_ticket_batched` is the serving layer's ticket stage: N lanes,
-each one query's chunk against that query's table, in one launch of
+:func:`scan_ticket_batched` is the serving layer's round: N lanes, each
+one query's chunk against that query's table, in one launch of
 ``scan_ticket_batched_kernel`` (the same per-CTA body, each lane's CTAs on
-its own table) with one ``(N, INFO_LEN)`` info tensor; its plain version
-runs :func:`scan_ticket_plain` lane by lane.
+its own table) with one ``(N, INFO_LEN)`` info tensor.  Given the lanes'
+accumulator states it also folds every committed morsel into them (fold
+mode, the reference's ``_batched_consume``: ticket and update in one
+dispatch); without them it returns the tickets.  Its plain version runs
+:func:`scan_ticket_plain`, and then the scatter update, lane by lane.
 """
 from __future__ import annotations
 
+import array
 import ctypes
-from typing import NamedTuple, Sequence
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import resize
 from repro_torch.core import ticketing as tk
+from repro_torch.core import updates as up
 from repro_torch.core.hashing import EMPTY_I32, table_capacity, to_i32_bits
 from repro_torch.engine.groupby import make_pause_scan_body, make_unchecked_scan_body
 from repro_torch.obs import metrics as obs_metrics
@@ -381,7 +386,7 @@ def _kernel_library() -> ctypes.CDLL:
         scan.argtypes = [ptr] * 11 + [i32] * 10 + [ints, ptr]
         scan.restype = ctypes.c_int
         batched = lib.scan_ticket_batched_launch
-        batched.argtypes = [ptr] + [i32] * 5 + [ints, ptr]
+        batched.argtypes = [ptr] + [i32] * 3 + [ptr] * 2 + [i32] * 4 + [ints, ptr]
         batched.restype = ctypes.c_int
     return lib
 
@@ -640,126 +645,177 @@ def scan_ticket_plain(
 MAX_BATCH_LANES = 32  # lanes one batched launch takes (csrc kMaxLanes)
 
 
-class _ScanLane(ctypes.Structure):
-    """One lane's descriptor (csrc ``ScanLane``): ten pointers, four ints."""
-
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "keys", "todo", "tkeys", "ttks", "kbt", "count", "info", "scratch", "out",
-        "overflowed")] + [(name, ctypes.c_int) for name in (
-            "C", "G", "threshold", "bound_slack")]
-
-
 def scan_ticket_batched(
     tables: Sequence[tk.TicketTable],
-    keys: torch.Tensor,    # (N, npm, M) int32, EMPTY_I32-padded
+    keys,                  # N (npm, M) int32 tensors, EMPTY_I32-padded (an (N, npm, M) one)
     todo: torch.Tensor,    # (N, npm) int32 — 1: morsel still to commit
     *,
     thresholds: Sequence[int],
     bound_slacks: Sequence[int],
     checked: bool = True,
+    states: Sequence[up.AggState] | None = None,
+    values: Sequence[Mapping[str, torch.Tensor]] | None = None,
+    specs: tuple | None = None,
 ):
     """:func:`scan_ticket` over N lanes at once (never under a GROW bound,
-    which no batched plan has): lane ``i`` is
-    ``keys[i]`` against ``tables[i]`` with ``todo[i]`` and the room check
+    which no batched plan has): lane ``i`` is ``keys[i]`` (each lane's own
+    staged tensor; nothing is stacked) against ``tables[i]`` with
+    ``todo[i]`` and the room check
     ``(thresholds[i], bound_slacks[i])``, each table and todo row updated in
     place exactly as a solo :func:`scan_ticket` call updates them (no event
-    counts).  Returns ``(tickets, info)``: tickets ``(N, npm, M)`` and ONE
-    ``(N, INFO_LEN)`` info tensor, so a single read resolves the round.
+    counts).
+
+    Without ``states`` it returns ``(tickets, info)``: tickets ``(N, npm,
+    M)`` and ONE ``(N, INFO_LEN)`` info tensor, so a single read resolves
+    the round.  With ``states`` (each lane's :class:`~repro_torch.core.
+    updates.AggState`, its ``(G,)`` float32 planes updated IN PLACE),
+    ``values`` (each lane's staged ``{column: (npm, M) float32}`` planes)
+    and ``specs`` (the lanes' common ``AggState.specs``; default the first
+    lane's) it also folds, as ``update_agg_state`` with ``scatter_update``
+    folds, every committed morsel's rows into its lane's planes, and
+    returns ``(None, info)``: a morsel that pauses, or saturates under
+    ``checked``, folds nothing and stays todo.
 
     CUDA tensors launch ``scan_ticket_batched_kernel`` of
-    ``csrc/fused_groupby.cu``, one launch per :data:`MAX_BATCH_LANES` lanes
-    (counted in ``scan_ticket_batched.launches``; grid of the latest in
-    ``scan_ticket_batched.grid``), and raise if they cannot; each lane has
-    :func:`scan_ticket`'s contract.  CPU tensors run
-    :func:`scan_ticket_batched_plain`, one :func:`scan_ticket_plain` per
-    lane."""
-    if keys.device.type == "cpu":
+    ``csrc/fused_groupby.cu`` (fold mode with ``states``), one launch per
+    :data:`MAX_BATCH_LANES` lanes, each counted in
+    ``scan_ticket_batched.launches`` (grid of the latest in
+    ``scan_ticket_batched.grid``), and raise if they cannot, before any
+    lane changes; each lane has :func:`scan_ticket`'s contract.  CPU
+    tensors run :func:`scan_ticket_batched_plain`, lane by lane."""
+    if todo.device.type == "cpu":
         return scan_ticket_batched_plain(tables, keys, todo, thresholds=thresholds,
-                                         bound_slacks=bound_slacks, checked=checked)
+                                         bound_slacks=bound_slacks, checked=checked,
+                                         states=states, values=values, specs=specs)
     return launch_scan_ticket_batched(prepare_scan_ticket_batched(
         tables, keys, todo, thresholds=thresholds, bound_slacks=bound_slacks,
-        checked=checked))
+        checked=checked, states=states, values=values, specs=specs))
+
+
+def _bad_tensor(t, dtype, dev) -> bool:
+    return t.dtype != dtype or t.device != dev or not t.is_contiguous()
 
 
 def prepare_scan_ticket_batched(tables, keys, todo, *, thresholds, bound_slacks,
-                                checked=True):
+                                checked=True, states=None, values=None, specs=None):
     """The host work of one :func:`scan_ticket_batched` call on CUDA
-    tensors: the checks, the tickets, one allocation holding every lane's
-    info row and launch scratch (filled on the card), and the lane
-    descriptors, one array per launch.  :func:`launch_scan_ticket_batched`
-    runs the launches on it; the two split the call to time them apart."""
-    dev = keys.device
+    tensors: the checks, the tickets (ticket mode), one allocation holding
+    every lane's info row and launch scratch (filled on the card), and the
+    lane descriptors as one array of 64-bit words.  What the signature
+    makes equal across lanes (the specs, the round's shape, todo's dtype
+    and device) is checked once; each lane's own tensors once each.
+    :func:`launch_scan_ticket_batched` runs the launches on it; the two
+    split the call to time them apart."""
+    dev = todo.device
     if dev.type != "cuda":
         raise ValueError(f"scan_ticket_batched runs on cuda or cpu tensors, not {dev}")
     n = len(tables)
-    if (keys.dim() != 3 or keys.shape[0] != n or tuple(todo.shape) != keys.shape[:2]
-            or len(thresholds) != n or len(bound_slacks) != n or n == 0):
-        raise ValueError(f"keys {tuple(keys.shape)} / todo {tuple(todo.shape)} are not "
-                         f"(N, npm, M) / (N, npm) for N = {n} tables and room checks")
-    for t, dtype in ((keys, torch.int32), (todo, torch.int32)):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"scan_ticket_batched takes contiguous {dtype} tensors on {dev}, "
-                             f"got {t.dtype} on {t.device}")
-    for t in tables:
-        for a, dtype in zip(t[:4], (torch.int32,) * 4):
-            if a.device != dev or a.dtype != dtype or not a.is_contiguous():
-                raise ValueError(f"a TicketTable of scan_ticket_batched holds {a.dtype} on "
-                                 f"{a.device}, not contiguous {dtype} on {dev}")
-        C = t.capacity
-        if (C & (C - 1) or tuple(t.tickets.shape) != (C,) or t.count.numel() != 1
-                or t.overflowed.numel() != 1 or t.overflowed.dtype != torch.bool
-                or t.overflowed.device != dev):
-            raise ValueError("inconsistent TicketTable shapes")
+    if todo.dim() != 2 or n == 0 or todo.shape[0] != n or _bad_tensor(todo, torch.int32, dev):
+        raise ValueError(f"todo {tuple(todo.shape)} is not a contiguous int32 (N, npm) on "
+                         f"{dev} for N = {n} tables")
+    npm = todo.shape[1]
+    if len(keys) != n:
+        raise ValueError(f"{len(keys)} key tensors for N = {n} tables")
+    M = keys[0].shape[1] if keys[0].dim() == 2 else -1
+    key_ptrs = []
+    for k in keys:
+        if tuple(k.shape) != (npm, M) or _bad_tensor(k, torch.int32, dev):
+            raise ValueError(f"a lane's keys {tuple(k.shape)} are not contiguous int32 "
+                             f"(npm, M) = ({npm}, {M}) on {dev}")
+        key_ptrs.append(k.data_ptr())
+    if len(thresholds) != n or len(bound_slacks) != n:
+        raise ValueError(f"{len(thresholds)} thresholds / {len(bound_slacks)} slacks for "
+                         f"N = {n} tables")
     for v in (*thresholds, *bound_slacks):
         if not -_INT32_MAX <= v <= _INT32_MAX:
             raise ValueError(f"room check {v} does not fit int32")
-    _, npm, M = keys.shape
+    fold = states is not None
+    if fold:
+        specs = tuple(states[0].specs if specs is None else specs)
+        cols = sorted({c for c, _ in specs if c is not None})
+        plane_of = [-1 if c is None or k == "count" else cols.index(c) for c, k in specs]
+        kinds = [_KIND_CODE.get(k, -1) for _, k in specs]
+        if not 1 <= len(specs) <= MAX_SPECS or -1 in kinds:
+            raise ValueError(f"fold mode takes 1..{MAX_SPECS} specs of kinds "
+                             f"{tuple(_KIND_CODE)}, got {specs}")
+        if values is None or len(values) != n or len(states) != n:
+            raise ValueError(f"{len(states)} states / {values and len(values)} value sets for "
+                             f"N = {n} tables")
+        if M > MAX_MORSEL_ROWS:
+            raise ValueError(f"morsel of {M} rows exceeds fold mode's {MAX_MORSEL_ROWS}")
+    words = []
+    for i, t in enumerate(tables):
+        for a in t[:4]:
+            if _bad_tensor(a, torch.int32, dev):
+                raise ValueError(f"a TicketTable of scan_ticket_batched holds {a.dtype} on "
+                                 f"{a.device}, not contiguous int32 on {dev}")
+        C, G = t.capacity, t.max_groups
+        if (C & (C - 1) or t.tickets.numel() != C or t.count.numel() != 1
+                or t.overflowed.numel() != 1 or t.overflowed.dtype != torch.bool
+                or t.overflowed.device != dev):
+            raise ValueError("inconsistent TicketTable shapes")
+        words += (key_ptrs[i], 0, t.keys.data_ptr(), t.tickets.data_ptr(),
+                  t.key_by_ticket.data_ptr(), t.count.data_ptr(), 0, 0, 0,
+                  t.overflowed.data_ptr(), C, G, int(thresholds[i]), int(bound_slacks[i]))
+        if fold:
+            accs, vm = states[i].accs, values[i]
+            if len(accs) != len(specs):
+                raise ValueError(f"lane {i} holds {len(accs)} planes for {len(specs)} specs")
+            for a in accs:
+                if a.numel() != G or _bad_tensor(a, torch.float32, dev):
+                    raise ValueError(f"lane {i}: an accumulator plane is not a contiguous "
+                                     f"float32 ({G},) on {dev}")
+                words.append(a.data_ptr())
+            for c in cols:
+                v = vm[c]
+                if tuple(v.shape) != (npm, M) or _bad_tensor(v, torch.float32, dev):
+                    raise ValueError(f"lane {i}: value plane {c!r} is not a contiguous "
+                                     f"float32 ({npm}, {M}) on {dev}")
+                words.append(v.data_ptr())
     aux = torch.empty((n * (INFO_LEN + _SCAN_SCRATCH),), dtype=torch.int32, device=dev)
     info = aux[: n * INFO_LEN].view(n, INFO_LEN)
     if npm == 0:  # no morsel: nothing to launch, nothing todo
         info[:, INFO_COUNT] = torch.stack([t.count.reshape(()) for t in tables])
         info[:, INFO_FIRST_HALT:] = torch.tensor([NO_HALT, 0, 0], dtype=torch.int32)
-        return keys.new_empty(keys.shape), info, [], ()
-    tickets = torch.empty((n, npm, M), dtype=torch.int32, device=dev)
-    scratch = aux[n * INFO_LEN:].view(n, _SCAN_SCRATCH)
-    rows, lane_bytes = npm * M * 4, npm * 4
-    descs = []
-    for i, t in enumerate(tables):
-        descs.append(_ScanLane(
-            keys.data_ptr() + i * rows, todo.data_ptr() + i * lane_bytes,
-            t.keys.data_ptr(), t.tickets.data_ptr(), t.key_by_ticket.data_ptr(),
-            t.count.data_ptr(), info[i].data_ptr(), scratch[i].data_ptr(),
-            tickets.data_ptr() + i * rows, t.overflowed.data_ptr(),
-            t.capacity, t.max_groups, int(thresholds[i]), int(bound_slacks[i]),
-        ))
-    launches = []
-    for lo in range(0, n, MAX_BATCH_LANES):
-        part = descs[lo:lo + MAX_BATCH_LANES]
-        launches.append(((_ScanLane * len(part))(*part), len(part)))
-    args = (npm, M, int(checked))
-    # the tensors behind the pointers stay referenced until the launch
-    return tickets, info, [(arr, k) + args for arr, k in launches], (aux, keys, todo, tables)
+        return (None if fold else todo.new_empty((n, 0, M))), info, None, ()
+    tickets = None if fold else torch.empty((n, npm, M), dtype=torch.int32, device=dev)
+    # the per-lane pointers into the round's shared tensors
+    width = len(words) // n
+    base_info, base_scratch = aux.data_ptr(), aux.data_ptr() + 4 * n * INFO_LEN
+    for i in range(n):
+        w = i * width
+        words[w + 1] = todo.data_ptr() + 4 * i * npm
+        words[w + 6] = base_info + 4 * INFO_LEN * i
+        words[w + 7] = base_scratch + 4 * _SCAN_SCRATCH * i
+        if not fold:
+            words[w + 8] = tickets.data_ptr() + 4 * i * npm * M
+    words = array.array("q", words)
+    planes = array.array("i", plane_of if fold else [0])
+    kinds = array.array("i", kinds if fold else [0])
+    args = (words.buffer_info()[0], n, len(specs) if fold else 0, len(cols) if fold else 0,
+            planes.buffer_info()[0], kinds.buffer_info()[0], npm, M, int(checked))
+    # the arrays and tensors behind the pointers stay referenced until the launch
+    return tickets, info, args, (words, planes, kinds, aux, keys, todo, tables, states, values)
 
 
 def launch_scan_ticket_batched(call):
     """Launch the kernel on :func:`prepare_scan_ticket_batched`'s call on
     the current stream, one launch per :data:`MAX_BATCH_LANES` lanes (each
     counted), and return :func:`scan_ticket_batched`'s ``(tickets,
-    info)``.  Raises if the kernel cannot be built or launched."""
-    tickets, info, launches, _ = call
-    if not launches:
+    info)``.  Raises if the kernel cannot be built or launched; every
+    lane is checked before the first launch."""
+    tickets, info, args, _ = call
+    if args is None:
         return tickets, info
-    grid = (ctypes.c_int * 2)()
+    grid = (ctypes.c_int * 3)()
     lib = _kernel_library()
-    stream = torch.cuda.current_stream(tickets.device).cuda_stream
-    for arr, n, npm, M, checked in launches:
-        err = lib.scan_ticket_batched_launch(ctypes.addressof(arr), n, npm, M, checked,
-                                             SCAN_BLOCK_THREADS, grid, stream)
-        if err != 0:
-            raise RuntimeError("scan_ticket_batched kernel launch failed: "
-                               + lib.fused_groupby_error_string(err).decode())
-        scan_ticket_batched.launches += 1
-        scan_ticket_batched.grid = (grid[0], grid[1])
+    err = lib.scan_ticket_batched_launch(*args, SCAN_BLOCK_THREADS, grid,
+                                         torch.cuda.current_stream(info.device).cuda_stream)
+    scan_ticket_batched.launches += grid[2]
+    if err != 0:
+        raise RuntimeError("scan_ticket_batched kernel launch failed: "
+                           + lib.fused_groupby_error_string(err).decode())
+    scan_ticket_batched.grid = (grid[0], grid[1])
     return tickets, info
 
 
@@ -768,17 +824,29 @@ scan_ticket_batched.grid = None   # (CTAs, CTAs a lane) of the latest launch
 
 
 def scan_ticket_batched_plain(tables, keys, todo, *, thresholds, bound_slacks,
-                              checked=True):
+                              checked=True, states=None, values=None, specs=None):
     """The plain version of :func:`scan_ticket_batched`, on any device, with
     its signature and in-place updates: one :func:`scan_ticket_plain` per
-    lane, in lane order."""
-    outs = [
-        scan_ticket_plain(t, keys[i], todo[i], checked=checked,
-                          threshold=int(thresholds[i]), bound_slack=int(bound_slacks[i]))
-        for i, t in enumerate(tables)
-    ]
-    tickets = torch.stack([o[0] for o in outs]) if outs else keys.new_empty(keys.shape)
-    info = torch.cat([o[1] for o in outs]) if outs else keys.new_empty((0, INFO_LEN))
+    lane, in lane order, and with ``states`` each lane's
+    ``update_agg_state`` with ``scatter_update`` over its tickets right
+    after (the scan operator's own update stage, so a folding round equals
+    N solo chunks bit for bit).  Each lane's planes follow its own
+    ``AggState.specs``, which the batch signature makes the round's
+    ``specs``."""
+    outs = []
+    for i, t in enumerate(tables):
+        tickets, info = scan_ticket_plain(t, keys[i], todo[i], checked=checked,
+                                          threshold=int(thresholds[i]),
+                                          bound_slack=int(bound_slacks[i]))
+        if states is not None:
+            up.update_agg_state(states[i], tickets.reshape(-1),
+                                {c: v.reshape(-1) for c, v in values[i].items()},
+                                up.scatter_update)
+        outs.append((tickets, info))
+    info = torch.cat([o[1] for o in outs]) if outs else todo.new_empty((0, INFO_LEN))
+    if states is not None:
+        return None, info
+    tickets = torch.stack([o[0] for o in outs]) if outs else todo.new_empty((0, 0, 0))
     return tickets, info
 
 

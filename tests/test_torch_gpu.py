@@ -1269,3 +1269,305 @@ def test_serve_on_the_card_batched_matches_solo(cuda):
                 0, torch.searchsorted(out["key"][:n][order], k.long()), v.abs())
             assert bool(((out["sum(v)"][:n][order] - want["sum(v)"][:wn][worder]).abs()
                          <= tol).all())
+
+
+# -- the folding round: ticket and update in one launch ------------------------------
+
+_FOLD_KINDS = ("sum", "count", "min", "max")
+
+
+def _fold_specs(S):
+    """S deduplicated (column, kind) specs over ceil(S / 4) value columns."""
+    return tuple((f"v{j // 4}", _FOLD_KINDS[j % 4]) for j in range(S))
+
+
+def _fold_pair(km, lanes, vals, specs, todo=None, **kw):
+    """Fold mode of scan_ticket_batched and its plain version on copies of
+    the same lanes, each into fresh accumulators: (tables, states, todo,
+    info) each, kernel first.  ``vals`` (N, npm, M, V)."""
+    from repro_torch.core import updates as up
+
+    out = []
+    for fn in (fk.scan_ticket_batched, fk.scan_ticket_batched_plain):
+        tables = [tk.TicketTable(*(x.clone() for x in t)) for t, _, _ in lanes]
+        states = [up.init_agg_state(specs, t.max_groups, device=km.device) for t in tables]
+        values = [{f"v{c}": vals[i, :, :, c].contiguous() for c in range(vals.shape[3])}
+                  for i in range(km.shape[0])]
+        lane_todo = (torch.ones(km.shape[:2], dtype=torch.int32, device=km.device)
+                     if todo is None else todo.clone())
+        tickets, info = fn(tables, list(km), lane_todo, thresholds=[th for _, th, _ in lanes],
+                           bound_slacks=[b for _, _, b in lanes], states=states, values=values,
+                           specs=specs, **kw)
+        assert tickets is None
+        out.append((tables, states, lane_todo, info))
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_fold_map(keys, vals, table, state, specs, rows=None):
+    """One lane's table and planes against an oracle over its rows (all,
+    or the morsels of ``rows``): gap-free tickets naming their slots'
+    keys, and per ticket below G its key's COUNT / MIN / MAX exact and
+    SUM within 1e-4 of its Σ|v| (a fold of exactly that key's rows)."""
+    if rows is not None:
+        keys, vals = keys[rows], vals[rows]
+    keys, vals = keys.reshape(-1), vals.reshape(-1, vals.shape[-1])
+    live = keys != -1
+    keys, vals = keys[live].long() & 0xFFFFFFFF, vals[live]
+    n, g = int(table.count), table.max_groups
+    t = table.tickets[table.tickets > 0]
+    assert torch.equal(torch.sort(t).values.cpu(), torch.arange(1, n + 1, dtype=torch.int32))
+    kb = table.key_by_ticket[:min(n, g)].long() & 0xFFFFFFFF
+    uk, inv = torch.unique(keys, return_inverse=True)
+    idx = torch.searchsorted(uk, kb)
+    assert bool((idx < uk.numel()).all()) and torch.equal(uk[idx.clamp(max=uk.numel() - 1)], kb)
+    if rows is None:
+        assert uk.numel() == n
+    for (col, kind), acc in zip(specs, state.accs):
+        v = vals[:, int(col[1:])]
+        got = acc[:min(n, g)]
+        if kind == "count":
+            want = torch.zeros(uk.numel(), device=v.device).index_add_(0, inv, torch.ones_like(v))
+        elif kind == "sum":
+            want = torch.zeros(uk.numel(), dtype=torch.float64, device=v.device).index_add_(
+                0, inv, v.double())
+            scale = torch.zeros_like(want).index_add_(0, inv, v.double().abs())
+            assert bool(((got.double() - want[idx]).abs() <= 1e-4 * scale[idx]).all()), col
+            continue
+        else:
+            want = torch.full((uk.numel(),), float("inf" if kind == "min" else "-inf"),
+                              device=v.device).scatter_reduce_(
+                0, inv, v, "amin" if kind == "min" else "amax")
+        assert torch.equal(got, want[idx]), (col, kind)
+        neutral = {"count": 0.0, "min": float("inf"), "max": float("-inf")}[kind]
+        assert bool((acc[min(n, g):] == neutral).all()), (col, kind)
+
+
+def _fold_lanes(cuda, n_lanes, S, cards, seed, rows=16 * 4096):
+    km, lanes = _batched_lanes(cuda, n_lanes, rows, seed, cards=cards)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    vals = torch.randn((*km.shape, -(-S // 4)), generator=gen, device=cuda)
+    return km, lanes, vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_lanes,S,cards", [
+    (3, 1, (1000, 30000, 300)),   # device atomics (G up to 30064)
+    (3, 16, (1000,)),             # device atomics (16 × 1064 floats past the shared cap)
+    (16, 4, (1000,)),             # serve_low's shape: the shared (S, G) plane
+    (16, 16, (300,)),             # the shared plane at S = 16
+    (32, 16, (300, 1000)),        # 32 lanes × 16 planes in one launch's parameters
+    (33, 1, (1000, 300)),         # two launches
+])
+def test_scan_ticket_batched_fold_matches_plain(cuda, n_lanes, S, cards):
+    """Fold mode against its plain version as maps: per lane the same info
+    row, the same count and key set, and every plane's fold of its keys'
+    rows (COUNT / MIN / MAX exact, SUM within 1e-4·Σ|v|), in
+    ⌈N / 32⌉ launches."""
+    km, lanes, vals = _fold_lanes(cuda, n_lanes, S, cards, 81 + n_lanes + S)
+    specs = _fold_specs(S)
+    before = fk.scan_ticket_batched.launches
+    (ktab, kst, ktodo, kinfo), (ptab, pst, _, pinfo) = _fold_pair(km, lanes, vals, specs)
+    assert fk.scan_ticket_batched.launches - before == -(-n_lanes // fk.MAX_BATCH_LANES)
+    assert torch.equal(kinfo, pinfo) and not bool(ktodo.any())
+    for i in range(n_lanes):
+        _assert_fold_map(km[i], vals[i], ktab[i], kst[i], specs)
+        _assert_fold_map(km[i], vals[i], ptab[i], pst[i], specs)
+        n = int(ktab[i].count)
+        assert torch.equal(torch.sort(ktab[i].key_by_ticket[:n]).values,
+                           torch.sort(ptab[i].key_by_ticket[:n]).values), i
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_fold_saturating_lane_folds_nothing_then_replays(cuda):
+    """Checked, no pause (threshold past C): lane 1 brings 3000 keys to a
+    2048-slot table, so the morsels that meet a full table saturate.  Each
+    of them folds nothing and stays todo (its inserts stay); the morsels
+    that commit fold exactly their rows.  Migrating the table to 8192
+    slots and running the todo morsels again (what ``poll`` does) gives
+    the whole chunk's map; the other lanes are untouched by it."""
+    km, lanes, vals = _fold_lanes(cuda, 3, 4, (500,), 91)
+    km[1] = (torch.arange(km[1].numel(), device=cuda, dtype=torch.int32) % 3000).reshape(
+        km[1].shape)[:, torch.randperm(4096, device=cuda)]
+    t1 = tk.make_table(2048, 4096, device=cuda)
+    lanes[1] = (t1, 1 << 30, 0)
+    lanes = [(t, 1 << 30, b) for t, _, b in lanes]
+    specs = _fold_specs(4)
+    (ktab, kst, ktodo, kinfo), _ = _fold_pair(km, lanes, vals, specs)
+    left = ktodo[1].bool()
+    assert bool(left.any()) and not bool(ktodo[0].any() or ktodo[2].any())
+    assert kinfo[1, fk.INFO_SAT] == 1 and kinfo[1, fk.INFO_HALTED] == 1
+    assert kinfo[1, fk.INFO_FIRST_HALT] == int(left.nonzero()[0])
+    committed = (~left).nonzero().reshape(-1)
+    if committed.numel():
+        # the committed morsels' rows alone: their keys' tickets stay, so
+        # compare group by group over those rows only
+        sub = tk.TicketTable(*(x.clone() for x in ktab[1]))
+        _assert_fold_subset(km[1], vals[1], sub, kst[1], specs, committed)
+    else:
+        assert all(bool((a == a[0]).all()) for a in kst[1].accs)
+    for i in (0, 2):
+        _assert_fold_map(km[i], vals[i], ktab[i], kst[i], specs)
+    ktab[1] = resize.migrate(ktab[1], 8192)
+    todo = ktodo[1:2].clone()
+    values = [{"v0": vals[1, :, :, 0].contiguous()}]
+    _, info = fk.scan_ticket_batched([ktab[1]], [km[1]], todo, thresholds=[1 << 30],
+                                     bound_slacks=[0], states=[kst[1]], values=values,
+                                     specs=specs)
+    torch.cuda.synchronize()
+    assert not bool(todo.any()) and info[0, fk.INFO_HALTED] == 0
+    _assert_fold_map(km[1], vals[1], ktab[1], kst[1], specs)
+
+
+def _assert_fold_subset(keys, vals, table, state, specs, morsels):
+    """The planes hold the fold of exactly the rows of ``morsels``: each
+    ticket's key, over those rows only (keys that only the saturated
+    morsels brought keep neutral planes)."""
+    rows = keys[morsels].reshape(-1)
+    rv = vals[morsels].reshape(-1, vals.shape[-1])
+    live = rows != -1
+    rows, rv = rows[live].long(), rv[live]
+    n = min(int(table.count), table.max_groups)
+    kb = table.key_by_ticket[:n].long()
+    for (col, kind), acc in zip(specs, state.accs):
+        v = rv[:, int(col[1:])]
+        hit = rows[None, :] == kb[:, None]          # (n, rows): a few MB at most
+        if kind == "count":
+            want = hit.sum(1).float()
+            assert torch.equal(acc[:n], want), kind
+        elif kind == "sum":
+            want = (hit * v.double()[None, :]).sum(1)
+            scale = (hit * v.double().abs()[None, :]).sum(1)
+            assert bool(((acc[:n].double() - want).abs() <= 1e-4 * scale).all()), kind
+        else:
+            fill = float("inf") if kind == "min" else float("-inf")
+            masked = torch.where(hit, v[None, :], torch.full_like(v[None, :], fill))
+            want = masked.amin(1) if kind == "min" else masked.amax(1)
+            assert torch.equal(acc[:n], want), kind
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_fold_raise_round_with_one_lane_past_g(cuda):
+    """RAISE: lane 2 takes 3000 keys against G = 1024 in a table with room
+    (no pause).  Every morsel commits; only lane 2's count passes G and
+    only its overflow flag is set; its tickets past G fold nothing, and
+    every ticket below G holds its key's whole fold."""
+    km, lanes, vals = _fold_lanes(cuda, 6, 4, (500,), 92, rows=8 * 4096)
+    lanes = [(tk.make_table(table_capacity(1024), 1024, device=cuda), 1024, 1024 - 4096)
+             for _ in range(6)]
+    km[2] = (torch.arange(km[2].numel(), device=cuda, dtype=torch.int32) % 3000).reshape(
+        km[2].shape)
+    lanes[2] = (tk.make_table(8192, 1024, device=cuda), 4096, 1024 - 4096)
+    specs = _fold_specs(4)
+    (ktab, kst, ktodo, kinfo), (ptab, pst, _, pinfo) = _fold_pair(km, lanes, vals, specs)
+    assert torch.equal(kinfo, pinfo) and not bool(ktodo.any())
+    over = (kinfo[:, fk.INFO_COUNT] > 1024).tolist()
+    assert over == [i == 2 for i in range(6)]
+    assert [bool(t.overflowed) for t in ktab] == over == [bool(t.overflowed) for t in ptab]
+    for i in range(6):
+        _assert_fold_map(km[i], vals[i], ktab[i], kst[i], specs)
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_fold_unchecked_round(cuda):
+    """Unchecked: lane 0's 1024-slot table meets 4096 keys, so rows not
+    placed in C probes fold nothing, and every morsel still commits; the
+    placed keys hold their whole folds, and the other lanes match the
+    plain version."""
+    km, lanes, vals = _fold_lanes(cuda, 4, 4, (700,), 93, rows=4 * 4096)
+    km[0] = torch.randperm(km[0].numel(), device=cuda).to(torch.int32).reshape(
+        km[0].shape) % 4096
+    lanes[0] = (tk.make_table(1024, 4096, device=cuda), 512, 0)
+    specs = _fold_specs(4)
+    (ktab, kst, ktodo, kinfo), (ptab, pst, _, pinfo) = _fold_pair(km, lanes, vals, specs,
+                                                                   checked=False)
+    assert not bool(ktodo.any()) and int(ktab[0].count) == 1024
+    assert torch.equal(kinfo[1:], pinfo[1:]) and kinfo[0, fk.INFO_HALTED] == 0
+    _assert_fold_subset(km[0], vals[0], ktab[0], kst[0], specs,
+                        torch.arange(km.shape[1], device=cuda))
+    for i in range(1, 4):
+        _assert_fold_map(km[i], vals[i], ktab[i], kst[i], specs)
+
+
+@pytest.mark.gpu
+def test_scan_ticket_batched_fold_failed_launch_leaves_every_lane(cuda, monkeypatch):
+    """A launch that cannot run (no kernel of 96 threads) raises before
+    any lane changes: every table, accumulator and todo row stays as it
+    was, across the 33 lanes of two launches, and nothing runs on the
+    host instead."""
+    from repro_torch.core import updates as up
+
+    km, lanes, vals = _fold_lanes(cuda, 33, 4, (1000,), 94, rows=2 * 4096)
+    specs = _fold_specs(4)
+    tables = [t for t, _, _ in lanes]
+    states = [up.init_agg_state(specs, t.max_groups, device=cuda) for t in tables]
+    copies = [tk.TicketTable(*(x.clone() for x in t)) for t in tables]
+    accs = [[a.clone() for a in s.accs] for s in states]
+    todo = torch.ones(km.shape[:2], dtype=torch.int32, device=cuda)
+    before = fk.scan_ticket_batched.launches
+    monkeypatch.setattr(fk, "SCAN_BLOCK_THREADS", 96)
+    with pytest.raises(RuntimeError, match="scan_ticket_batched kernel launch failed"):
+        fk.scan_ticket_batched(tables, list(km), todo, thresholds=[th for _, th, _ in lanes],
+                               bound_slacks=[b for _, _, b in lanes], states=states,
+                               values=[{"v0": vals[i, :, :, 0].contiguous()} for i in range(33)],
+                               specs=specs)
+    torch.cuda.synchronize()
+    assert fk.scan_ticket_batched.launches == before and bool(todo.all())
+    for t, c, s, a in zip(tables, copies, states, accs):
+        assert all(torch.equal(x, y) for x, y in zip(t, c))
+        assert all(torch.equal(x, y) for x, y in zip(s.accs, a))
+
+
+@pytest.mark.gpu
+def test_serve_fold_rounds_on_the_card(cuda, monkeypatch):
+    """consume_batched on the card with the scatter update: each round is
+    one ``scan_ticket_batched`` launch and no ``update_planes`` call,
+    except the replays of a lane whose 2048-slot table saturates (3000
+    keys under G = 4096): its ``poll`` migrates and replays alone.  Every
+    query's result holds its whole chunk stream's map."""
+    import importlib
+
+    from repro_torch.engine import executors as tex
+
+    gb = importlib.import_module("repro_torch.engine.groupby")
+    updates = []
+    real = gb.GroupByOperator.update_planes
+
+    def counted(self, *a, **kw):
+        updates.append(self)
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(gb.GroupByOperator, "update_planes", counted)
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("sum", "v"),
+                                              api.AggSpec("min", "v"), api.AggSpec("max", "v")),
+                           strategy="concurrent", max_groups=4096, raw_keys=True,
+                           execution=api.ExecutionPolicy(morsel_rows=4096, capacity=2048))
+    gen = torch.Generator(device=cuda).manual_seed(95)
+    rows, chunk = 1 << 15, 1 << 14
+    keys = [torch.randint(0, 1000, (rows,), generator=gen, device=cuda, dtype=torch.int32)
+            for _ in range(4)]
+    keys[1] = torch.randperm(rows, generator=gen, device=cuda).to(torch.int32) % 3000
+    vals = [torch.randn(rows, generator=gen, device=cuda) for _ in range(4)]
+    xs = [tex.make_executor(plan) for _ in range(4)]
+    for x in xs:
+        x.open()
+    before = fk.scan_ticket_batched.launches
+    for lo in range(0, rows, chunk):
+        tex.consume_batched(xs, [api.Table({"k": k[lo:lo + chunk], "v": v[lo:lo + chunk]})
+                                 for k, v in zip(keys, vals)])
+    assert fk.scan_ticket_batched.launches - before == rows // chunk
+    assert updates and all(u is xs[1]._op for u in updates)
+    for x, k, v in zip(xs, keys, vals):
+        out = x.finalize()
+        n = int(out["__num_groups__"][0])
+        uk, inv, cnt = torch.unique(k.long(), return_inverse=True, return_counts=True)
+        order = torch.argsort(out["key"][:n])
+        assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+        assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+        for kind in ("min", "max"):
+            want = torch.full((n,), float("inf" if kind == "min" else "-inf"),
+                              device=cuda).scatter_reduce_(0, inv, v, "a" + kind)
+            assert torch.equal(out[f"{kind}(v)"][:n][order], want), kind
+        s = torch.zeros(n, dtype=torch.float64, device=cuda).index_add_(0, inv, v.double())
+        a = torch.zeros(n, dtype=torch.float64, device=cuda).index_add_(0, inv, v.double().abs())
+        assert bool(((out["sum(v)"][:n][order].double() - s).abs() <= 1e-4 * a).all())

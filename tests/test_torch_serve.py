@@ -511,6 +511,212 @@ def test_scan_ticket_batched_plain_is_scan_ticket_plain_per_lane():
             assert torch.equal(a, b)
 
 
+# -- the folding round: ticket and update in the one call --------------------------
+
+AGGS5 = (("sum", "v"), ("count", None), ("min", "v"), ("max", "v"), ("mean", "v"))
+
+
+def _aggs(api, aggs=AGGS5):
+    return tuple(api.AggSpec(k, c) for k, c in aggs)
+
+
+def _count_rounds(monkeypatch):
+    """Count the round's calls (lanes, fold mode) and every
+    ``GroupByOperator.update_planes`` call."""
+    gb = importlib.import_module("repro_torch.engine.groupby")
+    calls, updates = [], []
+    real_call, real_update = tfk.scan_ticket_batched, gb.GroupByOperator.update_planes
+
+    def counted(tables, *a, **kw):
+        calls.append((len(tables), kw.get("states") is not None))
+        return real_call(tables, *a, **kw)
+
+    def update(self, *a, **kw):
+        updates.append(self)
+        return real_update(self, *a, **kw)
+
+    monkeypatch.setattr(tfk, "scan_ticket_batched", counted)
+    monkeypatch.setattr(gb.GroupByOperator, "update_planes", update)
+    return calls, updates
+
+
+def _assert_bits(got, want):
+    """Bit for bit, NaN included (a min / max column is NaN past the
+    groups)."""
+    for col in want.columns:
+        a, b = got[col], want[col]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), col
+
+
+def _plans5(saturation, max_groups=1024, **ex):
+    tplan, jplan = _plans(saturation=saturation, max_groups=max_groups)
+    tplan = tplan.with_(aggs=_aggs(tapi), execution=tapi.ExecutionPolicy(
+        **{**vars(tplan.execution), **ex}))
+    jplan = jplan.with_(aggs=_aggs(japi), execution=japi.ExecutionPolicy(
+        **{**vars(jplan.execution), **ex}))
+    return tplan, jplan
+
+
+@pytest.mark.parametrize("saturation", ["raise", "unchecked"])
+def test_consume_batched_folds_in_its_one_call_equal_to_jax(saturation, monkeypatch):
+    """A scatter round folds inside its one ``scan_ticket_batched`` call
+    (the plain version of fold mode): no ``update_planes`` call, and every
+    lane's table and five accumulator planes (sum, count, min, max, and
+    mean's) equal JAX ``consume_batched``'s, ticket for ticket."""
+    plans = _plans5(saturation)
+    txs, jxs = _executors(plans, 4)
+    calls, updates = _count_rounds(monkeypatch)
+    for r in range(3):
+        tch, jch, _ = _round([30 + 10 * r + i for i in range(4)], CHUNK, card=700)
+        tex.consume_batched(txs, tch)
+        jex.consume_batched(jxs, jch)
+    assert calls == [(4, True)] * 3 and updates == []
+    for tx, jx in zip(txs, jxs):
+        _assert_lane_equal(tx, jx)
+        tout, jout = tx.finalize(), jx.finalize()
+        _assert_same_map(tout, jout)
+        for col in ("min(v)", "max(v)"):
+            assert _map(tout, col) == _map(jout, col), col
+
+
+def test_consume_batched_fold_round_with_one_overflowing_lane(monkeypatch):
+    """RAISE: one lane of a folding round takes 4000 keys against G = 256.
+    Only that query is poisoned (it raises at finalize, as JAX's does), it
+    drops out of the later rounds, and the other lanes equal JAX's ticket
+    for ticket with no ``update_planes`` call."""
+    plans = _plans5("raise", max_groups=256)
+    txs, jxs = _executors(plans, 3)
+    calls, updates = _count_rounds(monkeypatch)
+    for r in range(3):
+        tch, jch, _ = _round([40 + 20 * r + i for i in range(3)], CHUNK, card=200)
+        over_t, over_j, _ = _round([199 + r], CHUNK, card=4000, offset=1 << 20)
+        tch[1], jch[1] = over_t[0], over_j[0]
+        tex.consume_batched(txs, tch)
+        jex.consume_batched(jxs, jch)
+    assert txs[1]._op.poisoned and not txs[0]._op.poisoned
+    assert calls == [(3, True), (2, True), (2, True)] and updates == []
+    for i, (tx, jx) in enumerate(zip(txs, jxs)):
+        if i == 1:
+            with pytest.raises(TOverflow):
+                tx.finalize()
+            with pytest.raises(JOverflow):
+                jx.finalize()
+            continue
+        _assert_lane_equal(tx, jx)
+        _assert_same_map(tx.finalize(), jx.finalize())
+
+
+def test_fold_round_pausing_lanes_replay_through_poll(monkeypatch):
+    """A capacity of 256 slots under G = 1024: every lane pauses in its
+    first round (count > 128), its later morsels fold nothing in the
+    batched call and stay todo, and the lane's own ``poll`` migrates and
+    replays them through the solo path, which folds.  Each query equals
+    its sequential ``collect`` and JAX's as maps (keys, COUNT, MIN and MAX
+    exact): a pause orders tickets by when each mode replays, so no two
+    modes share a ticket order here."""
+    tplan, jplan = _plans5("raise", capacity=256)
+    seeds = range(40, 43)
+    sequential = [tplan.collect(TArraySource(_tcols(i, card=300), chunk_rows=CHUNK))
+                  for i in seeds]
+    calls, updates = _count_rounds(monkeypatch)
+    server = tqs.AggregationServer(slots=3, batch_queries=True)
+    handles = [server.submit(tplan, TArraySource(_tcols(i, card=300), chunk_rows=CHUNK))
+               for i in seeds]
+    server.run_until_idle()
+    assert calls == [(3, True)] * (N // CHUNK)
+    assert len(updates) >= 3  # every lane replayed its paused morsels alone
+    for i, h, want in zip(seeds, handles, sequential):
+        got = h.result()
+        jout = jplan.collect(JArraySource(_jcols(i, card=300), chunk_rows=CHUNK))
+        for ref in (want, jout):
+            _assert_same_map(got, ref, *_np_cols(i, card=300))
+            for col in ("min(v)", "max(v)"):
+                assert _map(got, col) == _map(ref, col), col
+
+
+@pytest.mark.parametrize("saturation,aggs", [
+    ("raise", AGGS5), ("unchecked", (("min", "v"), ("max", "v"), ("count", None))),
+])
+def test_batched_fold_server_bit_identical_to_sequential_collect(saturation, aggs,
+                                                                 monkeypatch):
+    tplan, jplan = _plans5(saturation)
+    tplan, jplan = tplan.with_(aggs=_aggs(tapi, aggs)), jplan.with_(aggs=_aggs(japi, aggs))
+    seeds = range(50, 55)
+    sequential = [tplan.collect(TArraySource(_tcols(i), chunk_rows=CHUNK)) for i in seeds]
+    calls, updates = _count_rounds(monkeypatch)
+    server = tqs.AggregationServer(slots=5, batch_queries=True)
+    handles = [server.submit(tplan, TArraySource(_tcols(i), chunk_rows=CHUNK)) for i in seeds]
+    server.run_until_idle()
+    assert calls == [(5, True)] * (N // CHUNK) and updates == []
+    jserver = jqs.AggregationServer(slots=5, batch_queries=True)
+    jhandles = [jserver.submit(jplan, JArraySource(_jcols(i), chunk_rows=CHUNK))
+                for i in seeds]
+    jserver.run_until_idle()
+    for h, want, jh in zip(handles, sequential, jhandles):
+        got = h.result()
+        _assert_bits(got, want)
+        for col in ("min(v)", "max(v)", "count(*)"):
+            assert _map(got, col) == _map(jh.result(), col), col
+
+
+@pytest.mark.parametrize("update", ["onehot", "sort_segment"])
+def test_consume_batched_other_updates_ticket_then_fold_per_lane(update, monkeypatch):
+    """Rounds whose update is not scatter keep the ticket-only call and
+    fold each lane through its own update: N ``update_planes`` calls a
+    round, ticket for ticket with JAX."""
+    plans = _plans5("raise", update=update)
+    txs, jxs = _executors(plans, 3)
+    calls, updates = _count_rounds(monkeypatch)
+    for r in range(2):
+        tch, jch, _ = _round([60 + 10 * r + i for i in range(3)], CHUNK, card=700)
+        tex.consume_batched(txs, tch)
+        jex.consume_batched(jxs, jch)
+    assert calls == [(3, False)] * 2 and len(updates) == 6
+    for tx, jx in zip(txs, jxs):
+        _assert_lane_equal(tx, jx)
+        _assert_same_map(tx.finalize(), jx.finalize())
+
+
+def test_scan_ticket_batched_plain_fold_is_ticket_then_scatter_per_lane():
+    """Fold mode's plain version: each lane's ``scan_ticket_plain`` and then
+    ``update_agg_state`` with ``scatter_update``, in lane order, the
+    planes updated in place; ``(None, info)`` back; keys as one tensor or
+    one per lane."""
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core import updates as tup
+
+    rng = np.random.default_rng(6)
+    keys = torch.from_numpy(rng.integers(0, 900, size=(3, 4, 256)).astype(np.int32))
+    keys[2, 1, :50] = -1
+    vals = torch.from_numpy(rng.standard_normal((3, 4, 256)).astype(np.float32))
+    specs = (("v", "sum"), (None, "count"), ("v", "min"), ("v", "max"))
+    caps, g = (2048, 4096, 2048), 1024
+    th, bs = [c // 2 for c in caps], [g - 256] * 3
+    for as_list in (False, True):
+        tables = [tk.make_table(c, g) for c in caps]
+        states = [tup.init_agg_state(specs, g) for _ in caps]
+        todo = torch.ones((3, 4), dtype=torch.int32)
+        values = [{"v": vals[i]} for i in range(3)]
+        lane_keys = list(keys) if as_list else keys
+        tickets, info = tfk.scan_ticket_batched(tables, lane_keys, todo, thresholds=th,
+                                                bound_slacks=bs, states=states,
+                                                values=values, specs=specs)
+        assert tickets is None and not bool(todo.any())
+        for i, c in enumerate(caps):
+            t, s = tk.make_table(c, g), tup.init_agg_state(specs, g)
+            want_t, want_i = tfk.scan_ticket_plain(t, keys[i], torch.ones(4, dtype=torch.int32),
+                                                   threshold=th[i], bound_slack=bs[i])
+            tup.update_agg_state(s, want_t.reshape(-1), {"v": vals[i].reshape(-1)},
+                                 tup.scatter_update)
+            assert torch.equal(info[i:i + 1], want_i)
+            for a, b in zip(tables[i], t):
+                assert torch.equal(a, b)
+            for a, b in zip(states[i].accs, s.accs):
+                assert torch.equal(a, b)
+
+
 # -- eligibility, admission, recovery ----------------------------------------------
 
 

@@ -14,12 +14,16 @@ batched and one solo run of each stream with the host seconds of each
 stage summed over the run (host clock, no synchronize inside, so a stage
 counts what it costs the host to enqueue, and the info reads wait for
 the card): ``stage`` (``GroupByOperator.scan_morsels``: key column and
-morsels), ``ticket`` (``scan_ticket_batched`` or ``scan_ticket``),
-``update`` (``GroupByOperator.update_planes``), ``poll`` (solo: the
+morsels), ``ticket`` (the call: ``scan_ticket_batched``, which in a
+scatter round tickets and folds, or ``scan_ticket``), ``update``
+(``GroupByOperator.update_planes``: none in a batched scatter round, the
+replays of a paused lane aside), ``info`` (batched: the round's one
+blocking read, ``executors.read_round_info``), ``poll`` (solo: the
 operator's ``poll``, one info read a chunk), ``round`` (batched:
-``consume_batched``, whose remainder past its stages is the stack, the
-one info read and the glue), and the wall.  Prints one JSON line per
-stream and a last line ``{stream: {mode: [walls], "split": {...}}}``.
+``consume_batched``), and the wall; then ``scheduler``, the wall less
+the rounds (batched) or less the stages (solo), and ``glue``, a batched
+round's remainder past its stages.  Prints one JSON line per stream and
+a last line ``{stream: {mode: [walls], "split": {...}}}``.
 """
 import argparse
 import importlib
@@ -65,12 +69,12 @@ def run(mode, plan, data, chunk):
 def split(mode, plan, data, chunk):
     """Host seconds by stage over one run in ``mode`` (see the module
     docstring), the wall among them."""
-    secs = dict.fromkeys(("stage", "ticket", "update", "poll", "round"), 0.0)
+    secs = dict.fromkeys(("stage", "ticket", "update", "info", "poll", "round"), 0.0)
     patches = [(gb.GroupByOperator, "scan_morsels", "stage"),
                (gb.GroupByOperator, "update_planes", "update"),
                (gb.GroupByOperator, "poll", "poll"),
                (fk, "scan_ticket_batched", "ticket"), (fk, "scan_ticket", "ticket"),
-               (tex, "consume_batched", "round")]
+               (tex, "read_round_info", "info"), (tex, "consume_batched", "round")]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
 
     def timed(fn, key):
@@ -89,6 +93,12 @@ def split(mode, plan, data, chunk):
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
+    if mode == "batched":
+        secs["scheduler"] = secs["wall"] - secs["round"]
+        secs["glue"] = secs["round"] - sum(secs[k] for k in ("stage", "ticket", "update", "info"))
+    else:
+        secs["scheduler"] = secs["wall"] - sum(secs[k] for k in ("stage", "ticket", "update",
+                                                                  "poll"))
     return secs
 
 
