@@ -116,6 +116,23 @@ Four phases, each of which fails the run:
    its own query.
    Every stream sets the launch counts to 0 just before it and reads them
    just after, and must launch exactly the kernels of its route.
+   Phase 3 checkpoints (``engine/elastic.py``): 2^24 rows in 8 chunks,
+   integer-valued values, count(*), sum(v), min(v), max(v); body_low,
+   body_unique, scan_high_grow (restored after bound grows), auto_low,
+   auto_escalate (saved on the scan route, hybrid by escalation after the
+   restore), hybrid_high, direct_low, sort_low, split_low, part_low and
+   spill_high each pumped 4 chunks, saved, finished, and restored into a
+   fresh executor and finished: the uninterrupted, saved and restored
+   results held to the oracle (COUNT / MIN / MAX exact, SUM exact below
+   2^24 and within 1e-4·Σ|v| past it), the restored route equal to the
+   saved one, and every kernel of it, and no other, launched after the
+   restore; the commit's bytes, the save (device → host copy, npz write),
+   the restore (read + import, fast-forward), the finish and the whole
+   stream's collect printed in seconds.  Commits across devices at 2^20
+   rows (a card commit restored on the CPU, a CPU commit on the card, a
+   scan_body and a default plan), and serve_low's 16 queries, solo, each
+   checkpointed every 4 chunks and failing once at chunk 9: every query
+   restored once and held to the oracle.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -1883,6 +1900,369 @@ def phase3_default(kmods, api, gen, device, low, vals, n, recs):
     return out
 
 
+# -- phase 3 checkpoints: save mid-stream, restore, finish -----------------------
+
+CKPT_AGGS = (("count", None), ("sum", "v"), ("min", "v"), ("max", "v"))
+EXACT_SUM = float(1 << 24)      # f32 sums of integers are exact below 2^24
+
+
+def hold_exact(out, o, name, *, domain=False):
+    """A result table against the oracle ``o`` (integer-valued values):
+    the same key set, COUNT / MIN / MAX exact, SUM exact wherever the
+    group's sum stays below 2^24 and within SUM_RTOL · Σ|v| past it (the
+    high class's hot key).  ``domain``: direct ticketing's rows cover its
+    whole domain, keys no row holds with count 0."""
+    import torch
+
+    cols = {c: t.to(o["keys"].device) for c, t in out.columns.items()}  # a CPU result too
+    ng = int(cols["__num_groups__"][0])
+    rows = torch.arange(ng, device=o["keys"].device)
+    if domain:
+        rows = rows[cols["count(*)"][:ng] > 0]
+    check(rows.numel() == o["keys"].numel(),
+          f"{name}: {rows.numel()} groups, the oracle has {o['keys'].numel()}")
+    order = rows[torch.argsort(cols["key"][rows])]
+    check(torch.equal(cols["key"][order], o["keys"]), f"{name}: key set differs")
+    if "count(*)" in cols:
+        check(torch.equal(cols["count(*)"][order].long(), o["count"]), f"{name}: COUNT not exact")
+    for col, want in (("min(v)", o["min"]), ("max(v)", o["max"])):
+        if col in cols:
+            check(torch.equal(cols[col][order], want), f"{name}: {col} not exact")
+    got = cols["sum(v)"][order].double()
+    small = o["sum"] < EXACT_SUM
+    check(torch.equal(got[small], o["sum"][small]), f"{name}: SUM not exact below 2^24")
+    check(bool(((got - o["sum"]).abs()[~small] <= SUM_RTOL * o["abs"][~small]).all()),
+          f"{name}: SUM past 2^24 outside {SUM_RTOL}·Σ|v|")
+    return int((~small).sum())
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def ckpt_stream(kmods, api, tel, ckpt, name, plan, keys, vals, root, *, chunks=8, snap=4,
+                hashed=False):
+    """One executor through a checkpoint: the whole stream collected from
+    scratch; the same stream pumped ``snap`` chunks, saved (the device →
+    host copy and the npz write timed apart), and finished; the commit
+    restored into a fresh executor (read + import and the fast-forward
+    timed apart) and finished.  All three results are held to the oracle
+    and the restored one to the uninterrupted one; the restored executor
+    must run the saved route (``executor_path`` equal at save and right
+    after restore) and launch every kernel of its route, and no other,
+    over the remaining chunks."""
+    import shutil
+
+    import torch
+
+    n = keys.shape[0]
+    step = n // chunks
+
+    def source():
+        return [api.Table({"k": keys[lo:lo + step], "v": vals[lo:lo + step]})
+                for lo in range(0, n, step)]
+
+    ok = keys
+    if hashed:
+        from repro_torch.engine.columns import combine_keys
+
+        ok = combine_keys(keys).to(torch.int64) & 0xFFFFFFFF
+    o = oracle(ok, vals)
+    domain = name.startswith("direct")
+    path = os.path.join(root, name)
+    shutil.rmtree(path, ignore_errors=True)
+
+    sync()
+    t0 = time.perf_counter()
+    straight = plan.collect(source())
+    sync()
+    collect_s = time.perf_counter() - t0
+    hold_exact(straight, o, f"{name} uninterrupted", domain=domain)
+
+    t = {"npz_write_s": 0.0, "fast_forward_s": 0.0}
+    commit, forward = ckpt.commit_payload, tel.fast_forward
+
+    def timed_commit(*a, **kw):
+        c0 = time.perf_counter()
+        r = commit(*a, **kw)
+        t["npz_write_s"] += time.perf_counter() - c0
+        return r
+
+    def timed_forward(*a, **kw):
+        f0 = time.perf_counter()
+        r = forward(*a, **kw)
+        sync()
+        t["fast_forward_s"] += time.perf_counter() - f0
+        return r
+
+    h = plan.stream(source())
+    h.pump(snap)
+    saved_path = executor_path(h.executor)
+    ckpt.commit_payload, tel.fast_forward = timed_commit, timed_forward
+    try:
+        sync()
+        s0 = time.perf_counter()
+        committed = h.save(path)
+        save_s = time.perf_counter() - s0
+        nbytes = _dir_bytes(committed)
+        out_saved = h.result()
+        sync()
+        final_path = executor_path(h.executor)
+        r0 = time.perf_counter()
+        restored = plan.restore(path, source())
+        sync()
+        restore_s = time.perf_counter() - r0
+    finally:
+        ckpt.commit_payload, tel.fast_forward = commit, forward
+    check(restored.chunks_consumed == snap, f"{name}: restored at chunk "
+          f"{restored.chunks_consumed}, not {snap}")
+    check(executor_path(restored.executor) == saved_path,
+          f"{name}: restored route {executor_path(restored.executor)}, saved {saved_path}")
+    reset_launches(kmods)
+    f0 = time.perf_counter()
+    out = restored.result()
+    sync()
+    finish_s = time.perf_counter() - f0
+    launches = read_launches(kmods)
+    after = executor_path(restored.executor)
+    check(after == final_path, f"{name}: the restored stream ended on {after}, the saved "
+          f"one on {final_path}")
+    for k in after:
+        check(launches[k] > 0, f"{name}: the {k} kernel was not launched after the restore")
+    for k in set(kmods) - set(after):
+        check(launches[k] == 0, f"{name}: the {k} kernel ran after the restore off its route")
+    hold_exact(out_saved, o, f"{name} saved stream", domain=domain)
+    big = hold_exact(out, o, f"{name} restored", domain=domain)
+    if not domain:
+        same_map(out, straight, o, f"{name}: restored vs uninterrupted")
+    shutil.rmtree(path, ignore_errors=True)
+    inner = getattr(restored.executor, "_inner", None) or restored.executor
+    rec = {"stream": f"ckpt_{name}", "executor": type(inner).__name__,
+           "route": list(saved_path), "final_route": list(after), "commit_bytes": nbytes,
+           "save_s": save_s, "save_copy_s": save_s - t["npz_write_s"],
+           "save_npz_write_s": t["npz_write_s"], "restore_s": restore_s,
+           "restore_read_import_s": restore_s - t["fast_forward_s"],
+           "restore_fast_forward_s": t["fast_forward_s"], "finish_s": finish_s,
+           "collect_s": collect_s, "groups": int(o["keys"].numel()),
+           "groups_sum_past_2^24": big, "launches": launches}
+    log("phase3 " + json.dumps(rec))
+    return rec
+
+
+class FlakyChunks:
+    """A re-iterable chunk source whose first pass raises ``WorkerFailure``
+    at chunk ``fail_at`` (a lost worker, as the server sees it)."""
+
+    def __init__(self, tables, fail_at, failure):
+        self.tables, self.fail_at, self.failure = tables, fail_at, failure
+        self.failed = False
+
+    def chunks(self):
+        for i, t in enumerate(self.tables):
+            if i == self.fail_at and not self.failed:
+                self.failed = True
+                raise self.failure([0])
+            yield t
+
+
+def phase3_checkpoints(kmods, api, gen, device, n=1 << 24, small=1 << 20,
+                       serve_rows=1 << 20):
+    """Stream checkpoints on the card (``engine/elastic.py``): 2^24 rows in
+    8 chunks, integer-valued values, each executor saved after 4 chunks,
+    restored into a fresh executor and finished (``ckpt_stream``):
+    body_low, body_unique (scan_body, raise), scan_high_grow (from 2^16,
+    grow: restored after bound grows), auto_low and auto_escalate (the
+    default plan; auto_escalate is saved on the scan route and escalates
+    to hybrid after the restore, as the uninterrupted stream does),
+    hybrid_high, direct_low, sort_low, split_low, part_low (sum(v)) and
+    spill_high.  Then commits across devices at 2^20 rows (a card commit
+    restored into a ``device="cpu"`` plan and a CPU commit onto the card,
+    a scan_body and a default plan each), and the server's recovery:
+    serve_low's 16 queries, solo, each checkpointed every 4 chunks and
+    failing once at chunk 9, every one restored once and held to the
+    oracle."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.engine import elastic as tel
+
+    root = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    vals = torch.randint(0, 100, (n,), generator=gen, device=device).float()
+    aggs = tuple(api.AggSpec(k, c) for k, c in CKPT_AGGS)
+
+    def plan(**kw):
+        ex = kw.pop("execution", {})
+        return api.GroupByPlan(keys=("k",), aggs=kw.pop("aggs", aggs), raw_keys=True,
+                               execution=api.ExecutionPolicy(**ex), **kw)
+
+    auto = api.GroupByPlan(keys=("k",), aggs=aggs)
+    body = dict(strategy="concurrent", execution=dict(kernel="scan_body"))
+    recs = []
+
+    def run(name, p, keys, **kw):
+        recs.append(ckpt_stream(kmods, api, tel, ckpt, name, p, keys, vals, root, **kw))
+
+    low = gen_keys(n, "low", "uniform", gen, device)
+    run("body_low", plan(max_groups=1024, saturation="raise", **body), low)
+    run("auto_low", auto, low, hashed=True)
+    run("direct_low", plan(strategy="concurrent",
+                           execution=dict(ticketing="direct", key_domain=1000)), low)
+    run("sort_low", plan(strategy="concurrent", max_groups=1024, saturation="raise",
+                         execution=dict(kernel="scan_body", ticketing="sort")), low)
+    run("split_low", plan(strategy="concurrent", max_groups=1024, saturation="raise",
+                          execution=dict(kernel="split", morsel_size=M)), low)
+    run("part_low", plan(strategy="partitioned", max_groups=1024, saturation="raise",
+                         aggs=(api.AggSpec("sum", "v"),)), low)
+    high = gen_keys(n, "high", "zipf", gen, device)
+    run("hybrid_high", plan(strategy="hybrid", max_groups=n // 10, saturation="raise",
+                            execution=dict(kernel="scan_body")), high)
+    run("spill_high", plan(strategy="concurrent", max_groups=4096, saturation="spill",
+                           execution=dict(kernel="scan_body")), high)
+    del high
+    high_u = gen_keys(n, "high", "uniform", gen, device)
+    run("scan_high_grow", plan(strategy="concurrent", max_groups=n >> 8, saturation="grow",
+                               execution=dict(kernel="off")), high_u)
+    check(recs[-1]["launches"]["scan_ticket"] > 0, "scan_high_grow: no ticket launch")
+    del high_u
+    step = n // 8
+    esc = torch.randint(0, 1 << 22, (n,), generator=gen, device=device)
+    hot = torch.rand(n, generator=gen, device=device) < 0.5
+    hot[: 2 * step] = False
+    esc = torch.where(hot, torch.full_like(esc, 7), esc)
+    del hot
+    run("auto_escalate", auto, esc, hashed=True)
+    check(recs[-1]["executor"] == "_HybridExecutor" and "hybrid_registers" in
+          recs[-1]["final_route"], f"auto_escalate: ended as {recs[-1]['executor']} after "
+          "the restore, not an escalated hybrid")
+    del esc
+    uniq = gen_keys(n, "unique", "uniform", gen, device)
+    run("body_unique", plan(max_groups=n, saturation="raise", **body), uniq)
+    del uniq
+    sg = {r["stream"]: r for r in recs}
+    check(sg["ckpt_scan_high_grow"]["groups"] > n >> 8, "scan_high_grow: no grow needed")
+    recs += ckpt_devices(kmods, api, plan, aggs, root, low[:small], vals[:small])
+    del low
+    recs += ckpt_serve(kmods, api, gen, device, root, serve_rows)
+    shutil.rmtree(root, ignore_errors=True)
+    return recs
+
+
+def ckpt_devices(kmods, api, plan, aggs, root, k_s, v_s):
+    """Commits across devices: a scan_body plan and a default plan, each
+    saved after 4 of 8 chunks on the card and restored into a
+    ``device="cpu"`` plan (the plain versions: no launch), and saved on
+    the CPU and restored onto the card (the route's kernels launch); every
+    result held to the oracle."""
+    import shutil
+
+    import torch
+
+    from repro_torch.engine.columns import combine_keys
+
+    recs, small = [], k_s.shape[0]
+    o = oracle(k_s, v_s)
+    o_h = oracle(combine_keys(k_s).to(torch.int64) & 0xFFFFFFFF, v_s)
+    for label, make, oo in (
+            ("body", lambda dev: plan(max_groups=1024, saturation="raise", strategy="concurrent",
+                                      execution=dict(kernel="scan_body", device=dev)), o),
+            ("auto", lambda dev: api.GroupByPlan(keys=("k",), aggs=aggs,
+                                                 execution=api.ExecutionPolicy(device=dev)),
+             o_h)):
+        for saver, loader in (("cuda", "cpu"), ("cpu", "cuda")):
+            name = f"ckpt_{label}_{saver}_to_{loader}"
+
+            def src(dev):
+                step_s = small // 8
+                return [api.Table({"k": k_s[i:i + step_s].to(dev), "v": v_s[i:i + step_s].to(dev)})
+                        for i in range(0, small, step_s)]
+
+            path = os.path.join(root, name)
+            t0 = time.perf_counter()
+            h = make(saver).stream(src(saver))
+            h.pump(4)
+            h.save(path)
+            hold_exact(h.result(), oo, f"{name} saved stream")
+            reset_launches(kmods)
+            restored = make(loader).restore(path, src(loader))
+            out = restored.result()
+            sync()
+            launches = read_launches(kmods)
+            hold_exact(out, oo, f"{name} restored")
+            ex = restored.executor
+            inner = getattr(ex, "_inner", None) or ex
+            table = inner._op._table
+            check(table.keys.device.type == loader, f"{name}: restored on {table.keys.device}")
+            if loader == "cuda":
+                for k in executor_path(ex):
+                    check(launches[k] > 0, f"{name}: the {k} kernel was not launched")
+            else:
+                check(sum(launches.values()) == 0, f"{name}: a kernel ran on the CPU restore")
+            rec = {"stream": name, "executor": type(inner).__name__,
+                   "resolved": (None if label == "body" else
+                                [ex._resolved.execution.kernel, ex._resolved.execution.update]),
+                   "wall_s": time.perf_counter() - t0, "launches": launches}
+            log("phase3 " + json.dumps(rec))
+            recs.append(rec)
+            shutil.rmtree(path, ignore_errors=True)
+    return recs
+
+
+def ckpt_serve(kmods, api, gen, device, root, rows, nq=16):
+    """The server's recovery: serve_low's 16 queries, solo
+    (``batch_queries=False``), each checkpointed every 4 chunks and failing
+    once at its tenth chunk (index 9), so each restores from its chunk-8
+    commit; every query held to the oracle (SUM exact) with one restore."""
+    import torch
+
+    from repro_torch.serve import AggregationServer
+    from repro_torch.train.elastic import WorkerFailure
+
+    chunk = rows // 16
+    data = [(torch.randint(0, 1000, (rows,), generator=gen, device=device, dtype=torch.int32),
+             torch.randint(0, 100, (rows,), generator=gen, device=device).float())
+            for _ in range(nq)]
+    serve_plan = api.GroupByPlan(
+        keys=("k",), aggs=tuple(api.AggSpec(a, c) for a, c in AGGS_SPEC),
+        strategy="concurrent", max_groups=1024, saturation="raise", raw_keys=True,
+        execution=api.ExecutionPolicy(update="scatter", morsel_rows=4096))
+    sources = [FlakyChunks([api.Table({"k": k[i:i + chunk], "v": v[i:i + chunk]})
+                            for i in range(0, rows, chunk)], 9, WorkerFailure)
+               for k, v in data]
+    reset_launches(kmods)
+    sync()
+    t0 = time.perf_counter()
+    server = AggregationServer(slots=nq, batch_queries=False)
+    handles = [server.submit(serve_plan, s, checkpoint_dir=os.path.join(root, f"serve_q{q}"),
+                             checkpoint_every=4) for q, s in enumerate(sources)]
+    server.run_until_idle()
+    outs = [h.result() for h in handles]
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    for q, (out, h, s, (k, v)) in enumerate(zip(outs, handles, sources, data)):
+        o = oracle(k.long(), v)
+        n_q = int(out["__num_groups__"][0])
+        sub = api.Table({c: t[:n_q] for c, t in out.columns.items()})
+        check(n_q == o["keys"].numel(), f"serve_ckpt query {q}: {n_q} groups")
+        order = torch.argsort(sub["key"])
+        check(torch.equal(sub["key"][order], o["keys"]), f"serve_ckpt query {q}: key set")
+        check(torch.equal(sub["sum(v)"][order].double(), o["sum"]),
+              f"serve_ckpt query {q}: SUM not exact")
+        check_against_oracle(sub, order, o, f"serve_ckpt query {q}")
+        rec_q = h.profile()["recoveries"]
+        check(s.failed and rec_q["restores"] == 1 and h.status == "done",
+              f"serve_ckpt query {q}: {h.status}, recoveries {rec_q}")
+    check(launches["scan_ticket"] > 0, "serve_ckpt: no scan_ticket launch")
+    rec = {"stream": "serve_ckpt", "queries": nq, "rows": nq * rows, "wall_s": wall,
+           "restores": sum(h.profile()["recoveries"]["restores"] for h in handles),
+           "launches": launches}
+    log("phase3 " + json.dumps(rec) + "; every query restored once and held to the oracle ok")
+    return [rec]
+
+
 # -- phase 4: timing --------------------------------------------------------------
 
 
@@ -2975,6 +3355,11 @@ def main(argv=None) -> int:
     t_serve = time.perf_counter()
     recs += phase3_serve(kmods, api, gen, device)
     log(f"phase3 serving streams in {time.perf_counter() - t_serve:.1f} s")
+    log("== phase 3 checkpoints: save mid-stream, restore, finish")
+    t_ckpt = time.perf_counter()
+    ckpt_recs = phase3_checkpoints(kmods, api, gen, device)
+    recs += ckpt_recs
+    log(f"phase3 checkpoints in {time.perf_counter() - t_ckpt:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 

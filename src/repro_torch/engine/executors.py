@@ -52,8 +52,9 @@ saturation policies:
     resolves to it through :class:`_ResolvingExecutor`).
 
 ``strategy="sharded"`` raises ``NotImplementedError`` naming ROADMAP item
-9, and stream checkpoints (``plan_api``) name item 8; no plan quietly runs
-something else.
+9; no plan quietly runs something else.  Every executor but
+:class:`_FusedExecutor` checkpoints through ``engine/elastic.py``
+(``StreamHandle.save`` / ``GroupByPlan.restore``).
 
 Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
 chunk there.  ``device=None`` means ``"cuda"`` and raises ``RuntimeError``

@@ -22,9 +22,10 @@ on every kernel route (None / "off" / "scan_body": the scan route;
 "split"; "fused"), with sort or direct ticketing, ``strategy="hybrid"``,
 ``strategy="partitioned"`` and ``saturation="spill"``.  Only
 ``strategy="sharded"`` makes ``make_executor`` raise
-``NotImplementedError`` (ROADMAP item 9), and stream checkpoints
-(``StreamHandle.save`` / ``GroupByPlan.restore``) raise it naming item
-8.
+``NotImplementedError`` (ROADMAP item 9).  Stream checkpoints
+(``StreamHandle.save`` / ``GroupByPlan.restore``, ``engine/elastic.py``)
+cover every other executor but the fused route's, in the reference's
+commit format.
 """
 from __future__ import annotations
 
@@ -163,11 +164,18 @@ class GroupByPlan:
         """Stream ``source`` to exhaustion and return the final result."""
         return self.stream(source).result()
 
-    def restore(self, path: str, source, *, prefetch: int | None = None):
-        raise NotImplementedError(
-            "stream checkpoints are not ported yet: ROADMAP 'Modules to "
-            "port' item 8 (checkpoints and elasticity)"
-        )
+    def restore(self, path: str, source, *,
+                prefetch: int | None = None) -> "StreamHandle":
+        """Resume a stream from its newest :meth:`StreamHandle.save` commit
+        under ``path`` (the JAX package's commits too): rebuild the
+        executor state on this plan's device and fast-forward ``source``
+        (replayed from its beginning — it must be re-iterable with a stable
+        chunk order) past the chunks the checkpoint already aggregated.
+        The restoring plan must ask the same query.  See
+        ``engine/elastic.py``."""
+        from repro_torch.engine.elastic import restore_stream
+
+        return restore_stream(self, path, source, prefetch=prefetch)
 
 
 def iter_chunks(source) -> Iterator[Table]:
@@ -262,10 +270,13 @@ class StreamHandle:
         return n
 
     def save(self, path: str, *, step: int | None = None) -> str:
-        raise NotImplementedError(
-            "stream checkpoints are not ported yet: ROADMAP 'Modules to "
-            "port' item 8 (checkpoints and elasticity)"
-        )
+        """Checkpoint the live stream under ``path`` (atomic commit — a
+        crash mid-save never corrupts the previous commit) and keep
+        consuming.  Resume with :meth:`GroupByPlan.restore`, on this device
+        or another.  Returns the committed directory."""
+        from repro_torch.engine.elastic import save_stream
+
+        return save_stream(self, path, step=step)
 
     def snapshot(self) -> Table:
         """Materialize the groups aggregated so far without closing the

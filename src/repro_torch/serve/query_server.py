@@ -32,18 +32,20 @@ slot).  A plan submitted with ``saturation="spill"`` instead treats the cap
 as its device residency and spills the cold tail to host
 (engine/spill.py), completing with exact totals.
 
-Recovery: the port has no sharded stream yet (ROADMAP.md item 9), so the
-proactive re-mesh is a no-op, and stream checkpoints are not ported (item
-8): ``submit(checkpoint_dir=...)`` raises ``NotImplementedError``, and a
-quantum that raises :class:`~repro_torch.train.elastic.WorkerFailure`
-fails its slot.
+Recovery: a query submitted with ``checkpoint_dir`` / ``checkpoint_every``
+commits its stream on that cadence (``engine/elastic.py``), and a quantum
+that raises :class:`~repro_torch.train.elastic.WorkerFailure` restores
+from the last commit while the other tenants keep stepping; with no commit
+the failure stays on its slot.  The port has no sharded stream yet
+(ROADMAP.md item 9), so the proactive re-mesh is a no-op.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 from repro_torch.engine.plan_api import GroupByPlan, SaturationPolicy, StreamHandle
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.scheduler import (
     CANCELLED,
     DONE,
@@ -53,6 +55,7 @@ from repro_torch.serve.scheduler import (
     SlotHandle,
     TenantBudget,
 )
+from repro_torch.train.elastic import WorkerFailure
 
 
 @dataclass
@@ -62,29 +65,74 @@ class _QueryTask:
     group stepping pulls one chunk per live handle and tickets them all in
     one launch (``engine.executors.consume_batched``).
 
-    Recovery counters stay at 0 in the port: with no sharded stream there
-    is nothing to re-mesh, and with no checkpoints nothing to restore, so
-    a quantum that raises :class:`~repro_torch.train.elastic.WorkerFailure`
-    propagates and the scheduler isolates it to this slot."""
+    Fault tolerance (``engine/elastic.py``): a stream whose quantum raises
+    :class:`~repro_torch.train.elastic.WorkerFailure` restores from its
+    last checkpoint commit (``checkpoint_dir`` / ``checkpoint_every`` on
+    ``submit``); with no commit to fall back to, the failure propagates and
+    the scheduler isolates it to this slot.  A batched round neither
+    checkpoints nor restores, as in the reference.  ``remeshes`` stays 0:
+    the port has no sharded stream to re-mesh (ROADMAP.md item 9)."""
 
     handle: StreamHandle
     batch_key: Any = None
+    plan: GroupByPlan | None = None
+    source: Any = None
+    checkpoint_dir: str | None = None
+    checkpoint_every: int | None = None
     tenant: str = "default"
     remeshes: int = 0
     restores: int = 0
+    _last_saved: int = field(default=0, repr=False)
 
     @property
     def done(self) -> bool:
         return self.handle.done
+
+    # -- recovery ------------------------------------------------------------
+
+    def _count(self, kind: str) -> None:
+        if obs_metrics.enabled():
+            obs_metrics.counter(
+                "serve.recovery", tenant=self.tenant, kind=kind
+            ).add(1)
 
     def _maybe_remesh(self) -> None:
         """The reference re-buckets a sharded stream onto surviving devices
         here; the port has no sharded stream (ROADMAP.md item 9)."""
         return
 
+    def _restore_from_checkpoint(self, err: WorkerFailure) -> None:
+        """Swap the handle for one restored from the last commit; with no
+        commit (or no checkpoint_dir) the failure propagates."""
+        from repro_torch.checkpoint.manager import latest_commit_step
+
+        if (self.plan is None or self.checkpoint_dir is None
+                or latest_commit_step(self.checkpoint_dir) is None):
+            raise err
+        old = self.handle
+        self.handle = self.plan.restore(self.checkpoint_dir, self.source)
+        old.cancel()  # release the failed executor's device state
+        self._last_saved = self.handle.chunks_consumed
+        self.restores += 1
+        self._count("restore")
+
+    def _maybe_checkpoint(self) -> None:
+        h = self.handle
+        if (self.checkpoint_dir is None or not self.checkpoint_every
+                or h.closed or h.cancelled):
+            return
+        if h.chunks_consumed - self._last_saved >= self.checkpoint_every:
+            h.save(self.checkpoint_dir)
+            self._last_saved = h.chunks_consumed
+
     def step(self) -> None:
         self._maybe_remesh()
-        self.handle.step()
+        try:
+            self.handle.step()
+        except WorkerFailure as err:
+            self._restore_from_checkpoint(err)
+            return
+        self._maybe_checkpoint()
 
     @staticmethod
     def step_batch(tasks: list["_QueryTask"]) -> None:
@@ -115,15 +163,20 @@ class _QueryTask:
 
     def finish(self):
         self._maybe_remesh()
-        return self.handle.finish()
+        try:
+            return self.handle.finish()
+        except WorkerFailure as err:
+            self._restore_from_checkpoint(err)
+            return self.handle.finish()
 
     def cancel(self) -> None:
         self.handle.cancel()
 
 
 class QueryHandle:
-    """One live (or finished) query on the server, read through its slot
-    task."""
+    """One live (or finished) query on the server.  Reads its stream
+    through the slot task, so a recovery that swaps the underlying handle
+    (checkpoint restore) stays transparent to the caller."""
 
     def __init__(self, server: "AggregationServer", slot: SlotHandle,
                  task: _QueryTask):
@@ -275,21 +328,22 @@ class AggregationServer:
         its ``max_queue_depth`` is refused with :class:`QueueFullError`
         and the stream is cancelled.
 
-        ``checkpoint_dir`` / ``checkpoint_every`` arm the reference's
-        restore-on-failure path, which needs stream checkpoints: they raise
-        ``NotImplementedError`` here (ROADMAP.md item 8), before the query
-        takes a slot."""
+        ``checkpoint_dir`` (+ ``checkpoint_every`` chunks) arms the
+        restore-on-failure recovery path: the query checkpoints its
+        executor state on that cadence, and a quantum that raises
+        :class:`~repro_torch.train.elastic.WorkerFailure` resumes from the
+        last commit instead of failing the slot (requires a re-iterable
+        ``source``; see ``engine/elastic.py``)."""
         from repro_torch.engine.executors import batch_signature
 
-        if checkpoint_dir is not None or checkpoint_every is not None:
-            raise NotImplementedError(
-                "stream checkpoints are not ported yet: ROADMAP 'Modules to "
-                "port' item 8 (checkpoints and elasticity)"
-            )
         plan = self._apply_budget(plan, tenant)
         sig = batch_signature(plan) if self.batch_queries else None
         stream = plan.stream(source, prefetch=prefetch)
-        task = _QueryTask(stream, batch_key=sig, tenant=tenant)
+        task = _QueryTask(
+            stream, batch_key=sig, plan=plan, source=source,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            tenant=tenant,
+        )
         try:
             slot = self.scheduler.submit(task, tenant=tenant)
         except QueueFullError:

@@ -3,10 +3,11 @@
 
 ``mark_failed`` records device ids as lost; the serving layer
 (``serve/query_server.py``) lets a quantum that raises
-:class:`WorkerFailure` restore from a checkpoint, or propagate when there
-is none.  Building the survivor mesh and resharding a checkpoint onto it
-(``available_devices``, ``largest_mesh``, ``remesh``, ``reshard_restore``)
-come with the sharded stream and checkpoints (ROADMAP.md, items 8 and 9).
+:class:`WorkerFailure` restore from its stream's last checkpoint
+(``engine/elastic.py``), or propagate when there is none.  Building the
+survivor mesh and resharding a checkpoint onto it (``available_devices``,
+``largest_mesh``, ``remesh``, ``reshard_restore``) come with the sharded
+stream (ROADMAP.md item 9).
 """
 from __future__ import annotations
 

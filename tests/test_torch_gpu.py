@@ -1571,3 +1571,81 @@ def test_serve_fold_rounds_on_the_card(cuda, monkeypatch):
         s = torch.zeros(n, dtype=torch.float64, device=cuda).index_add_(0, inv, v.double())
         a = torch.zeros(n, dtype=torch.float64, device=cuda).index_add_(0, inv, v.double().abs())
         assert bool(((out["sum(v)"][:n][order].double() - s).abs() <= 1e-4 * a).all())
+
+
+# -- stream checkpoints ----------------------------------------------------------------
+
+
+def _ckpt_stream(cuda, rows=1 << 18, chunk=1 << 15, card=3000, seed=97):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    keys = torch.randint(0, card, (rows,), generator=g, device=cuda, dtype=torch.int32)
+    vals = torch.randint(0, 100, (rows,), generator=g, device=cuda).float()
+
+    def chunks(device):
+        return [api.Table({"k": keys[i:i + chunk].to(device), "v": vals[i:i + chunk].to(device)})
+                for i in range(0, rows, chunk)]
+
+    return keys, vals, chunks
+
+
+def _exact_map(out, keys, vals):
+    """Integer-valued f32 values: SUM and COUNT exact against torch.unique."""
+    keys = keys.to(out["key"].device).long()
+    vals = vals.to(out["key"].device).double()
+    uk, inv, cnt = torch.unique(keys, return_inverse=True, return_counts=True)
+    s = torch.zeros(uk.numel(), dtype=torch.float64, device=uk.device).index_add_(0, inv, vals)
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+    assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+    assert torch.equal(out["sum(v)"][:n][order].double(), s)
+
+
+@pytest.mark.gpu
+def test_card_commit_restores_on_the_cpu_and_back(cuda, tmp_path):
+    """A scan_body stream saved on the card restores into a ``device="cpu"``
+    plan (the plain versions) and finishes with the oracle's map; a CPU
+    commit restores onto the card the same way."""
+    keys, vals, chunks = _ckpt_stream(cuda)
+    aggs = (api.AggSpec("count"), api.AggSpec("sum", "v"))
+
+    def plan(device):
+        return api.GroupByPlan(keys=("k",), aggs=aggs, strategy="concurrent",
+                               max_groups=1 << 10, saturation="grow", raw_keys=True,
+                               execution=api.ExecutionPolicy(kernel="scan_body",
+                                                             device=device))
+
+    for saver, loader in (("cuda", "cpu"), ("cpu", "cuda")):
+        h = plan(saver).stream(chunks(saver))
+        h.pump(3)
+        path = str(tmp_path / saver)
+        h.save(path)
+        _exact_map(h.result(), keys, vals)
+        restored = plan(loader).restore(path, chunks(loader))
+        assert restored.chunks_consumed == 3
+        assert restored.executor._op._table.keys.device.type == loader
+        _exact_map(restored.result(), keys, vals)
+
+
+@pytest.mark.gpu
+def test_restored_default_plan_takes_the_cuda_route(cuda, tmp_path):
+    """A default plan restored on the card runs scan_body + scatter, as its
+    resolution did (``executors.cuda_route``): the kernels launch after the
+    restore, and the map is the oracle's."""
+    keys, vals, chunks = _ckpt_stream(cuda)
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("sum", "v")),
+                           raw_keys=True)
+    h = plan.stream(chunks("cuda"))
+    h.pump(4)
+    resolved = h.executor._resolved.execution
+    assert (resolved.kernel, resolved.update) == ("scan_body", "scatter")
+    h.save(str(tmp_path))
+    restored = plan.restore(str(tmp_path), chunks("cuda"))
+    r = restored.executor._resolved.execution
+    assert (r.kernel, r.update) == ("scan_body", "scatter")
+    assert restored.executor._inner._op.use_kernel
+    t0, s0 = fk.scan_ticket.launches, sa.segment_agg.launches
+    out = restored.result()
+    torch.cuda.synchronize()
+    assert fk.scan_ticket.launches > t0 and sa.segment_agg.launches > s0
+    _exact_map(out, keys, vals)

@@ -1,5 +1,5 @@
 """repro_torch stands alone: importing every module of the port (the
-serving and training packages included), and chip_smoke.py, loads neither
+serving, training and checkpoint packages included), and chip_smoke.py, loads neither
 JAX nor anything of the JAX package, and builds or loads no kernel."""
 import os
 import subprocess
@@ -39,5 +39,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "leaked: [] built: []" in proc.stdout
     walked = proc.stdout.split("walked:")[1].split()
     for module in ("repro_torch.serve.query_server", "repro_torch.serve.scheduler",
-                   "repro_torch.train.elastic"):
+                   "repro_torch.train.elastic", "repro_torch.checkpoint.manager",
+                   "repro_torch.engine.elastic"):
         assert module in walked, module

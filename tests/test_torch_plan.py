@@ -545,13 +545,35 @@ def test_default_device_without_cuda_raises(monkeypatch):
         plan.stream([])
 
 
-def test_checkpoints_not_ported():
-    plan = _torch_plan((tapi.AggSpec("count"),))
-    h = plan.stream([])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        h.save("/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        plan.restore("/nonexistent", [])
+def test_checkpoints_not_ported(tmp_path):
+    """Stream checkpoints (named from when they were not ported): a stream
+    saved before its first chunk restores with nothing consumed, one saved
+    after its only chunk restores finished, both with the uninterrupted
+    run's table; the fused route alone refuses to save, as in the
+    reference."""
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 300, size=1024).astype(np.uint32)
+    vals = rng.integers(0, 100, size=1024).astype(np.float32)
+    aggs = (tapi.AggSpec("count"), tapi.AggSpec("sum", "v"))
+    table, _ = tapi.arrays_as_table(torch.from_numpy(keys.astype(np.int64)),
+                                    torch.from_numpy(vals))
+    fused = _torch_plan(aggs)
+    with pytest.raises(TypeError, match="does not support checkpointing"):
+        fused.stream([table]).save(str(tmp_path / "fused"))
+    plan = _torch_plan(aggs, execution=dict(kernel=None))
+    want = plan.collect([table])
+    h = plan.stream([table])
+    h.save(str(tmp_path / "empty"))
+    h2 = plan.restore(str(tmp_path / "empty"), [table])
+    assert h2.chunks_consumed == 0 and h2.rows_consumed == 0
+    got = h2.result()
+    h.pump()
+    h.save(str(tmp_path / "one"))
+    h3 = plan.restore(str(tmp_path / "one"), [table])
+    assert h3.chunks_consumed == 1 and h3.rows_consumed == 1024 and h3.pump() == 0
+    for out in (got, h3.result(), h.result()):
+        for col in want.columns:
+            assert torch.equal(out[col], want[col]), col
 
 
 def test_registry_publishing_matches_jax():

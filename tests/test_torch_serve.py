@@ -763,13 +763,43 @@ def test_full_queue_refuses_and_cancels_the_stream():
     assert server.tenant_stats("t")["queued"] == 1
 
 
-def test_checkpointed_submit_raises_before_taking_a_slot():
-    tplan, _ = _plans()
+def test_checkpointed_submit_raises_before_taking_a_slot(tmp_path):
+    """A checkpointed submit (named from when checkpoints were not ported
+    and it raised): the query takes a slot, commits every 2 chunks, and a
+    ``WorkerFailure`` at its sixth chunk restores it once from the chunk-4
+    commit; it finishes with the uninterrupted query's map, and JAX's."""
+    from repro_torch.checkpoint.manager import latest_commit_step
+
+    tplan, jplan = _plans()
+    cols = _tcols(0)
+
+    class Flaky:
+        failed = False
+
+        def chunks(self):
+            for i, chunk in enumerate(TArraySource(cols, chunk_rows=CHUNK).chunks()):
+                if i == 5 and not Flaky.failed:
+                    Flaky.failed = True
+                    raise telastic.WorkerFailure([0])
+                yield chunk
+
     server = tqs.AggregationServer(slots=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        server.submit(tplan, TArraySource(_tcols(0), chunk_rows=CHUNK),
-                      checkpoint_dir="ckpt", checkpoint_every=2)
-    assert server.idle and server.tenant_stats("default")["running"] == 0
+    q = server.submit(tplan, Flaky(), checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    assert server.tenant_stats("default")["running"] == 1 and q.slot is not None
+    server.step(4)
+    assert q.chunks_consumed == 4 and latest_commit_step(str(tmp_path)) == 4
+    server.step(2)  # the sixth chunk fails: restored at the chunk-4 commit
+    assert Flaky.failed and q.profile()["recoveries"] == {"remeshes": 0, "restores": 1}
+    assert q.chunks_consumed == 4
+    server.run_until_idle()
+    assert q.status == "done" and latest_commit_step(str(tmp_path)) == N // CHUNK
+    out = q.result()
+    assert _map(out) == _map(tplan.collect(TArraySource(cols, chunk_rows=CHUNK)))
+    assert _map(out, "count(*)") == _map(tplan.collect(TArraySource(cols, chunk_rows=CHUNK)),
+                                         "count(*)")
+    jserver = jqs.AggregationServer(slots=1)
+    jq = jserver.submit(jplan, JArraySource(_jcols(0), chunk_rows=CHUNK))
+    _assert_same_map(out, jq.result())
 
 
 def test_worker_failure_without_a_checkpoint_fails_only_its_slot():
