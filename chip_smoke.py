@@ -133,6 +133,19 @@ Four phases, each of which fails the run:
    scan_body and a default plan), and serve_low's 16 queries, solo, each
    checkpointed every 4 chunks and failing once at chunk 9: every query
    restored once and held to the oracle.
+   Phase 3 sharded (``core/distributed.py``, ``_ShardedExecutor``): the
+   card as an 8-member mesh (``virtual_devices(8, "cuda")``), 8 chunks,
+   integer-valued values, sum(v), count(*) and mean(v): low, high and
+   unique at 2^24 rows under RAISE with the dense_psum and all_to_all
+   merges; GROW from max_groups=64 on low and high; at 2^22 rows, a
+   re-mesh after 2 of 8 members fail, a commit saved on 8 members and
+   restored on 4, and the server with a sharded tenant beside a flat one
+   while a member fails.  Every map held to the oracle; every stream
+   launches ``scan_ticket`` per member and chunk, the segment kernel per
+   member, chunk and plane, the ticket kernel in each dense_psum merge,
+   and never the fused kernel; the wall, merge, re-mesh and save / restore
+   seconds and the commit bytes printed with the card's name and power
+   limit.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -1198,6 +1211,9 @@ def executor_path(ex):
     if name == "_HybridExecutor":
         return ("hybrid_registers", "scan_ticket") + (
             ("segment_agg",) if ex._op.use_kernel else ())
+    if name == "_ShardedExecutor":
+        return ("scan_ticket", "segment_agg") + (
+            ("ticket_hash",) if ex._plan.execution.shard_merge == "dense_psum" else ())
     if name == "_DirectExecutor":
         return ("segment_agg",) if ex._plan.execution.kernel == "scan_body" else ()
     e = ex._plan.execution
@@ -2261,6 +2277,252 @@ def ckpt_serve(kmods, api, gen, device, root, rows, nq=16):
            "launches": launches}
     log("phase3 " + json.dumps(rec) + "; every query restored once and held to the oracle ok")
     return [rec]
+
+
+# -- phase 3 sharded: one card as an 8-member mesh -------------------------------
+
+SHARD_AGGS = (("sum", "v"), ("count", None), ("mean", "v"))
+SHARD_PLANES = 3                # (v, sum), (None, count), (v, count)
+SHARD_MEMBERS = 8
+SHARD_OTHERS = ("fused_groupby", "scan_ticket_batched", "segment_agg_serialized",
+                "hybrid_registers", "preagg")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def hold_sharded(out, o, name):
+    """A sharded result against the oracle (integer-valued values): key
+    set, COUNT exact, SUM exact below 2^24 (``hold_exact``), MEAN within
+    SUM_RTOL · Σ|v| over the count.  Returns the groups whose SUM passes
+    2^24."""
+    import torch
+
+    big = hold_exact(out, o, name)
+    n = int(out["__num_groups__"][0])
+    sub = type(out)({c: t[:n] for c, t in out.columns.items()})
+    check_against_oracle(sub, torch.argsort(sub["key"]), o, name)
+    return big
+
+
+def shard_launches_ok(name, launches, *, members, chunks, psum_merges, exact=True):
+    """The launch counts of a sharded stream on the card: ``scan_ticket``
+    once per member per chunk, the segment kernel once per member, chunk
+    and plane (and once per member and plane in each dense_psum merge), the
+    ticket kernel once per dense_psum merge, and no other kernel (the
+    fused kernel never).  ``exact=False`` (GROW, re-mesh) asks for at least
+    those counts."""
+    want = {"scan_ticket": members * chunks,
+            "segment_agg": members * chunks * SHARD_PLANES
+            + psum_merges * members * SHARD_PLANES,
+            "ticket_hash": psum_merges}
+    for k, w in want.items():
+        ok = launches[k] == w if exact else launches[k] >= w
+        check(ok, f"{name}: {launches[k]} {k} launches, expected {'' if exact else '>= '}{w}")
+    for k in SHARD_OTHERS:
+        check(launches[k] == 0, f"{name}: the {k} kernel ran on the sharded route")
+
+
+def phase3_sharded(kmods, api, gen, device, n=1 << 24, small=1 << 22):
+    """Multi-device sharding on one card (``parallel/sharding.py``,
+    ``core/distributed.py``, ``_ShardedExecutor``): ``virtual_devices(8,
+    "cuda")`` makes the card an 8-member mesh, each member with its own
+    tables.  Streams of 8 chunks, integer-valued values, sum(v), count(*)
+    and mean(v), each held to the oracle (COUNT exact, SUM exact below
+    2^24, MEAN within SUM_RTOL): the low, high and unique classes at 2^24
+    rows under RAISE with both merges (bounds 1024 / N / 10 / N, local
+    bounds 1024 / 2^18 / 2^22); GROW from max_groups=64 on low and high
+    (2^24 rows, dense_psum); at 2^22 rows on low: a re-mesh (2 of 8 members
+    marked failed after 4 chunks, ``remesh_stream``, every survivor's
+    re-bucketed table probed back to its tickets), a commit saved on 8
+    members and restored on 4, and the server with a sharded tenant beside
+    a flat one while one member fails (both exact, ``remeshes == 1`` for
+    the sharded tenant only).  Each stream's launch counts are read around
+    it (``shard_launches_ok``).  Prints the wall, the consume, merge,
+    re-mesh and save / restore seconds and the commit bytes on ``phase3
+    {"stream": "shard_*", ...}`` lines, with the card's name and power
+    limit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import ticketing as tk
+    from repro_torch.engine import elastic as tel
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import AggregationServer
+    from repro_torch.train import elastic as telastic
+
+    card = card_line()
+    root = os.path.join(HERE, "build", "chip_smoke_shard")
+    shutil.rmtree(root, ignore_errors=True)
+    sharding.virtual_devices(SHARD_MEMBERS, device)
+    mesh8 = sharding.make_mesh((SHARD_MEMBERS,), ("data",))
+    aggs = tuple(api.AggSpec(k, c) for k, c in SHARD_AGGS)
+    vals = torch.randint(0, 100, (n,), generator=gen, device=device).float()
+    recs = []
+
+    def plan(merge, sat, max_groups, mesh=mesh8, **ex):
+        return api.GroupByPlan(keys=("k",), aggs=aggs, strategy="sharded",
+                               max_groups=max_groups, saturation=sat, raw_keys=True,
+                               execution=api.ExecutionPolicy(mesh=mesh, shard_merge=merge,
+                                                             **ex))
+
+    def source(keys, v, chunks=8):
+        step = keys.shape[0] // chunks
+        return [api.Table({"k": keys[lo:lo + step], "v": v[lo:lo + step]})
+                for lo in range(0, keys.shape[0], step)]
+
+    def emit(rec):
+        rec["card"] = card
+        log("phase3 " + json.dumps(rec))
+        recs.append(rec)
+
+    def stream(name, p, keys, v):
+        o = oracle(keys, v)
+        sync()
+        reset_launches(kmods)
+        t0 = time.perf_counter()
+        h = p.stream(source(keys, v))
+        h.pump(8)
+        h._drain_inflight()
+        sync()
+        t1 = time.perf_counter()
+        out = h.result()
+        sync()
+        t2 = time.perf_counter()
+        launches = read_launches(kmods)
+        big = hold_sharded(out, o, f"shard_{name}")
+        ex, e = h.executor, p.execution
+        grow = p.saturation == "grow"
+        shard_launches_ok(f"shard_{name}", launches, members=SHARD_MEMBERS, chunks=8,
+                          psum_merges=int(e.shard_merge == "dense_psum"), exact=not grow)
+        if grow:
+            check(ex.bound_grows >= 1, f"shard_{name}: no bound grow from max_groups=64")
+        emit({"stream": f"shard_{name}", "members": SHARD_MEMBERS, "rows": int(keys.numel()),
+              "merge": e.shard_merge, "saturation": p.saturation, "wall_s": t2 - t0,
+              "consume_s": t1 - t0, "merge_s": t2 - t1, "groups": int(o["keys"].numel()),
+              "groups_sum_past_2^24": big, "max_groups": ex._max_groups,
+              "max_local": ex._max_local, "bound_grows": ex.bound_grows,
+              "migrations": ex.migrations, "launches": launches})
+
+    low = gen_keys(n, "low", "uniform", gen, device)
+    high = gen_keys(n, "high", "zipf", gen, device)
+    uniq = gen_keys(n, "unique", "uniform", gen, device)
+    for merge in ("dense_psum", "all_to_all"):
+        stream(f"low_{merge}", plan(merge, "raise", 1024), low, vals)
+        stream(f"high_{merge}", plan(merge, "raise", n // 10, max_local_groups=n >> 6),
+               high, vals)
+        stream(f"unique_{merge}", plan(merge, "raise", n, max_local_groups=n >> 2),
+               uniq, vals)
+    del uniq
+    stream("low_grow", plan("dense_psum", "grow", 64), low, vals)
+    stream("high_grow", plan("dense_psum", "grow", 64), high, vals)
+    del high
+
+    k_s, v_s = low[:small], vals[:small]
+    o = oracle(k_s, v_s)
+
+    # a re-mesh: 2 of 8 members fail after 4 chunks
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    h = plan("dense_psum", "raise", 1024).stream(source(k_s, v_s))
+    h.pump(4)
+    h._drain_inflight()
+    sync()
+    before = read_launches(kmods)
+    lost = [d.id for d in mesh8.devices.reshape(-1)[-2:]]
+    telastic.mark_failed(lost)
+    r0 = time.perf_counter()
+    check(tel.remesh_stream(h), "shard_remesh: the loss was not seen")
+    sync()
+    remesh_s = time.perf_counter() - r0
+    check(not tel.remesh_stream(h), "shard_remesh: re-meshed twice")
+    ex = h.executor
+    for i, t in enumerate(ex._carry.tables):  # the ticket kernel built valid probe tables
+        c = int(t.count)
+        check(torch.equal(tk.lookup(t, t.key_by_ticket[:c]),
+                          torch.arange(c, dtype=torch.int32, device=device)),
+              f"shard_remesh: member {i}'s re-bucketed table does not probe to its tickets")
+    out = h.result()
+    sync()
+    wall = time.perf_counter() - t0
+    telastic.reset_failures()
+    launches = read_launches(kmods)
+    hold_sharded(out, o, "shard_remesh")
+    check(ex.remeshes == 1 and ex._ndev == 6, f"shard_remesh: {ex.remeshes} re-meshes onto "
+          f"{ex._ndev} members")
+    shard_launches_ok("shard_remesh (first 4 chunks)", before, members=8, chunks=4,
+                      psum_merges=0)
+    after = {k: launches[k] - before[k] for k in launches}
+    check(after["scan_ticket"] == 6 * 4, f"shard_remesh: {after['scan_ticket']} scan_ticket "
+          "launches after the re-mesh, expected 6 members x 4 chunks")
+    check(after["ticket_hash"] == 6 + 1, f"shard_remesh: {after['ticket_hash']} ticket "
+          "launches after the re-mesh, expected 6 tables + 1 union")
+    emit({"stream": "shard_remesh", "members": [8, 6], "rows": small, "wall_s": wall,
+          "remesh_s": remesh_s, "groups": int(o["keys"].numel()), "launches": launches})
+
+    # a commit saved on 8 members, restored on 4
+    mesh4 = sharding.make_mesh((4,), ("data",))
+    path = os.path.join(root, "restore_8_to_4")
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    h = plan("dense_psum", "raise", 1024).stream(source(k_s, v_s))
+    h.pump(4)
+    sync()
+    s0 = time.perf_counter()
+    committed = h.save(path)
+    save_s = time.perf_counter() - s0
+    nbytes = _dir_bytes(committed)
+    h.cancel()
+    r0 = time.perf_counter()
+    restored = plan("dense_psum", "raise", 1024, mesh=mesh4).restore(path, source(k_s, v_s))
+    sync()
+    restore_s = time.perf_counter() - r0
+    check(restored.executor._ndev == 4 and restored.chunks_consumed == 4,
+          "shard_restore_8_to_4: not restored onto 4 members at chunk 4")
+    out = restored.result()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    hold_sharded(out, o, "shard_restore_8_to_4")
+    check(launches["fused_groupby"] == 0, "shard_restore_8_to_4: the fused kernel ran")
+    emit({"stream": "shard_restore_8_to_4", "members": [8, 4], "rows": small, "wall_s": wall,
+          "save_s": save_s, "restore_s": restore_s, "commit_bytes": nbytes,
+          "launches": launches})
+
+    # the server: a sharded tenant beside a flat one; one member fails
+    flat = api.GroupByPlan(keys=("k",), aggs=aggs, strategy="concurrent", max_groups=1024,
+                           saturation="raise", raw_keys=True,
+                           execution=api.ExecutionPolicy(kernel="scan_body",
+                                                         device=device.type))
+    reset_launches(kmods)
+    sync()
+    t0 = time.perf_counter()
+    server = AggregationServer(slots=4)
+    q_sh = server.submit(plan("dense_psum", "raise", 1024), source(k_s, v_s), tenant="meshy")
+    q_fl = server.submit(flat, source(k_s, v_s), tenant="flat")
+    server.step(3)
+    telastic.mark_failed([lost[0]])
+    outs = [q.result() for q in (q_sh, q_fl)]
+    sync()
+    wall = time.perf_counter() - t0
+    telastic.reset_failures()
+    launches = read_launches(kmods)
+    for q, out, label in zip((q_sh, q_fl), outs, ("sharded", "flat")):
+        hold_sharded(out, o, f"shard_serve {label}")
+    rm = [q.profile()["recoveries"]["remeshes"] for q in (q_sh, q_fl)]
+    check(rm == [1, 0], f"shard_serve: re-meshes {rm}, expected [1, 0]")
+    check(launches["fused_groupby"] == 0, "shard_serve: the fused kernel ran")
+    emit({"stream": "shard_serve", "rows": 2 * small, "wall_s": wall, "remeshes": rm,
+          "launches": launches})
+    sharding.reset_virtual_devices()
+    shutil.rmtree(root, ignore_errors=True)
+    return recs
 
 
 # -- phase 4: timing --------------------------------------------------------------
@@ -3360,6 +3622,10 @@ def main(argv=None) -> int:
     ckpt_recs = phase3_checkpoints(kmods, api, gen, device)
     recs += ckpt_recs
     log(f"phase3 checkpoints in {time.perf_counter() - t_ckpt:.1f} s")
+    log("== phase 3 sharded: one card as an 8-member mesh")
+    t_shard = time.perf_counter()
+    recs += phase3_sharded(kmods, api, gen, device)
+    log(f"phase3 sharded in {time.perf_counter() - t_shard:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
@@ -3419,11 +3685,7 @@ def main(argv=None) -> int:
         "library_ms": timing[name]["library_ms"],
     } for name in kmods]
     log(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    log(smi[0])
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

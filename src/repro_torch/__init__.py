@@ -1,15 +1,16 @@
 """PyTorch/CUDA port of the ``repro`` GROUP BY engine.
 
 The package mirrors ``src/repro/`` module for module (``core/``,
-``engine/``, ``kernels/``, ``obs/``, ``data/``, ``serve/``, ``train/``),
-exports the same names from each package, and imports neither JAX nor
-anything of ``repro``.  ``from repro_torch.engine import GroupByPlan,
-AggSpec, Table`` is the front door.  Every single-device plan of the
+``engine/``, ``kernels/``, ``obs/``, ``data/``, ``serve/``, ``train/``,
+``parallel/``), exports the same names from each package, and imports
+neither JAX nor anything of ``repro``.  ``from repro_torch.engine import
+GroupByPlan, AggSpec, Table`` is the front door.  Every plan of the
 reference runs: the default plan (``strategy="auto"``), the concurrent
 hash pipeline on its three kernel routes (the scan route, ``kernel``
 None / "off" / "scan_body"; ``"split"``; ``"fused"``), sort and direct
-ticketing, ``strategy="hybrid"``, ``strategy="partitioned"`` and
-``saturation="spill"``.  ``serve.AggregationServer`` multiplexes many
+ticketing, ``strategy="hybrid"``, ``strategy="partitioned"``,
+``saturation="spill"`` and ``strategy="sharded"`` over a
+single-controller mesh (``parallel.sharding``).  ``serve.AggregationServer`` multiplexes many
 streaming queries over one scheduler and co-dispatches same-shape scan
 queries through one multi-table ticket launch.  The hand-written Hopper
 kernels live in ``csrc/`` (see ``kernels/``).

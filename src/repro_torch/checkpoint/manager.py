@@ -10,8 +10,10 @@ Fault-tolerance contract:
   * ``restore_latest`` resumes from the newest commit (the step counter is
     part of the state);
   * leaves are saved as full host arrays and restored onto the device the
-    caller names (the reference's ``shardings=`` becomes ``device=``;
-    sharded restore comes with multi-device sharding, ROADMAP.md item 9);
+    caller names (the reference's ``shardings=`` becomes ``device=``; a
+    restore by LM placement rules comes with the LM stack, ROADMAP.md
+    item 10; a sharded stream's carry restores through
+    ``engine/elastic.py``, onto any member count);
   * saving runs on a background thread (async, off the critical path) with
     a barrier before the next save (at most one in flight).  The leaves are
     copied to host BEFORE ``save`` returns: the port updates tensors in

@@ -1,22 +1,34 @@
-"""Elastic streams: a checkpointable ``StreamHandle``.
+"""Elastic streams: a checkpointable ``StreamHandle`` and the mid-stream
+re-mesh.
 
-Port of ``repro.engine.elastic`` for every single-device executor.
+Port of ``repro.engine.elastic``.
 
 1. **Checkpointable streams.**  ``StreamHandle.save(path)`` serializes the
    full executor state — the ``TicketTable`` / ``AggState`` of the scan
-   route's operator, the carried :class:`~repro_torch.core.adaptive.RunningStats`
-   sketch of an ``auto`` plan, the spill partitions, the merge table of the
-   split and partitioned routes, plus the ingest chunk cursor — through
+   route's operator, the per-member
+   :class:`~repro_torch.core.distributed.ShardedCarry`, the carried
+   :class:`~repro_torch.core.adaptive.RunningStats` sketch of an ``auto``
+   plan, the spill partitions, the merge table of the split and partitioned
+   routes, plus the ingest chunk cursor — through
    ``checkpoint/manager.py``'s atomic-commit contract (temp dir + rename, so
    a crash mid-save never corrupts the last commit).
    ``GroupByPlan.restore(path, source)`` rebuilds the executor from the
    newest commit, fast-forwards the (replayed-from-the-start) source past
    the chunks the checkpoint already aggregated, and returns a live handle
-   that resumes where the saved one stood.
+   that resumes where the saved one stood — on the same mesh or another
+   one (a sharded carry saved on N members re-buckets onto the restoring
+   plan's M).
 
-2. **Server recovery** lives in ``serve/query_server.py``: a quantum that
-   raises ``WorkerFailure`` restores its stream from the last checkpoint
-   while other tenants keep stepping.
+2. **Mid-stream re-mesh.**  On device loss (``train/elastic.mark_failed``),
+   :func:`remesh_stream` drains a sharded stream's in-flight window,
+   re-buckets the per-member tables onto the survivor mesh
+   (``core.distributed.rebucket_sharded_carry``) and resumes; every merge
+   is key-wise, so results stay exact.
+
+3. **Server recovery** lives in ``serve/query_server.py``: before a
+   quantum a sharded stream whose mesh lost members re-meshes in place,
+   and a quantum that raises ``WorkerFailure`` restores its stream from the
+   last checkpoint, while other tenants keep stepping.
 
 The commit format is the reference's, key for key: a commit written by
 either package restores in the other, on the CPU or on a card.  The port
@@ -38,11 +50,6 @@ beginning and SKIPS the chunks the checkpoint already consumed, so the
 source must be re-iterable with a stable chunk order (a ``Table``, an
 ``ArraySource`` / ``BlockSource``, any ``chunks()`` object that restarts —
 NOT a half-drained bare iterator).
-
-Multi-device sharding (ROADMAP.md item 9) brings the sharded executor's
-carry, the survivor mesh and the in-place re-mesh; until then
-:func:`stream_mesh` is ``None`` for every stream and :func:`remesh_stream`
-raises the reference's ``TypeError``.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch.engine.executors import (
     _IncrementalMergeExecutor,
     _ResolvingExecutor,
     _ScanExecutor,
+    _ShardedExecutor,
     _SortExecutor,
     cuda_route,
     make_executor,
@@ -70,6 +78,7 @@ from repro_torch.engine.plan_api import GroupByPlan, StreamHandle, iter_chunks
 from repro_torch.engine.spill import SpillExecutor
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.parallel import sharding
 
 FORMAT = "repro.elastic/v1"
 
@@ -281,6 +290,24 @@ def export_executor(ex) -> tuple[dict, dict]:
         meta.update(rows=int(ex._rows), vcols=sorted(vals))
         return arrays, meta
 
+    if isinstance(ex, _ShardedExecutor):
+        started = ex._carry is not None
+        meta.update(
+            started=started, ndev=int(ex._ndev),
+            max_local=int(ex._max_local), max_groups=int(ex._max_groups),
+            rows=int(ex._rows), migrations=int(ex.migrations),
+            bound_grows=int(ex.bound_grows), remeshes=int(ex.remeshes),
+        )
+        if started:
+            c = ex._carry.stacked()
+            _nest(arrays, "carry", {k: c[k] for k in ("keys", "tickets", "kbt", "count",
+                                                      "ovf")})
+            for i, acc in enumerate(c["acc"]):
+                arrays[f"carry/acc/{i}"] = acc
+            if ex._events is not None:
+                arrays["events"] = np.stack([_get(e) for e in ex._events])
+        return arrays, meta
+
     if isinstance(ex, SpillExecutor):
         ex._flush_staged()  # staged cold batches belong to the manager
         op_arrays, op_meta = _export_op(ex._op)
@@ -378,6 +405,10 @@ def import_executor(ex, arrays: dict, meta: dict) -> None:
         _import_op(ex._op, _sub(arrays, "op"), meta["op"])
         return
 
+    if isinstance(ex, _ShardedExecutor):
+        _import_sharded(ex, arrays, meta)
+        return
+
     dev = ex._device
 
     if isinstance(ex, _DirectExecutor):
@@ -464,6 +495,41 @@ def import_executor(ex, arrays: dict, meta: dict) -> None:
     )
 
 
+def _import_sharded(ex, arrays: dict, meta: dict) -> None:
+    """A sharded commit onto the restoring plan's members: as saved when
+    the member count agrees, re-bucketed onto them when it does not."""
+    from repro_torch.core import distributed as dist
+
+    ex._rows = int(meta["rows"])
+    ex._max_groups = int(meta["max_groups"])
+    ex.migrations = int(meta["migrations"])
+    ex.bound_grows = int(meta["bound_grows"])
+    ex.remeshes = int(meta["remeshes"])
+    if not meta["started"]:
+        return
+    saved_ndev = int(meta["ndev"])
+    stacked = {k: arrays[f"carry/{k}"] for k in ("keys", "tickets", "kbt", "count", "ovf")}
+    stacked["acc"] = tuple(arrays[f"carry/acc/{i}"] for i in range(len(ex._specs)))
+    if saved_ndev == ex._ndev:
+        ex._carry = dist.ShardedCarry.from_stacked(stacked, ex._specs, ex._members)
+        ex._max_local = int(meta["max_local"])
+    else:
+        # reshard-on-restore, the table way: the saved members' entries
+        # re-bucket onto the restoring plan's members (on the CPU first)
+        cpu = [sharding.MeshDevice(i, torch.device("cpu")) for i in range(saved_ndev)]
+        ex._carry, ex._max_local = dist.rebucket_sharded_carry(
+            dist.ShardedCarry.from_stacked(stacked, ex._specs, cpu), ex._members,
+            load_factor=ex._plan.execution.load_factor, max_local=ex._max_local,
+        )
+    if "events" in arrays and ex._collect:
+        ev = np.asarray(arrays["events"])
+        if ev.shape[0] != ex._ndev:
+            total = ev.sum(axis=0)
+            ev = np.zeros((ex._ndev, ev.shape[1]), ev.dtype)
+            ev[0] = total
+        ex._events = [_put(ev[i], m.device, torch.int32) for i, m in enumerate(ex._members)]
+
+
 # ---------------------------------------------------------------------------
 # stream save / restore
 
@@ -543,7 +609,7 @@ def restore_stream(plan: GroupByPlan, path: str, source, *,
 
 
 # ---------------------------------------------------------------------------
-# mid-stream re-mesh (sharded streams: ROADMAP.md item 9)
+# device-loss detection + mid-stream re-mesh
 
 
 def _unwrap(ex):
@@ -554,18 +620,47 @@ def _unwrap(ex):
 def stream_mesh(handle: StreamHandle):
     """The device mesh a live stream's executor runs on, ``None`` for the
     single-device strategies (the server's cheap per-quantum loss probe:
-    only a meshed stream can re-mesh in place).  No port executor has a
-    mesh yet."""
+    only a meshed stream can re-mesh in place)."""
     if handle.executor is None:
         return None
     ex = _unwrap(handle.executor)
     return ex._plan.execution.mesh if hasattr(ex, "remesh") else None
 
 
+def mesh_failed_ids(mesh) -> list[int]:
+    """Member ids of ``mesh`` currently marked failed
+    (``train/elastic.mark_failed``, the simulated-loss seam)."""
+    from repro_torch.train import elastic as telastic
+
+    failed = telastic.failed_ids()
+    return [d.id for d in mesh.devices.reshape(-1) if d.id in failed]
+
+
+def survivor_mesh(mesh, *, axis: str = "data"):
+    """1-axis mesh over ``mesh``'s surviving members, ``None`` when nothing
+    failed.  Raises :class:`~repro_torch.train.elastic.WorkerFailure` when
+    no member survives (nothing to re-mesh onto)."""
+    from repro_torch.train.elastic import WorkerFailure
+
+    lost = set(mesh_failed_ids(mesh))
+    if not lost:
+        return None
+    survivors = [d for d in mesh.devices.reshape(-1) if d.id not in lost]
+    if not survivors:
+        raise WorkerFailure(sorted(lost))
+    return sharding.Mesh(np.asarray(survivors, dtype=object), (axis,))
+
+
 def remesh_stream(handle: StreamHandle, mesh=None, *,
                   axis: str | None = None) -> bool:
-    """Re-mesh a live sharded stream at a chunk boundary onto ``mesh``
-    (drains the in-flight window first).  A stream that is not sharded
+    """Re-mesh a live sharded stream at a chunk boundary.
+
+    With ``mesh=None`` the survivor mesh of the stream's current mesh is
+    used (``False``, and nothing done, when no member of it has failed).
+    The in-flight ingest window is drained first — a paused chunk commits
+    nothing, so the boundary is a consistent cut — then the executor
+    re-buckets its carry onto the new mesh and consumption resumes.
+    Returns ``True`` when a re-mesh happened.  A stream that is not sharded
     raises ``TypeError``: it recovers by checkpoint restore."""
     if handle.cancelled or handle.closed:
         raise ValueError("cannot re-mesh a cancelled/finalized stream")
@@ -575,21 +670,23 @@ def remesh_stream(handle: StreamHandle, mesh=None, *,
             "mid-stream re-mesh needs strategy='sharded' (other strategies "
             "recover by checkpoint restore: save() → restore())"
         )
+    axis = axis or ex._plan.execution.axis
     if mesh is None:
-        raise NotImplementedError(
-            "the survivor mesh of a sharded stream is not ported yet: ROADMAP "
-            "'Modules to port' item 9 (multi-device sharding)"
-        )
+        mesh = survivor_mesh(ex._plan.execution.mesh, axis=axis)
+        if mesh is None:
+            return False
     handle._drain_inflight()
-    ex.remesh(mesh, axis=axis or ex._plan.execution.axis)
+    ex.remesh(mesh, axis=axis)
     return True
 
 
 __all__ = [
     "export_executor",
     "import_executor",
+    "mesh_failed_ids",
     "remesh_stream",
     "restore_stream",
     "save_stream",
     "stream_mesh",
+    "survivor_mesh",
 ]

@@ -49,17 +49,20 @@ saturation policies:
   * ``saturation="spill"`` — ``engine.spill.SpillExecutor``: the scan
     route with a bounded device residency and host-spilled cold
     partitions, merged exactly at ``finalize`` (``strategy="auto"``
-    resolves to it through :class:`_ResolvingExecutor`).
+    resolves to it through :class:`_ResolvingExecutor`);
+  * ``strategy="sharded"`` — :class:`_ShardedExecutor`: every member of
+    ``ExecutionPolicy.mesh`` folds its slice of each chunk into a carried
+    table (``core/distributed.py``), merged across members at
+    ``finalize`` (dense psum or all_to_all exchange).
 
-``strategy="sharded"`` raises ``NotImplementedError`` naming ROADMAP item
-9; no plan quietly runs something else.  Every executor but
-:class:`_FusedExecutor` checkpoints through ``engine/elastic.py``
-(``StreamHandle.save`` / ``GroupByPlan.restore``).
+Every executor but :class:`_FusedExecutor` checkpoints through
+``engine/elastic.py`` (``StreamHandle.save`` / ``GroupByPlan.restore``).
 
 Device rule: the executor runs on ``ExecutionPolicy.device`` and moves each
 chunk there.  ``device=None`` means ``"cuda"`` and raises ``RuntimeError``
 when no CUDA device exists; only an explicit ``device="cpu"`` runs on the
-CPU (the kernels' plain versions).
+CPU (the kernels' plain versions).  A sharded plan runs on its mesh's
+members, and an explicit ``device`` must agree with them.
 """
 from __future__ import annotations
 
@@ -83,6 +86,7 @@ from repro_torch.engine.groupby import (
 )
 from repro_torch.engine.plan_api import GroupByPlan, SaturationPolicy, value_columns
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 # ---------------------------------------------------------------------------
 # kernel selection
@@ -130,20 +134,6 @@ def normalize_kernel(plan: GroupByPlan) -> GroupByPlan:
     return plan
 
 
-# Where each plan outside the ported slice will be ported (ROADMAP.md,
-# "Modules to port").
-_STRATEGY_ITEM = {
-    "sharded": "item 9 (multi-device sharding)",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md 'Modules to "
-        f"port' {item}"
-    )
-
-
 # update strategies of the split route's segment kernel
 _SPLIT_UPDATES = ("scatter", "onehot")
 
@@ -182,9 +172,7 @@ def make_executor(plan: GroupByPlan):
                 "table is the probe table the spill router classifies "
                 "against)"
             )
-    if plan.strategy in _STRATEGY_ITEM:
-        raise _not_ported(f"strategy={plan.strategy!r}", _STRATEGY_ITEM[plan.strategy])
-    device = resolve_device(ex.device)
+    device = _plan_device(plan)
     if plan.saturation is None:
         # THE saturation default: an estimated bound recovers (a sample
         # cannot see a long tail); an explicit bound is a caller contract
@@ -203,6 +191,8 @@ def make_executor(plan: GroupByPlan):
         return _HybridExecutor(plan, device)
     if plan.strategy == "partitioned":
         return _PartitionedExecutor(plan, device)
+    if plan.strategy == "sharded":
+        return _ShardedExecutor(plan)
     if ex.ticketing == "sort":
         return _SortExecutor(plan, device)
     if ex.ticketing == "direct":
@@ -216,6 +206,35 @@ def make_executor(plan: GroupByPlan):
 
 # ---------------------------------------------------------------------------
 # shared helpers
+
+
+def _mesh_members(plan: GroupByPlan) -> list:
+    """The members a sharded plan runs on, after the reference's checks
+    (a mesh is required, ``shard_merge`` is one of two) and the port's: an
+    explicit ``ExecutionPolicy.device`` must name the members' device."""
+    ex = plan.execution
+    if ex.mesh is None:
+        raise ValueError("strategy 'sharded' requires ExecutionPolicy.mesh")
+    if ex.shard_merge not in ("dense_psum", "all_to_all"):
+        raise ValueError(f"unknown shard_merge {ex.shard_merge!r}")
+    members = ex.mesh.members(ex.axis)
+    if ex.device is not None:
+        want = torch.device(ex.device)
+        for m in members:
+            if m.device.type != want.type or want.index not in (None, m.device.index):
+                raise ValueError(
+                    f"ExecutionPolicy.device={ex.device!r} disagrees with mesh member "
+                    f"{m.id} on {m.device}: a sharded plan runs on its mesh's devices"
+                )
+    return members
+
+
+def _plan_device(plan: GroupByPlan) -> torch.device:
+    """Where a plan runs: its first mesh member's device for a sharded
+    plan, else ``ExecutionPolicy.device`` by the device rule."""
+    if plan.strategy == "sharded":
+        return _mesh_members(plan)[0].device
+    return resolve_device(plan.execution.device)
 
 
 def _instrument(plan: GroupByPlan) -> bool:
@@ -1489,4 +1508,355 @@ class _FusedExecutor(_ExecutorBase):
         out["num_groups"] = count
         out["table_capacity"] = self._state.capacity
         out["table_load_factor"] = count / self._state.capacity
+        return out
+
+
+# ---------------------------------------------------------------------------
+# sharded: mesh-level execution
+
+
+class _ShardedExecutor(_ExecutorBase):
+    """Strategy ``sharded``, streaming ingest: the paper's thread-local
+    method made incremental at mesh scale.  Every chunk is split
+    contiguously over the mesh's members (``ExecutionPolicy.axis``) and
+    each member folds its slice into its carried table and accumulators
+    (``core.distributed.ShardedCarry``): one ``scan_ticket`` launch and one
+    segment-kernel update per plane per member on a card, the plain
+    versions on the CPU.  The cross-member merge runs ONCE at finalize:
+
+      * ``shard_merge="dense_psum"`` — gather the members' unique keys,
+        build the union table once, reduce the members' partials in union
+        order (the thread-local merge);
+      * ``"all_to_all"`` — exchange the members' LOCAL aggregates by key
+        partition, owners finish alone (the Leis baseline).
+
+    Member state is O(members × capacity), independent of stream length:
+    no chunk is buffered.  Under GROW, consume runs the checked step:
+    members pause before their bound or load factor is crossed, and
+    ``poll`` widens EVERY member's table (``grow_sharded_carry``) and
+    resumes each member at its own todo morsels.  RAISE / UNCHECKED run the
+    zero-sync step; RAISE reads the sticky per-member loss flags once at
+    finalize.  After ``finalize`` the strategy's raw output is kept on
+    ``.raw``, in the reference's concatenated per-device layout, on the
+    first member."""
+
+    strategy_label = "sharded"
+
+    def __init__(self, plan: GroupByPlan):
+        self._plan = plan
+        self._members = _mesh_members(plan)
+        self._specs = expand_agg_specs(plan.aggs)
+        ex = plan.execution
+        self._ndev = len(self._members)
+        self._max_local = ex.max_local_groups or plan.max_groups
+        self._max_groups = plan.max_groups
+        self._checked = plan.saturation == SaturationPolicy.GROW
+        self._collect = _instrument(plan)
+        self._events = None   # one (EVENT_VEC_LEN,) int32 vector per member
+        self.migrations = 0
+        self.bound_grows = 0
+        self.remeshes = 0
+        self._carry = None
+        self._step = None
+        self._rows = 0
+        self.raw = None
+        self._merged = None
+
+    @property
+    def mesh(self):
+        return self._plan.execution.mesh
+
+    def _zero_events(self, members) -> list:
+        return [obs_metrics.zero_event_vector(m.device) for m in members]
+
+    def remesh(self, mesh, *, axis: str | None = None) -> None:
+        """Move the stream onto a DIFFERENT mesh at a chunk boundary — the
+        elastic device-loss recovery (``engine/elastic.py`` drives it).
+        The carried state re-buckets onto the new members
+        (``core.distributed.rebucket_sharded_carry``: the exchange merge's
+        key-partition rule, duplicate keys folded with their merge kind),
+        the step is rebuilt for the new mesh on the next consume, and
+        consumption resumes where it stopped: every merge in the pipeline is
+        key-wise, so results stay exact.  The caller owns the chunk
+        boundary: in-flight tokens must be polled first (``StreamHandle``
+        drains them before a re-mesh or a save)."""
+        from repro_torch.core import distributed as dist
+
+        ex = self._plan.execution
+        axis = axis or ex.axis
+        plan = replace(self._plan, execution=replace(ex, mesh=mesh, axis=axis))
+        members = _mesh_members(plan)
+        with obs_trace.span("remesh", strategy="sharded", old_ndev=self._ndev,
+                            new_ndev=len(members)):
+            if self._carry is not None:
+                self._carry, self._max_local = dist.rebucket_sharded_carry(
+                    self._carry, members, load_factor=ex.load_factor,
+                    max_local=self._max_local,
+                )
+            if self._events is not None:
+                # keep the event TOTALS: the old vectors' sum parks on the
+                # first survivor (event_counts sums over members anyway)
+                total = sum(e.cpu() for e in self._events)
+                self._events = self._zero_events(members)
+                self._events[0] += total.to(members[0].device)
+            self._plan = plan
+            self._members = members
+            self._ndev = len(members)
+            self._step = None  # rebuilt for the new mesh on the next consume
+            self.remeshes += 1
+        if obs_metrics.enabled():
+            obs_metrics.counter("elastic.remesh", strategy=self.strategy_label).add(1)
+
+    def _ensure_state(self) -> None:
+        from repro_torch.core import distributed as dist
+
+        ex = self._plan.execution
+        if self._carry is None:
+            self._carry = dist.make_sharded_carry(
+                self._members, self._max_local, self._specs,
+                capacity=table_capacity(self._max_local, ex.load_factor),
+            )
+        if self._collect and self._events is None:
+            self._events = self._zero_events(self._members)
+        if self._step is None:
+            self._step = dist.make_sharded_consume_step(
+                self._members, ex.axis, update=ex.update or "scatter",
+                load_factor=ex.load_factor, checked=self._checked,
+                collect_events=self._collect,
+            )
+
+    def _run_step(self, km, vm, todo, only=None) -> list:
+        """One sharded consume step of the members ``only`` names (default
+        all); returns the members' info vectors (``None`` for the
+        others)."""
+        if self._collect:
+            self._carry, infos, self._events = self._step(self._carry, km, vm, todo,
+                                                          self._events, only=only)
+        else:
+            self._carry, infos = self._step(self._carry, km, vm, todo, only=only)
+        return infos
+
+    def _morselize(self, keys, vals):
+        """Split a chunk's rows contiguously over the members and each
+        member's slice into morsels: per member ``(num_morsels,
+        morsel_rows)`` keys and one such plane per value column, on its
+        device (padding rows carry EMPTY_I32, so their zero values park)."""
+        from repro_torch.parallel import sharding
+
+        n = int(keys.shape[0])
+        per_dev = -(-n // self._ndev)
+        m = max(min(self._plan.execution.morsel_rows, per_dev), 1)
+        per_dev = -(-per_dev // m) * m
+        total = per_dev * self._ndev
+        if total > n:
+            keys = torch.cat([keys, keys.new_full((total - n,), EMPTY_I32)])
+            vals = {c: torch.cat([v, v.new_zeros((total - n,))]) for c, v in vals.items()}
+        km = sharding.shard(keys.reshape(self._ndev * (per_dev // m), m), self._members)
+        vm = {c: sharding.shard(v.reshape(-1, m), self._members) for c, v in vals.items()}
+        return km, [{c: vm[c][i] for c in vm} for i in range(self._ndev)]
+
+    def consume(self, chunk: Table) -> None:
+        self.poll(self.consume_async(chunk))
+
+    def consume_async(self, chunk: Table):
+        keys, vals = _chunk_keys_values(self._plan, chunk, self._members[0].device)
+        self._rows += int(keys.shape[0])
+        self._ensure_state()
+        km, vm = self._morselize(keys, vals)
+        todo = [torch.ones((k.shape[0],), dtype=torch.int32, device=k.device) for k in km]
+        infos = self._run_step(km, vm, todo)
+        return (km, vm, todo, infos) if self._checked else None
+
+    def poll(self, token) -> None:
+        """Resolve one checked chunk: read the members' info vectors (one
+        blocking read a round) and, while a member has a morsel todo, grow
+        every member by the reference's rule (the bound ×4 or the top count
+        + M past its headroom, the capacity ×2 past the load factor, a
+        forced doubling when a pause survives an ungrown replay) and
+        replay each member's todo morsels."""
+        from repro_torch.core import distributed as dist
+        from repro_torch.kernels import fused_groupby as fk
+
+        if token is None:
+            return
+        km, vm, todo, infos = token
+        ex = self._plan.execution
+        nm, m = km[0].shape
+        replayed = None
+        while True:
+            # one read: the token's info rows, and every member's count now
+            # (a prefetched chunk's rows predate an earlier chunk's grows)
+            dev0 = self._members[0].device
+            flat = torch.cat([i.to(dev0).reshape(-1) for i in infos]
+                             + [t.count.to(dev0).reshape(1) for t in self._carry.tables])
+            flat = flat.tolist()
+            rows = [flat[d * fk.INFO_LEN:(d + 1) * fk.INFO_LEN] for d in range(self._ndev)]
+            firsts = [r[fk.INFO_FIRST_HALT] if r[fk.INFO_HALTED] else nm for r in rows]
+            if all(f == nm for f in firsts):
+                return
+            top = max(flat[self._ndev * fk.INFO_LEN:])
+            capacity = self._carry.capacity
+            new_maxl, new_cap = self._max_local, capacity
+            if top > self._max_local - m:
+                new_maxl = max(4 * self._max_local, top + m, 64)
+            if top > ex.load_factor * capacity:
+                new_cap = 2 * capacity
+            new_cap = max(new_cap, table_capacity(new_maxl, ex.load_factor))
+            if (new_maxl, new_cap) == (self._max_local, capacity) and firsts == replayed:
+                new_cap = 2 * capacity  # the pause survived an ungrown replay
+            if (new_maxl, new_cap) != (self._max_local, capacity):
+                with obs_trace.span("pause_migrate_resume", strategy="sharded",
+                                    max_local=new_maxl, capacity=new_cap):
+                    if new_cap != capacity:
+                        self.migrations += 1  # every member's table migrates
+                    if new_maxl != self._max_local:
+                        self.bound_grows += 1
+                    self._carry = dist.grow_sharded_carry(self._carry, new_maxl, new_cap)
+                    self._max_local = new_maxl
+            replayed = firsts
+            # only the members with morsels todo launch again
+            halted = [d for d, f in enumerate(firsts) if f < nm]
+            for d, info in zip(halted, [i for i in self._run_step(km, vm, todo, only=halted)
+                                        if i is not None]):
+                infos[d] = info
+
+    def finalize_raw(self):
+        """Run the cross-member merge under the saturation policy over the
+        carried state and set ``.raw`` (the strategy's native output, in
+        the reference's concatenated per-device layout), skipping the
+        unified-table compaction — the legacy per-device adapters need only
+        this.  Pure in the carry: mid-stream snapshots merge, read, and
+        keep consuming.  Returns ``(max_groups, count)``."""
+        from repro_torch.core import distributed as dist
+        from repro_torch.core.aggregation import GroupByResult
+        from repro_torch.parallel import sharding
+
+        if self._carry is None:
+            raise ValueError("GroupByPlan executed over zero chunks")
+        p, ex = self._plan, self._plan.execution
+        max_groups = self._max_groups
+        if ex.shard_merge == "dense_psum":
+            while True:
+                kbt, gstate, count, lovf, union_ovf = dist.sharded_psum_merge(
+                    self._members, ex.axis, self._carry, max_groups=max_groups)
+                self._merged = (kbt, gstate, count)
+                spec = self._specs[0]
+                # legacy view: single-spec plans keep the GroupByResult layout
+                self.raw = GroupByResult(
+                    kbt, up.finalize(spec[1], gstate.accs[0]), count,
+                ) if len(self._specs) == 1 else (kbt, gstate, count)
+                if p.saturation == SaturationPolicy.UNCHECKED:
+                    return max_groups, count
+                lost, uovf, issued = torch.stack(
+                    [lovf.to(torch.int64), union_ovf.to(torch.int64),
+                     count.to(torch.int64)]).tolist()
+                if lost > 0:
+                    # keys dropped at a member BEFORE the union: only under
+                    # RAISE (GROW's checked consume pauses instead)
+                    raise GroupByOverflowError(
+                        "sharded GROUP BY overflow: a per-device table "
+                        f"exceeded its local bound ({self._max_local}); "
+                        "dropped keys never reach the merge. Use "
+                        "SaturationPolicy.GROW or larger bounds."
+                    )
+                if uovf == 0 and issued <= max_groups:
+                    self._max_groups = max_groups
+                    return max_groups, count
+                if p.saturation == SaturationPolicy.RAISE or max_groups >= self._rows:
+                    raise _overflow_error(issued, max_groups)
+                # GROW at the union: re-merge over the carried state with a
+                # wider global bound — cheap, no rows involved
+                max_groups = _next_bound(
+                    max_groups, self._rows,
+                    issued=issued if issued > max_groups else None,
+                )
+        pc = ex.partition_capacity
+        dst = self._members[0]
+        while True:
+            keys_p, vals_p, counts_p, overflow_p, lovf = dist.sharded_exchange_merge(
+                self._members, ex.axis, self._carry, max_groups=max_groups,
+                partition_capacity=pc)
+            self._merged = (keys_p, vals_p, counts_p)
+            cat_counts = sharding.gather([c.reshape(1) for c in counts_p], dst)
+            cat_ovf = sharding.gather([o.reshape(1) for o in overflow_p], dst)
+            cat_vals = tuple(sharding.gather(v, dst) for v in vals_p)
+            # legacy view: single-spec plans keep the flat finalized vals
+            legacy_vals = (up.finalize(self._specs[0][1], cat_vals[0])
+                           if len(self._specs) == 1 else cat_vals)
+            self.raw = (sharding.gather(keys_p, dst), legacy_vals, cat_counts, cat_ovf)
+            count = cat_counts.sum()
+            if p.saturation == SaturationPolicy.UNCHECKED:
+                return max_groups, count
+            lost, bucket_ovf, issued = torch.stack(
+                [lovf.to(torch.int64), cat_ovf.sum().to(torch.int64),
+                 count.to(torch.int64)]).tolist()
+            if lost > 0:
+                raise GroupByOverflowError(
+                    "sharded GROUP BY overflow: a per-device table "
+                    f"exceeded its local bound ({self._max_local}); "
+                    "dropped entries never reach the exchange. Use "
+                    "SaturationPolicy.GROW or larger bounds."
+                )
+            if bucket_ovf > 0:
+                # GROW: double the bucket capacity and re-run the exchange
+                # over the carried state.  One member can send a partition
+                # at most its whole local table, so max_local bounds it.
+                base = pc or max(2 * self._max_local // self._ndev, 16)
+                if p.saturation != SaturationPolicy.GROW or base >= self._max_local:
+                    raise GroupByOverflowError(
+                        "partitioned exchange dropped entries (partition "
+                        "bucket overflow); raise ExecutionPolicy."
+                        "partition_capacity or use SaturationPolicy.GROW"
+                    )
+                pc = min(2 * base, self._max_local)
+                continue
+            if issued <= max_groups:
+                self._max_groups = max_groups
+                return max_groups, count
+            if p.saturation == SaturationPolicy.RAISE or max_groups >= self._rows:
+                raise _overflow_error(issued, max_groups)
+            max_groups = _next_bound(max_groups, self._rows, issued=issued)
+
+    def finalize(self) -> Table:
+        from repro_torch.parallel import sharding
+
+        max_groups, count = self.finalize_raw()
+        if self._plan.execution.shard_merge == "dense_psum":
+            kbt, gstate, _ = self._merged
+            get = gstate.get
+        else:
+            # unify the per-owner outputs: each owner's valid prefix, in
+            # member order (partitions are disjoint, so the keys are unique)
+            keys_p, vals_p, counts_p = self._merged
+            dst = self._members[0]
+            n = [int(c) for c in sharding.gather([c.reshape(1) for c in counts_p],
+                                                 dst).tolist()]
+            kbt = sharding.gather([k[:c] for k, c in zip(keys_p, n)], dst)[:max_groups]
+            accs = {}
+            for spec, v in zip(self._specs, vals_p):
+                a = sharding.gather([x[:c] for x, c in zip(v, n)], dst)[:max_groups]
+                accs[spec] = torch.cat([a, up.init_acc(max_groups - a.shape[0], spec[1],
+                                                       device=dst.device)])
+            get = lambda c, k: accs[(c, k)]  # noqa: E731
+        out = build_result_table(self._plan.aggs, get, kbt, count, max_groups)
+        self.publish()
+        return out
+
+    def device_table_bytes(self) -> int:
+        return 0 if self._carry is None else self._carry.nbytes()
+
+    def event_counts(self):
+        if not self._collect or self._events is None:
+            return None
+        # one host read per member, at an existing sync surface
+        vec = sum(e.cpu() for e in self._events).numpy()
+        counts = [int(t.count) for t in self._carry.tables]
+        capacity = self._carry.capacity * self._ndev
+        out = obs_metrics.event_vector_to_dict(vec)
+        out["migrations"] = self.migrations
+        out["bound_grows"] = self.bound_grows
+        out["remeshes"] = self.remeshes
+        out["num_groups"] = sum(counts)  # pre-merge local groups
+        out["table_capacity"] = capacity
+        out["table_load_factor"] = sum(counts) / capacity
         return out

@@ -15,17 +15,17 @@ streaming executor (``open → consume* → finalize``), and
     partial = handle.snapshot()    # idempotent mid-stream materialize
     result = handle.result()       # drain the source, finalize
 
-The port runs every single-device plan of the reference: the default
-plan (``strategy="auto"``, ``max_groups=None``, resolved from a sample of
-each stream's first chunk), ``strategy="concurrent"`` with hash ticketing
-on every kernel route (None / "off" / "scan_body": the scan route;
-"split"; "fused"), with sort or direct ticketing, ``strategy="hybrid"``,
-``strategy="partitioned"`` and ``saturation="spill"``.  Only
-``strategy="sharded"`` makes ``make_executor`` raise
-``NotImplementedError`` (ROADMAP item 9).  Stream checkpoints
+The port runs every plan of the reference: the default plan
+(``strategy="auto"``, ``max_groups=None``, resolved from a sample of each
+stream's first chunk), ``strategy="concurrent"`` with hash ticketing on
+every kernel route (None / "off" / "scan_body": the scan route; "split";
+"fused"), with sort or direct ticketing, ``strategy="hybrid"``,
+``strategy="partitioned"``, ``saturation="spill"`` and
+``strategy="sharded"`` over ``ExecutionPolicy.mesh`` (a
+``repro_torch.parallel.sharding.Mesh``).  Stream checkpoints
 (``StreamHandle.save`` / ``GroupByPlan.restore``, ``engine/elastic.py``)
-cover every other executor but the fused route's, in the reference's
-commit format.
+cover every executor but the fused route's, in the reference's commit
+format.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ class SaturationPolicy:
 @dataclass(frozen=True)
 class ExecutionPolicy:
     """How a plan runs: the reference's fields, plus ``device``.  Fields
-    that belong to routes the port does not run yet are kept so that a plan
+    the port's routes do not read (``interpret``) are kept so that a plan
     reads the same in both packages."""
 
     pipeline: str = "scan"

@@ -32,12 +32,13 @@ slot).  A plan submitted with ``saturation="spill"`` instead treats the cap
 as its device residency and spills the cold tail to host
 (engine/spill.py), completing with exact totals.
 
-Recovery: a query submitted with ``checkpoint_dir`` / ``checkpoint_every``
-commits its stream on that cadence (``engine/elastic.py``), and a quantum
-that raises :class:`~repro_torch.train.elastic.WorkerFailure` restores
-from the last commit while the other tenants keep stepping; with no commit
-the failure stays on its slot.  The port has no sharded stream yet
-(ROADMAP.md item 9), so the proactive re-mesh is a no-op.
+Recovery: before each quantum a sharded stream whose mesh holds failed
+members re-buckets onto the survivors in place (``engine/elastic.py``),
+while the other tenants keep stepping.  A query submitted with
+``checkpoint_dir`` / ``checkpoint_every`` commits its stream on that
+cadence, and a quantum that raises
+:class:`~repro_torch.train.elastic.WorkerFailure` restores from the last
+commit; with no commit the failure stays on its slot.
 """
 from __future__ import annotations
 
@@ -65,13 +66,15 @@ class _QueryTask:
     group stepping pulls one chunk per live handle and tickets them all in
     one launch (``engine.executors.consume_batched``).
 
-    Fault tolerance (``engine/elastic.py``): a stream whose quantum raises
-    :class:`~repro_torch.train.elastic.WorkerFailure` restores from its
-    last checkpoint commit (``checkpoint_dir`` / ``checkpoint_every`` on
-    ``submit``); with no commit to fall back to, the failure propagates and
-    the scheduler isolates it to this slot.  A batched round neither
-    checkpoints nor restores, as in the reference.  ``remeshes`` stays 0:
-    the port has no sharded stream to re-mesh (ROADMAP.md item 9)."""
+    Fault tolerance (``engine/elastic.py``): before each quantum a sharded
+    stream whose mesh holds failed members re-buckets onto the survivors
+    in place (counted in ``remeshes``), and keeps running while other
+    tenants keep stepping.  A stream whose quantum raises
+    :class:`~repro_torch.train.elastic.WorkerFailure` instead restores from
+    its last checkpoint commit (``checkpoint_dir`` / ``checkpoint_every``
+    on ``submit``); with no commit to fall back to, the failure propagates
+    and the scheduler isolates it to this slot.  A batched round neither
+    checkpoints nor restores, as in the reference."""
 
     handle: StreamHandle
     batch_key: Any = None
@@ -97,9 +100,20 @@ class _QueryTask:
             ).add(1)
 
     def _maybe_remesh(self) -> None:
-        """The reference re-buckets a sharded stream onto surviving devices
-        here; the port has no sharded stream (ROADMAP.md item 9)."""
-        return
+        """Proactive loss check for meshed (sharded) streams: re-bucket onto
+        the survivor mesh at the quantum boundary.  Total loss falls through
+        to the checkpoint-restore path."""
+        from repro_torch.engine import elastic as streams
+
+        mesh = streams.stream_mesh(self.handle)
+        if mesh is None or not streams.mesh_failed_ids(mesh):
+            return
+        try:
+            if streams.remesh_stream(self.handle):
+                self.remeshes += 1
+                self._count("remesh")
+        except WorkerFailure as err:
+            self._restore_from_checkpoint(err)
 
     def _restore_from_checkpoint(self, err: WorkerFailure) -> None:
         """Swap the handle for one restored from the last commit; with no
@@ -333,7 +347,8 @@ class AggregationServer:
         executor state on that cadence, and a quantum that raises
         :class:`~repro_torch.train.elastic.WorkerFailure` resumes from the
         last commit instead of failing the slot (requires a re-iterable
-        ``source``; see ``engine/elastic.py``)."""
+        ``source``; see ``engine/elastic.py``).  Sharded streams also
+        re-mesh onto surviving members in place, checkpoint or not."""
         from repro_torch.engine.executors import batch_signature
 
         plan = self._apply_budget(plan, tenant)

@@ -1649,3 +1649,87 @@ def test_restored_default_plan_takes_the_cuda_route(cuda, tmp_path):
     torch.cuda.synchronize()
     assert fk.scan_ticket.launches > t0 and sa.segment_agg.launches > s0
     _exact_map(out, keys, vals)
+
+
+# ---------------------------------------------------------------------------
+# multi-device sharding: the card as a mesh of virtual members
+
+
+def _sharded_plan(mesh, merge, sat, max_groups=1 << 12, **ex):
+    return api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"), api.AggSpec("sum", "v")),
+                           strategy="sharded", max_groups=max_groups, saturation=sat,
+                           raw_keys=True,
+                           execution=api.ExecutionPolicy(mesh=mesh, shard_merge=merge, **ex))
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    from repro_torch.parallel import sharding
+
+    sharding.virtual_devices(4, cuda)
+    yield sharding.make_mesh((4,), ("data",))
+    sharding.reset_virtual_devices()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge,sat", [(m, s) for m in ("dense_psum", "all_to_all")
+                                       for s in ("raise", "grow", "unchecked")])
+def test_sharded_plans_on_the_card(card_mesh, merge, sat):
+    """Four members on one card: every member's step is one ``scan_ticket``
+    launch and one segment launch per plane, the dense_psum union is one
+    ticket launch, the fused kernel never runs, and the map is the
+    oracle's (GROW from a bound of 64 grows every member and the union)."""
+    keys, vals, chunks = _ckpt_stream(torch.device("cuda"))
+    before = {f: getattr(m, f).launches for m, f in ((fk, "scan_ticket"), (sa, "segment_agg"),
+                                                     (th, "ticket_hash"), (fk, "fused_consume"))}
+    h = _sharded_plan(card_mesh, merge, sat, 64 if sat == "grow" else 1 << 12).stream(
+        chunks("cuda"))
+    out = h.result()
+    torch.cuda.synchronize()
+    d = {f: getattr(m, f).launches - before[f] for m, f in (
+        (fk, "scan_ticket"), (sa, "segment_agg"), (th, "ticket_hash"), (fk, "fused_consume"))}
+    _exact_map(out, keys, vals)
+    n_chunks = len(chunks("cpu"))
+    if sat == "grow":
+        assert h.executor.bound_grows >= 1 and d["scan_ticket"] >= 4 * n_chunks
+    else:
+        assert d["scan_ticket"] == 4 * n_chunks
+        assert d["segment_agg"] == 4 * n_chunks * 2 + (4 * 2 if merge == "dense_psum" else 0)
+    assert (d["ticket_hash"] >= 1) == (merge == "dense_psum") and d["fused_consume"] == 0
+
+
+@pytest.mark.gpu
+def test_sharded_remesh_and_cross_count_restore_on_the_card(card_mesh, tmp_path):
+    """Two of four members fail mid-stream: the survivors' re-bucketed
+    tables (built by the ticket kernel) probe back to their tickets and the
+    stream ends on the oracle's map; a commit saved on 4 members restores
+    on 2 and on the CPU."""
+    from repro_torch.engine import elastic as tel
+    from repro_torch.parallel import sharding
+    from repro_torch.train import elastic as telastic
+
+    keys, vals, chunks = _ckpt_stream(torch.device("cuda"))
+    h = _sharded_plan(card_mesh, "dense_psum", "raise").stream(chunks("cuda"))
+    h.pump(3)
+    telastic.mark_failed([2, 3])
+    try:
+        assert tel.remesh_stream(h)
+    finally:
+        telastic.reset_failures()
+    for t in h.executor._carry.tables:
+        c = int(t.count)
+        assert torch.equal(tk.lookup(t, t.key_by_ticket[:c]),
+                           torch.arange(c, dtype=torch.int32, device=t.keys.device))
+    _exact_map(h.result(), keys, vals)
+    assert h.executor.remeshes == 1 and h.executor._ndev == 2
+    h = _sharded_plan(card_mesh, "all_to_all", "raise").stream(chunks("cuda"))
+    h.pump(4)
+    h.save(str(tmp_path))
+    two = sharding.make_mesh((2,), ("data",))
+    cpu = sharding.make_mesh((3,), ("data",), devices=[
+        sharding.MeshDevice(i, torch.device("cpu")) for i in range(3)])
+    for mesh, src in ((two, "cuda"), (cpu, "cpu")):
+        restored = _sharded_plan(mesh, "all_to_all", "raise").restore(str(tmp_path),
+                                                                       chunks(src))
+        assert restored.chunks_consumed == 4
+        _exact_map(restored.result(), keys, vals)

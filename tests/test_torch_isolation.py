@@ -40,5 +40,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     walked = proc.stdout.split("walked:")[1].split()
     for module in ("repro_torch.serve.query_server", "repro_torch.serve.scheduler",
                    "repro_torch.train.elastic", "repro_torch.checkpoint.manager",
-                   "repro_torch.engine.elastic"):
+                   "repro_torch.engine.elastic", "repro_torch.parallel.sharding",
+                   "repro_torch.core.distributed"):
         assert module in walked, module

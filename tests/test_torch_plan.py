@@ -393,31 +393,26 @@ def test_groupby_kernel_front_door(kind):
     assert torch.equal(default[0], tk_) and torch.equal(default[1], ta)  # fused=False
 
 
-OUT_OF_SLICE = {
-    "strategy_sharded": dict(strategy="sharded", execution=dict(kernel=None)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
-def test_out_of_slice_plans_raise_not_implemented(case):
-    kw = dict(OUT_OF_SLICE[case])
-    ex = dict(kernel="fused", device="cpu")
-    ex.update(kw.pop("execution", {}))
-    plan = tapi.GroupByPlan(
-        keys=("k",), aggs=(tapi.AggSpec("count"),),
-        strategy=kw.pop("strategy", "concurrent"),
-        max_groups=kw.pop("max_groups", 64), execution=tapi.ExecutionPolicy(**ex), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tex.make_executor(plan)
-
-
 # once out of the slice, now ported (tests/test_torch_partitioned.py,
-# tests/test_torch_spill.py): each runs against the oracle and the JAX plan
+# tests/test_torch_spill.py, tests/test_torch_sharded.py): each runs against
+# the oracle and the JAX plan (sharded: on a one-member mesh of each package)
 ONCE_OUT_OF_SLICE = {
     "strategy_partitioned": dict(strategy="partitioned"),
     "ticketing_sort": dict(execution=dict(ticketing="sort")),
     "saturation_spill": dict(saturation="spill", max_groups=64),
+    "strategy_sharded": dict(strategy="sharded"),
 }
+
+
+def _one_member_mesh(api):
+    if api is tapi:
+        from repro_torch.parallel import sharding
+
+        return sharding.make_mesh((1,), ("data",),
+                                  devices=[sharding.MeshDevice(0, torch.device("cpu"))])
+    import jax
+
+    return jax.make_mesh((1,), ("data",))
 
 
 @pytest.mark.parametrize("case", sorted(ONCE_OUT_OF_SLICE))
@@ -430,6 +425,8 @@ def test_once_out_of_slice_plans_run_against_the_oracle_and_jax(case):
     ex = kw.pop("execution", {})
     outs = []
     for api in (tapi, japi):
+        if kw.get("strategy") == "sharded":
+            ex = dict(ex, mesh=_one_member_mesh(api))
         plan = api.GroupByPlan(
             keys=("k",), aggs=(api.AggSpec("sum", "v"),),
             strategy=kw.get("strategy", "concurrent"), max_groups=kw.get("max_groups", 1024),
