@@ -7,10 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's five CUDA sources (``fused_groupby``,
-   ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``), one
-   ``nvcc`` each, all started together, and print the commands, the
-   seconds and ``-Xptxas -v``.
+1. build — compile the port's six CUDA sources (``fused_groupby``,
+   ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``,
+   ``grouped_matmul``), one ``nvcc`` each, all started together, and print
+   the commands, the seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
    program): 2^20 rows of uniform, zipf and heavy-hitter keys at P = 1
@@ -61,6 +61,13 @@ Four phases, each of which fails the run:
    of each lane's values folded in the launch, the scatter round): each
    lane of both versions held to the oracle (gap-free tickets, COUNT /
    MIN / MAX exact, SUM within 1e-4·Σ|v|), and the two to each other.
+   ``grouped_matmul`` (kernel B3, the MoE layer's expert FFNs) against
+   its plain version (float32 ``torch.matmul`` per group, TF32 off) at
+   granite-moe-1b-a400m's decode shapes (64 rows over 32 experts, K × N =
+   1024 × 512 and 512 × 1024), a 4096-row prefill shape, 8 empty groups
+   with 37 rows past the last, and N = 70 (the scalar-load path): |Δ| <=
+   1e-5 · max|plain|, rows past the groups 0; the segment kernel's COUNT
+   histogram of a decode routing equal to the one-hot sum.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -146,6 +153,18 @@ Four phases, each of which fails the run:
    and never the fused kernel; the wall, merge, re-mesh and save / restore
    seconds and the commit bytes printed with the card's name and power
    limit.
+   Phase 3 lm (``serve/engine.py`` over ``models/``): granite-moe-1b-a400m
+   at full width (24 layers, 1.33 B float32 parameters from a seeded card
+   generator, bfloat16 compute) served by ``ServeLoop(slots=8,
+   max_len=128)`` on a one-member mesh of the card: 8 requests of 4 + 3·i
+   prompt tokens, 32 new tokens each, every request done with ids in
+   [0, 49155); B3 launched exactly 72 and the segment kernel 24 times a
+   decode step (over the run and on one step alone) and no GROUP BY
+   kernel; full-width ``forward`` against the token-by-token
+   ``decode_step`` over 16 tokens (rel < 0.05, the reference's rule);
+   layer 0's MoE block through the kernels against the plain versions
+   (1e-4 · max|plain|).  Prints the prefill seconds, the decode
+   milliseconds a step and tokens/s.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -195,7 +214,11 @@ Four phases, each of which fails the run:
    scatter updates) timed the same two ways, the ticket launch alone,
    N × (``torch.unique(return_inverse=True)`` + one ``index_add_`` /
    ``scatter_reduce_`` a plane), its plain version (held against it) and
-   its bytes bound.
+   its bytes bound.  B3 at the decode shapes (64 rows, gate / up and down)
+   and the 4096-row prefill shape beside its bound (bytes of lhs, out and
+   the touched experts' weights; 2·M·K·N float32 operations), its plain
+   version, the per-expert ``torch.matmul`` loop and ``torch._grouped_mm``
+   (bfloat16 operands, where it runs).
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -218,7 +241,7 @@ M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
 KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers",
-           "preagg")  # CUDA sources
+           "preagg", "grouped_matmul")  # CUDA sources
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
@@ -2525,6 +2548,331 @@ def phase3_sharded(kmods, api, gen, device, n=1 << 24, small=1 << 22):
     return recs
 
 
+# -- the LM serving path: kernel B3, phase 3 lm ------------------------------------
+
+LM_ARCH = "granite_moe_1b_a400m"   # 24 layers, d 1024, 32 experts top-8, d_ff 512
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 8, 128, 32
+LM_PROMPTS = [4 + 3 * i for i in range(LM_SLOTS)]
+LM_REL = 0.05                   # forward vs token-by-token decode (the reference's rule)
+GMM_RTOL = 1e-5                 # B3 vs plain: |Δ| <= GMM_RTOL · max|plain| (float32 sums reordered)
+MOE_RTOL = 1e-4                 # one MoE layer, kernels vs plain (+ index_add_'s atomic order)
+
+
+def routed_ids(tokens, experts, top_k, gen, device):
+    """Expert ids of ``tokens`` routed top-``top_k`` over ``experts`` by
+    random router logits (each token to distinct experts, as ``route``)."""
+    import torch
+
+    logits = torch.randn(tokens, experts, generator=gen, device=device)
+    return torch.topk(logits, top_k, dim=-1).indices.reshape(-1)
+
+
+def gmm_case(gen, device, tokens, k, n, *, experts=32, top_k=8, empty=0, tail=0):
+    """lhs, rhs, sizes of one grouped matmul: ``tokens`` tokens routed
+    top-``top_k`` (the first ``empty`` experts get no rows), ``tail`` rows
+    past the last group."""
+    import torch
+
+    ids = routed_ids(tokens, experts - empty, top_k, gen, device) + empty
+    sizes = torch.bincount(ids, minlength=experts).to(torch.int32)
+    m = ids.numel() + tail
+    lhs = torch.randn(m, k, generator=gen, device=device)
+    rhs = torch.randn(experts, k, n, generator=gen, device=device) * k ** -0.5
+    return lhs, rhs, sizes
+
+
+def phase2_grouped_matmul(gm, sa, gen, device):
+    """B3 against ``grouped_matmul_plain`` (a loop of float32
+    ``torch.matmul`` with TF32 off) at granite's decode shapes (8 tokens ×
+    top-8 = 64 rows over 32 experts: gate / up K = 1024, N = 512; down K =
+    512, N = 1024), a prefill-sized shape (512 tokens, 4096 rows), a case
+    with 8 empty groups and 37 rows past the last group, and one with N % 4
+    != 0 (the scalar-load path): |Δ| <= GMM_RTOL · max|plain|, rows past
+    the groups exactly 0.  The segment kernel's COUNT histogram of a decode
+    routing (kind count, onehot, 32 groups) must equal the one-hot sum
+    exactly.  Returns the worst |Δ| of B3."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
+    worst = 0.0
+    cases = {"decode_gate_up": (8, 1024, 512, {}), "decode_down": (8, 512, 1024, {}),
+             "prefill": (512, 1024, 512, {}),
+             "empty_groups": (40, 1024, 512, dict(empty=8, tail=37)),
+             "ragged_n": (40, 96, 70, dict(empty=3, tail=5))}
+    for name, (tokens, k, n, kw) in cases.items():
+        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n, **kw)
+        got = gm.grouped_matmul(lhs, rhs, sizes)
+        sync()
+        want = gm.grouped_matmul_plain(lhs, rhs, sizes)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= GMM_RTOL * scale, f"phase2 grouped_matmul {name}: max|Δ|={err} > "
+              f"{GMM_RTOL} · {scale}")
+        total = int(sizes.sum())
+        check(not bool(got[total:].any()), f"phase2 grouped_matmul {name}: rows past Σ sizes not 0")
+        worst = max(worst, err)
+        log(f"phase2 grouped_matmul {name}: M={lhs.shape[0]} K={k} N={n}, groups "
+            f"{int((sizes > 0).sum())}/{sizes.numel()} non-empty, {lhs.shape[0] - total} rows "
+            f"past them; max|Δ|={err:.3g} (scale {scale:.3g}) ok")
+    ids = routed_ids(LM_SLOTS, 32, 8, gen, device)
+    hist = sa.segment_agg(ids.to(torch.int32), torch.ones(ids.numel(), device=device),
+                          num_groups=32, kind="count", strategy="onehot", morsel_size=1)
+    onehot = torch.nn.functional.one_hot(ids, 32).sum(0).float()
+    check(torch.equal(hist, onehot), "phase2 segment_agg count histogram != one-hot sum")
+    log("phase2 segment_agg route histogram: 64 expert ids into 32 groups equal the one-hot "
+        "sum ok")
+    return worst
+
+
+def lm_moe_layer_check(tf, moe, gm, sa, params, cfg, tokens):
+    """Layer 0's MoE block on the serving batch's activations (its
+    ``ln_mlp`` applied to the tokens' embeddings, in float32) through the
+    kernels and through the plain versions (``moe``'s two kernel names
+    pointed at ``grouped_matmul_plain`` / ``segment_agg_plain``):
+    |Δ| <= MOE_RTOL · max|plain|.  Returns (|Δ|, max|plain|)."""
+    import dataclasses
+
+    from repro_torch.models.layers import apply_norm
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p0 = tf.tree_map(lambda a: a[0], params["layers"])
+    x = tf._embed_tokens(params, cfg32, tokens, ticketed=False, max_unique=1)
+    h = apply_norm(cfg.norm_kind, p0["ln_mlp"], x)
+    got, _ = moe.moe_mlp_dense(p0["moe"], cfg32, h)
+    kernels = moe.grouped_matmul, moe.segment_agg
+    moe.grouped_matmul, moe.segment_agg = gm.grouped_matmul_plain, sa.segment_agg_plain
+    try:
+        want, _ = moe.moe_mlp_dense(p0["moe"], cfg32, h)
+    finally:
+        moe.grouped_matmul, moe.segment_agg = kernels
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= MOE_RTOL * scale, f"phase3 lm: MoE layer kernels vs plain max|Δ|={err} > "
+          f"{MOE_RTOL} · {scale}")
+    return err, scale
+
+
+def phase3_lm(kmods, device, seed):
+    """The LM serving path (``configs.get_config`` → ``transformer.init_params``
+    → ``serve.engine.ServeLoop`` → ``run_batch``) at granite-moe-1b-a400m's
+    full width (24 layers, its config's bfloat16 compute over float32
+    parameters, random weights from a seeded card generator) on a
+    one-member mesh of the card: 8 requests of 4 + 3·i prompt tokens and
+    32 new tokens each, slots 8, max_len 128.  The launch counts are set
+    to 0 just before ``run_batch`` and read just after: B3 must launch 72
+    times and the segment kernel 24 times a decode step (3 and 1 per MoE
+    layer), over every step of the run and on one step alone, and no
+    GROUP BY kernel.  Every request done with 32 ids in [0, vocab).  Then
+    full-width ``forward`` against the token-by-token ``decode_step`` over
+    16 tokens (2 rows; max|Δ| / max|logit| < 0.05, the reference's rule)
+    and layer 0's MoE block through the kernels against the plain versions
+    (:func:`lm_moe_layer_check`).  Prints the init, prefill and decode
+    times (events around the steps; one token read a tick) and tokens/s.
+    Returns the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import Request, ServeLoop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(tf.init_params, gen, cfg, device)
+    n_params = sum(t.numel() for t in tf._leaves(params))
+    mesh = sharding.make_mesh((1, 1), ("data", "model"),
+                              devices=[sharding.MeshDevice(0, device)])
+    loop = ServeLoop(mesh, cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    requests = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                                                   device=device), max_new=LM_NEW)
+                for i, n in enumerate(LM_PROMPTS)]
+    events = []
+    step = loop.step_fn
+
+    def counted_step(*args):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+        return step(*args)
+
+    loop.step_fn = counted_step
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    loop.run_batch(requests)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    loop.step_fn = step
+    steps = len(events)
+    plen = max(LM_PROMPTS)
+    check(steps == plen + LM_NEW - 1, f"phase3 lm: {steps} steps, expected {plen + LM_NEW - 1}")
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    check(launches["grouped_matmul"] == 3 * moe_layers * steps,
+          f"phase3 lm: {launches['grouped_matmul']} B3 launches over {steps} steps, expected "
+          f"{3 * moe_layers} a step")
+    check(launches["segment_agg"] == moe_layers * steps,
+          f"phase3 lm: {launches['segment_agg']} segment launches over {steps} steps, expected "
+          f"{moe_layers} a step")
+    for k in set(kmods) - {"grouped_matmul", "segment_agg"}:
+        check(launches[k] == 0, f"phase3 lm: the {k} kernel ran on the LM path")
+    for r in requests:
+        check(r.done and len(r.generated) == LM_NEW, f"phase3 lm: request {r.uid} not done")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"phase3 lm: request {r.uid} has an id outside [0, {cfg.vocab_size})")
+    prefill_ms = events[0].elapsed_time(events[plen])
+    decode_ms = events[plen].elapsed_time(end) / (steps - plen)
+    # one decode step alone
+    tokens = torch.tensor([[r.generated[-1]] for r in requests], dtype=torch.int32, device=device)
+    caches = tf.init_caches(cfg, LM_SLOTS, LM_MAX_LEN, cfg.dtype, device=device)
+    before = read_launches(kmods)
+    step(params, tokens, caches)
+    one = {k: v - before[k] for k, v in read_launches(kmods).items()}
+    check(one["grouped_matmul"] == 3 * moe_layers and one["segment_agg"] == moe_layers,
+          f"phase3 lm: one step launched {one['grouped_matmul']} B3 and "
+          f"{one['segment_agg']} segment kernels, expected {3 * moe_layers} and {moe_layers}")
+    # full-width forward against token-by-token decode over 16 tokens
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=device)
+    full = tf.forward(params, cfg, {"tokens": toks}, ticketed_embedding=False).logits
+    caches = tf.init_caches(cfg, 2, 20, cfg.dtype, device=device)
+    outs = []
+    for i in range(16):
+        lg, caches = tf.decode_step(params, cfg, toks[:, i:i + 1], caches)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    rel = float((dec - full).abs().max()) / (float(full.abs().max()) + 1e-6)
+    check(bool(torch.isfinite(full).all()) and full.shape == (2, 16, cfg.vocab_size),
+          "phase3 lm: forward logits not finite or of the wrong shape")
+    check(rel < LM_REL, f"phase3 lm: forward vs decode rel {rel} >= {LM_REL}")
+    moe_err, moe_scale = lm_moe_layer_check(tf, moe, gm, sa, params, cfg, tokens)
+    gen_tokens = LM_SLOTS * LM_NEW
+    rec = {"stream": "lm_serve", "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "slots": LM_SLOTS, "prompts": LM_PROMPTS, "max_new": LM_NEW, "steps": steps,
+           "init_s": init_s, "wall_s": wall, "prefill_s": prefill_ms / 1e3,
+           "decode_ms_per_step": decode_ms,
+           "decode_tokens_per_s": LM_SLOTS / decode_ms * 1e3,
+           "tokens_per_s": gen_tokens / wall,
+           "launches_per_step": {"grouped_matmul": one["grouped_matmul"],
+                                 "segment_agg": one["segment_agg"]},
+           "forward_vs_decode_rel": rel, "moe_layer_max_abs_err": moe_err,
+           "moe_layer_scale": moe_scale,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "launches": launches, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm: {cfg.name} at full width ({n_params} parameters, {cfg.dtype} compute), "
+        f"{LM_SLOTS} requests × {LM_NEW} tokens: prefill {prefill_ms / 1e3:.3f} s "
+        f"({plen} steps), decode {decode_ms:.2f} ms a step, {LM_SLOTS / decode_ms * 1e3:.1f} "
+        f"tokens/s decoding, {gen_tokens / wall:.1f} tokens/s end to end ({wall:.2f} s); "
+        f"launches a step: B3 {one['grouped_matmul']}, segment {one['segment_agg']}; "
+        f"forward vs decode rel {rel:.4g} < {LM_REL}; MoE layer kernels vs plain "
+        f"max|Δ|={moe_err:.3g} (scale {moe_scale:.3g}) ok")
+    del params, loop, caches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gmm_bound(lhs, rhs, sizes):
+    """(bound ms, "bytes" / "operations") of one grouped matmul: lhs, out
+    and sizes once plus each non-empty group's K × N weights once, over
+    3.35 TB/s, against 2·rows·K·N float32 operations over 67 TFLOP/s."""
+    m, k = lhs.shape
+    g, _, n = rhs.shape
+    touched = int((sizes > 0).sum())
+    nbytes = 4 * (m * k + touched * k * n + g + m * n)
+    ops = 2 * int(sizes.sum()) * k * n
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def grouped_mm_library(lhs, rhs, sizes):
+    """``torch._grouped_mm`` on the same rows, where this torch has it and
+    it takes the shape: it needs bfloat16 operands and gives a bfloat16
+    output (the yardstick runs at bf16, B3 at float32), and the offsets as
+    an int32 prefix sum.  Returns (fn, note); fn is None where it does not
+    run."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent"
+    a = lhs.bfloat16()
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    errors = []
+    for layout, b in (("(G, K, N) row-major", rhs.bfloat16()),
+                      ("(G, K, N) column-major", rhs.bfloat16().transpose(1, 2).contiguous()
+                       .transpose(1, 2))):
+        def fn(a=a, b=b):
+            return torch._grouped_mm(a, b, offs=offs)
+        try:
+            fn()
+            sync()
+            return fn, f"torch._grouped_mm, bf16 operands, rhs {layout}"
+        except (RuntimeError, TypeError, ValueError) as e:
+            errors.append(f"{layout}: {str(e).splitlines()[0][:160]}")
+    return None, "torch._grouped_mm refused: " + "; ".join(errors)
+
+
+def phase4_grouped_matmul(gm, gen, device, reps=5):
+    """B3 at the decode shapes (64 rows; gate / up and down) and the
+    prefill shape (4096 rows), CUDA events, median of ``reps``, beside its
+    bound (:func:`gmm_bound`), its plain version (held against it), the
+    per-expert ``torch.matmul`` loop with the sizes already on the host,
+    and ``torch._grouped_mm`` (bf16) where it runs.  The decode gate / up
+    shape is the kernel's line.  Returns the record."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per_shape = {}
+    worst = 0.0
+    for name, (tokens, k, n) in {"decode_gate_up": (8, 1024, 512),
+                                 "decode_down": (8, 512, 1024),
+                                 "prefill": (512, 1024, 512)}.items():
+        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n)
+        ms = time_cuda(lambda: gm.grouped_matmul(lhs, rhs, sizes), reps)
+        plain_ms = time_cuda(lambda: gm.grouped_matmul_plain(lhs, rhs, sizes), reps)
+        host_sizes = sizes.tolist()
+        out = torch.empty(lhs.shape[0], n, device=device)
+
+        def matmul_loop():
+            s = 0
+            for g, c in enumerate(host_sizes):
+                if c:
+                    torch.matmul(lhs[s:s + c], rhs[g], out=out[s:s + c])
+                s += c
+
+        loop_ms = time_cuda(matmul_loop, reps)
+        lib, note = grouped_mm_library(lhs, rhs, sizes)
+        lib_ms = time_cuda(lib, reps) if lib is not None else None
+        got = gm.grouped_matmul(lhs, rhs, sizes)
+        want = gm.grouped_matmul_plain(lhs, rhs, sizes)
+        err = float((got - want).abs().max())
+        check(err <= GMM_RTOL * float(want.abs().max()),
+              f"phase4 grouped_matmul {name}: max|Δ|={err}")
+        worst = max(worst, err)
+        b_ms, by = gmm_bound(lhs, rhs, sizes)
+        per_shape[name] = {"rows": lhs.shape[0], "k": k, "n": n,
+                           "groups": int((sizes > 0).sum()), "kernel_ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                           "matmul_loop_ms": loop_ms, "library_ms": lib_ms, "library": note,
+                           "max_abs_err": err}
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        log(f"phase4 grouped_matmul {name}: kernel {ms:.4f} ms (M={lhs.shape[0]} K={k} N={n}, "
+            f"{per_shape[name]['groups']} groups), bound {b_ms:.4f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms, per-expert matmul loop {loop_ms:.4f} ms, library {lib_txt} "
+            f"({note}); max|Δ|={err:.3g} ok")
+    log("phase4 grouped_matmul " + json.dumps(per_shape))
+    head = per_shape["decode_gate_up"]
+    return {"ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "max_abs_err": worst, "per_shape": per_shape}
+
+
 # -- phase 4: timing --------------------------------------------------------------
 
 
@@ -3571,6 +3919,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.core import hybrid as thy
     from repro_torch.kernels import fused_groupby as fk
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import hybrid_registers as hr
     from repro_torch.kernels import preagg as pa
     from repro_torch.kernels import segment_agg as sa
@@ -3581,7 +3930,8 @@ def main(argv=None) -> int:
              "segment_agg": (sa, "segment_agg"), "scan_ticket": (fk, "scan_ticket"),
              "scan_ticket_batched": (fk, "scan_ticket_batched"),
              "segment_agg_serialized": (sa, "serialized_agg"),
-             "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg")}
+             "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg"),
+             "grouped_matmul": (gm, "grouped_matmul")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -3609,6 +3959,7 @@ def main(argv=None) -> int:
     split_err["hybrid_registers"] = phase2_hybrid(hr, gen, device)
     split_err["preagg"] = phase2_preagg(pa, gen, device)
     split_err["scan_ticket_batched"] = phase2_batched(fk, gen, device)
+    split_err["grouped_matmul"] = phase2_grouped_matmul(gm, sa, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -3626,6 +3977,10 @@ def main(argv=None) -> int:
     t_shard = time.perf_counter()
     recs += phase3_sharded(kmods, api, gen, device)
     log(f"phase3 sharded in {time.perf_counter() - t_shard:.1f} s")
+    log("== phase 3 lm: granite-moe-1b-a400m served at full width")
+    t_lm = time.perf_counter()
+    recs.append(phase3_lm(kmods, device, args.seed))
+    log(f"phase3 lm in {time.perf_counter() - t_lm:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
@@ -3645,6 +4000,7 @@ def main(argv=None) -> int:
                                                              chunk_vals, gen, device)
     preagg_calls, timing["preagg"] = phase4_preagg(pa, api, chunk_classes, chunk_vals, device)
     timing["scan_ticket_batched"] = phase4_batched(fk, gen, device)
+    timing["grouped_matmul"] = phase4_grouped_matmul(gm, gen, device)
     phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
@@ -3659,8 +4015,8 @@ def main(argv=None) -> int:
         f"total {time.perf_counter() - t_all:.1f} s")
 
     # the scan route's two kernels, the register fold, the
-    # pre-aggregation and the batched ticket launch replace plain jnp, not a
-    # Pallas kernel
+    # pre-aggregation and the batched ticket launch replace plain jnp, and
+    # the grouped matmul jax.lax.ragged_dot, not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
@@ -3668,7 +4024,8 @@ def main(argv=None) -> int:
                 "segment_agg_serialized": "src/repro/core/updates.py:219",
                 "hybrid_registers": "src/repro/engine/executors.py:884",
                 "preagg": "src/repro/core/partitioned.py:48",
-                "scan_ticket_batched": "src/repro/engine/executors.py:613"}
+                "scan_ticket_batched": "src/repro/engine/executors.py:613",
+                "grouped_matmul": "src/repro/models/moe.py:109"}
     source = {"scan_ticket": "fused_groupby", "scan_ticket_batched": "fused_groupby",
               "segment_agg_serialized": "segment_agg"}
     kernels = [{

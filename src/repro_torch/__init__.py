@@ -2,7 +2,8 @@
 
 The package mirrors ``src/repro/`` module for module (``core/``,
 ``engine/``, ``kernels/``, ``obs/``, ``data/``, ``serve/``, ``train/``,
-``parallel/``), exports the same names from each package, and imports
+``parallel/``, ``models/``, ``configs/``), exports the same names from
+each package, and imports
 neither JAX nor anything of ``repro``.  ``from repro_torch.engine import
 GroupByPlan, AggSpec, Table`` is the front door.  Every plan of the
 reference runs: the default plan (``strategy="auto"``), the concurrent
@@ -12,8 +13,11 @@ ticketing, ``strategy="hybrid"``, ``strategy="partitioned"``,
 ``saturation="spill"`` and ``strategy="sharded"`` over a
 single-controller mesh (``parallel.sharding``).  ``serve.AggregationServer`` multiplexes many
 streaming queries over one scheduler and co-dispatches same-shape scan
-queries through one multi-table ticket launch.  The hand-written Hopper
-kernels live in ``csrc/`` (see ``kernels/``).
+queries through one multi-table ticket launch.  ``serve.engine.ServeLoop``
+serves the LM stack (``models/``, ``configs/``): the MoE layers route
+through the segment kernel and run their experts through the grouped
+matmul kernel.  The hand-written Hopper kernels live in ``csrc/`` (see
+``kernels/``).
 
 Conventions that differ from the JAX package:
 

@@ -14,6 +14,8 @@ hybrid_registers — fold of a chunk's heavy-hitter rows into dense
 preagg — each worker's local pre-aggregation into a small direct-mapped
   table, spilling the rows that miss it (``csrc/preagg.cu``,
   ``strategy="partitioned"``).
+grouped_matmul — the MoE layer's expert FFNs over expert-sorted rows
+  (``csrc/grouped_matmul.cu``, kernel B3, in place of ``ragged_dot``).
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

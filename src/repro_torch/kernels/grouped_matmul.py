@@ -1,0 +1,120 @@
+"""Grouped matmul over contiguous row groups: kernel B3, the MoE layer's
+expert FFNs.
+
+Replaces ``jax.lax.ragged_dot`` in ``repro.models.moe.moe_mlp_dense``
+(``src/repro/models/moe.py:109-112``; no Pallas kernel there).  One call
+computes ``out[r] = lhs[r] @ rhs[g(r)]``, where the rows of ``lhs`` fall
+into ``len(group_sizes)`` contiguous groups in group order, and writes the
+rows past ``sum(group_sizes)`` as zeros.  Float32 in and out, as the
+reference casts both sides to float32 before ``ragged_dot``.
+
+:func:`grouped_matmul` is the wrapper: CUDA tensors launch the hand-written
+Hopper kernel ``csrc/grouped_matmul.cu`` (built at first use; counted in
+``grouped_matmul.launches``) and raise if they cannot; CPU tensors run
+:func:`grouped_matmul_plain`.  The group sizes stay on the device: the
+kernel takes each group's first row as a prefix sum of the sizes itself,
+so the wrapper reads no size on the host (a decode step of
+granite-moe-1b-a400m makes 72 calls).
+
+Bound on the card: bytes.  At decode the rows are few (64 over 32
+experts), so a call reads every touched expert's K × N weights: 2 MiB an
+expert at K = 1024, N = 512, ≈ 0.020 ms for all 32 at 3.35 TB/s.  The
+kernel gives each CTA one (group, N tile) and loops over the group's rows,
+so each weight element is read once a call while a group's rows fit one
+8-row tile (see the source for the rest of the design).  Float32 FMAs on
+the CUDA cores; the card's float32 matmuls elsewhere keep
+``torch.backends.cuda.matmul.allow_tf32`` False, so the plain version is
+full float32 too.  The kernel sums K in another order than
+``torch.matmul``, so the two agree to float32 rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def _check(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor):
+    if lhs.dim() != 2 or rhs.dim() != 3 or group_sizes.dim() != 1:
+        raise ValueError(
+            f"grouped_matmul takes lhs (M, K), rhs (G, K, N) and group_sizes (G,); got "
+            f"{tuple(lhs.shape)}, {tuple(rhs.shape)}, {tuple(group_sizes.shape)}"
+        )
+    if lhs.shape[1] != rhs.shape[1] or group_sizes.shape[0] != rhs.shape[0]:
+        raise ValueError(
+            f"shapes do not agree: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
+            f"group_sizes {tuple(group_sizes.shape)}"
+        )
+    if lhs.dtype != torch.float32 or rhs.dtype != torch.float32:
+        raise ValueError(f"lhs and rhs must be float32, got {lhs.dtype} and {rhs.dtype}")
+    if group_sizes.dtype != torch.int32:
+        raise ValueError(f"group_sizes must be int32, got {group_sizes.dtype}")
+    if not lhs.device == rhs.device == group_sizes.device:
+        raise ValueError(
+            f"lhs, rhs and group_sizes lie on {lhs.device}, {rhs.device}, {group_sizes.device}"
+        )
+    return lhs.contiguous(), rhs.contiguous(), group_sizes.contiguous()
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """``ragged_dot(lhs, rhs, group_sizes)`` in float32 (see the module
+    docstring).  CUDA tensors launch the Hopper kernel; CPU tensors run
+    :func:`grouped_matmul_plain`; any other device raises."""
+    lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
+    dev = lhs.device
+    if dev.type == "cpu":
+        return grouped_matmul_plain(lhs, rhs, group_sizes)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_matmul runs on cuda or cpu tensors, not {dev}")
+    m, k = lhs.shape
+    g, _, n = rhs.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = _kernel_library()
+    err = lib.grouped_matmul_launch(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+        m, k, n, g, torch._C._cuda_getCurrentRawStream(dev.index if dev.index is not None
+                                                       else torch.cuda.current_device()),
+    )
+    if err != 0:
+        raise RuntimeError(
+            "grouped_matmul kernel launch failed: " + lib.grouped_matmul_error_string(err).decode()
+        )
+    grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _kernel_library() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+
+    lib = build.load_library("grouped_matmul")
+    fn = lib.grouped_matmul_launch
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+        lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.grouped_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version, on any device: a loop over groups of
+    ``torch.matmul`` in float32 (it reads the sizes on the host), rows past
+    the last group zero.  Negative sizes count as 0 and rows are clamped to
+    M, as in the kernel."""
+    lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
+    m = lhs.shape[0]
+    out = torch.zeros((m, rhs.shape[2]), dtype=torch.float32, device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(size, 0), m)
+        if end > start:
+            out[start:end] = lhs[start:end] @ rhs[g]
+        start = end
+    return out

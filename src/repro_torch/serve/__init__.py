@@ -1,6 +1,7 @@
-"""Serving: the generic slot scheduler and the multi-tenant GROUP BY
-server (port of ``repro.serve``; the LM decode loop ``engine.py`` comes
-with the LM stack)."""
+"""Serving: the generic slot scheduler, the multi-tenant GROUP BY server
+and the LM decode loop (port of ``repro.serve``; ``engine.py``'s
+``ServeLoop`` and ``Request`` are imported from ``repro_torch.serve.engine``,
+as in the reference)."""
 from repro_torch.serve.query_server import AggregationServer, QueryHandle
 from repro_torch.serve.scheduler import (
     BudgetExceededError,

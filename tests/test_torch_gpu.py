@@ -1733,3 +1733,70 @@ def test_sharded_remesh_and_cross_count_restore_on_the_card(card_mesh, tmp_path)
                                                                        chunks(src))
         assert restored.chunks_consumed == 4
         _exact_map(restored.result(), keys, vals)
+
+
+# -- the LM serving path: kernel B3 (grouped matmul) and the route histogram ------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,groups,k,n,empty", [
+    (64, 32, 1024, 512, 0),      # granite-moe-1b-a400m decode: gate / up
+    (64, 32, 512, 1024, 0),      # and down
+    (4096, 32, 1024, 512, 0),    # a prefill-sized call
+    (300, 16, 96, 70, 5),        # empty groups, N % 4 != 0, rows past Σ sizes
+])
+def test_grouped_matmul_kernel_matches_plain(cuda, rows, groups, k, n, empty):
+    """B3 against its plain version (a loop of float32 torch.matmul with
+    TF32 off): float32 sums in another order, so within 1e-5 of the
+    output's scale."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(rows + n)
+    lhs = torch.randn(rows, k, generator=g, device=cuda)
+    rhs = torch.randn(groups, k, n, generator=g, device=cuda) * k ** -0.5
+    ids = torch.randint(0, groups, (rows - 7 * bool(empty),), generator=g, device=cuda)
+    ids = ids[ids >= empty]  # the first `empty` groups get no rows
+    sizes = torch.bincount(ids, minlength=groups).to(torch.int32)
+    before = gm.grouped_matmul.launches
+    got = gm.grouped_matmul(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches == before + 1
+    want = gm.grouped_matmul_plain(lhs, rhs, sizes)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert not got[int(sizes.sum()):].any()
+
+
+@pytest.mark.gpu
+def test_moe_layer_reaches_b3_and_the_segment_kernel(cuda):
+    """One MoE layer of granite's full width on the card: 3 B3 launches and
+    one segment launch (the route's GROUP BY COUNT, exact), and the output
+    within 1e-4 of the same layer through the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe
+
+    cfg = get_config("granite_moe_1b_a400m")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(g, cfg, cuda)
+    x = torch.randn(8, 1, cfg.d_model, generator=g, device=cuda)
+    b3, seg = gm.grouped_matmul.launches, sa.segment_agg.launches
+    out, _ = moe.moe_mlp_dense(p, cfg, x)
+    r = moe.route(p, cfg, x.reshape(-1, cfg.d_model))
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches - b3 == 3
+    assert sa.segment_agg.launches - seg == 2
+    onehot = torch.nn.functional.one_hot(r.experts.reshape(-1).long(), cfg.moe_experts_padded)
+    assert torch.equal(r.histogram, onehot.sum(0).float())
+    # the same layer through the plain versions
+    x2 = x.reshape(-1, cfg.d_model)
+    flat_e = r.experts.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    gtok = torch.arange(8, device=cuda).repeat_interleave(cfg.moe_top_k)[order]
+    sizes = onehot.sum(0).to(torch.int32)
+    gx = x2[gtok]
+    h = torch.nn.functional.silu(gm.grouped_matmul_plain(gx, p["w_gate"], sizes)) \
+        * gm.grouped_matmul_plain(gx, p["w_up"], sizes)
+    yo = gm.grouped_matmul_plain(h, p["w_down"], sizes)
+    want = torch.zeros_like(x2).index_add_(0, gtok, yo * r.weights.reshape(-1)[order][:, None])
+    assert float((out.reshape(-1, cfg.d_model) - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -1,5 +1,5 @@
 """repro_torch stands alone: importing every module of the port (the
-serving, training and checkpoint packages included), and chip_smoke.py, loads neither
+serving, training, checkpoint and LM packages included), and chip_smoke.py, loads neither
 JAX nor anything of the JAX package, and builds or loads no kernel."""
 import os
 import subprocess
@@ -41,5 +41,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     for module in ("repro_torch.serve.query_server", "repro_torch.serve.scheduler",
                    "repro_torch.train.elastic", "repro_torch.checkpoint.manager",
                    "repro_torch.engine.elastic", "repro_torch.parallel.sharding",
-                   "repro_torch.core.distributed"):
+                   "repro_torch.core.distributed", "repro_torch.serve.engine",
+                   "repro_torch.kernels.grouped_matmul", "repro_torch.configs",
+                   "repro_torch.configs.granite_moe_1b_a400m", "repro_torch.models.config",
+                   "repro_torch.models.layers", "repro_torch.models.attention",
+                   "repro_torch.models.moe", "repro_torch.models.rwkv",
+                   "repro_torch.models.ssm", "repro_torch.models.transformer"):
         assert module in walked, module
