@@ -7,9 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's six CUDA sources (``fused_groupby``,
+1. build — compile the port's seven CUDA sources (``fused_groupby``,
    ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``,
-   ``grouped_matmul``), one ``nvcc`` each, all started together, and print
+   ``grouped_matmul``, ``segment_rows``), one ``nvcc`` each, all started
+   together, and print
    the commands, the seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
@@ -68,6 +69,12 @@ Four phases, each of which fails the run:
    with 37 rows past the last, and N = 70 (the scalar-load path): |Δ| <=
    1e-5 · max|plain|, rows past the groups 0; the segment kernel's COUNT
    histogram of a decode routing equal to the one-hot sum.
+   ``segment_rows`` (kernel B5, the ticketed embedding's row segment sum)
+   against its plain version (one ``index_add_``): 1024 rows of d = 1024
+   at the tickets the ticket kernel gives 1024 Zipf token ids, 3000 rows
+   with tickets of -1 and >= G and a hot ticket on half of them, d = 70
+   (the scalar path) and rows 4 bytes off a 16-byte boundary: each sum
+   within 1e-5 · Σ|row| of its ticket.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -165,6 +172,24 @@ Four phases, each of which fails the run:
    layer 0's MoE block through the kernels against the plain versions
    (1e-4 · max|plain|).  Prints the prefill seconds, the decode
    milliseconds a step and tokens/s.
+   Phase 3 train (lm_train; ``train/loop.py`` over ``models/`` and
+   ``optim/``): qwen3-0.6b at full width (28 layers, d 1024, vocab
+   151,936, tied, bf16 compute over 596 M float32 parameters and AdamW
+   moments, random weights from a seeded card generator) trained by
+   ``train_loop`` on a one-member mesh for 30 steps of
+   ``SyntheticLM(batch=8, seq=128, track_stats=True)`` with
+   ``examples/train_lm.py``'s hyperparameters (peak lr 1e-3, warmup 20,
+   ticketed embedding): every loss finite, the last 5 below the first 5;
+   exactly one ticket and one B5 launch a step (the embedding's
+   backward), no B3 launch, and per batch pulled the launches of the
+   stats plan's route (scan_body: one ``scan_ticket``, one segment
+   launch); the ``token_stats()`` total equal to the tracked rows; the
+   backward's table gradient on the card against its plain three-step
+   version on the same tensors (the same rows, sums within 1e-4 · Σ|g|);
+   a resume at the tiny preset (reduced, float32: 4 steps against 2, a
+   commit, 2 more) within 1e-4 of each leaf.  Prints ms a step, tokens/s,
+   peak memory, the backward's three stages and the plain gather's
+   autograd backward beside them.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -218,7 +243,10 @@ Four phases, each of which fails the run:
    and the 4096-row prefill shape beside its bound (bytes of lhs, out and
    the touched experts' weights; 2·M·K·N float32 operations), its plain
    version, the per-expert ``torch.matmul`` loop and ``torch._grouped_mm``
-   (bfloat16 operands, where it runs).
+   (bfloat16 operands, where it runs).  B5 at the training shape (1024 ×
+   1024 rows at Zipf tickets) by events and by CUDA-graph replay, beside
+   the same rows at distinct tickets (what the hot tickets' contention
+   costs), its bytes bound, its plain version and ``index_add_``.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -241,7 +269,7 @@ M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
 KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers",
-           "preagg", "grouped_matmul")  # CUDA sources
+           "preagg", "grouped_matmul", "segment_rows")  # CUDA sources
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
@@ -2873,6 +2901,353 @@ def phase4_grouped_matmul(gm, gen, device, reps=5):
             "max_abs_err": worst, "per_shape": per_shape}
 
 
+# -- LM training: kernel B5, phase 3 lm_train ----------------------------------------
+
+TRAIN_ARCH = "qwen3_0_6b"       # 28 layers, d 1024, vocab 151,936, d_ff 3072, tied
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 30
+TRAIN_HP = {"peak_lr": 1e-3, "warmup": 20}   # examples/train_lm.py's
+ROWS_RTOL = 1e-5                # B5 vs plain: |Δ| <= ROWS_RTOL · Σ|row| of the ticket (atomic order)
+
+
+def zipf_tokens(rows, vocab, seed, a=1.2):
+    """``rows`` token ids drawn as ``SyntheticLM`` draws them: numpy's
+    Zipf(a) minus one, modulo the vocabulary (token 0 ≈ 18% of the rows at
+    a = 1.2)."""
+    import numpy as np
+
+    z = np.random.default_rng(seed).zipf(a, size=rows).astype(np.int64)
+    return ((z - 1) % vocab).astype(np.int32)
+
+
+def embed_tickets(th, device, rows=TRAIN_BATCH * TRAIN_SEQ, vocab=151_936, seed=0):
+    """B5's tickets on the training path: ``rows`` Zipf token ids ticketed
+    by the ticket kernel as the ticketed embedding's backward tickets them
+    (``max_unique`` = rows).  Returns (ids, tickets, key_by_ticket, count,
+    max_unique, capacity)."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+    from repro_torch.models import layers
+
+    ids = torch.from_numpy(zipf_tokens(rows, vocab, seed)).to(device)
+    mu = min(vocab, rows)
+    cap = table_capacity(mu)
+    tickets, kbt, count = layers._ticket_ids(ids, mu, cap, th.ticket_hash)
+    return ids, tickets, kbt, count, mu, cap
+
+
+def check_rows(sr, got, rows, tickets, groups, label):
+    """B5's output against its plain version on the same tensors: every
+    sum within ROWS_RTOL · Σ|row| of its ticket (dropped rows add
+    nothing).  Returns max|Δ|."""
+    want = sr.segment_rows_plain(rows, tickets, groups)
+    scale = sr.segment_rows_plain(rows.abs(), tickets, groups)
+    err = (got - want).abs()
+    check(bool((err <= ROWS_RTOL * scale).all()),
+          f"{label}: max|Δ|={float(err.max())} past {ROWS_RTOL} · Σ|row|")
+    return float(err.max())
+
+
+def phase2_segment_rows(sr, th, gen, device):
+    """B5 (``csrc/segment_rows.cu``) against ``segment_rows_plain`` (one
+    ``index_add_``): the training path's shape (1024 rows of d = 1024 at
+    the tickets the ticket kernel gives 1024 Zipf token ids, G = 1024),
+    tickets of -1 and >= G with a hot ticket on half the rows, d = 70 (the
+    scalar path) and rows 4 bytes off a 16-byte boundary.  Returns the
+    worst |Δ|."""
+    import torch
+
+    worst = 0.0
+    _, tickets, _, count, mu, _ = embed_tickets(th, device)
+    cases = {"train": (torch.randn(mu, 1024, generator=gen, device=device), tickets, mu)}
+    t = torch.randint(-1, 514, (3000,), generator=gen, device=device, dtype=torch.int32)
+    t[torch.rand(3000, generator=gen, device=device) < 0.5] = 7
+    cases["dropped_hot"] = (torch.randn(3000, 1024, generator=gen, device=device), t, 512)
+    cases["scalar_d70"] = (torch.randn(3000, 70, generator=gen, device=device), t, 512)
+    off = torch.randn(3000 * 1024 + 1, generator=gen, device=device)[1:].reshape(3000, 1024)
+    cases["misaligned"] = (off, t, 512)
+    for name, (rows, tk, g) in cases.items():
+        before = sr.segment_rows.launches
+        got = sr.segment_rows(rows, tk, g)
+        sync()
+        check(sr.segment_rows.launches == before + 1, f"phase2 segment_rows {name}: not launched")
+        err = check_rows(sr, got, rows, tk, g, f"phase2 segment_rows {name}")
+        worst = max(worst, err)
+        log(f"phase2 segment_rows {name}: R={rows.shape[0]} d={rows.shape[1]} G={g}, "
+            f"{int(((tk >= 0) & (tk < g)).sum())} rows kept; max|Δ|={err:.3g} ok")
+    log(f"phase2 segment_rows: the training tickets hold {int(count)} distinct ids of {mu}")
+    return worst
+
+
+def lm_train_resume(device, seed):
+    """``train_loop`` with a ``CheckpointManager`` at the tiny preset
+    (reduced qwen3-0.6b, float32 so that bf16 rounding does not magnify
+    the atomic order of B5's sums): 4 steps uninterrupted; 2 steps with a
+    commit at step 2; a resume from it to step 4.  The resumed parameters
+    and moments equal the uninterrupted run's within SUM_RTOL of each
+    leaf's largest value.  Returns (worst relative |Δ|, seconds)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    t0 = time.perf_counter()
+    tiny = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True), dtype="float32")
+    hp = tloop.TrainHParams(total_steps=4, ticketed_embedding=True, **TRAIN_HP)
+    mesh = sharding.make_mesh((1, 1), ("data", "model"), devices=[sharding.MeshDevice(0, device)])
+    root = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def data(start=0):
+        d = SyntheticLM(tiny, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=False,
+                        device=device)
+        d.state.step = start
+        return iter(d)
+
+    def fresh():
+        return tf.init_params(torch.Generator(device=device).manual_seed(seed), tiny, device)
+
+    whole, wopt, _ = tloop.train_loop(mesh, tiny, hp, data(), steps=4, params=fresh(),
+                                      log_every=100)
+    mgr = CheckpointManager(root, async_save=False)
+    tloop.train_loop(mesh, tiny, hp, data(), steps=2, params=fresh(), checkpoint_manager=mgr,
+                     checkpoint_every=2, log_every=100)
+    check(mgr.latest_step() == 2, f"lm_train resume: latest commit {mgr.latest_step()}, not 2")
+    res, ropt, _ = tloop.train_loop(mesh, tiny, hp, data(2), steps=4, params=fresh(),
+                                    checkpoint_manager=mgr, checkpoint_every=2, log_every=100)
+    check(int(ropt.step) == int(wopt.step) == 4, "lm_train resume: the step counters differ")
+    worst = 0.0
+    for got, want in ((res, whole), (ropt.m, wopt.m), (ropt.v, wopt.v)):
+        for a, b in zip(tf._leaves(got), tf._leaves(want)):
+            rel = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+            worst = max(worst, rel)
+    check(worst <= SUM_RTOL, f"lm_train resume: resumed vs uninterrupted rel {worst} > {SUM_RTOL}")
+    shutil.rmtree(root, ignore_errors=True)
+    return worst, time.perf_counter() - t0
+
+
+def phase3_lm_train(kmods, device, seed, reps=5):
+    """LM training on one member at qwen3-0.6b's full width
+    (``configs.get_config`` → ``transformer.init_params`` →
+    ``data.pipeline.SyntheticLM(batch=8, seq=128, track_stats=True)`` →
+    ``train.loop.train_loop`` on a one-member mesh of the card, with
+    ``examples/train_lm.py``'s hyperparameters and ``ticketed_embedding``):
+    TRAIN_STEPS steps of 1024 tokens, bf16 compute over float32 parameters
+    and AdamW moments, random weights from a seeded card generator.  The
+    launch counts are set to 0 just before ``train_loop`` and read just
+    after: each step makes exactly one ticket and one B5 launch (the
+    embedding's backward) and no B3 launch; each batch pulled makes the
+    launches of the stats plan's route (scan_body: one ``scan_ticket`` and
+    one segment launch); no other kernel.  Gates: every loss finite; the
+    mean of the last 5 losses below the mean of the first 5; the
+    ``token_stats()`` total equal to the tracked rows; the backward's table
+    gradient on the card against the plain three-step version on the same
+    CUDA tensors (the same rows touched, each sum within SUM_RTOL · Σ|g|);
+    the tiny-preset resume (:func:`lm_train_resume`).  Prints ms a step
+    (CUDA events between step starts), tokens/s, peak memory, the
+    backward's three stages timed apart and the autograd backward of the
+    plain ``embed`` gather beside them.  Returns the record."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hashing import table_capacity
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import segment_rows as sr
+    from repro_torch.kernels import ticket_hash as th
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2 ** 20  # live tensors of earlier phases
+    params, init_s = timed(tf.init_params, gen, cfg, device)
+    n_params = sum(t.numel() for t in tf._leaves(params))
+    mesh = sharding.make_mesh((1, 1), ("data", "model"), devices=[sharding.MeshDevice(0, device)])
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=True,
+                       device=device)
+    route = data._stats._plan.execution
+    pulled = []
+
+    def feed():
+        for batch in data:
+            pulled.append(batch["tokens"])
+            yield batch
+
+    events = []
+    make_step = tloop.make_train_step
+
+    def timed_steps(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(*a):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append(e)
+            return step(*a)
+
+        return run
+
+    tloop.make_train_step = timed_steps
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    try:
+        params, opt, hist = tloop.train_loop(mesh, cfg, hp, feed(), steps=TRAIN_STEPS,
+                                             params=params, log_every=1)
+    finally:
+        tloop.make_train_step = make_step
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    steps, batches = len(events), len(pulled)
+    check(steps == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
+          f"phase3 lm_train: {steps} steps, {len(hist)} logged, expected {TRAIN_STEPS}")
+    check(route.kernel == "scan_body" and route.update == "scatter",
+          f"phase3 lm_train: the stats plan resolved to kernel={route.kernel!r} "
+          f"update={route.update!r}, not the CUDA route rule's scan_body + scatter")
+    want = {k: 0 for k in kmods}
+    want.update(ticket_hash=steps, segment_rows=steps, scan_ticket=batches, segment_agg=batches)
+    check(launches == want, f"phase3 lm_train: launches {launches}, expected {want} "
+          f"({steps} steps, {batches} batches pulled)")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"phase3 lm_train: a loss is not finite {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"phase3 lm_train: loss did not fall (first 5 {first}, last 5 {last})")
+    keys, counts = data.token_stats()
+    tracked = sum(int((t < data.stat_groups // 2).sum()) for t in pulled)
+    check(int(counts.astype("float64").sum()) == tracked,
+          f"phase3 lm_train: token_stats total {counts.sum()} != {tracked} tracked rows")
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, steps - 1))
+    ms = step_ms[len(step_ms) // 2]
+    first_ms = events[0].elapsed_time(events[1])
+
+    # the backward on the card against its plain three-step version
+    ids = pulled[-1]
+    vocab, d = params["embed"]["table"].shape
+    mu = min(cfg.vocab_size, ids.numel())
+    cap = table_capacity(mu)
+    g = torch.randn(*ids.shape, d, generator=gen, device=device)
+    got = layers.ticketed_embed_grad(ids, g, vocab, mu, cap)
+    want_g = layers.ticketed_embed_grad_plain(ids, g, vocab, mu, cap)
+    absum = torch.zeros(vocab, d, device=device).index_add_(0, ids.reshape(-1).long(),
+                                                            g.reshape(-1, d).abs())
+    uniq = torch.unique(ids).long()
+    check(torch.equal(torch.nonzero(got.abs().sum(1)).reshape(-1), uniq)
+          and torch.equal(torch.nonzero(want_g.abs().sum(1)).reshape(-1), uniq),
+          "phase3 lm_train: the card backward touches other rows than the batch's ids")
+    grad_err = float((got - want_g).abs().max())
+    check(bool(((got - want_g).abs() <= SUM_RTOL * absum).all()),
+          f"phase3 lm_train: card backward vs plain max|Δ|={grad_err} past SUM_RTOL · Σ|g|")
+    del got, want_g, absum
+
+    # the backward's three stages apart, and the dense scatter-add it replaces
+    g2 = g.reshape(-1, d)
+    tickets, kbt, count = layers._ticket_ids(ids, mu, cap, th.ticket_hash)
+    seg = sr.segment_rows(g2, tickets, mu)
+    stages = {
+        "ticket": time_cuda(lambda: layers._ticket_ids(ids, mu, cap, th.ticket_hash), reps),
+        "segment_rows": time_cuda(lambda: sr.segment_rows(g2, tickets, mu), reps),
+        "index_add": time_cuda(lambda: layers._scatter_rows(seg, kbt, count, vocab), reps),
+        "whole": time_cuda(lambda: layers.ticketed_embed_grad(ids, g, vocab, mu, cap), reps),
+    }
+    table = params["embed"]["table"].detach().requires_grad_(True)
+    dense = layers.embed({"table": table}, ids, torch.float32)
+    stages["dense_embed_backward"] = time_cuda(
+        lambda: torch.autograd.grad(dense, table, g, retain_graph=True), reps)
+    del dense, table, seg
+    distinct = int(count)
+    hot = float((ids == 0).float().mean())
+    resume_rel, resume_s = lm_train_resume(device, seed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"stream": "lm_train", "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps, "batches": batches,
+           "init_s": init_s, "wall_s": wall, "step_ms": ms, "first_step_ms": first_ms,
+           "step_ms_range": [step_ms[0], step_ms[-1]], "tokens_per_s": tokens / ms * 1e3,
+           "peak_mib": peak_mib, "held_before_mib": held_mib,
+           "peak_over_held_mib": peak_mib - held_mib, "losses": losses, "first5": first, "last5": last,
+           "stats_route": {"kernel": route.kernel, "update": route.update},
+           "stats_groups": int(keys.size), "stats_total": tracked,
+           "distinct_ids_last_batch": distinct, "token0_share_last_batch": hot,
+           "backward_stage_ms": stages, "backward_max_abs_err": grad_err,
+           "resume_rel": resume_rel, "resume_s": resume_s,
+           "launches": launches, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_train: {cfg.name} at full width ({n_params} parameters, {cfg.dtype} compute "
+        f"over float32), {steps} steps of {tokens} tokens: {ms:.2f} ms a step (median; first "
+        f"{first_ms:.1f} ms), {tokens / ms * 1e3:.0f} tokens/s, peak {peak_mib:.0f} MiB ({peak_mib - held_mib:.0f} "
+        f"over the {held_mib:.0f} MiB earlier phases hold); loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f} (first 5 {first:.3f}, last 5 {last:.3f}); "
+        f"launches a step: ticket 1, B5 1, B3 0, stats route scan_ticket 1 + segment 1 a "
+        f"batch; backward stages ticket {stages['ticket']:.4f} + B5 "
+        f"{stages['segment_rows']:.4f} + index_add_ {stages['index_add']:.4f} ms (whole "
+        f"{stages['whole']:.4f} ms) beside the dense embed backward "
+        f"{stages['dense_embed_backward']:.4f} ms; card vs plain backward max|Δ|={grad_err:.3g}; "
+        f"token_stats {int(keys.size)} groups, {tracked} rows ok; resume (tiny, float32) rel "
+        f"{resume_rel:.3g} in {resume_s:.1f} s ok")
+    del params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase4_segment_rows(sr, th, gen, device, reps=5):
+    """B5 at the training path's shape (R = 1024 rows of d = 1024 at the
+    tickets of 1024 Zipf token ids, G = 1024), CUDA events, median of
+    ``reps``, and by CUDA-graph replay (device time without the host's
+    launch work), beside its bound (rows and tickets read once, the G × d
+    sums written once, over 3.35 TB/s), its plain version (held against
+    it) and ``index_add_`` of the same rows into a fresh zero table.  The
+    same rows at distinct tickets (a permutation: no two rows share a
+    ticket) show what the hot tickets' contention costs.  Returns the
+    record."""
+    import torch
+
+    _, tickets, _, count, mu, _ = embed_tickets(th, device, seed=1)
+    d = 1024
+    rows = torch.randn(mu, d, generator=gen, device=device)
+    perm = torch.randperm(mu, generator=gen, device=device).to(torch.int32)
+    idx = tickets.long()
+    ms = time_cuda(lambda: sr.segment_rows(rows, tickets, mu), reps)
+    plain_ms = time_cuda(lambda: sr.segment_rows_plain(rows, tickets, mu), reps)
+    lib_ms = time_cuda(lambda: torch.zeros(mu, d, device=device).index_add_(0, idx, rows), reps)
+    graph_ms = time_graph(lambda: sr.segment_rows(rows, tickets, mu))
+    distinct_ms = time_cuda(lambda: sr.segment_rows(rows, perm, mu), reps)
+    distinct_graph_ms = time_graph(lambda: sr.segment_rows(rows, perm, mu))
+    err = check_rows(sr, sr.segment_rows(rows, tickets, mu), rows, tickets, mu,
+                     "phase4 segment_rows")
+    hot = float(torch.bincount(tickets.long()).max()) / mu
+    nbytes = 4 * (mu * d + mu + mu * d)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"rows": mu, "d": d, "groups": mu, "distinct": int(count), "hot_share": hot,
+           "kernel_ms": ms, "graph_ms": graph_ms, "distinct_tickets_ms": distinct_ms,
+           "distinct_tickets_graph_ms": distinct_graph_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes", "max_abs_err": err}
+    log("phase4 segment_rows " + json.dumps(rec))
+    log(f"phase4 segment_rows: kernel {ms:.4f} ms (graph {graph_ms:.4f}) for {mu} rows of {d} "
+        f"into {int(count)} live tickets, the hottest {hot:.1%} of the rows; distinct tickets "
+        f"{distinct_ms:.4f} ms (graph {distinct_graph_ms:.4f}); bound {b_ms:.4f} ms (bytes), "
+        f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; max|Δ|={err:.3g} ok")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "max_abs_err": err, "detail": rec}
+
+
 # -- phase 4: timing --------------------------------------------------------------
 
 
@@ -3923,6 +4298,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import hybrid_registers as hr
     from repro_torch.kernels import preagg as pa
     from repro_torch.kernels import segment_agg as sa
+    from repro_torch.kernels import segment_rows as sr
     from repro_torch.kernels import ticket_hash as th
 
     # name → (module, wrapper) whose ``launches`` counts that kernel
@@ -3931,7 +4307,7 @@ def main(argv=None) -> int:
              "scan_ticket_batched": (fk, "scan_ticket_batched"),
              "segment_agg_serialized": (sa, "serialized_agg"),
              "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg"),
-             "grouped_matmul": (gm, "grouped_matmul")}
+             "grouped_matmul": (gm, "grouped_matmul"), "segment_rows": (sr, "segment_rows")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -3960,6 +4336,7 @@ def main(argv=None) -> int:
     split_err["preagg"] = phase2_preagg(pa, gen, device)
     split_err["scan_ticket_batched"] = phase2_batched(fk, gen, device)
     split_err["grouped_matmul"] = phase2_grouped_matmul(gm, sa, gen, device)
+    split_err["segment_rows"] = phase2_segment_rows(sr, th, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -3981,6 +4358,10 @@ def main(argv=None) -> int:
     t_lm = time.perf_counter()
     recs.append(phase3_lm(kmods, device, args.seed))
     log(f"phase3 lm in {time.perf_counter() - t_lm:.1f} s")
+    log("== phase 3 train: qwen3-0.6b at full width (lm_train)")
+    t_train = time.perf_counter()
+    recs.append(phase3_lm_train(kmods, device, args.seed))
+    log(f"phase3 lm_train in {time.perf_counter() - t_train:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
@@ -4001,6 +4382,7 @@ def main(argv=None) -> int:
     preagg_calls, timing["preagg"] = phase4_preagg(pa, api, chunk_classes, chunk_vals, device)
     timing["scan_ticket_batched"] = phase4_batched(fk, gen, device)
     timing["grouped_matmul"] = phase4_grouped_matmul(gm, gen, device)
+    timing["segment_rows"] = phase4_segment_rows(sr, th, gen, device)
     phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
@@ -4015,8 +4397,9 @@ def main(argv=None) -> int:
         f"total {time.perf_counter() - t_all:.1f} s")
 
     # the scan route's two kernels, the register fold, the
-    # pre-aggregation and the batched ticket launch replace plain jnp, and
-    # the grouped matmul jax.lax.ragged_dot, not a Pallas kernel
+    # pre-aggregation and the batched ticket launch replace plain jnp, the
+    # grouped matmul jax.lax.ragged_dot and the row segment sum
+    # jax.ops.segment_sum, not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
@@ -4025,7 +4408,8 @@ def main(argv=None) -> int:
                 "hybrid_registers": "src/repro/engine/executors.py:884",
                 "preagg": "src/repro/core/partitioned.py:48",
                 "scan_ticket_batched": "src/repro/engine/executors.py:613",
-                "grouped_matmul": "src/repro/models/moe.py:109"}
+                "grouped_matmul": "src/repro/models/moe.py:109",
+                "segment_rows": "src/repro/models/layers.py:150"}
     source = {"scan_ticket": "fused_groupby", "scan_ticket_batched": "fused_groupby",
               "segment_agg_serialized": "segment_agg"}
     kernels = [{

@@ -11,8 +11,8 @@ Fault-tolerance contract:
     part of the state);
   * leaves are saved as full host arrays and restored onto the device the
     caller names (the reference's ``shardings=`` becomes ``device=``; a
-    restore by LM placement rules comes with the LM stack, ROADMAP.md
-    item 10; a sharded stream's carry restores through
+    restore by LM placement rules comes with the LM placement slice,
+    ROADMAP.md item 10c; a sharded stream's carry restores through
     ``engine/elastic.py``, onto any member count);
   * saving runs on a background thread (async, off the critical path) with
     a barrier before the next save (at most one in flight).  The leaves are
@@ -40,18 +40,27 @@ def host_copy(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
+def _item_keys(seq) -> list:
+    """Path keys of a sequence's items, as ``jax.tree_util`` names them: a
+    NamedTuple's fields as ``.<field>`` (``GetAttrKey``), so that an
+    ``AdamWState`` saves as ``.step``, ``.m/...`` and ``.v/...``; a plain
+    tuple's or list's items by index."""
+    fields = getattr(seq, "_fields", None)
+    return ["." + f for f in fields] if fields is not None else [str(i) for i in range(len(seq))]
+
+
 def _leaves(tree, prefix=()):
     """``(path, leaf)`` pairs in the order of ``jax.tree_util``'s
-    ``tree_flatten_with_path``: dict keys sorted, sequence items by index,
-    ``None`` an empty subtree."""
+    ``tree_flatten_with_path``: dict keys sorted, sequence items in order
+    (:func:`_item_keys`), ``None`` an empty subtree."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (str(i),))
+        for key, v in zip(_item_keys(tree), tree):
+            yield from _leaves(v, prefix + (key,))
     else:
         yield "/".join(prefix), tree
 
@@ -70,8 +79,8 @@ def _unflatten_into(tree_template, flat: dict[str, np.ndarray], device=None, pre
         return {k: _unflatten_into(v, flat, device, prefix + (str(k),))
                 for k, v in tree_template.items()}
     if isinstance(tree_template, (list, tuple)):
-        items = [_unflatten_into(v, flat, device, prefix + (str(i),))
-                 for i, v in enumerate(tree_template)]
+        items = [_unflatten_into(v, flat, device, prefix + (key,))
+                 for key, v in zip(_item_keys(tree_template), tree_template)]
         if isinstance(tree_template, list):
             return items
         return (type(tree_template)(*items) if hasattr(tree_template, "_fields")

@@ -16,6 +16,9 @@ preagg — each worker's local pre-aggregation into a small direct-mapped
   ``strategy="partitioned"``).
 grouped_matmul — the MoE layer's expert FFNs over expert-sorted rows
   (``csrc/grouped_matmul.cu``, kernel B3, in place of ``ragged_dot``).
+segment_rows — whole float32 rows summed by ticket (``csrc/segment_rows.cu``,
+  kernel B5, the ticketed embedding's backward in place of
+  ``jax.ops.segment_sum``).
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

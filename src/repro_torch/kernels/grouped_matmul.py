@@ -14,7 +14,10 @@ Hopper kernel ``csrc/grouped_matmul.cu`` (built at first use; counted in
 :func:`grouped_matmul_plain`.  The group sizes stay on the device: the
 kernel takes each group's first row as a prefix sum of the sizes itself,
 so the wrapper reads no size on the host (a decode step of
-granite-moe-1b-a400m makes 72 calls).
+granite-moe-1b-a400m makes 72 calls).  The call is an autograd node: on CPU
+tensors its backward differentiates the plain version; on CUDA tensors an
+input that requires grad (with grad enabled) raises ``NotImplementedError``,
+since B3 has no backward kernel yet (ROADMAP §2 B6).
 
 Bound on the card: bytes.  At decode the rows are few (64 over 32
 experts), so a call reads every touched expert's K × N weights: 2 MiB an
@@ -56,16 +59,55 @@ def _check(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor):
     return lhs.contiguous(), rhs.contiguous(), group_sizes.contiguous()
 
 
+B3_BACKWARD = ("grouped_matmul has no backward on the card yet: B3's backward (d lhs, d rhs of "
+               "the grouped matmul), for MoE training, is ROADMAP §2 item B6")
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """B3 as an autograd node.  CPU tensors run the plain version forward
+    and differentiate it backward; CUDA tensors launch the kernel, and
+    :func:`grouped_matmul` refuses them where an input requires grad, since
+    the kernel has no backward yet (without that check a CUDA result would
+    carry no ``grad_fn`` and the expert weights would get no gradient,
+    silently)."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        if lhs.device.type == "cpu":
+            ctx.save_for_backward(lhs, rhs, group_sizes)
+            return grouped_matmul_plain(lhs, rhs, group_sizes)
+        return _launch(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip((lhs, rhs), need)]
+            out = grouped_matmul_plain(ins[0], ins[1], group_sizes)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need) if n], g))
+        return tuple(next(grads) if n else None for n in need) + (None,)
+
+
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """``ragged_dot(lhs, rhs, group_sizes)`` in float32 (see the module
-    docstring).  CUDA tensors launch the Hopper kernel; CPU tensors run
-    :func:`grouped_matmul_plain`; any other device raises."""
+    docstring).  CUDA tensors launch the Hopper kernel (and raise
+    ``NotImplementedError`` where ``lhs`` or ``rhs`` requires grad); CPU
+    tensors run :func:`grouped_matmul_plain`, differentiably; any other
+    device raises."""
     lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
     dev = lhs.device
-    if dev.type == "cpu":
-        return grouped_matmul_plain(lhs, rhs, group_sizes)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"grouped_matmul runs on cuda or cpu tensors, not {dev}")
+    if dev.type == "cuda" and torch.is_grad_enabled() and (lhs.requires_grad
+                                                           or rhs.requires_grad):
+        raise NotImplementedError(B3_BACKWARD)
+    return _GroupedMatmul.apply(lhs, rhs, group_sizes)
+
+
+def _launch(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors checked by :func:`_check`."""
+    dev = lhs.device
     m, k = lhs.shape
     g, _, n = rhs.shape
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

@@ -121,28 +121,94 @@ def embed(p: Params, ids: torch.Tensor, dtype) -> torch.Tensor:
     return flat.reshape(*ids.shape, table.shape[1]).to(dtype)
 
 
+def _ticket_ids(ids: torch.Tensor, max_unique: int, capacity: int, ticket_fn):
+    """Step 1 of the embedding gradient: the ids as uint32 bit patterns,
+    padded with ``EMPTY_I32`` to a multiple of 1024 rows (the ticket
+    kernel's tile), ticketed against a fresh table of ``capacity`` slots.
+    Returns ``(tickets of the ids' rows, key_by_ticket, count)``."""
+    from repro_torch.core.hashing import EMPTY_I32
+
+    keys = ids.reshape(-1).to(torch.int32)
+    n = keys.shape[0]
+    pad = -n % 1024
+    if pad:
+        keys = torch.cat([keys, torch.full((pad,), EMPTY_I32, dtype=torch.int32,
+                                           device=keys.device)])
+    tickets, _, _, key_by_ticket, count = ticket_fn(keys, capacity=capacity,
+                                                    max_groups=max_unique)
+    return tickets[:n], key_by_ticket, count
+
+
+def _scatter_rows(seg: torch.Tensor, key_by_ticket: torch.Tensor, count: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Step 3: ONE ``index_add_`` of the live ticket rows (``arange(G) <
+    count``) at their keys into a zero ``(vocab, d)`` float32 table; dead
+    rows go to a row past the table, which is dropped (the reference's
+    ``mode="drop"``).  No host read: ``count`` stays on the device."""
+    g = seg.shape[0]
+    live = torch.arange(g, device=seg.device) < count
+    idx = torch.where(live, key_by_ticket, vocab).long()
+    dtable = torch.zeros((vocab + 1, seg.shape[1]), dtype=torch.float32, device=seg.device)
+    return dtable.index_add_(0, idx, seg)[:vocab]
+
+
+def ticketed_embed_grad(ids: torch.Tensor, g: torch.Tensor, vocab: int, max_unique: int,
+                        capacity: int) -> torch.Tensor:
+    """The gradient of the ``(vocab, d)`` table under ``ticketed_embed``:
+    GROUP BY token_id SUM(cotangent), the paper's pipeline (reference
+    ``layers.py:142-165``).  The ids are ticketed by the ticket kernel
+    (:func:`~repro_torch.kernels.ticket_hash.ticket_hash`), the float32
+    cotangent rows are summed in ticket space by kernel B5
+    (:func:`~repro_torch.kernels.segment_rows.segment_rows`), rows whose
+    ticket is -1 or ``>= max_unique`` dropped, and one ``index_add_`` lands
+    the sums in the table.  CUDA tensors launch the two kernels; CPU
+    tensors take their plain versions.  Never ``core.ticketing
+    .get_or_insert``: on CUDA tensors it runs claim rounds from the host."""
+    from repro_torch.kernels.segment_rows import segment_rows
+    from repro_torch.kernels.ticket_hash import ticket_hash
+
+    tickets, key_by_ticket, count = _ticket_ids(ids, max_unique, capacity, ticket_hash)
+    seg = segment_rows(g.reshape(-1, g.shape[-1]).float(), tickets, max_unique)
+    return _scatter_rows(seg, key_by_ticket, count, vocab)
+
+
+def ticketed_embed_grad_plain(ids: torch.Tensor, g: torch.Tensor, vocab: int,
+                              max_unique: int, capacity: int) -> torch.Tensor:
+    """:func:`ticketed_embed_grad` through the kernels' plain versions
+    (``ticket_hash_plain``, ``segment_rows_plain``) on any device: the
+    card's oracle.  Its tickets are numbered in row order, the kernel's are
+    not, so the two agree as tables, not as ticket vectors."""
+    from repro_torch.kernels.segment_rows import segment_rows_plain
+    from repro_torch.kernels.ticket_hash import ticket_hash_plain
+
+    tickets, key_by_ticket, count = _ticket_ids(ids, max_unique, capacity, ticket_hash_plain)
+    seg = segment_rows_plain(g.reshape(-1, g.shape[-1]).float(), tickets, max_unique)
+    return _scatter_rows(seg, key_by_ticket, count, vocab)
+
+
 class _TicketedEmbed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, max_unique, capacity):
-        ctx.shapes = (table.shape, max_unique, capacity)
+        ctx.save_for_backward(ids)
+        ctx.shape = (table.shape, table.dtype, max_unique, capacity)
         flat = table.index_select(0, ids.reshape(-1).long())
         return flat.reshape(*ids.shape, table.shape[1])
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "ticketed_embed's backward (ticket -> segment-sum -> scatter on the "
-            "ticket and segment kernels) comes with the LM training slice "
-            "(ROADMAP item 10, training); the serving path needs only the forward"
-        )
+        (ids,) = ctx.saved_tensors
+        (vocab, _), dtype, max_unique, capacity = ctx.shape
+        dtable = ticketed_embed_grad(ids, g, vocab, max_unique, capacity)
+        return dtable.to(dtype), None, None, None
 
 
 def ticketed_embed(table: torch.Tensor, ids: torch.Tensor, max_unique: int, capacity: int):
     """Embedding gather whose BACKWARD runs the paper's pipeline (reference
     ``layers.py:120-165``): ticket the ids, segment-sum the cotangents in
-    ticket space, one dense scatter into the table.  The forward is the
-    gather; the backward arrives with the training slice and raises until
-    then."""
+    ticket space, one dense scatter into the table
+    (:func:`ticketed_embed_grad`).  ``max_unique`` bounds the distinct ids
+    of one call (rows past it get no gradient, as in the reference);
+    ``capacity`` is the ticket table's slots, a power of two."""
     return _TicketedEmbed.apply(table, ids, max_unique, capacity)
 
 

@@ -2,8 +2,10 @@
 
 Port of ``repro.models.transformer``.  Layer parameters stay stacked on a
 leading L axis, as in the reference; its ``jax.lax.scan`` over the stack
-is a Python loop here, each layer a view ``stack[i]``.  Remat
-(``jax.checkpoint``) is a training matter and is not ported.
+is a Python loop here over views of the stack (``_unstack``).  Remat
+(``jax.checkpoint``) is not ported: a training step keeps every layer's
+activations, which is small beside the parameters and AdamW moments at
+the batch sizes the port trains (chip_smoke: 8 × 128 tokens).
 
 Heterogeneous stacks (zamba2) run *super-blocks* of (attn_every−1 Mamba2
 layers + one shared-weight attention block); the shared attention
@@ -316,12 +318,23 @@ def _lm_logits(p, cfg: ModelConfig, x):
     return softcap(logits.to(torch_dtype(cfg.logits_dtype)), cfg.final_logit_softcap)
 
 
+def _unstack(tree) -> list:
+    """The layer slices of a stacked tree, each leaf split by one
+    ``unbind(0)``.  Under autograd that is one node a leaf whose backward
+    stacks the layers' gradients once, where ``tree[i]`` for every layer
+    would add a full-size zero gradient of the stack per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _run_attn_stack(p_layers, cfg, x, windows, memory=None, moe_impl="dense", ep_info=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    n = next(iter(_leaves(p_layers))).shape[0]
-    for i in range(n):
+    for i, pl in enumerate(_unstack(p_layers)):
         w = windows[i] if windows is not None else None
-        x, _, a = _attn_block(_at(p_layers, i), cfg, x, window=w, memory=memory,
+        x, _, a = _attn_block(pl, cfg, x, window=w, memory=memory,
                               moe_impl=moe_impl, ep_info=ep_info)
         aux = aux + a
     return x, aux
@@ -353,8 +366,8 @@ def _run_hybrid_stack(p, cfg, x):
 
 
 def _run_rwkv_stack(p_layers, cfg, x):
-    for i in range(cfg.n_layers):
-        x, _ = _rwkv_block(_at(p_layers, i), cfg, x)
+    for pl in _unstack(p_layers):
+        x, _ = _rwkv_block(pl, cfg, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -558,7 +571,7 @@ def decode_step_twobuf(params: Params, cfg: ModelConfig, tokens, prefix_caches, 
 
 
 # ---------------------------------------------------------------------------
-# loss (forward only; training comes with the training slice)
+# loss (differentiable: train/loop.py takes its gradients)
 # ---------------------------------------------------------------------------
 
 def lm_loss(params, cfg: ModelConfig, batch, **fw_kwargs):

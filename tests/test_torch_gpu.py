@@ -1800,3 +1800,89 @@ def test_moe_layer_reaches_b3_and_the_segment_kernel(cuda):
     yo = gm.grouped_matmul_plain(h, p["w_down"], sizes)
     want = torch.zeros_like(x2).index_add_(0, gtok, yo * r.weights.reshape(-1)[order][:, None])
     assert float((out.reshape(-1, cfg.d_model) - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_refuses_gradients_on_the_card(cuda):
+    """B3 has no backward on the card yet: a CUDA input that requires grad
+    raises (naming ROADMAP item B6) instead of returning a result with no
+    grad_fn; without grad the kernel launches as before."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    lhs = torch.randn(16, 32, device=cuda)
+    rhs = torch.randn(4, 32, 8, device=cuda)
+    sizes = torch.tensor([4, 4, 4, 4], dtype=torch.int32, device=cuda)
+    for args in ((lhs.requires_grad_(True), rhs), (lhs.detach(), rhs.requires_grad_(True))):
+        with pytest.raises(NotImplementedError, match="B6"):
+            gm.grouped_matmul(*args, sizes)
+    before = gm.grouped_matmul.launches
+    with torch.no_grad():
+        out = gm.grouped_matmul(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches == before + 1 and out.grad_fn is None
+
+
+# -- LM training: kernel B5 (row segment sum) and the ticketed embedding's backward --
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,groups,d,hot", [
+    (1024, 1024, 1024, 0.18),    # qwen3-0.6b: 8 × 128 ids, Zipf's token 0 share
+    (3000, 64, 70, 0.5),         # d % 4 != 0: the scalar path; a hotter ticket
+    (5, 3, 8, 0.0),
+])
+def test_segment_rows_kernel_matches_plain(cuda, rows, groups, d, hot):
+    """B5 against its plain version (one index_add_): rows with tickets -1
+    and >= G dropped; sums in atomic order, so within 1e-5 · Σ|row| of the
+    ticket."""
+    from repro_torch.kernels import segment_rows as sr
+
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    t = torch.randint(-1, groups + 2, (rows,), generator=g, device=cuda, dtype=torch.int32)
+    t[torch.rand(rows, generator=g, device=cuda) < hot] = groups // 2
+    x = torch.randn(rows, d, generator=g, device=cuda)
+    before = sr.segment_rows.launches
+    got = sr.segment_rows(x, t, groups)
+    torch.cuda.synchronize()
+    assert sr.segment_rows.launches == before + 1
+    want = sr.segment_rows_plain(x, t, groups)
+    scale = sr.segment_rows_plain(x.abs(), t, groups)
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    # a row view that is not 16-byte aligned takes the scalar path
+    got2 = sr.segment_rows(x.reshape(-1)[1:1 + rows * (d - 1)].reshape(rows, d - 1), t, groups)
+    want2 = sr.segment_rows_plain(x.reshape(-1)[1:1 + rows * (d - 1)].reshape(rows, d - 1),
+                                  t, groups)
+    assert float((got2 - want2).abs().max()) <= 1e-5 * float(scale.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,vocab,d", [(8, 128, 151_936, 1024), (3, 100, 4096, 64)])
+def test_ticketed_embed_backward_on_the_card_matches_the_cpu(cuda, b, s, vocab, d):
+    """The ticketed embedding's backward on the card (the ticket kernel, B5,
+    one index_add_: one launch of each kernel) against the same gradient on
+    the CPU (their plain versions): the same rows touched, sums within
+    1e-5 · Σ|g| of the id's rows."""
+    from repro_torch.core.hashing import table_capacity
+    from repro_torch.kernels import segment_rows as sr
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(b * s)
+    ids = ((rng.zipf(1.2, size=(b, s)) - 1) % vocab).astype(np.int32)
+    mu = min(vocab, b * s)
+    cap = table_capacity(mu)
+    table = torch.randn(vocab, d, device=cuda) * d ** -0.5
+    gg = torch.randn(b, s, d, device=cuda)
+    tt = table.clone().requires_grad_(True)
+    ids_c = torch.from_numpy(ids).to(cuda)
+    t0, s0 = th.ticket_hash.launches, sr.segment_rows.launches
+    (got,) = torch.autograd.grad(layers.ticketed_embed(tt, ids_c, mu, cap), tt, gg)
+    torch.cuda.synchronize()
+    assert th.ticket_hash.launches - t0 == 1 and sr.segment_rows.launches - s0 == 1
+    tc = table.cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(layers.ticketed_embed(tc, torch.from_numpy(ids), mu, cap), tc,
+                                  gg.cpu())
+    absum = torch.zeros(vocab, d).index_add_(0, torch.from_numpy(ids).reshape(-1).long(),
+                                             gg.cpu().reshape(-1, d).abs())
+    got = got.cpu()
+    assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
+    assert bool(((got - want).abs() <= 1e-5 * absum).all())

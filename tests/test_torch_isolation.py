@@ -46,5 +46,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                    "repro_torch.configs.granite_moe_1b_a400m", "repro_torch.models.config",
                    "repro_torch.models.layers", "repro_torch.models.attention",
                    "repro_torch.models.moe", "repro_torch.models.rwkv",
-                   "repro_torch.models.ssm", "repro_torch.models.transformer"):
+                   "repro_torch.models.ssm", "repro_torch.models.transformer",
+                   "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.clip",
+                   "repro_torch.optim.compression", "repro_torch.optim.schedules",
+                   "repro_torch.train.loop", "repro_torch.train.fault_tolerance",
+                   "repro_torch.kernels.segment_rows", "repro_torch.data.pipeline"):
         assert module in walked, module

@@ -171,10 +171,15 @@ def test_embed_and_ticketed_embed_forward():
 
 
 def test_ticketed_embed_backward_raises_until_the_training_slice():
+    """The training slice has landed: the backward no longer raises, and
+    gives the dense gather's gradient (``tests/test_torch_train.py`` holds
+    it to JAX's)."""
     table = torch.randn(50, 8, requires_grad=True)
     out = tlayers.ticketed_embed(table, torch.tensor([[1, 2, 2]]), 3, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    out.sum().backward()
+    want = torch.zeros(50, 8)
+    want[1], want[2] = 1.0, 2.0
+    assert torch.equal(table.grad, want)
 
 
 # -- attention (float32, rtol 1e-4) ------------------------------------------------
