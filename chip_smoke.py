@@ -66,9 +66,13 @@ Four phases, each of which fails the run:
    its plain version (float32 ``torch.matmul`` per group, TF32 off) at
    granite-moe-1b-a400m's decode shapes (64 rows over 32 experts, K × N =
    1024 × 512 and 512 × 1024), a 4096-row prefill shape, 8 empty groups
-   with 37 rows past the last, and N = 70 (the scalar-load path): |Δ| <=
-   1e-5 · max|plain|, rows past the groups 0; the segment kernel's COUNT
-   histogram of a decode routing equal to the one-hot sum.
+   with 37 rows past the last, N = 70 (the plain-load paths), one group of
+   300 rows (row tiles of 128, 128 and 44), 4096 rows in Zipf-skewed
+   groups (one of about half the rows), K = 1000 and N = 200 (partial K
+   blocks and N tiles), M = 1, all groups empty with rows past them, and
+   lhs and rhs 4 bytes off a 16-byte boundary: |Δ| <= 1e-5 · max|plain|,
+   rows past the groups exactly 0; the segment kernel's COUNT histogram of
+   a decode routing equal to the one-hot sum.
    ``segment_rows`` (kernel B5, the ticketed embedding's row segment sum)
    against its plain version (one ``index_add_``): 1024 rows of d = 1024
    at the tickets the ticket kernel gives 1024 Zipf token ids, 3000 rows
@@ -240,10 +244,13 @@ Four phases, each of which fails the run:
    N × (``torch.unique(return_inverse=True)`` + one ``index_add_`` /
    ``scatter_reduce_`` a plane), its plain version (held against it) and
    its bytes bound.  B3 at the decode shapes (64 rows, gate / up and down)
-   and the 4096-row prefill shape beside its bound (bytes of lhs, out and
-   the touched experts' weights; 2·M·K·N float32 operations), its plain
-   version, the per-expert ``torch.matmul`` loop and ``torch._grouped_mm``
-   (bfloat16 operands, where it runs).  B5 at the training shape (1024 ×
+   and the 4096-row prefill shape, warm (events), cold (events, the L2
+   flushed before each call, as the served path meets it) and by CUDA-graph
+   replay, beside its bound (the larger of the bytes of lhs, out and the
+   touched experts' weights and the 3 × 2·rows·K·N TF32 tensor operations;
+   the float32-FMA count is printed too), its plain version, the
+   per-expert ``torch.matmul`` loop and ``torch._grouped_mm`` (bfloat16
+   operands, where it runs).  B5 at the training shape (1024 ×
    1024 rows at Zipf tickets) by events and by CUDA-graph replay, beside
    the same rows at distinct tickets (what the hot tickets' contention
    costs), its bytes bound, its plain version and ``index_add_``.
@@ -273,6 +280,7 @@ KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers",
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
+TF32_OPS_PER_S = 495e12         # H100 SXM tensor-core TF32 peak, dense
 SUM_RTOL = 1e-4                 # |Δsum| ≤ SUM_RTOL · Σ|v| over the group
 
 
@@ -2595,6 +2603,24 @@ def routed_ids(tokens, experts, top_k, gen, device):
     return torch.topk(logits, top_k, dim=-1).indices.reshape(-1)
 
 
+def gmm_arrays(gen, device, sizes, k, n, *, tail=0, offset=0):
+    """lhs (Σ sizes + ``tail`` rows, ``k``) and rhs (G, ``k``, ``n``) for
+    ``sizes``, random; with ``offset`` > 0 both are contiguous views that
+    start ``offset`` floats past a 16-byte boundary."""
+    import torch
+
+    m = int(sizes.clamp(min=0).sum()) + tail
+
+    def draw(*shape, scale=1.0):
+        numel = 1
+        for d in shape:
+            numel *= d
+        flat = torch.randn(numel + offset, generator=gen, device=device) * scale
+        return flat[offset:].view(*shape)
+
+    return draw(m, k), draw(sizes.numel(), k, n, scale=k ** -0.5), sizes
+
+
 def gmm_case(gen, device, tokens, k, n, *, experts=32, top_k=8, empty=0, tail=0):
     """lhs, rhs, sizes of one grouped matmul: ``tokens`` tokens routed
     top-``top_k`` (the first ``empty`` experts get no rows), ``tail`` rows
@@ -2603,45 +2629,91 @@ def gmm_case(gen, device, tokens, k, n, *, experts=32, top_k=8, empty=0, tail=0)
 
     ids = routed_ids(tokens, experts - empty, top_k, gen, device) + empty
     sizes = torch.bincount(ids, minlength=experts).to(torch.int32)
-    m = ids.numel() + tail
-    lhs = torch.randn(m, k, generator=gen, device=device)
-    rhs = torch.randn(experts, k, n, generator=gen, device=device) * k ** -0.5
-    return lhs, rhs, sizes
+    return gmm_arrays(gen, device, sizes, k, n, tail=tail)
+
+
+def zipf_sizes(rows, groups, gen, device, a=1.7):
+    """``rows`` rows over ``groups`` groups with sizes ∝ 1 / rank^a (at a =
+    1.7 and 32 groups the largest takes about half), ranks shuffled."""
+    import torch
+
+    w = 1.0 / torch.arange(1, groups + 1, dtype=torch.float64) ** a
+    sizes = torch.floor(rows * w / w.sum()).to(torch.int32)
+    sizes[0] += rows - int(sizes.sum())
+    perm = torch.randperm(groups, generator=gen, device=device).cpu()
+    return sizes[perm].to(device)
+
+
+def gmm_cases(gen, device):
+    """name → (lhs, rhs, sizes): the B3 cases of phase 2 and the card
+    tests (see :func:`phase2_grouped_matmul`)."""
+    import torch
+
+    def sizes_of(*v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return {
+        "decode_gate_up": gmm_case(gen, device, 8, 1024, 512),
+        "decode_down": gmm_case(gen, device, 8, 512, 1024),
+        "prefill": gmm_case(gen, device, 512, 1024, 512),
+        "empty_groups": gmm_case(gen, device, 40, 1024, 512, empty=8, tail=37),
+        "ragged_n": gmm_case(gen, device, 40, 96, 70, empty=3, tail=5),
+        "group_300": gmm_arrays(gen, device, sizes_of(3, 300, 0, 9), 1024, 512),
+        "prefill_zipf": gmm_arrays(gen, device, zipf_sizes(4096, 32, gen, device), 1024, 512),
+        "odd_k_n": gmm_case(gen, device, 40, 1000, 200, tail=3),
+        "m1": gmm_arrays(gen, device, sizes_of(0, 0, 1, 0), 512, 1024),
+        "all_empty": gmm_arrays(gen, device, sizes_of(0, 0, 0, 0), 256, 192, tail=37),
+        "unaligned": gmm_arrays(gen, device, sizes_of(5, 0, 17, 42), 1024, 512, tail=6,
+                                offset=1),
+    }
+
+
+def check_gmm(gm, lhs, rhs, sizes, label):
+    """B3 against ``grouped_matmul_plain`` on the same tensors: |Δ| <=
+    GMM_RTOL · max|plain|, one launch, rows past Σ sizes exactly 0.
+    Returns (|Δ|, max|plain|)."""
+    import torch
+
+    before = gm.grouped_matmul.launches
+    got = gm.grouped_matmul(lhs, rhs, sizes)
+    sync()
+    check(gm.grouped_matmul.launches == before + 1, f"{label}: not one launch")
+    want = gm.grouped_matmul_plain(lhs, rhs, sizes)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    check(bool(torch.isfinite(got).all()) and err <= GMM_RTOL * scale,
+          f"{label}: max|Δ|={err} > {GMM_RTOL} · {scale}")
+    total = min(int(sizes.clamp(min=0).sum()), lhs.shape[0])
+    check(not bool(got[total:].any()), f"{label}: rows past Σ sizes not 0")
+    return err, scale
 
 
 def phase2_grouped_matmul(gm, sa, gen, device):
     """B3 against ``grouped_matmul_plain`` (a loop of float32
-    ``torch.matmul`` with TF32 off) at granite's decode shapes (8 tokens ×
-    top-8 = 64 rows over 32 experts: gate / up K = 1024, N = 512; down K =
-    512, N = 1024), a prefill-sized shape (512 tokens, 4096 rows), a case
-    with 8 empty groups and 37 rows past the last group, and one with N % 4
-    != 0 (the scalar-load path): |Δ| <= GMM_RTOL · max|plain|, rows past
-    the groups exactly 0.  The segment kernel's COUNT histogram of a decode
-    routing (kind count, onehot, 32 groups) must equal the one-hot sum
-    exactly.  Returns the worst |Δ| of B3."""
+    ``torch.matmul`` with TF32 off) on :func:`gmm_cases`: granite's decode
+    shapes (8 tokens × top-8 = 64 rows over 32 experts: gate / up K = 1024,
+    N = 512; down K = 512, N = 1024), a prefill-sized shape (512 tokens,
+    4096 rows), 8 empty groups and 37 rows past the last group, N % 4 != 0
+    (the plain-load paths), a 300-row group (more than one 128-row tile, not
+    a multiple of it), 4096 rows in Zipf-skewed groups, K and N off the
+    32-row K block and 64-column N tile, M = 1, every group empty with rows
+    past them, and lhs and rhs 4 bytes off a 16-byte boundary: |Δ| <=
+    GMM_RTOL · max|plain|, rows past the groups exactly 0.  The segment
+    kernel's COUNT histogram of a decode routing (kind count, onehot, 32
+    groups) must equal the one-hot sum exactly.  Returns the worst |Δ| of
+    B3."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     worst = 0.0
-    cases = {"decode_gate_up": (8, 1024, 512, {}), "decode_down": (8, 512, 1024, {}),
-             "prefill": (512, 1024, 512, {}),
-             "empty_groups": (40, 1024, 512, dict(empty=8, tail=37)),
-             "ragged_n": (40, 96, 70, dict(empty=3, tail=5))}
-    for name, (tokens, k, n, kw) in cases.items():
-        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n, **kw)
-        got = gm.grouped_matmul(lhs, rhs, sizes)
-        sync()
-        want = gm.grouped_matmul_plain(lhs, rhs, sizes)
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        check(err <= GMM_RTOL * scale, f"phase2 grouped_matmul {name}: max|Δ|={err} > "
-              f"{GMM_RTOL} · {scale}")
+    for name, (lhs, rhs, sizes) in gmm_cases(gen, device).items():
+        err, scale = check_gmm(gm, lhs, rhs, sizes, f"phase2 grouped_matmul {name}")
         total = int(sizes.sum())
-        check(not bool(got[total:].any()), f"phase2 grouped_matmul {name}: rows past Σ sizes not 0")
         worst = max(worst, err)
-        log(f"phase2 grouped_matmul {name}: M={lhs.shape[0]} K={k} N={n}, groups "
-            f"{int((sizes > 0).sum())}/{sizes.numel()} non-empty, {lhs.shape[0] - total} rows "
-            f"past them; max|Δ|={err:.3g} (scale {scale:.3g}) ok")
+        log(f"phase2 grouped_matmul {name}: M={lhs.shape[0]} K={lhs.shape[1]} "
+            f"N={rhs.shape[2]}, groups {int((sizes > 0).sum())}/{sizes.numel()} non-empty "
+            f"(largest {int(sizes.max())} rows), {lhs.shape[0] - total} rows past them; "
+            f"max|Δ|={err:.3g} (scale {scale:.3g}) ok")
     ids = routed_ids(LM_SLOTS, 32, 8, gen, device)
     hist = sa.segment_agg(ids.to(torch.int32), torch.ones(ids.numel(), device=device),
                           num_groups=32, kind="count", strategy="onehot", morsel_size=1)
@@ -2807,16 +2879,34 @@ def phase3_lm(kmods, device, seed):
 
 
 def gmm_bound(lhs, rhs, sizes):
-    """(bound ms, "bytes" / "operations") of one grouped matmul: lhs, out
-    and sizes once plus each non-empty group's K × N weights once, over
-    3.35 TB/s, against 2·rows·K·N float32 operations over 67 TFLOP/s."""
+    """The least time of one grouped matmul: a dict of ``bytes_ms`` (lhs,
+    out and sizes once plus each non-empty group's K × N weights once, over
+    3.35 TB/s), ``tf32x3_ms`` (3 × 2·rows·K·N TF32 tensor operations, the
+    kernel's error-compensated products, over 495 TFLOP/s), ``fp32_ms``
+    (2·rows·K·N float32 FMA operations over 67 TFLOP/s, the CUDA-core
+    count), and the headline ``bound_ms`` / ``bound_by``: the larger of
+    bytes and the tensor-core count."""
     m, k = lhs.shape
     g, _, n = rhs.shape
     touched = int((sizes > 0).sum())
     nbytes = 4 * (m * k + touched * k * n + g + m * n)
     ops = 2 * int(sizes.sum()) * k * n
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ms = 3 * ops / TF32_OPS_PER_S * 1e3
+    by = "bytes" if b_ms >= t_ms else "operations"
+    return {"bound_ms": max(b_ms, t_ms), "bound_by": by, "bytes_ms": b_ms, "tf32x3_ms": t_ms,
+            "fp32_ms": ops / FP32_OPS_PER_S * 1e3}
+
+
+GMM_SHAPES = {"decode_gate_up": (8, 1024, 512), "decode_down": (8, 512, 1024),
+              "prefill": (512, 1024, 512)}   # tokens, K, N (32 experts, top-8)
+
+
+def time_cold(fn, flush, reps):
+    """Median event ms of ``fn`` with ``flush`` (a 64 MiB buffer) zeroed
+    before each call, untimed: the call as it finds its operands evicted
+    from the 50 MB L2."""
+    return time_cuda(fn, reps, flush.zero_)
 
 
 def grouped_mm_library(lhs, rhs, sizes):
@@ -2848,21 +2938,29 @@ def grouped_mm_library(lhs, rhs, sizes):
 
 def phase4_grouped_matmul(gm, gen, device, reps=5):
     """B3 at the decode shapes (64 rows; gate / up and down) and the
-    prefill shape (4096 rows), CUDA events, median of ``reps``, beside its
-    bound (:func:`gmm_bound`), its plain version (held against it), the
-    per-expert ``torch.matmul`` loop with the sizes already on the host,
-    and ``torch._grouped_mm`` (bf16) where it runs.  The decode gate / up
-    shape is the kernel's line.  Returns the record."""
+    prefill shape (4096 rows): warm (CUDA events, median of ``reps``), cold
+    (the same with the L2 flushed before each call: a decode step's 72
+    calls touch 4.5 GiB of weights, so the served path finds them cold)
+    and by CUDA-graph replay (device time without the wrapper's host
+    work), beside its bound (:func:`gmm_bound`), its plain version (held
+    against it), the per-expert ``torch.matmul`` loop with the sizes
+    already on the host, and ``torch._grouped_mm`` (bf16) where it runs.
+    The decode gate / up shape is the kernel's line.  Returns the record."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     per_shape = {}
     worst = 0.0
-    for name, (tokens, k, n) in {"decode_gate_up": (8, 1024, 512),
-                                 "decode_down": (8, 512, 1024),
-                                 "prefill": (512, 1024, 512)}.items():
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    for name, (tokens, k, n) in GMM_SHAPES.items():
         lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n)
-        ms = time_cuda(lambda: gm.grouped_matmul(lhs, rhs, sizes), reps)
+
+        def call():
+            return gm.grouped_matmul(lhs, rhs, sizes)
+
+        ms = time_cuda(call, reps)
+        cold_ms = time_cold(call, flush, reps)
+        graph_ms = time_graph(call)
         plain_ms = time_cuda(lambda: gm.grouped_matmul_plain(lhs, rhs, sizes), reps)
         host_sizes = sizes.tolist()
         out = torch.empty(lhs.shape[0], n, device=device)
@@ -2883,15 +2981,19 @@ def phase4_grouped_matmul(gm, gen, device, reps=5):
         check(err <= GMM_RTOL * float(want.abs().max()),
               f"phase4 grouped_matmul {name}: max|Δ|={err}")
         worst = max(worst, err)
-        b_ms, by = gmm_bound(lhs, rhs, sizes)
+        bound = gmm_bound(lhs, rhs, sizes)
         per_shape[name] = {"rows": lhs.shape[0], "k": k, "n": n,
                            "groups": int((sizes > 0).sum()), "kernel_ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                           "cold_ms": cold_ms, "graph_ms": graph_ms,
+                           "plain_ms": plain_ms, **bound,
                            "matmul_loop_ms": loop_ms, "library_ms": lib_ms, "library": note,
                            "max_abs_err": err}
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        log(f"phase4 grouped_matmul {name}: kernel {ms:.4f} ms (M={lhs.shape[0]} K={k} N={n}, "
-            f"{per_shape[name]['groups']} groups), bound {b_ms:.4f} ms ({by}), plain "
+        log(f"phase4 grouped_matmul {name}: kernel {ms:.4f} ms warm, {cold_ms:.4f} cold, "
+            f"{graph_ms:.4f} graph (M={lhs.shape[0]} K={k} N={n}, "
+            f"{per_shape[name]['groups']} groups), bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, 3xTF32 "
+            f"{bound['tf32x3_ms']:.4f}, f32 FMA {bound['fp32_ms']:.4f}), plain "
             f"{plain_ms:.4f} ms, per-expert matmul loop {loop_ms:.4f} ms, library {lib_txt} "
             f"({note}); max|Δ|={err:.3g} ok")
     log("phase4 grouped_matmul " + json.dumps(per_shape))

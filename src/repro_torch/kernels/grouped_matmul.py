@@ -10,7 +10,8 @@ reference casts both sides to float32 before ``ragged_dot``.
 
 :func:`grouped_matmul` is the wrapper: CUDA tensors launch the hand-written
 Hopper kernel ``csrc/grouped_matmul.cu`` (built at first use; counted in
-``grouped_matmul.launches``) and raise if they cannot; CPU tensors run
+``grouped_matmul.launches``; any alignment and strides of contiguous
+tensors) and raise if they cannot; CPU tensors run
 :func:`grouped_matmul_plain`.  The group sizes stay on the device: the
 kernel takes each group's first row as a prefix sum of the sizes itself,
 so the wrapper reads no size on the host (a decode step of
@@ -19,16 +20,21 @@ tensors its backward differentiates the plain version; on CUDA tensors an
 input that requires grad (with grad enabled) raises ``NotImplementedError``,
 since B3 has no backward kernel yet (ROADMAP §2 B6).
 
-Bound on the card: bytes.  At decode the rows are few (64 over 32
-experts), so a call reads every touched expert's K × N weights: 2 MiB an
-expert at K = 1024, N = 512, ≈ 0.020 ms for all 32 at 3.35 TB/s.  The
-kernel gives each CTA one (group, N tile) and loops over the group's rows,
-so each weight element is read once a call while a group's rows fit one
-8-row tile (see the source for the rest of the design).  Float32 FMAs on
-the CUDA cores; the card's float32 matmuls elsewhere keep
-``torch.backends.cuda.matmul.allow_tf32`` False, so the plain version is
-full float32 too.  The kernel sums K in another order than
-``torch.matmul``, so the two agree to float32 rounding, not bit for bit.
+Bound on the card: bytes at decode (64 rows over 32 experts: a call reads
+every touched expert's K × N weights, ≈ 0.017 ms at 3.35 TB/s), bytes or
+tensor operations at the 4096-row prefill shape (≈ 0.028 ms).  The kernel
+runs on the tensor cores in error-compensated TF32 ("3xTF32"): each
+operand is split into a TF32 part and a TF32 remainder, and the three
+products big·big + big·small + small·big are summed per 32-deep K stage in
+float32 and added up in float32 registers.  That keeps the float32
+function the reference computes (one TF32 product alone is off by 3e-4 of
+max|out|; 3xTF32 with exact sums by 8e-8, ``tests/test_torch_models.py``).
+Both operands are staged K-major in shared memory for ``wgmma`` (TF32
+takes no other layout), fed through rings by TMA boxes, two CTAs an SM
+(see the source for the design and what was measured against it).  The
+plain version is full float32 (``torch.backends.cuda.matmul.allow_tf32``
+stays False), and the two sum in another order, so they agree to
+float32 rounding (4-7e-7 of max|out| on the card), not bit for bit.
 """
 from __future__ import annotations
 

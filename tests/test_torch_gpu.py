@@ -1739,30 +1739,53 @@ def test_sharded_remesh_and_cross_count_restore_on_the_card(card_mesh, tmp_path)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,groups,k,n,empty", [
-    (64, 32, 1024, 512, 0),      # granite-moe-1b-a400m decode: gate / up
-    (64, 32, 512, 1024, 0),      # and down
-    (4096, 32, 1024, 512, 0),    # a prefill-sized call
-    (300, 16, 96, 70, 5),        # empty groups, N % 4 != 0, rows past Σ sizes
+@pytest.mark.parametrize("rows,groups,k,n,empty,sizes,offset", [
+    (64, 32, 1024, 512, 0, "routed", 0),      # granite-moe-1b-a400m decode: gate / up
+    (64, 32, 512, 1024, 0, "routed", 0),      # and down
+    (4096, 32, 1024, 512, 0, "routed", 0),    # a prefill-sized call
+    (300, 16, 96, 70, 5, "routed", 0),        # empty groups, N % 4 != 0, rows past Σ sizes
+    (312, 4, 1024, 512, 0, (3, 300, 0, 9), 0),  # a 300-row group: 64-row tiles, a partial one
+    (4096, 32, 1024, 512, 0, "zipf", 0),      # Zipf-skewed groups, one of about half the rows
+    (323, 32, 1000, 200, 0, "routed", 0),     # K and N off the 32-row K block and 64-column tile
+    (1, 4, 512, 1024, 0, (0, 0, 1, 0), 0),    # M = 1
+    (37, 4, 256, 192, 0, (0, 0, 0, 0), 0),    # every group empty, rows past them
+    (70, 4, 1024, 512, 0, (5, 0, 17, 42), 1),  # lhs and rhs 4 bytes off a 16-byte boundary
 ])
-def test_grouped_matmul_kernel_matches_plain(cuda, rows, groups, k, n, empty):
+def test_grouped_matmul_kernel_matches_plain(cuda, rows, groups, k, n, empty, sizes, offset):
     """B3 against its plain version (a loop of float32 torch.matmul with
-    TF32 off): float32 sums in another order, so within 1e-5 of the
-    output's scale."""
+    TF32 off): float32 sums in another order (3xTF32 products, per-stage
+    partial sums), so within 1e-5 of the output's scale; the rows past
+    Σ sizes exactly 0; one launch."""
     from repro_torch.kernels import grouped_matmul as gm
 
     assert not torch.backends.cuda.matmul.allow_tf32
     g = torch.Generator(device=cuda).manual_seed(rows + n)
-    lhs = torch.randn(rows, k, generator=g, device=cuda)
-    rhs = torch.randn(groups, k, n, generator=g, device=cuda) * k ** -0.5
-    ids = torch.randint(0, groups, (rows - 7 * bool(empty),), generator=g, device=cuda)
-    ids = ids[ids >= empty]  # the first `empty` groups get no rows
-    sizes = torch.bincount(ids, minlength=groups).to(torch.int32)
+
+    def draw(*shape, scale=1.0):
+        numel = int(np.prod(shape))
+        flat = torch.randn(numel + offset, generator=g, device=cuda) * scale
+        return flat[offset:].view(*shape)  # contiguous, `offset` floats off alignment
+
+    lhs = draw(rows, k)
+    rhs = draw(groups, k, n, scale=k ** -0.5)
+    if sizes == "routed":
+        ids = torch.randint(0, groups, (rows - 7 * bool(empty),), generator=g, device=cuda)
+        ids = ids[ids >= empty]  # the first `empty` groups get no rows
+        sizes = torch.bincount(ids, minlength=groups).to(torch.int32)
+    elif sizes == "zipf":  # ∝ 1 / rank^1.7, the largest first: 2138 of 4096 rows
+        w = 1.0 / np.arange(1, groups + 1) ** 1.7
+        s = np.floor(rows * w / w.sum()).astype(np.int32)
+        s[0] += rows - s.sum()
+        sizes = torch.from_numpy(s[np.random.default_rng(rows).permutation(groups)]).to(cuda)
+    else:
+        sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    assert (lhs.data_ptr() % 16 != 0) == bool(offset) and lhs.is_contiguous()
     before = gm.grouped_matmul.launches
     got = gm.grouped_matmul(lhs, rhs, sizes)
     torch.cuda.synchronize()
     assert gm.grouped_matmul.launches == before + 1
     want = gm.grouped_matmul_plain(lhs, rhs, sizes)
+    assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert not got[int(sizes.sum()):].any()
 

@@ -312,6 +312,49 @@ def test_grouped_matmul_plain_equals_ragged_dot(sizes, m):
     assert tgm.grouped_matmul.launches == 0  # no launch off the card
 
 
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits, half away from zero, as
+    ``cvt.rna.tf32.f32``), kept in float32."""
+    return ((x.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("k,n", [(1024, 512), (512, 1024)])  # granite decode: gate / up, down
+def test_grouped_matmul_precision_argument(k, n):
+    """Why B3 runs 3xTF32 and not TF32 (csrc/grouped_matmul.cu): at the
+    decode widths (64 rows over 32 experts), the three products big·big +
+    big·small + small·big of each operand split x = tf32(x) + tf32(x -
+    tf32(x)), summed exactly, stay within GMM_RTOL = 1e-5 of
+    max|grouped_matmul_plain|, and one TF32 product does not.  The plain
+    version itself agrees with ``jax.lax.ragged_dot`` at these widths."""
+    rng = np.random.default_rng(k + n)
+    ids = np.argsort(rng.normal(size=(8, 32)), axis=1)[:, :8].reshape(-1)  # top-8, distinct
+    gs = np.bincount(ids, minlength=32).astype(np.int32)
+    lhs = rng.normal(size=(64, k)).astype(np.float32)
+    rhs = (rng.normal(size=(32, k, n)) * k ** -0.5).astype(np.float32)
+    plain = tgm.grouped_matmul_plain(t(lhs), t(rhs), t(gs)).numpy()
+    scale = np.abs(plain).max()
+
+    def emulate(terms):
+        out, start = np.zeros((64, n)), 0
+        for g, size in enumerate(gs):
+            a, w = lhs[start:start + size], rhs[g]
+            ab, wb = _tf32(a), _tf32(w)
+            asm, wsm = _tf32(a - ab), _tf32(w - wb)
+            prods = {"bb": (ab, wb), "bs": (ab, wsm), "sb": (asm, wb)}
+            for key in terms:
+                x, y = prods[key]
+                out[start:start + size] += x.astype(np.float64) @ y.astype(np.float64)
+            start += size
+        return out
+
+    err3 = np.abs(emulate(("sb", "bs", "bb")) - plain).max()
+    err1 = np.abs(emulate(("bb",)) - plain).max()
+    assert err3 <= 1e-5 * scale, (err3, scale)
+    assert err1 > 1e-5 * scale, (err1, scale)
+    want = np.asarray(jax.lax.ragged_dot(jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(gs)))
+    assert np.abs(plain - want).max() <= 1e-5 * scale
+
+
 def test_grouped_matmul_rejects_what_the_kernel_does_not_take():
     lhs, rhs, gs = torch.zeros(4, 3), torch.zeros(2, 3, 5), torch.tensor([2, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="float32"):

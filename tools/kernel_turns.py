@@ -17,6 +17,11 @@ into G = 1024, and into the unique class's G = 2^24) and ``preagg`` (W =
 its device time from CUDA-graph replays, as ``<kernel>_graph``, and the
 first two with that time after an L2 flush (``<kernel>_cold``);
 ``hybrid_registers_host_us`` is the wrapper's host time a call.
+``grouped_matmul`` (kernel B3) runs on its own inputs (seed 0), not the
+chunks: the decode gate / up and down shapes (64 rows over 32 experts)
+and the 4096-row prefill shape of ``chip_smoke.GMM_SHAPES``, warm (events),
+cold (events, the L2 flushed before each call, ``<kernel>_cold``) and by
+CUDA-graph replay (``<kernel>_graph``); per shape, not per class.
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
@@ -144,6 +149,26 @@ def preagg_times(classes, vals):
     return event, graph
 
 
+def gmm_times(dev, flush):
+    """B3 at ``chip_smoke.GMM_SHAPES`` on the same seeded inputs in every
+    tree, three timings a shape: warm and cold (the L2 flushed before each
+    call) by events, and by CUDA-graph replay."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {name: cs.gmm_case(gen, dev, tokens, k, n)
+             for name, (tokens, k, n) in cs.GMM_SHAPES.items()}
+    out = {k: {} for k in ("event", "cold", "graph")}
+    for _ in range(3):
+        for name, (lhs, rhs, sizes) in cases.items():
+            call = lambda: gm.grouped_matmul(lhs, rhs, sizes)  # noqa: E731
+            out["event"].setdefault(name, []).append(cs.time_cuda(call, 5))
+            out["cold"].setdefault(name, []).append(cs.time_cold(call, flush, 5))
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -157,7 +182,10 @@ def main() -> int:
         return (not only or kernel in only) and importlib.util.find_spec(
             "repro_torch.kernels." + module.get(kernel, kernel)) is not None
 
-    classes, vals = cs.phase4_chunks(torch.Generator(device=dev).manual_seed(0), dev)
+    chunked = ("fused_groupby", "ticket_hash", "scan_ticket", "hybrid_registers",
+               "segment_agg_serialized", "preagg")
+    if any(wanted(k) for k in chunked):
+        classes, vals = cs.phase4_chunks(torch.Generator(device=dev).manual_seed(0), dev)
     out = {k: {} for k in ("fused_groupby", "ticket_hash", "scan_ticket") if wanted(k)}
     for _ in range(3 if out else 0):
         for name, (keys, g) in classes.items():
@@ -182,6 +210,9 @@ def main() -> int:
                 out[kernel if kind == "event" else f"{kernel}_{kind}"] = per_class
     if wanted("preagg"):
         out["preagg"], out["preagg_graph"] = preagg_times(classes, vals)
+    if wanted("grouped_matmul"):
+        for kind, per_shape in gmm_times(dev, flush).items():
+            out["grouped_matmul" if kind == "event" else f"grouped_matmul_{kind}"] = per_shape
     print(sys.argv[1], json.dumps(out))
     return 0
 
