@@ -75,10 +75,13 @@ Four phases, each of which fails the run:
    a decode routing equal to the one-hot sum.
    ``segment_rows`` (kernel B5, the ticketed embedding's row segment sum)
    against its plain version (one ``index_add_``): 1024 rows of d = 1024
-   at the tickets the ticket kernel gives 1024 Zipf token ids, 3000 rows
-   with tickets of -1 and >= G and a hot ticket on half of them, d = 70
-   (the scalar path) and rows 4 bytes off a 16-byte boundary: each sum
-   within 1e-5 · Σ|row| of its ticket.
+   at the tickets the ticket kernel gives 1024 Zipf token ids, R = G =
+   16384 (several ticket ranges), 3000 rows with tickets of -1 and >= G
+   and a hot ticket on half of them, every row on one ticket, every
+   ticket dropped, d = 70 (the scalar path) and rows 4 bytes off a
+   16-byte boundary: each sum within 1e-5 · Σ|row| of its ticket; and
+   the launcher into an output filled with NaN: every element written,
+   every ticket with no row exactly 0.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -251,9 +254,11 @@ Four phases, each of which fails the run:
    the float32-FMA count is printed too), its plain version, the
    per-expert ``torch.matmul`` loop and ``torch._grouped_mm`` (bfloat16
    operands, where it runs).  B5 at the training shape (1024 ×
-   1024 rows at Zipf tickets) by events and by CUDA-graph replay, beside
-   the same rows at distinct tickets (what the hot tickets' contention
-   costs), its bytes bound, its plain version and ``index_add_``.
+   1024 rows at Zipf tickets) and at R = G = 16384, by events and by
+   CUDA-graph replay (their difference is the host's µs a call), beside
+   the training rows at distinct tickets (what the hot tickets'
+   contention costs), its bytes bound, its plain version and
+   ``torch.zeros`` + ``index_add_`` by events and by graph.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -3054,17 +3059,25 @@ def phase2_segment_rows(sr, th, gen, device):
     """B5 (``csrc/segment_rows.cu``) against ``segment_rows_plain`` (one
     ``index_add_``): the training path's shape (1024 rows of d = 1024 at
     the tickets the ticket kernel gives 1024 Zipf token ids, G = 1024),
-    tickets of -1 and >= G with a hot ticket on half the rows, d = 70 (the
-    scalar path) and rows 4 bytes off a 16-byte boundary.  Returns the
-    worst |Δ|."""
+    R = G = 16384 (a batch of 8 × 2048 ids: several ticket ranges), tickets
+    of -1 and >= G with a hot ticket on half the rows, every row on one
+    ticket, every ticket dropped, d = 70 (the scalar path) and rows 4 bytes
+    off a 16-byte boundary.  Each output is allocated without zeroing, so
+    an element the kernel missed shows.  Returns the worst |Δ|."""
     import torch
 
     worst = 0.0
     _, tickets, _, count, mu, _ = embed_tickets(th, device)
     cases = {"train": (torch.randn(mu, 1024, generator=gen, device=device), tickets, mu)}
+    _, big_t, _, big_count, big_mu, _ = embed_tickets(th, device, rows=8 * 2048)
+    cases["batch_16384"] = (torch.randn(big_mu, 1024, generator=gen, device=device), big_t,
+                            big_mu)
     t = torch.randint(-1, 514, (3000,), generator=gen, device=device, dtype=torch.int32)
     t[torch.rand(3000, generator=gen, device=device) < 0.5] = 7
-    cases["dropped_hot"] = (torch.randn(3000, 1024, generator=gen, device=device), t, 512)
+    x = torch.randn(3000, 1024, generator=gen, device=device)
+    cases["dropped_hot"] = (x, t, 512)
+    cases["one_ticket"] = (x, torch.full_like(t, 7), 512)
+    cases["all_dropped"] = (x, torch.where(t < 256, -1, 512 + (t & 3)), 512)
     cases["scalar_d70"] = (torch.randn(3000, 70, generator=gen, device=device), t, 512)
     off = torch.randn(3000 * 1024 + 1, generator=gen, device=device)[1:].reshape(3000, 1024)
     cases["misaligned"] = (off, t, 512)
@@ -3077,7 +3090,20 @@ def phase2_segment_rows(sr, th, gen, device):
         worst = max(worst, err)
         log(f"phase2 segment_rows {name}: R={rows.shape[0]} d={rows.shape[1]} G={g}, "
             f"{int(((tk >= 0) & (tk < g)).sum())} rows kept; max|Δ|={err:.3g} ok")
-    log(f"phase2 segment_rows: the training tickets hold {int(count)} distinct ids of {mu}")
+    # the launcher the wrapper uses, into an output full of NaN: every element written
+    rows, tk, g = cases["batch_16384"]
+    out = torch.full((g, rows.shape[1]), float("nan"), device=device)
+    sr._launch(rows, tk, out, g)
+    sync()
+    empty = sr.segment_rows_plain(torch.ones_like(rows[:, :1]), tk, g)[:, 0] == 0
+    check(not bool(out.isnan().any()) and not bool(out[empty].any()),
+          "phase2 segment_rows: a NaN-filled output kept a NaN or a ticket with no rows "
+          "is not 0")
+    check_rows(sr, out, rows, tk, g, "phase2 segment_rows nan_prefilled")
+    log(f"phase2 segment_rows nan_prefilled: every element written, {int(empty.sum())} "
+        f"tickets with no row exactly 0")
+    log(f"phase2 segment_rows: the training tickets hold {int(count)} distinct ids of {mu}, "
+        f"the 16384-id batch's {int(big_count)} of {big_mu}")
     return worst
 
 
@@ -3311,43 +3337,59 @@ def phase3_lm_train(kmods, device, seed, reps=5):
 
 def phase4_segment_rows(sr, th, gen, device, reps=5):
     """B5 at the training path's shape (R = 1024 rows of d = 1024 at the
-    tickets of 1024 Zipf token ids, G = 1024), CUDA events, median of
-    ``reps``, and by CUDA-graph replay (device time without the host's
-    launch work), beside its bound (rows and tickets read once, the G × d
-    sums written once, over 3.35 TB/s), its plain version (held against
-    it) and ``index_add_`` of the same rows into a fresh zero table.  The
-    same rows at distinct tickets (a permutation: no two rows share a
-    ticket) show what the hot tickets' contention costs.  Returns the
-    record."""
+    tickets of 1024 Zipf token ids, G = 1024) and at R = G = 16384 (8 ×
+    2048 ids), CUDA events (median of ``reps``) and CUDA-graph replay
+    (device time without the host's launch work; events minus graph is the
+    host's µs a call), beside its bound (rows and tickets read once, the
+    G × d sums written once, over 3.35 TB/s), its plain version (held
+    against it) and the library call, ``torch.zeros`` + ``index_add_`` of
+    the same rows, by events and by graph.  The training rows at distinct
+    tickets (a permutation: no two rows share a ticket) show what the hot
+    tickets' contention costs.  Returns the training shape's record."""
     import torch
 
-    _, tickets, _, count, mu, _ = embed_tickets(th, device, seed=1)
-    d = 1024
-    rows = torch.randn(mu, d, generator=gen, device=device)
-    perm = torch.randperm(mu, generator=gen, device=device).to(torch.int32)
-    idx = tickets.long()
-    ms = time_cuda(lambda: sr.segment_rows(rows, tickets, mu), reps)
-    plain_ms = time_cuda(lambda: sr.segment_rows_plain(rows, tickets, mu), reps)
-    lib_ms = time_cuda(lambda: torch.zeros(mu, d, device=device).index_add_(0, idx, rows), reps)
-    graph_ms = time_graph(lambda: sr.segment_rows(rows, tickets, mu))
-    distinct_ms = time_cuda(lambda: sr.segment_rows(rows, perm, mu), reps)
-    distinct_graph_ms = time_graph(lambda: sr.segment_rows(rows, perm, mu))
-    err = check_rows(sr, sr.segment_rows(rows, tickets, mu), rows, tickets, mu,
-                     "phase4 segment_rows")
-    hot = float(torch.bincount(tickets.long()).max()) / mu
-    nbytes = 4 * (mu * d + mu + mu * d)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    rec = {"rows": mu, "d": d, "groups": mu, "distinct": int(count), "hot_share": hot,
-           "kernel_ms": ms, "graph_ms": graph_ms, "distinct_tickets_ms": distinct_ms,
-           "distinct_tickets_graph_ms": distinct_graph_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes", "max_abs_err": err}
-    log("phase4 segment_rows " + json.dumps(rec))
-    log(f"phase4 segment_rows: kernel {ms:.4f} ms (graph {graph_ms:.4f}) for {mu} rows of {d} "
-        f"into {int(count)} live tickets, the hottest {hot:.1%} of the rows; distinct tickets "
-        f"{distinct_ms:.4f} ms (graph {distinct_graph_ms:.4f}); bound {b_ms:.4f} ms (bytes), "
-        f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; max|Δ|={err:.3g} ok")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
-            "library_ms": lib_ms, "max_abs_err": err, "detail": rec}
+    recs = {}
+    for name, rows_n in (("train", TRAIN_BATCH * TRAIN_SEQ), ("batch_16384", 8 * 2048)):
+        _, tickets, _, count, mu, _ = embed_tickets(th, device, rows=rows_n, seed=1)
+        d = 1024
+        rows = torch.randn(mu, d, generator=gen, device=device)
+        idx = tickets.long()
+
+        def lib():
+            return torch.zeros(mu, d, device=device).index_add_(0, idx, rows)
+
+        ms = time_cuda(lambda: sr.segment_rows(rows, tickets, mu), reps)
+        graph_ms = time_graph(lambda: sr.segment_rows(rows, tickets, mu))
+        lib_ms = time_cuda(lib, reps)
+        lib_graph_ms = time_graph(lib)
+        plain_ms = time_cuda(lambda: sr.segment_rows_plain(rows, tickets, mu), reps)
+        err = check_rows(sr, sr.segment_rows(rows, tickets, mu), rows, tickets, mu,
+                         f"phase4 segment_rows {name}")
+        hot = float(torch.bincount(idx).max()) / mu
+        nbytes = 4 * (mu * d + mu + mu * d)
+        rec = {"rows": mu, "d": d, "groups": mu, "distinct": int(count), "hot_share": hot,
+               "kernel_ms": ms, "graph_ms": graph_ms, "host_us": (ms - graph_ms) * 1e3,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+               "bound_bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "max_abs_err": err}
+        if name == "train":
+            perm = torch.randperm(mu, generator=gen, device=device).to(torch.int32)
+            rec["distinct_tickets_ms"] = time_cuda(lambda: sr.segment_rows(rows, perm, mu), reps)
+            rec["distinct_tickets_graph_ms"] = time_graph(lambda: sr.segment_rows(rows, perm, mu))
+            rec["hot_vs_distinct_graph"] = graph_ms / rec["distinct_tickets_graph_ms"] - 1
+        recs[name] = rec
+        log(f"phase4 segment_rows {name} " + json.dumps(rec))
+        log(f"phase4 segment_rows {name}: kernel {ms:.4f} ms (graph {graph_ms:.4f}, host "
+            f"{rec['host_us']:.1f} us a call) for {mu} rows of {d} into {int(count)} live "
+            f"tickets, the hottest {hot:.1%} of the rows; bound {rec['bound_ms']:.4f} ms "
+            f"(bytes); torch.zeros + index_add_ {lib_ms:.4f} ms (graph {lib_graph_ms:.4f}); "
+            f"plain {plain_ms:.4f} ms; max|Δ|={err:.3g} ok")
+    rec = recs["train"]
+    log(f"phase4 segment_rows: distinct tickets graph {rec['distinct_tickets_graph_ms']:.4f} ms, "
+        f"the hot tickets cost {rec['hot_vs_distinct_graph']:+.1%}")
+    return {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes", "library_ms": rec["library_ms"],
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()), "detail": recs}
 
 
 # -- phase 4: timing --------------------------------------------------------------

@@ -2,23 +2,29 @@
 
 Replaces ``jax.ops.segment_sum`` in ``repro.models.layers._ticketed_embed_bwd``
 (``src/repro/models/layers.py:150-154``; no Pallas kernel there).  One call
-adds float32 rows into a fresh ``(num_groups, d)`` accumulator at their
-tickets: ``out[t] += rows[r]`` for ``t = tickets[r]`` in
-``[0, num_groups)``; rows whose ticket is -1 or ``>= num_groups`` are
-dropped, as the reference sends them to a segment it drops.
+sums float32 rows into a fresh ``(num_groups, d)`` output at their
+tickets: ``out[t]`` is the sum of ``rows[r]`` over ``tickets[r] == t`` for
+``t`` in ``[0, num_groups)``, 0 where no row names ``t``; rows whose
+ticket is -1 or ``>= num_groups`` are dropped, as the reference sends them
+to a segment it drops.
 
 :func:`segment_rows` is the wrapper: CUDA tensors launch the hand-written
 Hopper kernel ``csrc/segment_rows.cu`` (built at first use; counted in
 ``segment_rows.launches``) and raise if they cannot; CPU tensors run
-:func:`segment_rows_plain`.  The kernel adds with device atomics in no
-fixed order, so it agrees with the plain version to float32 rounding (a
-sum within a small multiple of Σ|row| of its ticket), not bit for bit.
+:func:`segment_rows_plain`.  The kernel adds a ticket's rows in no fixed
+order, so it agrees with the plain version to float32 rounding (a sum
+within a small multiple of Σ|row| of its ticket), not bit for bit.
 
 Bound on the card: bytes, the rows and tickets read once and the sums
 written once (8 MiB at qwen3-0.6b's 1024 rows of 1024 columns into 1024
-tickets, ≈ 0.0025 ms at 3.35 TB/s); a launch costs more than that, so the
-launch rules.  The kernel gives each row a warp that adds 16 bytes a lane
-with one float4 atomic (see the source).
+tickets, ≈ 0.0025 ms at 3.35 TB/s).  A call is one launch and nothing
+else: the kernel writes every element of the output, so the output is
+allocated empty and not zeroed.  Each CTA sums a slice of columns for a
+range of tickets: it sorts each round's rows by ticket in shared memory,
+and each sum is added in the registers of the thread that stores it, with
+no float atomic (see the source).  The wrapper's host work is kept lean:
+the ctypes function is bound once, the stream is passed as its raw
+handle, and the launcher makes no runtime query.
 """
 from __future__ import annotations
 
@@ -30,19 +36,23 @@ _INT32_MAX = 0x7FFFFFFF
 
 
 def _check(rows: torch.Tensor, tickets: torch.Tensor, num_groups: int):
-    if rows.dim() != 2 or tickets.dim() != 1 or rows.shape[0] != tickets.shape[0]:
+    rs, ts = rows.shape, tickets.shape
+    if len(rs) != 2 or len(ts) != 1 or rs[0] != ts[0]:
         raise ValueError(
-            f"segment_rows takes rows (R, d) and tickets (R,); got {tuple(rows.shape)} and "
-            f"{tuple(tickets.shape)}"
+            f"segment_rows takes rows (R, d) and tickets (R,); got {tuple(rs)} and {tuple(ts)}"
         )
-    if rows.dtype != torch.float32 or tickets.dtype != torch.int32:
+    if rows.dtype is not torch.float32 or tickets.dtype is not torch.int32:
         raise ValueError(f"rows must be float32 and tickets int32, got {rows.dtype} and "
                          f"{tickets.dtype}")
     if rows.device != tickets.device:
         raise ValueError(f"rows lie on {rows.device}, tickets on {tickets.device}")
-    if not 0 <= num_groups <= _INT32_MAX or rows.shape[1] > _INT32_MAX:
-        raise ValueError(f"num_groups={num_groups} / d={rows.shape[1]} do not fit int32")
-    return rows.contiguous(), tickets.contiguous()
+    if not 0 <= num_groups <= _INT32_MAX or rs[1] > _INT32_MAX:
+        raise ValueError(f"num_groups={num_groups} / d={rs[1]} do not fit int32")
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if not tickets.is_contiguous():
+        tickets = tickets.contiguous()
+    return rows, tickets
 
 
 def segment_rows(rows: torch.Tensor, tickets: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -55,39 +65,51 @@ def segment_rows(rows: torch.Tensor, tickets: torch.Tensor, num_groups: int) -> 
         return segment_rows_plain(rows, tickets, num_groups)
     if dev.type != "cuda":
         raise ValueError(f"segment_rows runs on cuda or cpu tensors, not {dev}")
-    r, d = rows.shape
-    out = torch.zeros((num_groups, d), dtype=torch.float32, device=dev)
-    if r == 0 or d == 0 or num_groups == 0:
+    out = rows.new_empty((num_groups, rows.shape[1]))
+    if out.numel() == 0:  # d == 0 or num_groups == 0: no element to write
         return out
-    vec = d % 4 == 0 and rows.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    lib = _kernel_library()
-    err = lib.segment_rows_launch(
-        rows.data_ptr(), tickets.data_ptr(), out.data_ptr(), r, d, num_groups, int(vec),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            "segment_rows kernel launch failed: " + lib.segment_rows_error_string(err).decode()
-        )
-    segment_rows.launches += 1
+    _launch(rows, tickets, out, num_groups)
     return out
 
 
 segment_rows.launches = 0  # kernel launches (CUDA tensors only)
 
 
-def _kernel_library() -> ctypes.CDLL:
+def _launch(rows: torch.Tensor, tickets: torch.Tensor, out: torch.Tensor,
+            num_groups: int) -> None:
+    """One launch (counted) into ``out``, a contiguous ``(num_groups, d)``
+    float32 CUDA tensor on the rows' device with ``num_groups`` and ``d``
+    > 0, which the kernel overwrites whole; ``rows`` and ``tickets`` as
+    :func:`_check` returns them."""
+    fn = _LAUNCHER or _bind()
+    r, d = rows.shape
+    p_rows, p_out = rows.data_ptr(), out.data_ptr()
+    vec = d % 4 == 0 and (p_rows | p_out) % 16 == 0
+    err = fn(p_rows, tickets.data_ptr(), p_out, r, d, num_groups, vec,
+             torch._C._cuda_getCurrentRawStream(rows.get_device()))
+    if err != 0:
+        raise RuntimeError("segment_rows kernel launch failed: "
+                           + _LIB.segment_rows_error_string(err).decode())
+    segment_rows.launches += 1
+
+
+_LIB = None       # the loaded library, bound once by _bind
+_LAUNCHER = None  # its segment_rows_launch, argtypes set
+
+
+def _bind():
+    global _LIB, _LAUNCHER
     from repro_torch.kernels import build
 
     lib = build.load_library("segment_rows")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.segment_rows_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 3 + [ctypes.c_longlong, i32, i32, i32, ptr]
-        fn.restype = ctypes.c_int
-        lib.segment_rows_error_string.argtypes = [ctypes.c_int]
-        lib.segment_rows_error_string.restype = ctypes.c_char_p
-    return lib
+    fn.argtypes = [ptr] * 3 + [ctypes.c_longlong, i32, i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    lib.segment_rows_error_string.argtypes = [ctypes.c_int]
+    lib.segment_rows_error_string.restype = ctypes.c_char_p
+    _LIB, _LAUNCHER = lib, fn
+    return fn
 
 
 def segment_rows_plain(rows: torch.Tensor, tickets: torch.Tensor,

@@ -78,23 +78,24 @@ _VIRTUAL: tuple | None = None  # (count, device) set by virtual_devices
 
 
 def _device_of(device) -> torch.device:
-    """``device`` as a ``torch.device`` with its index; CUDA raises where
-    no card exists (the port's device rule)."""
+    """``device`` as a ``torch.device`` with its index (None: the current
+    card); CUDA raises where no card exists (the port's device rule)."""
     from repro_torch.engine.groupby import resolve_device
 
-    dev = resolve_device(str(device))
+    dev = resolve_device(None if device is None else str(device))
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
 class virtual_devices:
-    """Make :func:`devices` return ``n`` members on ``device`` (``"cpu"``
-    or a CUDA device).  Takes effect when called; as a context manager it
-    restores the previous setting on exit, and :func:`reset_virtual_devices`
-    drops it."""
+    """Make :func:`devices` return ``n`` members on ``device``: a CUDA
+    device by default (the current card; raises where there is none, as
+    the port's other entry points do), or ``"cpu"`` when asked for.
+    Takes effect when called; as a context manager it restores the
+    previous setting on exit, and :func:`reset_virtual_devices` drops it."""
 
-    def __init__(self, n: int, device="cpu"):
+    def __init__(self, n: int, device=None):
         global _VIRTUAL
         if n < 1:
             raise ValueError(f"virtual_devices needs n >= 1, got {n}")
@@ -117,7 +118,7 @@ def reset_virtual_devices() -> None:
 def devices() -> list:
     """The counterpart of ``jax.devices()``: the members set by
     :func:`virtual_devices`, else one per visible CUDA card (raises where
-    there is none: ask for ``virtual_devices(n, "cpu")`` explicitly)."""
+    there is none: members on the CPU need ``virtual_devices(n, "cpu")``)."""
     return _visible_devices()
 
 
@@ -128,8 +129,8 @@ def _visible_devices() -> list:
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n == 0:
         raise RuntimeError(
-            "devices() lists CUDA cards and there is none; use "
-            "virtual_devices(n, 'cpu') for members on the CPU"
+            "devices() lists CUDA cards and there is none; members on the CPU "
+            "need virtual_devices(n, 'cpu')"
         )
     return [MeshDevice(i, torch.device("cuda", i)) for i in range(n)]
 

@@ -1853,16 +1853,22 @@ def test_grouped_matmul_refuses_gradients_on_the_card(cuda):
     (1024, 1024, 1024, 0.18),    # qwen3-0.6b: 8 × 128 ids, Zipf's token 0 share
     (3000, 64, 70, 0.5),         # d % 4 != 0: the scalar path; a hotter ticket
     (5, 3, 8, 0.0),
+    (16384, 16384, 1024, 0.18),  # a batch of 8 × 2048 ids: several ticket ranges
+    (3000, 512, 1024, 1.0),      # every row on one ticket
+    (3000, 512, 1024, "dropped"),  # every ticket -1 or >= G: the output all 0
 ])
 def test_segment_rows_kernel_matches_plain(cuda, rows, groups, d, hot):
     """B5 against its plain version (one index_add_): rows with tickets -1
     and >= G dropped; sums in atomic order, so within 1e-5 · Σ|row| of the
-    ticket."""
+    ticket (a ticket with no row exactly 0)."""
     from repro_torch.kernels import segment_rows as sr
 
     g = torch.Generator(device=cuda).manual_seed(rows + d)
     t = torch.randint(-1, groups + 2, (rows,), generator=g, device=cuda, dtype=torch.int32)
-    t[torch.rand(rows, generator=g, device=cuda) < hot] = groups // 2
+    if hot == "dropped":
+        t = torch.where(t < groups // 2, -1, groups + t % 3).to(torch.int32)
+    else:
+        t[torch.rand(rows, generator=g, device=cuda) < hot] = groups // 2
     x = torch.randn(rows, d, generator=g, device=cuda)
     before = sr.segment_rows.launches
     got = sr.segment_rows(x, t, groups)
@@ -1876,6 +1882,32 @@ def test_segment_rows_kernel_matches_plain(cuda, rows, groups, d, hot):
     want2 = sr.segment_rows_plain(x.reshape(-1)[1:1 + rows * (d - 1)].reshape(rows, d - 1),
                                   t, groups)
     assert float((got2 - want2).abs().max()) <= 1e-5 * float(scale.max())
+
+
+@pytest.mark.gpu
+def test_segment_rows_writes_every_element(cuda):
+    """Nothing zeroes B5's output first, so the kernel writes every
+    element: the launcher the wrapper uses, into an output full of NaN,
+    leaves no NaN, every ticket with no row reads exactly 0, and the sums
+    hold to the plain version (R = G = 16384 at d 1024, several ticket
+    ranges, the 16-byte path; d = 70, the scalar path)."""
+    from repro_torch.kernels import segment_rows as sr
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for rows, groups, d in ((16384, 16384, 1024), (3000, 512, 70)):
+        t = torch.randint(-1, groups // 2, (rows,), generator=g, device=cuda, dtype=torch.int32)
+        x = torch.randn(rows, d, generator=g, device=cuda)
+        out = torch.full((groups, d), float("nan"), device=cuda)
+        before = sr.segment_rows.launches
+        sr._launch(x, t, out, groups)
+        torch.cuda.synchronize()
+        assert sr.segment_rows.launches == before + 1
+        assert not bool(out.isnan().any())
+        empty = torch.bincount(t[t >= 0].long(), minlength=groups) == 0
+        assert int(empty.sum()) >= groups // 2 and not bool(out[empty].any())
+        want = sr.segment_rows_plain(x, t, groups)
+        scale = sr.segment_rows_plain(x.abs(), t, groups)
+        assert bool(((out - want).abs() <= 1e-5 * scale).all())
 
 
 @pytest.mark.gpu

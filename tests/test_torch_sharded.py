@@ -272,6 +272,20 @@ def test_make_mesh_shape_members_and_virtual_devices():
         sharding.Mesh(np.asarray(cpu_members(2) * 2, dtype=object), ("data",))
 
 
+def test_virtual_devices_default_to_the_card(monkeypatch):
+    """Without a device, mesh members go on the card, as the port's other
+    entry points do: where there is none, ``virtual_devices(n)`` raises
+    and leaves the setting as it was instead of placing them on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with sharding.virtual_devices(2, "cpu"):
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            sharding.virtual_devices(2)
+        assert [d.device for d in sharding.devices()] == [torch.device("cpu")] * 2
+    sharding.reset_virtual_devices()
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        sharding.virtual_devices(2)
+
+
 def test_cuda_members_without_a_card_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):

@@ -87,11 +87,16 @@ def jax_mesh():
 # -- kernel B5's plain version ---------------------------------------------------
 
 @pytest.mark.parametrize("rows,groups,d,hot", [(300, 64, 16, 0.0), (1024, 1024, 32, 0.18),
-                                               (1500, 7, 5, 0.5), (1, 1, 4, 0.0)])
+                                               (1500, 7, 5, 0.5), (1, 1, 4, 0.0),
+                                               (700, 50, 12, 1.0),          # every row on one ticket
+                                               (700, 50, 12, "dropped")])   # every ticket dropped
 def test_segment_rows_plain_matches_segment_sum(rows, groups, d, hot):
     rng = np.random.default_rng(rows + d)
     t = rng.integers(-1, groups + 3, size=rows).astype(np.int32)   # -1 and >= G dropped
-    t[rng.random(rows) < hot] = groups // 2                        # a hot ticket
+    if hot == "dropped":
+        t = np.where(t < groups // 2, -1, groups + t % 3).astype(np.int32)
+    else:
+        t[rng.random(rows) < hot] = groups // 2                    # a hot ticket
     x = rng.standard_normal((rows, d)).astype(np.float32)
     got = sr.segment_rows(torch.from_numpy(x), torch.from_numpy(t), groups)
     assert got.shape == (groups, d) and got.dtype == torch.float32

@@ -22,6 +22,11 @@ chunks: the decode gate / up and down shapes (64 rows over 32 experts)
 and the 4096-row prefill shape of ``chip_smoke.GMM_SHAPES``, warm (events),
 cold (events, the L2 flushed before each call, ``<kernel>_cold``) and by
 CUDA-graph replay (``<kernel>_graph``); per shape, not per class.
+``segment_rows`` (kernel B5) runs on its own inputs too: chip_smoke's
+phase-4 shapes (the training shape, 1024 rows of d = 1024 at Zipf
+tickets, and R = G = 16384), by events, by CUDA-graph replay
+(``<kernel>_graph``) and by the wrapper's host µs a call
+(``<kernel>_host_us``).
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
@@ -169,6 +174,28 @@ def gmm_times(dev, flush):
     return out
 
 
+def segment_rows_times(dev):
+    """B5 at chip_smoke's phase-4 shapes (1024 rows of d = 1024 at the
+    tickets of 1024 Zipf ids, G = 1024, and R = G = 16384; seed 1), three
+    timings a shape: the event-timed call, the device time from CUDA-graph
+    replays, and the wrapper's host microseconds per call."""
+    from repro_torch.kernels import segment_rows as sr
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for name, rows_n in (("train", cs.TRAIN_BATCH * cs.TRAIN_SEQ), ("batch_16384", 8 * 2048)):
+        _, tickets, _, _, mu, _ = cs.embed_tickets(th, dev, rows=rows_n, seed=1)
+        cases[name] = (torch.randn(mu, 1024, generator=gen, device=dev), tickets, mu)
+    out = {k: {} for k in ("event", "graph", "host_us")}
+    for _ in range(3):
+        for name, (rows, tickets, mu) in cases.items():
+            call = lambda: sr.segment_rows(rows, tickets, mu)  # noqa: E731
+            out["event"].setdefault(name, []).append(cs.time_cuda(call, 5))
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["host_us"].setdefault(name, []).append(host_us(call))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -213,6 +240,9 @@ def main() -> int:
     if wanted("grouped_matmul"):
         for kind, per_shape in gmm_times(dev, flush).items():
             out["grouped_matmul" if kind == "event" else f"grouped_matmul_{kind}"] = per_shape
+    if wanted("segment_rows"):
+        for kind, per_shape in segment_rows_times(dev).items():
+            out["segment_rows" if kind == "event" else f"segment_rows_{kind}"] = per_shape
     print(sys.argv[1], json.dumps(out))
     return 0
 
