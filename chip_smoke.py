@@ -9,8 +9,8 @@ Four phases, each of which fails the run:
 
 1. build — compile the port's seven CUDA sources (``fused_groupby``,
    ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``,
-   ``grouped_matmul``, ``segment_rows``), one ``nvcc`` each, all started
-   together, and print
+   ``grouped_matmul`` (B3 and its backward B6), ``segment_rows``), one
+   ``nvcc`` each, all started together, and print
    the commands, the seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
@@ -82,6 +82,16 @@ Four phases, each of which fails the run:
    16-byte boundary: each sum within 1e-5 · Σ|row| of its ticket; and
    the launcher into an output filled with NaN: every element written,
    every ticket with no row exactly 0.
+   ``grouped_matmul_backward`` (kernel B6, B3's backward: d_lhs on B3's
+   engine with the weights read transposed, d_rhs in float32 FMAs)
+   against its plain version (float32 ``torch.matmul`` per group) on B3's
+   eleven cases with a random cotangent and at granite's training shapes
+   (8192 rows, gate / up and down): each product within 1e-5 · its
+   max|plain|, d_lhs rows past the groups and d_rhs of empty groups
+   exactly 0, two launches a call, and the launchers into outputs filled
+   with NaN equal to the wrapper's (every element written); then
+   ``grouped_matmul`` on CUDA inputs that require grad: its backward
+   launches B6 twice and holds to the plain gradients.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -197,6 +207,24 @@ Four phases, each of which fails the run:
    commit, 2 more) within 1e-4 of each leaf.  Prints ms a step, tokens/s,
    peak memory, the backward's three stages and the plain gather's
    autograd backward beside them.
+   Phase 3 train_moe (lm_train_moe): granite-moe-1b-a400m at full width
+   (24 layers, 32 experts top-8, 1.33 B float32 parameters and AdamW
+   moments, bf16 compute) trained the same way (30 steps of 8 × 128
+   tokens, the same hyperparameters, ticketed embedding): losses finite
+   and falling, aux finite and > 0 every step; exactly 72 B3, 144 B6 and
+   24 segment launches (``route``), one ticket and one B5 launch a step,
+   and the stats plan's per batch; layer 0's MoE gradients (input, router,
+   the three expert tensors) at the last batch's activations, through the
+   kernels against the plain versions, within 1e-5 of each leaf's
+   max|grad|.  Prints ms a step, tokens/s, peak memory, and B6's and B3's
+   device time in a step (one step's launches replayed from a CUDA graph).
+   Phase 3 train_dp (lm_train_dp): ``make_manual_dp_step`` on a (pod 2,
+   data 2) mesh of four virtual members of the card, qwen3-0.6b's widths
+   at 4 of its 28 layers, int8 compression over pod, 8 steps of 8 × 128
+   tokens: losses finite and falling, one ticket and one B5 launch a
+   member and step; one uncompressed float32 step against the one-member
+   step on the whole batch (grad_norm within 1e-5, parameters within lr).
+   Prints ms a step.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -258,7 +286,14 @@ Four phases, each of which fails the run:
    CUDA-graph replay (their difference is the host's µs a call), beside
    the training rows at distinct tickets (what the hot tickets'
    contention costs), its bytes bound, its plain version and
-   ``torch.zeros`` + ``index_add_`` by events and by graph.
+   ``torch.zeros`` + ``index_add_`` by events and by graph.  B6 at the
+   training shapes (8192 rows, gate / up and down) and the decode gate /
+   up shape, by events and by CUDA-graph replay (each product's launch
+   alone too), beside its bound (the larger of its bytes and two products
+   of 3 × 2·rows·K·N TF32 tensor operations; the float32-FMA count and
+   this design's own floor printed too), its plain version, the
+   per-expert float32 ``torch.matmul`` loop and the backward of
+   ``torch._grouped_mm`` at bf16.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -3161,43 +3196,26 @@ def lm_train_resume(device, seed):
     return worst, time.perf_counter() - t0
 
 
-def phase3_lm_train(kmods, device, seed, reps=5):
-    """LM training on one member at qwen3-0.6b's full width
-    (``configs.get_config`` → ``transformer.init_params`` →
-    ``data.pipeline.SyntheticLM(batch=8, seq=128, track_stats=True)`` →
-    ``train.loop.train_loop`` on a one-member mesh of the card, with
-    ``examples/train_lm.py``'s hyperparameters and ``ticketed_embedding``):
-    TRAIN_STEPS steps of 1024 tokens, bf16 compute over float32 parameters
-    and AdamW moments, random weights from a seeded card generator.  The
-    launch counts are set to 0 just before ``train_loop`` and read just
-    after: each step makes exactly one ticket and one B5 launch (the
-    embedding's backward) and no B3 launch; each batch pulled makes the
-    launches of the stats plan's route (scan_body: one ``scan_ticket`` and
-    one segment launch); no other kernel.  Gates: every loss finite; the
-    mean of the last 5 losses below the mean of the first 5; the
-    ``token_stats()`` total equal to the tracked rows; the backward's table
-    gradient on the card against the plain three-step version on the same
-    CUDA tensors (the same rows touched, each sum within SUM_RTOL · Σ|g|);
-    the tiny-preset resume (:func:`lm_train_resume`).  Prints ms a step
-    (CUDA events between step starts), tokens/s, peak memory, the
-    backward's three stages timed apart and the autograd backward of the
-    plain ``embed`` gather beside them.  Returns the record."""
+def run_train_loop(kmods, cfg, device, seed, name):
+    """``train_loop`` of ``cfg`` at full width on a one-member mesh of the
+    card (``transformer.init_params`` from a seeded card generator →
+    ``SyntheticLM(batch=8, seq=128, track_stats=True)`` → TRAIN_STEPS steps
+    with TRAIN_HP and ``ticketed_embedding``), the launch counts set to 0
+    just before ``train_loop`` and read just after, a CUDA event at each
+    step's start.  Gates shared by the training phases: TRAIN_STEPS steps
+    logged; the stats plan on ``cuda_route``'s scan_body + scatter; every
+    loss finite and the mean of the last 5 below the mean of the first 5;
+    the ``token_stats()`` total equal to the tracked rows.  Returns a dict
+    of the run (``rec`` its record, without kernel-specific fields)."""
     import math
 
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.hashing import table_capacity
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import segment_rows as sr
-    from repro_torch.kernels import ticket_hash as th
-    from repro_torch.models import layers
     from repro_torch.models import transformer as tf
     from repro_torch.parallel import sharding
     from repro_torch.train import loop as tloop
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH)
     hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
     gen = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.empty_cache()
@@ -3247,25 +3265,78 @@ def phase3_lm_train(kmods, device, seed, reps=5):
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     steps, batches = len(events), len(pulled)
     check(steps == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
-          f"phase3 lm_train: {steps} steps, {len(hist)} logged, expected {TRAIN_STEPS}")
+          f"phase3 {name}: {steps} steps, {len(hist)} logged, expected {TRAIN_STEPS}")
     check(route.kernel == "scan_body" and route.update == "scatter",
-          f"phase3 lm_train: the stats plan resolved to kernel={route.kernel!r} "
+          f"phase3 {name}: the stats plan resolved to kernel={route.kernel!r} "
           f"update={route.update!r}, not the CUDA route rule's scan_body + scatter")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"phase3 {name}: a loss is not finite {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"phase3 {name}: loss did not fall (first 5 {first}, last 5 {last})")
+    keys, counts = data.token_stats()
+    tracked = sum(int((t < data.stat_groups // 2).sum()) for t in pulled)
+    check(int(counts.astype("float64").sum()) == tracked,
+          f"phase3 {name}: token_stats total {counts.sum()} != {tracked} tracked rows")
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, steps - 1))
+    ms = step_ms[len(step_ms) // 2]
+    first_ms = events[0].elapsed_time(events[1])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"stream": name, "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps, "batches": batches,
+           "init_s": init_s, "wall_s": wall, "step_ms": ms, "first_step_ms": first_ms,
+           "step_ms_range": [step_ms[0], step_ms[-1]], "tokens_per_s": tokens / ms * 1e3,
+           "peak_mib": peak_mib, "held_before_mib": held_mib,
+           "peak_over_held_mib": peak_mib - held_mib, "losses": losses, "first5": first,
+           "last5": last, "stats_route": {"kernel": route.kernel, "update": route.update},
+           "stats_groups": int(keys.size), "stats_total": tracked,
+           "launches": launches, "card": card_line()}
+    return {"params": params, "opt": opt, "hist": hist, "hp": hp, "launches": launches,
+            "steps": steps, "batches": batches, "data": data, "pulled": pulled, "route": route,
+            "losses": losses, "first5": first, "last5": last, "step_ms": ms,
+            "first_step_ms": first_ms, "stats_keys": keys, "stats_total": tracked, "rec": rec}
+
+
+def phase3_lm_train(kmods, device, seed, reps=5):
+    """LM training on one member at qwen3-0.6b's full width
+    (``configs.get_config`` → ``transformer.init_params`` →
+    ``data.pipeline.SyntheticLM(batch=8, seq=128, track_stats=True)`` →
+    ``train.loop.train_loop`` on a one-member mesh of the card, with
+    ``examples/train_lm.py``'s hyperparameters and ``ticketed_embedding``):
+    TRAIN_STEPS steps of 1024 tokens, bf16 compute over float32 parameters
+    and AdamW moments, random weights from a seeded card generator.  The
+    launch counts are set to 0 just before ``train_loop`` and read just
+    after: each step makes exactly one ticket and one B5 launch (the
+    embedding's backward) and no B3 launch; each batch pulled makes the
+    launches of the stats plan's route (scan_body: one ``scan_ticket`` and
+    one segment launch); no other kernel.  Gates: every loss finite; the
+    mean of the last 5 losses below the mean of the first 5; the
+    ``token_stats()`` total equal to the tracked rows; the backward's table
+    gradient on the card against the plain three-step version on the same
+    CUDA tensors (the same rows touched, each sum within SUM_RTOL · Σ|g|);
+    the tiny-preset resume (:func:`lm_train_resume`).  Prints ms a step
+    (CUDA events between step starts), tokens/s, peak memory, the
+    backward's three stages timed apart and the autograd backward of the
+    plain ``embed`` gather beside them.  Returns the record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hashing import table_capacity
+    from repro_torch.kernels import segment_rows as sr
+    from repro_torch.kernels import ticket_hash as th
+    from repro_torch.models import layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    run = run_train_loop(kmods, cfg, device, seed, "lm_train")
+    params, launches, steps, batches = run["params"], run["launches"], run["steps"], run["batches"]
+    pulled, losses = run["pulled"], run["losses"]
     want = {k: 0 for k in kmods}
     want.update(ticket_hash=steps, segment_rows=steps, scan_ticket=batches, segment_agg=batches)
     check(launches == want, f"phase3 lm_train: launches {launches}, expected {want} "
           f"({steps} steps, {batches} batches pulled)")
-    losses = [h["loss"] for h in hist]
-    check(all(math.isfinite(x) for x in losses), f"phase3 lm_train: a loss is not finite {losses}")
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    check(last < first, f"phase3 lm_train: loss did not fall (first 5 {first}, last 5 {last})")
-    keys, counts = data.token_stats()
-    tracked = sum(int((t < data.stat_groups // 2).sum()) for t in pulled)
-    check(int(counts.astype("float64").sum()) == tracked,
-          f"phase3 lm_train: token_stats total {counts.sum()} != {tracked} tracked rows")
-    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, steps - 1))
-    ms = step_ms[len(step_ms) // 2]
-    first_ms = events[0].elapsed_time(events[1])
+    first, last, ms, first_ms = run["first5"], run["last5"], run["step_ms"], run["first_step_ms"]
+    keys, tracked = run["stats_keys"], run["stats_total"]
 
     # the backward on the card against its plain three-step version
     ids = pulled[-1]
@@ -3305,18 +3376,10 @@ def phase3_lm_train(kmods, device, seed, reps=5):
     hot = float((ids == 0).float().mean())
     resume_rel, resume_s = lm_train_resume(device, seed)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    rec = {"stream": "lm_train", "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps, "batches": batches,
-           "init_s": init_s, "wall_s": wall, "step_ms": ms, "first_step_ms": first_ms,
-           "step_ms_range": [step_ms[0], step_ms[-1]], "tokens_per_s": tokens / ms * 1e3,
-           "peak_mib": peak_mib, "held_before_mib": held_mib,
-           "peak_over_held_mib": peak_mib - held_mib, "losses": losses, "first5": first, "last5": last,
-           "stats_route": {"kernel": route.kernel, "update": route.update},
-           "stats_groups": int(keys.size), "stats_total": tracked,
-           "distinct_ids_last_batch": distinct, "token0_share_last_batch": hot,
+    rec = {**run["rec"], "distinct_ids_last_batch": distinct, "token0_share_last_batch": hot,
            "backward_stage_ms": stages, "backward_max_abs_err": grad_err,
-           "resume_rel": resume_rel, "resume_s": resume_s,
-           "launches": launches, "card": card_line()}
+           "resume_rel": resume_rel, "resume_s": resume_s}
+    n_params, peak_mib, held_mib = rec["params"], rec["peak_mib"], rec["held_before_mib"]
     log("phase3 " + json.dumps(rec))
     log(f"phase3 lm_train: {cfg.name} at full width ({n_params} parameters, {cfg.dtype} compute "
         f"over float32), {steps} steps of {tokens} tokens: {ms:.2f} ms a step (median; first "
@@ -3330,7 +3393,7 @@ def phase3_lm_train(kmods, device, seed, reps=5):
         f"{stages['dense_embed_backward']:.4f} ms; card vs plain backward max|Δ|={grad_err:.3g}; "
         f"token_stats {int(keys.size)} groups, {tracked} rows ok; resume (tiny, float32) rel "
         f"{resume_rel:.3g} in {resume_s:.1f} s ok")
-    del params, opt
+    del params, run
     torch.cuda.empty_cache()
     return rec
 
@@ -3390,6 +3453,530 @@ def phase4_segment_rows(sr, th, gen, device, reps=5):
     return {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": "bytes", "library_ms": rec["library_ms"],
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()), "detail": recs}
+
+
+# -- MoE training: kernel B6, phase 3 lm_train_moe; the data-parallel step -------------
+
+MOE_TRAIN_ARCH = "granite_moe_1b_a400m"  # 24 layers, d 1024, 32 experts top-8, moe_d_ff 512
+B6_SHAPES = {"train_gate_up": (1024, 1024, 512), "train_down": (1024, 512, 1024),
+             "decode_gate_up": (8, 1024, 512)}   # tokens (top-8 of 32 experts), K, N
+DP_LAYERS, DP_STEPS = 4, 8      # lm_train_dp: qwen3-0.6b's widths at 4 of its 28 layers
+DP_RTOL = 1e-5                  # DP step vs one-member step: grad_norm (tests/test_torch_dp.py)
+
+
+def gmm_bwd_cases(gen, device):
+    """name → (lhs, rhs, sizes, g): B3's cases (:func:`gmm_cases`) and the
+    training shapes of granite's backward (8192 rows: gate / up K 1024, N
+    512; down K 512, N 1024), each with a random cotangent g (M, N); the
+    unaligned case's g is 4 bytes off a 16-byte boundary too."""
+    import torch
+
+    cases = dict(gmm_cases(gen, device))
+    for name in ("train_gate_up", "train_down"):
+        tokens, k, n = B6_SHAPES[name]
+        cases[name] = gmm_case(gen, device, tokens, k, n)
+    out = {}
+    for name, (lhs, rhs, sizes) in cases.items():
+        m, n = lhs.shape[0], rhs.shape[2]
+        off = 1 if name == "unaligned" else 0
+        g = torch.randn(m * n + off, generator=gen, device=device)[off:].view(m, n)
+        out[name] = (lhs, rhs, sizes, g)
+    return out
+
+
+def check_gmm_bwd(gm, lhs, rhs, sizes, g, label):
+    """B6 against ``grouped_matmul_backward_plain`` on the same tensors:
+    the wrapper (two launches) and the two launchers into outputs filled
+    with NaN (every element written: they must equal the wrapper's
+    outputs), each product within GMM_RTOL · its max|plain|, ``d_lhs``
+    rows past Σ sizes and ``d_rhs`` of empty groups exactly 0.  Returns
+    (|Δ| d_lhs, |Δ| d_rhs, max|plain| of each)."""
+    import torch
+
+    before = gm.grouped_matmul_backward.launches
+    d_lhs, d_rhs = gm.grouped_matmul_backward(lhs, rhs, sizes, g)
+    sync()
+    check(gm.grouped_matmul_backward.launches == before + 2, f"{label}: not two launches")
+    n_lhs = torch.full_like(lhs, float("nan"))
+    n_rhs = torch.full_like(rhs, float("nan"))
+    gm._launch_dlhs(g.contiguous(), rhs.contiguous(), sizes, n_lhs)
+    gm._launch_drhs(lhs.contiguous(), g.contiguous(), sizes, n_rhs)
+    sync()
+    check(torch.equal(n_lhs, d_lhs) and torch.equal(n_rhs, d_rhs),
+          f"{label}: a NaN-filled output kept a NaN or differs from the wrapper's")
+    w_lhs, w_rhs = gm.grouped_matmul_backward_plain(lhs, rhs, sizes, g)
+    out = []
+    for what, got, want in (("d_lhs", d_lhs, w_lhs), ("d_rhs", d_rhs, w_rhs)):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        check(bool(torch.isfinite(got).all()) and err <= GMM_RTOL * scale,
+              f"{label} {what}: max|Δ|={err} > {GMM_RTOL} · {scale}")
+        out.append((err, scale))
+    total = min(int(sizes.clamp(min=0).sum()), lhs.shape[0])
+    check(not bool(d_lhs[total:].any()), f"{label}: d_lhs rows past Σ sizes not 0")
+    check(not bool(d_rhs[sizes <= 0].any()), f"{label}: d_rhs of an empty group not 0")
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def phase2_grouped_matmul_backward(gm, gen, device):
+    """B6 (``grouped_matmul_backward``: d_lhs on B3's engine with the
+    weights read transposed, d_rhs by float32 FMAs) against its plain
+    version (a loop of float32 ``torch.matmul`` per group, TF32 off) on
+    :func:`gmm_bwd_cases` (:func:`check_gmm_bwd`); then ``grouped_matmul``
+    on CUDA tensors that require grad: its backward launches B6 twice and
+    gives the plain gradients.  Returns the worst |Δ|."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    for name, (lhs, rhs, sizes, g) in gmm_bwd_cases(gen, device).items():
+        e_l, e_r, s_l, s_r = check_gmm_bwd(gm, lhs, rhs, sizes, g,
+                                           f"phase2 grouped_matmul_backward {name}")
+        worst = max(worst, e_l, e_r)
+        total = int(sizes.clamp(min=0).sum())
+        log(f"phase2 grouped_matmul_backward {name}: M={lhs.shape[0]} K={lhs.shape[1]} "
+            f"N={rhs.shape[2]}, groups {int((sizes > 0).sum())}/{sizes.numel()} non-empty, "
+            f"{lhs.shape[0] - total} rows past them; d_lhs max|Δ|={e_l:.3g} (scale {s_l:.3g}), "
+            f"d_rhs max|Δ|={e_r:.3g} (scale {s_r:.3g}); NaN-filled outputs written whole ok")
+    lhs, rhs, sizes, g = gmm_bwd_cases(gen, device)["empty_groups"]
+    a, b = lhs.clone().requires_grad_(True), rhs.clone().requires_grad_(True)
+    before = gm.grouped_matmul_backward.launches
+    got = torch.autograd.grad(gm.grouped_matmul(a, b, sizes), [a, b], g)
+    sync()
+    check(gm.grouped_matmul_backward.launches == before + 2,
+          "phase2 grouped_matmul autograd: the backward did not launch B6 twice")
+    for x, y in zip(got, gm.grouped_matmul_backward_plain(lhs, rhs, sizes, g)):
+        check(float((x - y).abs().max()) <= GMM_RTOL * float(y.abs().max()),
+              "phase2 grouped_matmul autograd: B6's gradient differs from the plain one")
+    log("phase2 grouped_matmul autograd: CUDA inputs that require grad, backward on B6 "
+        "(2 launches) within GMM_RTOL of the plain gradients ok")
+    return worst
+
+
+def moe_grad_check(moe, gm, sa, cfg, p_moe, h, gen):
+    """Layer 0's MoE block differentiated at its own input in a training
+    step (``h``, the step's ``ln_mlp`` of the post-attention residual, and
+    ``p_moe``, the block's parameters, both captured by
+    :func:`b6_step_device_ms`; 8192 routed rows for 8 × 128 tokens) at a
+    fixed random cotangent of the output and of the aux loss, through the
+    kernels (B3 forward, B6 backward, the segment kernel's histogram) and
+    through the plain versions (``moe``'s two kernel names pointed at
+    ``grouped_matmul_plain`` and ``segment_agg_plain``; the autograd node's
+    backward is then autograd through the plain loop): every leaf (the
+    input, the router, the three expert tensors) within GMM_RTOL · its
+    max|grad|.  The block runs in float32 here (the captured bf16 input is
+    exact in float32): under the step's bf16 casts, float32 rounding
+    differences of 1e-7 between kernel and plain would flip bf16 roundings
+    and hide a 1e-5 comparison.  Returns leaf → (|Δ|, max|grad|) and the
+    B6 launches of the kernel pass."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    h = h.float()
+
+    def grads():
+        pm = tf.tree_map(lambda t: t.detach().to(torch.float32, copy=True).requires_grad_(True),
+                         p_moe)
+        hh = h.detach().clone().requires_grad_(True)
+        out, aux = moe.moe_mlp_dense(pm, cfg32, hh)
+        leaves = {"h": hh, "router": pm["router"]["w"], "w_gate": pm["w_gate"],
+                  "w_up": pm["w_up"], "w_down": pm["w_down"]}
+        gen.manual_seed(7)
+        ct = torch.randn(out.shape, generator=gen, device=out.device)
+        got = torch.autograd.grad((out, aux), list(leaves.values()), (ct, torch.ones_like(aux)))
+        return dict(zip(leaves, got))
+
+    before = gm.grouped_matmul_backward.launches
+    got = grads()
+    sync()
+    b6 = gm.grouped_matmul_backward.launches - before
+    kernels = moe.grouped_matmul, moe.segment_agg
+    moe.grouped_matmul, moe.segment_agg = gm.grouped_matmul_plain, sa.segment_agg_plain
+    try:
+        want = grads()
+    finally:
+        moe.grouped_matmul, moe.segment_agg = kernels
+    res = {}
+    for k in want:
+        err = float((got[k] - want[k]).abs().max())
+        scale = float(want[k].abs().max())
+        check(scale > 0 and err <= GMM_RTOL * scale,
+              f"phase3 lm_train_moe: layer 0 gradient of {k} max|Δ|={err} > {GMM_RTOL} · {scale}")
+        res[k] = (err, scale)
+    return res, b6
+
+
+def b6_step_device_ms(gm, moe, tloop, cfg, hp, params, opt, batch):
+    """B6's device time in one training step: a step whose kernel launches
+    are recorded (B6's two launchers and B3's, their operands and outputs
+    kept), then each kernel's launches replayed from one CUDA graph into
+    the same outputs, timed by events (the launches back to back, without
+    the host work between them).  The step's first MoE block call (layer
+    0's) is recorded too: its parameters and input, cloned before the
+    step's update.  Returns (B6 ms, B6 launches, B3 ms, (layer 0's MoE
+    parameters, its input))."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    names = ("_launch_dlhs", "_launch_drhs", "_launch")
+    real = {n: getattr(gm, n) for n in names}
+    calls = {n: [] for n in names}
+    real_block, layer0 = moe.moe_mlp_dense, []
+
+    def recorder(n):
+        def rec(*args):
+            calls[n].append(args)
+            return real[n](*args)
+        return rec
+
+    def block(p, c, h):
+        if not layer0:
+            layer0.append((tf.tree_map(lambda t: t.detach().clone(), p), h.detach().clone()))
+        return real_block(p, c, h)
+
+    for n in names:
+        setattr(gm, n, recorder(n))
+    moe.moe_mlp_dense = block
+    try:
+        tloop.make_train_step(cfg, hp)(params, opt, batch)
+    finally:
+        for n in names:
+            setattr(gm, n, real[n])
+        moe.moe_mlp_dense = real_block
+    sync()
+
+    def replay_b6():
+        for n in ("_launch_dlhs", "_launch_drhs"):
+            for args in calls[n]:
+                real[n](*args)
+
+    def replay_b3():
+        for lhs, rhs, sizes in calls["_launch"]:
+            real["_launch"](lhs.detach(), rhs.detach(), sizes)
+
+    with torch.no_grad():
+        ms = time_graph(replay_b6, calls=1, reps=3)
+        b3_ms = time_graph(replay_b3, calls=1, reps=3)
+    n = len(calls["_launch_dlhs"]) + len(calls["_launch_drhs"])
+    del calls
+    torch.cuda.empty_cache()
+    return ms, n, b3_ms, layer0[0]
+
+
+def phase3_lm_train_moe(kmods, device, seed):
+    """MoE training on one member at granite-moe-1b-a400m's full width (24
+    layers, d 1024, 32 experts top-8, vocab 49,155: 1.33 B float32
+    parameters with AdamW moments, bf16 compute, random weights from a
+    seeded card generator) through :func:`run_train_loop` (``train_loop``,
+    ``SyntheticLM(batch=8, seq=128)``, TRAIN_STEPS steps, TRAIN_HP,
+    ``ticketed_embedding``).  Gates: the shared ones (losses finite and
+    falling, the stats plan, ``token_stats``); ``aux`` finite and > 0 every
+    step; launches exactly, a step: B3 72 (3 a layer), B6 144 (one a
+    product, two a B3 call), the segment kernel 24 (``route``'s histogram),
+    ticket 1 and B5 1 (the embedding's backward), and a batch the stats
+    plan's ``scan_ticket`` 1 and segment 1; no other kernel; layer 0's MoE
+    gradients through the kernels against the plain versions
+    (:func:`moe_grad_check`).  Prints ms a step, tokens/s, peak MiB, and
+    B6's and B3's device time in a step (:func:`b6_step_device_ms`).
+    Returns the record."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import segment_agg as sa
+    from repro_torch.models import moe
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_TRAIN_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    run = run_train_loop(kmods, cfg, device, seed, "lm_train_moe")
+    params, launches, steps, batches = run["params"], run["launches"], run["steps"], run["batches"]
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    want = {k: 0 for k in kmods}
+    want.update(grouped_matmul=3 * layers * steps, grouped_matmul_backward=6 * layers * steps,
+                segment_agg=layers * steps + batches, ticket_hash=steps, segment_rows=steps,
+                scan_ticket=batches)
+    check(launches == want, f"phase3 lm_train_moe: launches {launches}, expected {want} "
+          f"({steps} steps, {batches} batches pulled)")
+    aux = [h["aux"] for h in run["hist"]]
+    check(all(math.isfinite(a) and a > 0 for a in aux),
+          f"phase3 lm_train_moe: aux not finite and > 0 every step {aux}")
+    tokens = run["pulled"][-1]
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    b6_ms, b6_launches, b3_ms, (p_moe, h) = b6_step_device_ms(gm, moe, tloop, cfg, run["hp"],
+                                                              params, run["opt"], batch)
+    check(b6_launches == 6 * layers,
+          f"phase3 lm_train_moe: {b6_launches} B6 launches in the timed step")
+    grad_res, b6_check = moe_grad_check(moe, gm, sa, cfg, p_moe, h, gen)
+    check(b6_check == 6, f"phase3 lm_train_moe: the layer check launched B6 {b6_check} times, "
+          "not 6")
+    del p_moe, h
+    ms = run["step_ms"]
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    rec = {**run["rec"], "aux": aux,
+           "launches_per_step": {"grouped_matmul": 3 * layers,
+                                 "grouped_matmul_backward": 6 * layers,
+                                 "segment_agg": layers, "ticket_hash": 1, "segment_rows": 1},
+           "b6_device_ms_per_step": b6_ms, "b3_device_ms_per_step": b3_ms,
+           "b6_share_of_step": b6_ms / ms,
+           "layer0_grad": {k: {"max_abs_err": e, "scale": sc} for k, (e, sc) in grad_res.items()}}
+    log("phase3 " + json.dumps(rec))
+    worst = max(e / sc for e, sc in grad_res.values())
+    log(f"phase3 lm_train_moe: {cfg.name} at full width ({rec['params']} parameters, "
+        f"{cfg.dtype} compute over float32), {steps} steps of {ntok} tokens: {ms:.2f} ms a step "
+        f"(median; first {run['first_step_ms']:.1f} ms), {ntok / ms * 1e3:.0f} tokens/s, peak "
+        f"{rec['peak_mib']:.0f} MiB ({rec['peak_over_held_mib']:.0f} over the "
+        f"{rec['held_before_mib']:.0f} MiB earlier phases hold); loss {run['losses'][0]:.3f} -> "
+        f"{run['losses'][-1]:.3f} (first 5 {run['first5']:.3f}, last 5 {run['last5']:.3f}); aux "
+        f"{aux[0]:.4f} -> {aux[-1]:.4f}; launches a step: B3 {3 * layers}, B6 {6 * layers}, "
+        f"segment {layers} (+1 a batch, stats), ticket 1, B5 1; device time a step (graph "
+        f"replay): B6 {b6_ms:.2f} ms ({b6_ms / ms:.1%} of the step), B3 {b3_ms:.2f} ms; layer 0 "
+        f"gradients kernels vs plain worst max|Δ|/max|g| {worst:.3g} ok; {card_line()}")
+    del params, run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase3_lm_train_dp(kmods, device, seed):
+    """``make_manual_dp_step`` on the card as a (pod 2, data 2) mesh of four
+    virtual members (``virtual_devices(4)``): qwen3-0.6b at its published
+    widths (d 1024, vocab 151,936, tied) and DP_LAYERS of its 28 layers,
+    bf16 compute over float32 parameters, ticketed embedding, int8
+    gradient compression over the pod axis, DP_STEPS steps of
+    ``SyntheticLM(batch=8, seq=128)`` (2 rows a member), peak lr 1e-3,
+    warmup 2.  The launch counts are set to 0 just before the steps and
+    read just after: one ticket and one B5 launch a member and step, no
+    other kernel.  Gates: every loss finite, the last below the first.
+    Then, without compression and in float32, one step of the DP step
+    against the one-member ``make_train_step`` on the whole batch (lr
+    1e-3 at step 0: warmup 0): grad_norm within DP_RTOL, lr equal, the
+    parameters within lr and a median 1e-3 of it (the CPU test's rule).
+    Prints ms a step (CUDA events, median).  Returns the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DP_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    with sharding.virtual_devices(4) as members:
+        mesh = sharding.make_mesh((2, 2), ("pod", "data"), devices=members)
+    hp = tloop.TrainHParams(peak_lr=1e-3, warmup=2, total_steps=DP_STEPS,
+                            ticketed_embedding=True, grad_compression="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(gen, cfg, device)
+    n_params = sum(t.numel() for t in tf._leaves(params))
+    opt = adamw.init(params)
+    step = tloop.make_manual_dp_step(mesh, cfg, hp)
+    data = iter(SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=False,
+                            device=device))
+    batches = [next(data) for _ in range(DP_STEPS)]
+    events, hist = [], []
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    for b in batches:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+        params, opt, m = step(params, opt, b)
+        hist.append(m)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    events.append(end)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    members_n = 4
+    want = {k: 0 for k in kmods}
+    want.update(ticket_hash=members_n * DP_STEPS, segment_rows=members_n * DP_STEPS)
+    check(launches == want, f"phase3 lm_train_dp: launches {launches}, expected {want}")
+    losses = [float(m["loss"]) for m in hist]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase3 lm_train_dp: losses not finite and falling {losses}")
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, DP_STEPS))
+    ms = step_ms[len(step_ms) // 2]
+    del params, opt
+
+    # one uncompressed float32 step against the one-member step on the whole batch
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    hp32 = tloop.TrainHParams(peak_lr=1e-3, warmup=0, total_steps=DP_STEPS,
+                              ticketed_embedding=True)
+    p_dp = tf.init_params(gen, cfg32, device)
+    p_one = tf.tree_map(lambda t: t.clone(), p_dp)
+    o_dp, o_one = adamw.init(p_dp), adamw.init(p_one)
+    p_dp, o_dp, m_dp = tloop.make_manual_dp_step(mesh, cfg32, hp32)(p_dp, o_dp, batches[0])
+    p_one, o_one, m_one = tloop.make_train_step(cfg32, hp32)(p_one, o_one, batches[0])
+    lr = float(m_one["lr"])
+    gn_dp, gn_one = float(m_dp["grad_norm"]), float(m_one["grad_norm"])
+    diffs = torch.cat([(a - b).abs().reshape(-1)
+                       for a, b in zip(tf._leaves(p_dp), tf._leaves(p_one))])
+    dmax, dmed = float(diffs.max()), float(diffs.median())
+    check(abs(gn_dp - gn_one) <= DP_RTOL * gn_one and float(m_dp["lr"]) == lr and lr > 0
+          and dmax <= lr and dmed <= 1e-3 * lr,
+          f"phase3 lm_train_dp: DP step vs one-member step: grad_norm {gn_dp} / {gn_one}, lr "
+          f"{float(m_dp['lr'])} / {lr}, params max|Δ| {dmax}, median {dmed}")
+    del p_dp, p_one, o_dp, o_one, diffs
+    torch.cuda.empty_cache()
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"stream": "lm_train_dp", "arch": cfg.name, "layers": DP_LAYERS, "params": n_params,
+           "mesh": {"pod": 2, "data": 2}, "grad_compression": "int8", "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": DP_STEPS, "wall_s": wall,
+           "step_ms": ms, "step_ms_range": [step_ms[0], step_ms[-1]],
+           "tokens_per_s": ntok / ms * 1e3, "peak_mib": peak_mib, "losses": losses,
+           "vs_one_member": {"grad_norm_dp": gn_dp, "grad_norm_one": gn_one, "lr": lr,
+                             "params_max_abs_diff": dmax, "params_median_abs_diff": dmed},
+           "launches": launches, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_train_dp: {cfg.name} widths at {DP_LAYERS} layers ({n_params} parameters) "
+        f"on a (pod 2, data 2) "
+        f"mesh of 4 virtual members, int8 over pod: {DP_STEPS} steps of {ntok} tokens, "
+        f"{ms:.2f} ms a step (median), {ntok / ms * 1e3:.0f} tokens/s, peak {peak_mib:.0f} MiB; "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; launches a step: ticket 4, B5 4 (one a "
+        f"member); uncompressed float32 step vs one member on the whole batch: grad_norm "
+        f"{gn_dp:.6g} / {gn_one:.6g}, params max|Δ| {dmax:.3g} (lr {lr:g}), median {dmed:.3g} ok; "
+        f"{rec['card']}")
+    return rec
+
+
+def b6_bound(lhs, rhs, sizes):
+    """The least time of one B6 call (both products): a dict of
+    ``bytes_ms`` (lhs, g, the touched experts' weights and sizes read once;
+    d_lhs and d_rhs written once, 3.35 TB/s), ``tf32x3_ms`` (two products
+    of 3 × 2·rows·K·N TF32 tensor operations, the float32-accurate tensor
+    path, 495 TFLOP/s), ``fp32_ms`` (the two products' 2·rows·K·N float32
+    FMA operations, 67 TFLOP/s), ``kernels_ms`` (what this design's two
+    products need at best: d_lhs 3×TF32 on the tensor cores, d_rhs f32
+    FMAs), and the headline ``bound_ms`` / ``bound_by``, the larger of
+    bytes and the tensor count."""
+    m, k = lhs.shape
+    g, _, n = rhs.shape
+    touched = int((sizes > 0).sum())
+    nbytes = 4 * (m * k + m * n + touched * k * n + g + m * k + g * k * n)
+    ops = 2 * int(sizes.clamp(min=0).sum()) * k * n   # one product
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ms = 2 * 3 * ops / TF32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, t_ms), "bound_by": "bytes" if b_ms >= t_ms else "operations",
+            "bytes_ms": b_ms, "tf32x3_ms": t_ms, "fp32_ms": 2 * ops / FP32_OPS_PER_S * 1e3,
+            "kernels_ms": max(b_ms, 3 * ops / TF32_OPS_PER_S * 1e3 + ops / FP32_OPS_PER_S * 1e3)}
+
+
+def grouped_mm_backward_library(lhs, rhs, sizes, g):
+    """The backward of ``torch._grouped_mm`` (bfloat16 operands, as it
+    takes them: not B6's float32) on the same rows, where this torch has
+    it and differentiates it.  Returns (fn, note); fn is None where it
+    does not run."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch._grouped_mm absent"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    gb = g.bfloat16()
+    errors = []
+    for layout, b in (("(G, K, N) row-major", rhs.bfloat16()),
+                      ("(G, K, N) column-major", rhs.bfloat16().transpose(1, 2).contiguous()
+                       .transpose(1, 2))):
+        a = lhs.bfloat16().requires_grad_(True)
+        b = b.requires_grad_(True)
+        try:
+            out = torch._grouped_mm(a, b, offs=offs)
+            torch.autograd.grad(out, [a, b], gb, retain_graph=True)
+            sync()
+        except (RuntimeError, TypeError, ValueError) as e:
+            errors.append(f"{layout}: {str(e).splitlines()[0][:160]}")
+            continue
+
+        def fn(out=out, a=a, b=b):
+            return torch.autograd.grad(out, [a, b], gb, retain_graph=True)
+
+        return fn, f"backward of torch._grouped_mm, bf16 operands, rhs {layout}"
+    return None, "torch._grouped_mm backward refused: " + "; ".join(errors)
+
+
+def phase4_grouped_matmul_backward(gm, gen, device, reps=5):
+    """B6 at the training shapes (8192 rows: gate / up K 1024, N 512; down
+    K 512, N 1024) and the decode gate / up shape (64 rows): the wrapper by
+    CUDA events (median of ``reps``), by CUDA-graph replay, and each
+    product's launch alone by graph replay; beside :func:`b6_bound`, its
+    plain version (held against it), the per-expert float32
+    ``torch.matmul`` loop of both products with the sizes already on the
+    host, and the backward of ``torch._grouped_mm`` at bf16 where it runs.
+    The training gate / up shape is the kernel's line.  Returns the
+    record."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    per_shape, worst = {}, 0.0
+    for name, (tokens, k, n) in B6_SHAPES.items():
+        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n)
+        g = torch.randn(lhs.shape[0], n, generator=gen, device=device)
+        d_lhs, d_rhs = torch.empty_like(lhs), torch.empty_like(rhs)
+
+        def call():
+            return gm.grouped_matmul_backward(lhs, rhs, sizes, g)
+
+        ms = time_cuda(call, reps)
+        graph_ms = time_graph(call)
+        dlhs_ms = time_graph(lambda: gm._launch_dlhs(g, rhs, sizes, d_lhs))
+        drhs_ms = time_graph(lambda: gm._launch_drhs(lhs, g, sizes, d_rhs))
+        plain_ms = time_cuda(lambda: gm.grouped_matmul_backward_plain(lhs, rhs, sizes, g), reps)
+        host_sizes = sizes.tolist()
+        o_lhs, o_rhs = torch.empty_like(lhs), torch.empty_like(rhs)
+
+        def matmul_loop():
+            s = 0
+            for e, c in enumerate(host_sizes):
+                if c:
+                    torch.matmul(g[s:s + c], rhs[e].T, out=o_lhs[s:s + c])
+                    torch.matmul(lhs[s:s + c].T, g[s:s + c], out=o_rhs[e])
+                s += c
+
+        loop_ms = time_cuda(matmul_loop, reps)
+        lib, note = grouped_mm_backward_library(lhs, rhs, sizes, g)
+        lib_ms = time_cuda(lib, reps) if lib is not None else None
+        err_l, err_r, _, _ = check_gmm_bwd(gm, lhs, rhs, sizes, g,
+                                           f"phase4 grouped_matmul_backward {name}")
+        worst = max(worst, err_l, err_r)
+        bound = b6_bound(lhs, rhs, sizes)
+        per_shape[name] = {"rows": lhs.shape[0], "k": k, "n": n,
+                           "groups": int((sizes > 0).sum()), "largest_group": int(sizes.max()),
+                           "kernel_ms": ms, "graph_ms": graph_ms, "d_lhs_graph_ms": dlhs_ms,
+                           "d_rhs_graph_ms": drhs_ms, "plain_ms": plain_ms, **bound,
+                           "matmul_loop_ms": loop_ms, "library_ms": lib_ms, "library": note,
+                           "max_abs_err": max(err_l, err_r)}
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        log(f"phase4 grouped_matmul_backward {name}: kernel {ms:.4f} ms (events), graph "
+            f"{graph_ms:.4f} (d_lhs {dlhs_ms:.4f} + d_rhs {drhs_ms:.4f}) for M={lhs.shape[0]} "
+            f"K={k} N={n}, {per_shape[name]['groups']} groups (largest "
+            f"{per_shape[name]['largest_group']} rows); bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, 3xTF32 "
+            f"{bound['tf32x3_ms']:.4f}, f32 FMA {bound['fp32_ms']:.4f}, this design's "
+            f"{bound['kernels_ms']:.4f}), plain {plain_ms:.4f} ms, per-expert matmul loop "
+            f"{loop_ms:.4f} ms, library {lib_txt} ({note}); max|Δ| d_lhs {err_l:.3g}, d_rhs "
+            f"{err_r:.3g} ok")
+    log("phase4 grouped_matmul_backward " + json.dumps(per_shape))
+    head = per_shape["train_gate_up"]
+    return {"ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "max_abs_err": worst, "per_shape": per_shape}
 
 
 # -- phase 4: timing --------------------------------------------------------------
@@ -4451,7 +5038,9 @@ def main(argv=None) -> int:
              "scan_ticket_batched": (fk, "scan_ticket_batched"),
              "segment_agg_serialized": (sa, "serialized_agg"),
              "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg"),
-             "grouped_matmul": (gm, "grouped_matmul"), "segment_rows": (sr, "segment_rows")}
+             "grouped_matmul": (gm, "grouped_matmul"),
+             "grouped_matmul_backward": (gm, "grouped_matmul_backward"),
+             "segment_rows": (sr, "segment_rows")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -4481,6 +5070,7 @@ def main(argv=None) -> int:
     split_err["scan_ticket_batched"] = phase2_batched(fk, gen, device)
     split_err["grouped_matmul"] = phase2_grouped_matmul(gm, sa, gen, device)
     split_err["segment_rows"] = phase2_segment_rows(sr, th, gen, device)
+    split_err["grouped_matmul_backward"] = phase2_grouped_matmul_backward(gm, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -4506,6 +5096,14 @@ def main(argv=None) -> int:
     t_train = time.perf_counter()
     recs.append(phase3_lm_train(kmods, device, args.seed))
     log(f"phase3 lm_train in {time.perf_counter() - t_train:.1f} s")
+    log("== phase 3 train_moe: granite-moe-1b-a400m at full width (lm_train_moe)")
+    t_moe = time.perf_counter()
+    recs.append(phase3_lm_train_moe(kmods, device, args.seed))
+    log(f"phase3 lm_train_moe in {time.perf_counter() - t_moe:.1f} s")
+    log("== phase 3 train_dp: make_manual_dp_step on a (pod 2, data 2) mesh (lm_train_dp)")
+    t_dp = time.perf_counter()
+    recs.append(phase3_lm_train_dp(kmods, device, args.seed))
+    log(f"phase3 lm_train_dp in {time.perf_counter() - t_dp:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 
@@ -4527,6 +5125,7 @@ def main(argv=None) -> int:
     timing["scan_ticket_batched"] = phase4_batched(fk, gen, device)
     timing["grouped_matmul"] = phase4_grouped_matmul(gm, gen, device)
     timing["segment_rows"] = phase4_segment_rows(sr, th, gen, device)
+    timing["grouped_matmul_backward"] = phase4_grouped_matmul_backward(gm, gen, device)
     phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
@@ -4542,8 +5141,8 @@ def main(argv=None) -> int:
 
     # the scan route's two kernels, the register fold, the
     # pre-aggregation and the batched ticket launch replace plain jnp, the
-    # grouped matmul jax.lax.ragged_dot and the row segment sum
-    # jax.ops.segment_sum, not a Pallas kernel
+    # grouped matmul jax.lax.ragged_dot, its backward ragged_dot's VJP and
+    # the row segment sum jax.ops.segment_sum, not a Pallas kernel
     replaces = {"fused_groupby": "src/repro/kernels/fused_groupby.py:480",
                 "ticket_hash": "src/repro/kernels/ticket_hash.py:193",
                 "segment_agg": "src/repro/kernels/segment_agg.py:103",
@@ -4553,9 +5152,11 @@ def main(argv=None) -> int:
                 "preagg": "src/repro/core/partitioned.py:48",
                 "scan_ticket_batched": "src/repro/engine/executors.py:613",
                 "grouped_matmul": "src/repro/models/moe.py:109",
+                "grouped_matmul_backward": "src/repro/models/moe.py:109",
                 "segment_rows": "src/repro/models/layers.py:150"}
     source = {"scan_ticket": "fused_groupby", "scan_ticket_batched": "fused_groupby",
-              "segment_agg_serialized": "segment_agg"}
+              "segment_agg_serialized": "segment_agg",
+              "grouped_matmul_backward": "grouped_matmul"}
     kernels = [{
         "name": name,
         "route": "cuda",

@@ -79,6 +79,20 @@
 // weight element is read once per row tile, so a group of r rows reads its
 // weights ceil(r / 32) times (from L2 after the first where its tiles run
 // together).
+//
+// Kernel B6, the backward (ragged_dot's VJP, for MoE training; no Pallas
+// kernel either: XLA differentiates ragged_dot on the TPU), is two launches
+// a call, one a product:
+// - d_lhs[r] = g[r] · rhs[e(r)]^T is this engine with the weight's role
+//   transposed (template flag kWT): the contraction runs along N, along
+//   which each row of rhs[e] (K, N) is contiguous, so the weight box is
+//   already K-major: a TMA box of 64 weight rows x 32 N with the 128-byte
+//   swizzle (the row stage's layout), read by the consumer as 16-byte
+//   chunks with no transposition.  The item list, rings, 3xTF32 split,
+//   per-stage partial sums and the zeroed tail are B3's.
+// - d_rhs[e] = lhs[rows_e]^T · g[rows_e] (K, N) reduces over a group's
+//   rows: float32 FMAs on the CUDA cores (see the note above
+//   grouped_matmul_drhs_kernel for its design and bound).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -372,8 +386,11 @@ struct Shared {
   __device__ uint32_t empty_l(int slot) const { return bar(2 * kWStages + kLStages + slot); }
 };
 
+// K is the contraction and N the output width: B3's lhs (M, K), rhs (G, K,
+// N) and out (M, N); for d_lhs (kWT) g (M, K), rhs read as (G, N, K) and
+// out (M, N).
 struct Params {
-  CUtensorMap w_map;     // rhs as (G, K, N), boxes of 1 x 32 x 64
+  CUtensorMap w_map;     // rhs as (G, K, N), boxes of 1 x 32 x 64; kWT: (G, N, K), 1 x 64 x 32
   CUtensorMap l_map8;    // lhs as (M, K), boxes of 8 x 32, 128-byte swizzle
   CUtensorMap l_map_tile;  // the same, boxes of kRowTile x 32
   const float* lhs;
@@ -430,8 +447,12 @@ __device__ __forceinline__ void store_rows(const Shared& sh, int buf, const floa
   }
 }
 
-// A weight stage (kKB rows x 64 columns, N-major) into the A copies,
-// transposed: thread tid takes column tid % 64 and k chunks tid / 64 + 2i.
+// A weight stage into the A copies: thread tid takes weight column m =
+// tid % 64 and k chunks tid / 64 + 2i.  B3 (kWT false): the stage is kKB
+// rows x 64 columns, N-major, read transposed.  d_lhs (kWT true): 64 rows
+// of kKB contiguous K, swizzled as a row stage, read as 16-byte chunks (the
+// 8 lanes of a phase read 8 rows' chunks on distinct banks).
+template <bool kWT>
 __device__ __forceinline__ void store_weights(const Shared& sh, int buf, const float* w,
                                               int kvalid, int tid) {
   const int m = tid & 63;
@@ -439,10 +460,18 @@ __device__ __forceinline__ void store_weights(const Shared& sh, int buf, const f
   for (int i = 0; i < kKB / 8; ++i) {
     const int c = (tid >> 6) + 2 * i, k = 4 * c;
     float4 x;
-    x.x = k < kvalid ? w[k * kTileN + m] : 0.f;
-    x.y = k + 1 < kvalid ? w[(k + 1) * kTileN + m] : 0.f;
-    x.z = k + 2 < kvalid ? w[(k + 2) * kTileN + m] : 0.f;
-    x.w = k + 3 < kvalid ? w[(k + 3) * kTileN + m] : 0.f;
+    if constexpr (kWT) {
+      x = *reinterpret_cast<const float4*>(w + row_offset(m, k));
+      if (k >= kvalid) x.x = 0.f;
+      if (k + 1 >= kvalid) x.y = 0.f;
+      if (k + 2 >= kvalid) x.z = 0.f;
+      if (k + 3 >= kvalid) x.w = 0.f;
+    } else {
+      x.x = k < kvalid ? w[k * kTileN + m] : 0.f;
+      x.y = k + 1 < kvalid ? w[(k + 1) * kTileN + m] : 0.f;
+      x.z = k + 2 < kvalid ? w[(k + 2) * kTileN + m] : 0.f;
+      x.w = k + 3 < kvalid ? w[(k + 3) * kTileN + m] : 0.f;
+    }
     store_split(sh.op(buf, 0), sh.op(buf, 1), c * kTileN + m, x);
   }
 }
@@ -461,7 +490,7 @@ __device__ __forceinline__ void add_into(float (&sum)[C], float (&part)[C]) {
 // once its wgmmas are done: reading accumulators while a wgmma runs makes
 // ptxas serialize every wgmma (C7514), and a stage's wgmmas take little
 // of its time beside the splits.
-template <int NI>
+template <bool kWT, int NI>
 __device__ __forceinline__ void consume_stage(const Shared& sh, const Params& p, const Item& it,
                                               float (&part)[NI / 2], float (&sum)[NI / 2],
                                               int b, uint32_t& ring, int tid) {
@@ -473,7 +502,7 @@ __device__ __forceinline__ void consume_stage(const Shared& sh, const Params& p,
   store_rows<NI>(sh, buf, sh.l(ls), it.count, kvalid, tid);
   mbar_arrive(sh.empty_l(ls));
   mbar_wait(sh.full_w(ws), (ring / kWStages) & 1);
-  store_weights(sh, buf, sh.w(ws), kvalid, tid);
+  store_weights<kWT>(sh, buf, sh.w(ws), kvalid, tid);
   mbar_arrive(sh.empty_w(ws));
   ++ring;
   fence_async_shared();
@@ -495,14 +524,14 @@ __device__ __forceinline__ void consume_stage(const Shared& sh, const Params& p,
   wgmma_commit();
 }
 
-template <int NI>
+template <bool kWT, int NI>
 __device__ __forceinline__ void consume_item(const Shared& sh, const Params& p, const Item& it,
                                              int n0, uint32_t& ring, int tid) {
   float sum[NI / 2], part[NI / 2];
 #pragma unroll
   for (int i = 0; i < NI / 2; ++i) sum[i] = 0.f;
   const int nkb = (p.K + kKB - 1) / kKB;
-  for (int b = 0; b < nkb; ++b) consume_stage<NI>(sh, p, it, part, sum, b, ring, tid);
+  for (int b = 0; b < nkb; ++b) consume_stage<kWT, NI>(sh, p, it, part, sum, b, ring, tid);
   wgmma_wait<0>();
   add_into(sum, part);
 
@@ -517,6 +546,7 @@ __device__ __forceinline__ void consume_item(const Shared& sh, const Params& p, 
 
 // -- the kernel -----------------------------------------------------------------------
 
+template <bool kWT>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 grouped_matmul_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -550,18 +580,29 @@ grouped_matmul_kernel(const __grid_constant__ Params p) {
       const Item it = find_tile(p.sizes, p.G, p.M, cur, w / nt, lane);
       const int n0 = static_cast<int>(w % nt) * kTileN;
       const int cols = min(kTileN, p.N - n0);
-      const float* wsrc = p.rhs + static_cast<long long>(it.g) * p.K * p.N + n0;
+      const float* wsrc = p.rhs + static_cast<long long>(it.g) * p.K * p.N +
+                          (kWT ? static_cast<long long>(n0) * p.K : n0);
       const float* lsrc = p.lhs + it.row0 * p.K;
       for (int b = 0; b < nkb; ++b, ++ring) {
         const int k0 = b * kKB, kvalid = min(kKB, p.K - k0);
         const int ws = ring % kWStages, ls = ring % kLStages;
         mbar_wait(sh.empty_w(ws), ((ring / kWStages) & 1) ^ 1);
         const uint32_t wdst = smem_addr(sh.w(ws));
-        if (p.w_tma) {  // one 32 x 64 box, zeros past K and N
+        if (p.w_tma) {  // one 32 x 64 box (kWT: 64 x 32), zeros past K and N
           if (lane == 0) {
             mbar_arrive_expect_tx(sh.full_w(ws), kWStageBytes);
-            tma_load_3d(wdst, &p.w_map, n0, k0, it.g, sh.full_w(ws));
+            if constexpr (kWT) tma_load_3d(wdst, &p.w_map, k0, n0, it.g, sh.full_w(ws));
+            else tma_load_3d(wdst, &p.w_map, n0, k0, it.g, sh.full_w(ws));
           }
+        } else if constexpr (kWT) {
+          for (int i = lane; i < kTileN * kKB; i += 32) {
+            const int m = i / kKB, c = i % kKB;
+            if (m < cols && c < kvalid) {
+              cp_async4(wdst + row_offset(m, c) * 4,
+                        wsrc + static_cast<long long>(m) * p.K + k0 + c);
+            }
+          }
+          cp_async_arrive(sh.full_w(ws));
         } else {
           for (int i = lane; i < kvalid * kTileN; i += 32) {
             const int r = i / kTileN, c = i % kTileN;
@@ -599,9 +640,9 @@ grouped_matmul_kernel(const __grid_constant__ Params p) {
   for (long long w = blockIdx.x; w < items; w += gridDim.x) {
     const Item it = find_tile(p.sizes, p.G, p.M, cur, w / nt, lane);
     const int n0 = static_cast<int>(w % nt) * kTileN;
-    if (it.count <= 8) consume_item<8>(sh, p, it, n0, ring, tid);
-    else if (it.count <= 16) consume_item<16>(sh, p, it, n0, ring, tid);
-    else consume_item<32>(sh, p, it, n0, ring, tid);
+    if (it.count <= 8) consume_item<kWT, 8>(sh, p, it, n0, ring, tid);
+    else if (it.count <= 16) consume_item<kWT, 16>(sh, p, it, n0, ring, tid);
+    else consume_item<kWT, 32>(sh, p, it, n0, ring, tid);
   }
   // the rows past the groups: zeros, split over the CTAs
   const long long tail = (p.M - total_rows) * p.N;
@@ -609,6 +650,111 @@ grouped_matmul_kernel(const __grid_constant__ Params p) {
   for (long long i = static_cast<long long>(blockIdx.x) * kConsumers + tid; i < tail;
        i += static_cast<long long>(gridDim.x) * kConsumers) {
     z[i] = 0.f;
+  }
+}
+
+// -- B6's d_rhs: d_rhs[e] = lhs[rows_e]^T · g[rows_e] ------------------------------
+//
+// The contraction is a group's rows, along which neither lhs (M, K) nor g
+// (M, N) is contiguous, so both would need staging transposed for wgmma;
+// this first kernel takes float32 FMAs on the CUDA cores instead (full
+// float32, as the plain version).  Items are (group, 64-wide K tile,
+// 64-wide N tile), group-major, every group included: a group with no rows
+// writes exact zeros (granite's reduced config pads 8 experts to 16, so
+// half its groups are always empty), so nothing assumes a zeroed output.
+// A CTA of 256 threads walks its items w = blockIdx.x, += gridDim.x; per
+// item it sums the sizes before the group on the device (no host read),
+// then walks the group's rows in 32-row stages: each thread holds 8 values
+// of each operand in registers while the stage before is summed, stores
+// them to shared memory ([row][64], a warp's stores on 32 consecutive
+// words), and adds 4 x 4 outputs a row from two 16-byte shared loads (the
+// lhs load a broadcast).  Bound: 2·rows·K·N FMA operations, 0.13 ms at
+// granite's training shape (8192 rows, K 1024, N 512) at 67 TFLOP/s, 2.5x
+// the 3xTF32 tensor bound of the same product.  Imbalance: an expert with
+// r rows makes K/64 · N/64 items of ceil(r / 32) stages each, and one
+// expert can take thousands of the 8192 rows; its items are consecutive,
+// so they land on as many different CTAs, and the launch ends when the
+// CTAs that drew them do: a hot expert shows as a tail of at most one of
+// its items (r / 32 stages) past the mean.
+constexpr int kDTile = 64;       // K and N width of an item
+constexpr int kDRows = 32;       // rows a stage
+constexpr int kDThreads = 256;
+constexpr int kDCtasPerSm = 3;
+
+__global__ void __launch_bounds__(kDThreads, kDCtasPerSm)
+grouped_matmul_drhs_kernel(const float* __restrict__ lhs, const float* __restrict__ g,
+                           const int* __restrict__ sizes, float* __restrict__ out,
+                           long long M, int K, int N, int G) {
+  __shared__ __align__(16) float as[kDRows][kDTile];
+  __shared__ __align__(16) float bs[kDRows][kDTile];
+  __shared__ long long span[2];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lc = tid & 63, lr = tid >> 6;  // staging: column lc of rows lr + 4i
+  const int kt = (K + kDTile - 1) / kDTile, nt = (N + kDTile - 1) / kDTile;
+  const long long per_group = static_cast<long long>(kt) * nt;
+  const long long items = per_group * G;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const int e = static_cast<int>(w / per_group), t = static_cast<int>(w % per_group);
+    const int k0 = (t / nt) * kDTile, n0 = (t % nt) * kDTile;
+    if (tid < 32) {  // the group's first row: the sizes before it, summed by one warp
+      long long s = 0;
+      for (int i = tid; i < e; i += 32) s += max(__ldg(sizes + i), 0);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (tid == 0) {
+        span[0] = min(s, M);
+        span[1] = min(s + max(__ldg(sizes + e), 0), M);
+      }
+    }
+    __syncthreads();
+    const long long first = span[0], end = span[1];
+    const bool kin = k0 + lc < K, nin = n0 + lc < N;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    float ra[8], rb[8];
+    auto fetch = [&](long long r0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long row = r0 + lr + 4 * i;
+        const bool live = row < end;
+        ra[i] = live && kin ? __ldg(lhs + row * K + k0 + lc) : 0.f;
+        rb[i] = live && nin ? __ldg(g + row * N + n0 + lc) : 0.f;
+      }
+    };
+    if (first < end) fetch(first);
+    for (long long r0 = first; r0 < end; r0 += kDRows) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        as[lr + 4 * i][lc] = ra[i];
+        bs[lr + 4 * i][lc] = rb[i];
+      }
+      __syncthreads();
+      if (r0 + kDRows < end) fetch(r0 + kDRows);  // the next stage, in flight while this one sums
+#pragma unroll 8
+      for (int r = 0; r < kDRows; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(&as[r][4 * ty]);
+        const float4 b = *reinterpret_cast<const float4*>(&bs[r][4 * tx]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+    float* o = out + (static_cast<long long>(e) * K + k0 + 4 * ty) * N + n0 + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (k0 + 4 * ty + i >= K) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n0 + 4 * tx + j < N) o[static_cast<long long>(i) * N + j] = acc[i][j];
+      }
+    }
+    __syncthreads();  // every thread has read `span` before the next item rewrites it
   }
 }
 
@@ -681,19 +827,11 @@ bool tensor_map(CUtensorMap* out, const void* ptr, int rank, const cuuint64_t* d
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch one grouped matmul on `stream`: lhs (M, K), rhs (G, K, N), sizes
-// (G,) int32 and out (M, N), all contiguous, float32 but `sizes`, on the
-// current device; any alignment (TMA boxes where the operand is 16-byte
-// aligned with rows a multiple of 16 bytes, 4-byte cp.async copies
-// elsewhere).  Every element of `out` is written.
-// Returns a cudaError_t as an int (0 = launched); the caller checks shapes,
-// types and devices.
-int grouped_matmul_launch(const void* lhs, const void* rhs, const void* sizes, void* out,
-                          long long M, int K, int N, int G, void* stream) {
+// One launch of the engine: K is the contraction and N the output width
+// (see Params); for kWT the weights are read as (G, N, K).
+template <bool kWT>
+int launch(const void* lhs, const void* rhs, const void* sizes, void* out, long long M, int K,
+           int N, int G, void* stream) {
   if (M < 0 || K < 1 || N < 0 || G < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return static_cast<int>(cudaSuccess);
   static DeviceSetup setup[64];
@@ -703,10 +841,10 @@ int grouped_matmul_launch(const void* lhs, const void* rhs, const void* sizes, v
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   DeviceSetup& s = setup[dev];
   if (!s.done) {
-    err = cudaFuncSetAttribute(grouped_matmul_kernel,
+    err = cudaFuncSetAttribute(grouped_matmul_kernel<kWT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err == cudaSuccess)  // room for kCtasPerSm CTAs an SM
-      err = cudaFuncSetAttribute(grouped_matmul_kernel,
+      err = cudaFuncSetAttribute(grouped_matmul_kernel<kWT>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
@@ -722,16 +860,69 @@ int grouped_matmul_launch(const void* lhs, const void* rhs, const void* sizes, v
   p.K = K;
   p.N = N;
   p.G = G;
-  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
-                                static_cast<cuuint64_t>(G)};
-  const cuuint32_t w_box[2] = {kTileN, kKB};
-  p.w_tma = G > 0 && tensor_map(&p.w_map, rhs, 3, w_dims, w_box, CU_TENSOR_MAP_SWIZZLE_NONE);
-  const cuuint64_t l_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t k64 = static_cast<cuuint64_t>(K), n64 = static_cast<cuuint64_t>(N);
+  const cuuint64_t w_dims[3] = {kWT ? k64 : n64, kWT ? n64 : k64, static_cast<cuuint64_t>(G)};
+  const cuuint32_t w_box[2] = {kWT ? kKB : kTileN, kWT ? kTileN : kKB};
+  p.w_tma = G > 0 && tensor_map(&p.w_map, rhs, 3, w_dims, w_box,
+                                kWT ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  const cuuint64_t l_dims[2] = {k64, static_cast<cuuint64_t>(M)};
   const cuuint32_t l_box8[2] = {kKB, 8}, l_box_tile[2] = {kKB, kRowTile};
   p.l_tma = tensor_map(&p.l_map8, lhs, 2, l_dims, l_box8, CU_TENSOR_MAP_SWIZZLE_128B) &&
             tensor_map(&p.l_map_tile, lhs, 2, l_dims, l_box_tile, CU_TENSOR_MAP_SWIZZLE_128B);
-  grouped_matmul_kernel<<<s.sms * kCtasPerSm, kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(p);
+  grouped_matmul_kernel<kWT><<<s.sms * kCtasPerSm, kThreads, kSmemBytes,
+                               static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch one grouped matmul on `stream`: lhs (M, K), rhs (G, K, N), sizes
+// (G,) int32 and out (M, N), all contiguous, float32 but `sizes`, on the
+// current device; any alignment (TMA boxes where the operand is 16-byte
+// aligned with rows a multiple of 16 bytes, 4-byte cp.async copies
+// elsewhere).  Every element of `out` is written.
+// Returns a cudaError_t as an int (0 = launched); the caller checks shapes,
+// types and devices.
+int grouped_matmul_launch(const void* lhs, const void* rhs, const void* sizes, void* out,
+                          long long M, int K, int N, int G, void* stream) {
+  return launch<false>(lhs, rhs, sizes, out, M, K, N, G, stream);
+}
+
+// B6's first product, d_lhs = g · rhs[e]^T row by row: g (M, N), rhs (G, K,
+// N) as in the forward, out (M, K), rows past the groups zero.  Same
+// conventions as grouped_matmul_launch.
+int grouped_matmul_dlhs_launch(const void* g, const void* rhs, const void* sizes, void* out,
+                               long long M, int K, int N, int G, void* stream) {
+  return launch<true>(g, rhs, sizes, out, M, N, K, G, stream);
+}
+
+// B6's second product, d_rhs[e] = lhs[rows_e]^T · g[rows_e]: lhs (M, K), g
+// (M, N), out (G, K, N), a group with no rows exactly zero.  Every element
+// of `out` is written; any alignment.
+int grouped_matmul_drhs_launch(const void* lhs, const void* g, const void* sizes, void* out,
+                               long long M, int K, int N, int G, void* stream) {
+  if (M < 0 || K < 0 || N < 0 || G < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K == 0 || N == 0 || G == 0) return static_cast<int>(cudaSuccess);
+  static DeviceSetup setup[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  DeviceSetup& s = setup[dev];
+  if (!s.done) {
+    err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    s.done = true;
+  }
+  const long long items = static_cast<long long>(G) * ((K + kDTile - 1) / kDTile) *
+                          ((N + kDTile - 1) / kDTile);
+  const long long ctas = static_cast<long long>(s.sms) * kDCtasPerSm;
+  const int grid = static_cast<int>(items < ctas ? items : ctas);
+  grouped_matmul_drhs_kernel<<<grid, kDThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lhs), static_cast<const float*>(g),
+      static_cast<const int*>(sizes), static_cast<float*>(out), M, K, N, G);
   return static_cast<int>(cudaGetLastError());
 }
 

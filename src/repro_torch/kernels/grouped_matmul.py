@@ -1,5 +1,5 @@
 """Grouped matmul over contiguous row groups: kernel B3, the MoE layer's
-expert FFNs.
+expert FFNs, and its backward, kernel B6.
 
 Replaces ``jax.lax.ragged_dot`` in ``repro.models.moe.moe_mlp_dense``
 (``src/repro/models/moe.py:109-112``; no Pallas kernel there).  One call
@@ -16,9 +16,15 @@ tensors) and raise if they cannot; CPU tensors run
 kernel takes each group's first row as a prefix sum of the sizes itself,
 so the wrapper reads no size on the host (a decode step of
 granite-moe-1b-a400m makes 72 calls).  The call is an autograd node: on CPU
-tensors its backward differentiates the plain version; on CUDA tensors an
-input that requires grad (with grad enabled) raises ``NotImplementedError``,
-since B3 has no backward kernel yet (ROADMAP §2 B6).
+tensors its backward runs B6's plain version; on CUDA tensors it
+launches kernel B6 (:func:`grouped_matmul_backward`, ragged_dot's VJP: one
+launch for ``d_lhs[r] = g[r] @ rhs[e(r)]ᵀ``, B3's engine with the weights
+read transposed, and one for ``d_rhs[e] = lhs[rows_e]ᵀ @ g[rows_e]``,
+float32 FMAs; ``d_lhs`` rows past the groups and ``d_rhs`` of an empty
+group are zeros; counted in ``grouped_matmul_backward.launches``).  No path
+falls back to a plain version when a build or launch fails.
+:func:`grouped_matmul_backward_plain` (a loop of float32 ``torch.matmul``
+per group) is B6's oracle on the card and nothing else.
 
 Bound on the card: bytes at decode (64 rows over 32 experts: a call reads
 every touched expert's K × N weights, ≈ 0.017 ms at 3.35 TB/s), bytes or
@@ -35,6 +41,14 @@ takes no other layout), fed through rings by TMA boxes, two CTAs an SM
 plain version is full float32 (``torch.backends.cuda.matmul.allow_tf32``
 stays False), and the two sum in another order, so they agree to
 float32 rounding (4-7e-7 of max|out| on the card), not bit for bit.
+
+B6's bound at granite-moe-1b-a400m's training shape (8192 rows, K 1024,
+N 512), per product: 3 · 2 · 8192 · 1024 · 512 ≈ 25.8 GFLOP of 3xTF32,
+≈ 0.052 ms at 495 TFLOP/s, or ≈ 0.13 ms as float32 FMAs at 67 TFLOP/s;
+d_lhs's bytes (g, the weights, the output) ≈ 0.035 ms.  d_lhs runs B3's
+tensor-core engine; d_rhs, whose contraction (a group's rows) is
+contiguous in neither operand, is a tiled float32-FMA kernel for now, so
+its floor is the 0.13 ms FMA time (a training step makes 144 B6 launches).
 """
 from __future__ import annotations
 
@@ -65,50 +79,117 @@ def _check(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor):
     return lhs.contiguous(), rhs.contiguous(), group_sizes.contiguous()
 
 
-B3_BACKWARD = ("grouped_matmul has no backward on the card yet: B3's backward (d lhs, d rhs of "
-               "the grouped matmul), for MoE training, is ROADMAP §2 item B6")
-
-
 class _GroupedMatmul(torch.autograd.Function):
-    """B3 as an autograd node.  CPU tensors run the plain version forward
-    and differentiate it backward; CUDA tensors launch the kernel, and
-    :func:`grouped_matmul` refuses them where an input requires grad, since
-    the kernel has no backward yet (without that check a CUDA result would
-    carry no ``grad_fn`` and the expert weights would get no gradient,
-    silently)."""
+    """B3 as an autograd node whose backward is :func:`grouped_matmul_backward`
+    on every device.  CPU tensors run the plain versions both ways; CUDA
+    tensors launch B3 forward and B6 backward (one launch for each input
+    whose gradient is needed)."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
         if lhs.device.type == "cpu":
-            ctx.save_for_backward(lhs, rhs, group_sizes)
             return grouped_matmul_plain(lhs, rhs, group_sizes)
         return _launch(lhs, rhs, group_sizes)
 
     @staticmethod
     def backward(ctx, g):
         lhs, rhs, group_sizes = ctx.saved_tensors
-        need = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip((lhs, rhs), need)]
-            out = grouped_matmul_plain(ins[0], ins[1], group_sizes)
-            grads = iter(torch.autograd.grad(out, [t for t, n in zip(ins, need) if n], g))
-        return tuple(next(grads) if n else None for n in need) + (None,)
+        return grouped_matmul_backward(lhs, rhs, group_sizes, g,
+                                       need=ctx.needs_input_grad[:2]) + (None,)
 
 
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """``ragged_dot(lhs, rhs, group_sizes)`` in float32 (see the module
-    docstring).  CUDA tensors launch the Hopper kernel (and raise
-    ``NotImplementedError`` where ``lhs`` or ``rhs`` requires grad); CPU
-    tensors run :func:`grouped_matmul_plain`, differentiably; any other
-    device raises."""
+    docstring).  CUDA tensors launch the Hopper kernel, and B6 in the
+    backward; CPU tensors run :func:`grouped_matmul_plain`, and
+    :func:`grouped_matmul_backward_plain` in the backward; any other device
+    raises."""
     lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
     dev = lhs.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"grouped_matmul runs on cuda or cpu tensors, not {dev}")
-    if dev.type == "cuda" and torch.is_grad_enabled() and (lhs.requires_grad
-                                                           or rhs.requires_grad):
-        raise NotImplementedError(B3_BACKWARD)
     return _GroupedMatmul.apply(lhs, rhs, group_sizes)
+
+
+def grouped_matmul_backward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+                            g: torch.Tensor, *, need=(True, True)):
+    """Kernel B6: ``(d_lhs, d_rhs)``, the VJP of ``grouped_matmul(lhs, rhs,
+    group_sizes)`` at the cotangent ``g`` (M, N): ``d_lhs`` (M, K), rows past
+    the groups zero; ``d_rhs`` (G, K, N), an empty group's zero.  ``need``
+    names which of the two to compute (None for the other).  CUDA tensors
+    launch one kernel a product (``csrc/grouped_matmul.cu``; the sizes stay
+    on the device) and raise if they cannot; CPU tensors run
+    :func:`grouped_matmul_backward_plain`."""
+    lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
+    g = _check_cotangent(lhs, rhs, g)
+    if lhs.device.type == "cpu":
+        d_lhs, d_rhs = grouped_matmul_backward_plain(lhs, rhs, group_sizes, g)
+        return d_lhs if need[0] else None, d_rhs if need[1] else None
+    if lhs.device.type != "cuda":
+        raise ValueError(f"grouped_matmul_backward runs on cuda or cpu tensors, not {lhs.device}")
+    d_lhs = d_rhs = None
+    if need[0]:
+        d_lhs = torch.empty_like(lhs)
+        _launch_dlhs(g, rhs, group_sizes, d_lhs)
+    if need[1]:
+        d_rhs = torch.empty_like(rhs)
+        _launch_drhs(lhs, g, group_sizes, d_rhs)
+    return d_lhs, d_rhs
+
+
+grouped_matmul_backward.launches = 0  # B6 kernel launches: one a product (CUDA tensors only)
+
+
+def _check_cotangent(lhs: torch.Tensor, rhs: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    want = (lhs.shape[0], rhs.shape[2])
+    if tuple(g.shape) != want or g.dtype != torch.float32 or g.device != lhs.device:
+        raise ValueError(f"the cotangent must be float32 {want} on {lhs.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    return g.contiguous()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch._C._cuda_getCurrentRawStream(dev.index if dev.index is not None
+                                               else torch.cuda.current_device())
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.grouped_matmul_error_string(err).decode())
+
+
+def _launch_dlhs(g: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """B6's d_lhs launch into ``out`` (M, K), which it writes whole (a
+    contraction N of 0 leaves zeros without a launch)."""
+    m, n = g.shape
+    gcount, k, _ = rhs.shape
+    if m == 0 or k == 0:
+        return
+    if n == 0:
+        out.zero_()
+        return
+    lib = _kernel_library()
+    _raise_on(lib, lib.grouped_matmul_dlhs_launch(
+        g.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, gcount,
+        _stream(g.device)), "grouped_matmul_backward (d_lhs)")
+    grouped_matmul_backward.launches += 1
+
+
+def _launch_drhs(lhs: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """B6's d_rhs launch into ``out`` (G, K, N), which it writes whole."""
+    m, k = lhs.shape
+    gcount, _, n = out.shape
+    if gcount == 0 or k == 0 or n == 0:
+        return
+    lib = _kernel_library()
+    _raise_on(lib, lib.grouped_matmul_drhs_launch(
+        lhs.data_ptr(), g.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, gcount,
+        _stream(lhs.device)), "grouped_matmul_backward (d_rhs)")
+    grouped_matmul_backward.launches += 1
 
 
 def _launch(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -120,15 +201,9 @@ def _launch(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> 
     if m == 0 or n == 0:
         return out
     lib = _kernel_library()
-    err = lib.grouped_matmul_launch(
-        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        m, k, n, g, torch._C._cuda_getCurrentRawStream(dev.index if dev.index is not None
-                                                       else torch.cuda.current_device()),
-    )
-    if err != 0:
-        raise RuntimeError(
-            "grouped_matmul kernel launch failed: " + lib.grouped_matmul_error_string(err).decode()
-        )
+    _raise_on(lib, lib.grouped_matmul_launch(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, g,
+        _stream(dev)), "grouped_matmul")
     grouped_matmul.launches += 1
     return out
 
@@ -143,8 +218,9 @@ def _kernel_library() -> ctypes.CDLL:
     fn = lib.grouped_matmul_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
-        fn.restype = ctypes.c_int
+        for f in (fn, lib.grouped_matmul_dlhs_launch, lib.grouped_matmul_drhs_launch):
+            f.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
+            f.restype = ctypes.c_int
         lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
         lib.grouped_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,3 +242,25 @@ def grouped_matmul_plain(lhs: torch.Tensor, rhs: torch.Tensor,
             out[start:end] = lhs[start:end] @ rhs[g]
         start = end
     return out
+
+
+def grouped_matmul_backward_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+                                  g: torch.Tensor):
+    """B6's plain version, on any device: ``(d_lhs, d_rhs)`` by a loop over
+    groups of float32 ``torch.matmul`` (it reads the sizes on the host):
+    ``d_lhs[rows] = g[rows] @ rhs[e]ᵀ`` and ``d_rhs[e] = lhs[rows]ᵀ @
+    g[rows]``; rows past the last group and empty groups zero.  Negative
+    sizes count as 0 and rows are clamped to M, as in the kernels."""
+    lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
+    g = _check_cotangent(lhs, rhs, g)
+    m = lhs.shape[0]
+    d_lhs = torch.zeros_like(lhs)
+    d_rhs = torch.zeros_like(rhs)
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(size, 0), m)
+        if end > start:
+            d_lhs[start:end] = g[start:end] @ rhs[e].T
+            d_rhs[e] = lhs[start:end].T @ g[start:end]
+        start = end
+    return d_lhs, d_rhs

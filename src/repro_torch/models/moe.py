@@ -15,7 +15,12 @@ aggregated through its expert.
   (``kernels.grouped_matmul``, kernel B3, in place of ``jax.lax.ragged_dot``,
   ``moe.py:109-112``).  ``group_sizes`` stays on the device: nothing here
   reads a size on the host.  The combine ``.at[gtok].add`` is
-  ``index_add_``, which adds in atomic order on the card.
+  ``index_add_``, which adds in atomic order on the card.  Training
+  differentiates it as ``jax.grad`` does: the router through the top-k
+  weights and the aux loss's ``p_e``, the expert tensors through
+  ``grouped_matmul``'s backward (kernel B6 on a card), the shared expert
+  through torch's own ops; the histogram, like the reference's one-hot
+  sum, carries no gradient.
 
 Expert-parallel dispatch (``moe_mlp_ep`` / ``_moe_ep_shardmapped``) needs
 the LM placement rules, a later slice (ROADMAP item 10); the transformer's

@@ -1,15 +1,17 @@
 """Int8 block quantization for gradient all-reduce (port of
 ``repro.optim.compression``): values are scaled per block of
-:data:`BLOCK` to int8.  :func:`compressed_psum`, the all-reduce over a mesh
-axis, needs the data-parallel step of item 10c and raises until then."""
+:data:`BLOCK` to int8.  :func:`compressed_psum` is the all-reduce over the
+members of a mesh axis that ``train.loop.make_manual_dp_step`` runs over
+the pod axis under ``grad_compression="int8"``: each member quantizes its
+own tensor, the int8 blocks travel and are summed in int32, the scales are
+summed, and the sum is dequantized with the mean scale."""
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 BLOCK = 256
-
-MANUAL_DP_SLICE = ("compressed_psum (the int8 all-reduce of make_manual_dp_step) needs the "
-                   "LM placement slice, ROADMAP item 10c")
 
 
 def _pad_to_block(x: torch.Tensor):
@@ -35,8 +37,27 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, n: int, shape, dtype) -> to
     return blocks.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
-def compressed_psum(x: torch.Tensor, axis: str):
-    raise NotImplementedError(MANUAL_DP_SLICE)
+def compressed_psum(tensors: Sequence[torch.Tensor], dst) -> torch.Tensor:
+    """All-reduce of the members' tensors (member i's on its own device) in
+    int8 blocks, on ``dst`` (a ``parallel.sharding.MeshDevice``), as the
+    mesh's ``psum`` takes them: the reference's ``compressed_psum(x,
+    axis)`` inside ``shard_map``, whose participants are the members.  Each
+    member's ``quantize``; the q's summed in int32 and the scales in
+    float32 on ``dst``; ``dequantize`` with the mean scale, to the first
+    tensor's shape and dtype.  Each member's codes are dequantized with the
+    mean of the members' block scales, not their own: near the plain sum
+    where the members' scales are alike (the reference's premise for
+    gradient shards), biased where they are not."""
+    if not tensors:
+        raise ValueError("compressed_psum needs at least one member's tensor")
+    x = tensors[0]
+    qsum = ssum = None
+    for t in tensors:
+        q, scale, n = quantize(t)           # on the member's device
+        q, scale = q.to(dst.device), scale.to(dst.device)  # int8 blocks travel
+        qsum = q.to(torch.int32) if qsum is None else qsum.add_(q)
+        ssum = scale.clone() if ssum is None else ssum.add_(scale)
+    return dequantize(qsum, ssum / float(len(tensors)), n, x.shape, x.dtype)
 
 
 __all__ = ["BLOCK", "compressed_psum", "dequantize", "quantize"]

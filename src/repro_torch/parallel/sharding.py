@@ -1,7 +1,9 @@
 """The mesh seam: a single-controller device mesh and its collectives.
 
 Port of the GROUP BY half of ``repro.parallel.sharding`` (its ``shard_map``
-seam; the LM placement rules wait for the LM stack).  The reference runs
+seam) and of its data-parallel axes (``dp_axes``, ``batch_spec``); the LM
+placement rules (``spec_for_path``, ``param_specs``, ``cache_specs``) wait
+for the placement slice, ROADMAP item 10c.  The reference runs
 one Python process that holds a ``jax.sharding.Mesh`` and ``shard_map``\\ s
 each chunk over it; the port keeps that model.  A :class:`Mesh` is a numpy
 array of :class:`MeshDevice` members, each a ``torch.device`` with an id.
@@ -150,6 +152,21 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], devices=None) -> 
     return Mesh(arr.reshape(shape), axis_names)
 
 
+def dp_axes(mesh: Mesh) -> tuple:
+    """Data-parallel mesh axes: ``("pod", "data")`` on a mesh with a pod
+    axis, ``("data",)`` otherwise (the reference's ``dp_axes``)."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def batch_spec(mesh: Mesh) -> tuple:
+    """The reference's ``batch_spec``, ``P(dp_axes(mesh), None)``, as the
+    tuple of its entries (a lone axis name unwrapped, as ``P`` keeps it): a
+    batch's dim 0 split over the data-parallel axes in member order, dim 1
+    whole."""
+    dp = dp_axes(mesh)
+    return (dp if len(dp) > 1 else dp[0], None)
+
+
 # ---------------------------------------------------------------------------
 # collectives over per-member tensors (member i's tensor on members[i])
 
@@ -211,7 +228,9 @@ __all__ = [
     "MeshDevice",
     "all_gather",
     "all_to_all",
+    "batch_spec",
     "devices",
+    "dp_axes",
     "gather",
     "make_mesh",
     "pmax",

@@ -11,14 +11,21 @@ With ``TrainHParams.ticketed_embedding`` the embedding's gradient runs the
 paper's pipeline (``models/layers.py`` ``ticketed_embed_grad``: the ticket
 kernel, kernel B5, one ``index_add_``).
 
+``make_manual_dp_step(mesh, cfg, hp)`` is the reference's shard_map
+data-parallel step on the port's single-controller mesh: parameters
+replicated, the batch split over ``dp_axes(mesh)`` in member order, each
+member's gradients by ``torch.autograd.grad``, averaged over ``data`` in
+float32 and over ``pod`` by a mean or, under ``grad_compression="int8"``,
+``optim.compression.compressed_psum`` / npod; then one clip, schedule and
+AdamW update.  ``grad_compression`` is read only by that step, so
+``make_train_step`` ignores it, as the reference's does.
+
 ``train_loop`` runs on the port's ``parallel.sharding.Mesh`` of ONE member:
 data → step → metrics → periodic checkpoints, resuming from the
 manager's latest commit.  The reference's pjit step (``jit_train_step``)
-and its shard_map data-parallel step (``make_manual_dp_step``, with int8
-gradient compression) place parameters over a mesh; they come with the LM
-placement slice (ROADMAP item 10c) and raise until then, as does a mesh of
-more than one member.  ``grad_compression`` is read only by that step, so
-``make_train_step`` ignores it, as the reference's does.
+places parameters over a mesh by placement rules; it comes with the LM
+placement slice (ROADMAP item 10c) and raises until then, as does
+``train_loop`` on a mesh of more than one member.
 """
 from __future__ import annotations
 
@@ -26,13 +33,16 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim.clip import clip_by_global_norm
+from repro_torch.optim.compression import compressed_psum
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.parallel import sharding
 
 PLACEMENT_SLICE = ("{what} places the LM over a mesh of more than one member: it comes with "
                    "the LM placement slice, ROADMAP item 10c")
@@ -97,8 +107,104 @@ def jit_train_step(mesh, cfg: ModelConfig, hp: TrainHParams, params, opt_state):
     raise NotImplementedError(PLACEMENT_SLICE.format(what="jit_train_step"))
 
 
+def _dp_grid(mesh) -> list:
+    """The members that compute, one per data-parallel coordinate (index 0
+    on every other axis): a list over pods (one pod without a pod axis) of
+    lists over ``data``, in member order."""
+    dp = sharding.dp_axes(mesh)
+    missing = [a for a in dp if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"make_manual_dp_step needs the mesh axes {dp}; {mesh!r} lacks {missing}")
+    arr = np.moveaxis(mesh.devices, [mesh.axis_names.index(a) for a in dp], range(len(dp)))
+    arr = arr.reshape(*arr.shape[:len(dp)], -1)[..., 0]
+    return [list(row) for row in arr.reshape(-1, mesh.shape["data"])]
+
+
 def make_manual_dp_step(mesh, cfg: ModelConfig, hp: TrainHParams):
-    raise NotImplementedError(PLACEMENT_SLICE.format(what="make_manual_dp_step"))
+    """The reference's shard_map data-parallel step: ``wrapped(params,
+    opt_state, batch) -> (params, opt_state, {"loss", "grad_norm", "lr"})``.
+
+    Parameters are replicated and the batch split along dim 0 over
+    ``dp_axes(mesh)`` in member order (member (pod p, data d) takes part
+    ``p · ndata + d``; members of other axes compute what index 0 of them
+    computes, so only those run).  Each member takes its loss and gradients
+    on its own device with ``torch.autograd.grad``; the gradients are
+    averaged over ``data`` in float32, then over ``pod``: a mean, or under
+    ``grad_compression="int8"`` ``compressed_psum`` / npod (on a mesh with a
+    pod axis, even of one member, as the reference).  Then
+    ``clip_by_global_norm``, ``warmup_cosine`` and ``adamw.update``.
+
+    Every member holds the same parameters, so they stay one copy on the
+    device of ``params``: the members share that device (virtual members),
+    read that copy, and the update writes it ONCE, in place, as
+    ``make_train_step``'s.  A member on another device raises: a copy of
+    the parameters on each card, each updated identically, comes with the
+    LM placement slice (ROADMAP item 10c).  ``loss`` is the mean over ``data`` of the first pod's
+    members: the reference reduces the loss over ``data`` only, and its
+    replicated output reads the first member's value."""
+    loss_fn = make_loss_fn(cfg, hp)
+    dp = sharding.dp_axes(mesh)
+    grid = _dp_grid(mesh)
+    npod, ndata = len(grid), len(grid[0])
+    compress = "pod" in dp and hp.grad_compression == "int8"
+
+    def member_grads(params, batch):
+        tree = tf.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = loss_fn(tree, batch)
+        grads = torch.autograd.grad(loss, list(tf._leaves(tree)))
+        return loss.detach(), [g.float() for g in grads]
+
+    def wrapped(params, opt_state, batch):
+        home = next(iter(tf._leaves(params))).device
+        for member in (m for row in grid for m in row):
+            dev = member.device
+            if dev.type != home.type or dev.index not in (None, home.index):
+                raise NotImplementedError(PLACEMENT_SLICE.format(
+                    what=f"make_manual_dp_step with a member on {member.device} and the "
+                         f"parameters on {home}"))
+        dst = sharding.MeshDevice(-1, home)
+        n = npod * ndata
+        for k, v in batch.items():
+            if v.shape[0] % n:
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, which do not split over "
+                                 f"{n} data-parallel members")
+        parts = {k: v.tensor_split(n) for k, v in batch.items()}
+        pods, losses = [], []
+        for p, row in enumerate(grid):
+            total = None
+            for d, member in enumerate(row):
+                loss, grads = member_grads(params, {k: v[p * ndata + d].to(home)
+                                                    for k, v in parts.items()})
+                if p == 0:
+                    losses.append(loss)
+                if total is None:
+                    total = grads
+                else:  # the float32 psum over data, in member order
+                    torch._foreach_add_(total, grads)
+            torch._foreach_div_(total, float(ndata))  # pmean over data
+            pods.append(total)
+        if compress:
+            flat = [compressed_psum([pg[i] for pg in pods], dst) / float(npod)
+                    for i in range(len(pods[0]))]
+        elif npod > 1:
+            flat = [sharding.psum([pg[i] for pg in pods], dst) / float(npod)
+                    for i in range(len(pods[0]))]
+        else:
+            flat = pods[0]
+        it = iter(flat)
+        grads = tf.tree_map(lambda _: next(it), params)
+        del pods, flat
+        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+        lr = warmup_cosine(
+            opt_state.step, peak_lr=hp.peak_lr, warmup=hp.warmup, total=hp.total_steps
+        )
+        opt_state, params = adamw.update(
+            opt_state, grads, params, lr=lr, weight_decay=hp.weight_decay
+        )
+        loss = sharding.psum(losses, dst) / float(ndata)  # pmean over data
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return wrapped
 
 
 def _member_device(mesh) -> torch.device:

@@ -19,6 +19,8 @@ replayed is held to the plain version's.  The split route's
 ticket kernel is held the same way (one ticket per key, gap-free, the same
 key set and count, the same unresolved rows), its segment kernel with
 COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1826,23 +1828,166 @@ def test_moe_layer_reaches_b3_and_the_segment_kernel(cuda):
 
 
 @pytest.mark.gpu
-def test_grouped_matmul_refuses_gradients_on_the_card(cuda):
-    """B3 has no backward on the card yet: a CUDA input that requires grad
-    raises (naming ROADMAP item B6) instead of returning a result with no
-    grad_fn; without grad the kernel launches as before."""
+def test_grouped_matmul_gradient_on_the_card_launches_b6(cuda):
+    """B3 is an autograd node on the card too: its backward launches kernel
+    B6, one launch for each input whose gradient is needed, and the
+    gradients hold to the plain backward; without grad B3 alone runs."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lhs = torch.randn(160, 96, generator=g, device=cuda)
+    rhs = torch.randn(4, 96, 40, generator=g, device=cuda)
+    sizes = torch.tensor([40, 0, 100, 11], dtype=torch.int32, device=cuda)
+    ct = torch.randn(160, 40, generator=g, device=cuda)
+    want = gm.grouped_matmul_backward_plain(lhs, rhs, sizes, ct)
+    for need in ((True, True), (False, True), (True, False)):
+        a = lhs.clone().requires_grad_(need[0])
+        b = rhs.clone().requires_grad_(need[1])
+        b3, b6 = gm.grouped_matmul.launches, gm.grouped_matmul_backward.launches
+        out = gm.grouped_matmul(a, b, sizes)
+        got = torch.autograd.grad(out, [t for t, n in zip((a, b), need) if n], ct)
+        torch.cuda.synchronize()
+        assert gm.grouped_matmul.launches - b3 == 1
+        assert gm.grouped_matmul_backward.launches - b6 == sum(need)
+        for x, y in zip(got, [w for w, n in zip(want, need) if n]):
+            assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    before = gm.grouped_matmul.launches
+    with torch.no_grad():
+        out = gm.grouped_matmul(lhs.requires_grad_(True), rhs, sizes)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul.launches == before + 1 and out.grad_fn is None
+
+
+# -- MoE training: kernel B6 (the grouped matmul's backward) -----------------------
+
+
+def _b6_inputs(cuda, rows, groups, k, n, empty, sizes, offset, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        numel = int(np.prod(shape))
+        flat = torch.randn(numel + offset, generator=g, device=cuda) * scale
+        return flat[offset:].view(*shape)  # contiguous, `offset` floats off alignment
+
+    if sizes == "routed":  # tokens routed top-8, the first `empty` groups without rows
+        ids = torch.topk(torch.randn(rows // 8, groups - empty, generator=g, device=cuda), 8,
+                         dim=-1).indices.reshape(-1) + empty
+        sizes = torch.bincount(ids, minlength=groups).to(torch.int32)
+    else:
+        sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    m = max(rows, int(sizes.clamp(min=0).sum()))  # rows past the groups where rows > Σ sizes
+    return draw(m, k), draw(groups, k, n, scale=k ** -0.5), sizes, draw(m, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,groups,k,n,empty,sizes,offset", [
+    (64, 32, 1024, 512, 0, "routed", 0),       # granite-moe-1b-a400m decode: gate / up
+    (64, 32, 512, 1024, 0, "routed", 0),       # and down
+    (8192, 32, 1024, 512, 0, "routed", 0),     # granite's training step (8 × 128 tokens): gate / up
+    (8192, 32, 512, 1024, 0, "routed", 0),     # and down
+    (8192, 16, 128, 64, 8, "routed", 0),       # 8 of 16 groups empty (the reduced config's padding)
+    (341, 4, 1024, 512, 0, (5, 0, 300, 17), 0),  # 19 rows past the groups, an empty group
+    (323, 32, 1000, 200, 0, "routed", 0),      # a ragged K and N (off every tile)
+    (200, 8, 96, 70, 0, "routed", 0),          # N % 4 != 0: the plain-load path of d_lhs
+    (70, 4, 1024, 512, 0, (5, 0, 17, 42), 1),  # operands 4 bytes off a 16-byte boundary
+    (37, 4, 256, 192, 0, (0, 0, 0, 0), 0),     # every group empty, every row past them
+    (4000, 4, 512, 256, 0, (3, 3900, 0, 97), 0),  # one hot group
+])
+def test_grouped_matmul_backward_kernel_matches_plain(cuda, rows, groups, k, n, empty, sizes,
+                                                      offset):
+    """B6 against its plain version (a loop of float32 torch.matmul per
+    group, TF32 off): d_lhs in 3xTF32 and d_rhs in float32 FMAs sum in
+    another order, so each within 1e-5 of its max|plain|; d_lhs rows past
+    the groups and d_rhs of empty groups exactly 0; two launches.  The
+    launchers write into outputs filled with NaN, which must come out equal
+    to the wrapper's: every element written."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lhs, rhs, sizes, ct = _b6_inputs(cuda, rows, groups, k, n, empty, sizes, offset, rows + n)
+    assert (lhs.data_ptr() % 16 != 0) == bool(offset) and lhs.is_contiguous()
+    before = gm.grouped_matmul_backward.launches
+    d_lhs, d_rhs = gm.grouped_matmul_backward(lhs, rhs, sizes, ct)
+    torch.cuda.synchronize()
+    assert gm.grouped_matmul_backward.launches == before + 2
+    w_lhs, w_rhs = gm.grouped_matmul_backward_plain(lhs, rhs, sizes, ct)
+    for got, want in ((d_lhs, w_lhs), (d_rhs, w_rhs)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert not d_lhs[int(sizes.clamp(min=0).sum()):].any()
+    assert not d_rhs[sizes <= 0].any()
+    n_lhs = torch.full_like(lhs, float("nan"))
+    n_rhs = torch.full_like(rhs, float("nan"))
+    gm._launch_dlhs(ct.contiguous(), rhs.contiguous(), sizes, n_lhs)
+    gm._launch_drhs(lhs.contiguous(), ct.contiguous(), sizes, n_rhs)
+    torch.cuda.synchronize()
+    assert torch.equal(n_lhs, d_lhs) and torch.equal(n_rhs, d_rhs)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_backward_failed_build_raises(cuda, monkeypatch, tmp_path):
+    """A B6 that cannot build raises, from the wrapper and from autograd's
+    backward; nothing falls back to the plain backward."""
     from repro_torch.kernels import grouped_matmul as gm
 
     lhs = torch.randn(16, 32, device=cuda)
     rhs = torch.randn(4, 32, 8, device=cuda)
     sizes = torch.tensor([4, 4, 4, 4], dtype=torch.int32, device=cuda)
-    for args in ((lhs.requires_grad_(True), rhs), (lhs.detach(), rhs.requires_grad_(True))):
-        with pytest.raises(NotImplementedError, match="B6"):
-            gm.grouped_matmul(*args, sizes)
-    before = gm.grouped_matmul.launches
-    with torch.no_grad():
-        out = gm.grouped_matmul(lhs, rhs, sizes)
+    ct = torch.randn(16, 8, device=cuda)
+    out = gm.grouped_matmul(lhs.requires_grad_(True), rhs, sizes)  # B3 built beforehand
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (forced by the test)")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    before = gm.grouped_matmul_backward.launches
+    with pytest.raises(RuntimeError, match="forced by the test"):
+        gm.grouped_matmul_backward(lhs.detach(), rhs, sizes, ct)
+    with pytest.raises(RuntimeError, match="forced by the test"):
+        torch.autograd.grad(out, [lhs], ct)
+    assert gm.grouped_matmul_backward.launches == before
+
+
+@pytest.mark.gpu
+def test_moe_layer_gradients_on_b6_match_the_plain_backward(cuda):
+    """One MoE layer of granite's full width on 8 × 16 tokens (1024 routed
+    rows), differentiated at a fixed cotangent of its output and of the aux
+    loss: through B3 / B6 (6 B6 launches) and through the plain versions,
+    every leaf within 1e-5 of its max|grad|."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"), dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(g, cfg, cuda)
+    x = torch.randn(8, 16, cfg.d_model, generator=g, device=cuda)
+    ct = torch.randn(8, 16, cfg.d_model, generator=g, device=cuda)
+
+    def grads():
+        pm = {k: (v.detach().clone().requires_grad_(True) if torch.is_tensor(v) else
+                  {kk: vv.detach().clone().requires_grad_(True) for kk, vv in v.items()})
+              for k, v in p.items()}
+        xx = x.clone().requires_grad_(True)
+        out, aux = moe.moe_mlp_dense(pm, cfg, xx)
+        leaves = [xx, pm["router"]["w"], pm["w_gate"], pm["w_up"], pm["w_down"]]
+        return torch.autograd.grad((out, aux), leaves, (ct, torch.ones_like(aux)))
+
+    before = gm.grouped_matmul_backward.launches
+    got = grads()
     torch.cuda.synchronize()
-    assert gm.grouped_matmul.launches == before + 1 and out.grad_fn is None
+    assert gm.grouped_matmul_backward.launches - before == 6
+    kernels = moe.grouped_matmul, moe.segment_agg
+    moe.grouped_matmul, moe.segment_agg = gm.grouped_matmul_plain, sa.segment_agg_plain
+    try:
+        want = grads()
+    finally:
+        moe.grouped_matmul, moe.segment_agg = kernels
+    for a, b in zip(got, want):
+        assert float(b.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
 # -- LM training: kernel B5 (row segment sum) and the ticketed embedding's backward --

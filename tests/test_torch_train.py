@@ -292,8 +292,7 @@ def test_train_step_ignores_grad_compression_and_stubs_raise():
     assert callable(tloop.make_train_step(tcfg, hp))
     with pytest.raises(NotImplementedError, match="10c"):
         tloop.jit_train_step(cpu_mesh(), tcfg, hp, None, None)
-    with pytest.raises(NotImplementedError, match="10c"):
-        tloop.make_manual_dp_step(cpu_mesh(), tcfg, hp)
+    assert callable(tloop.make_manual_dp_step(cpu_mesh(), tcfg, hp))
     with pytest.raises(NotImplementedError, match="10c"):
         tloop.train_loop(cpu_mesh(2), tcfg, hp, iter([]), steps=1)
     assert [f.name for f in dataclasses.fields(tloop.TrainHParams)] == \

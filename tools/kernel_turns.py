@@ -26,7 +26,14 @@ CUDA-graph replay (``<kernel>_graph``); per shape, not per class.
 phase-4 shapes (the training shape, 1024 rows of d = 1024 at Zipf
 tickets, and R = G = 16384), by events, by CUDA-graph replay
 (``<kernel>_graph``) and by the wrapper's host µs a call
-(``<kernel>_host_us``).
+(``<kernel>_host_us``).  ``grouped_matmul_backward`` (kernel B6) runs on
+its own inputs too, ``chip_smoke.B6_SHAPES`` (seed 0: granite's training
+gate / up and down shapes, 8192 rows, and the decode gate / up shape), by
+events and by CUDA-graph replay (``<kernel>_graph``), beside its plain
+version's products by graph replay (``<kernel>_plain_graph``: the
+per-group ``torch.matmul`` loop with the sizes read beforehand, since the
+plain version's host read of the sizes cannot be captured); a tree
+without B6 skips it.
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
@@ -38,6 +45,7 @@ run them in turns (from the repository root):
     for t in build/parent/src src src build/parent/src; do
         python3 tools/kernel_turns.py $t | tail -1; done
 """
+import importlib
 import importlib.util
 import json
 import os
@@ -196,6 +204,41 @@ def segment_rows_times(dev):
     return out
 
 
+def gmm_backward_times(dev):
+    """B6 at ``chip_smoke.B6_SHAPES`` on the same seeded inputs in every
+    tree, three timings a shape: the wrapper by events and by CUDA-graph
+    replay, and the plain version's two products a group by graph
+    replay."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for name, (tokens, k, n) in cs.B6_SHAPES.items():
+        lhs, rhs, sizes = cs.gmm_case(gen, dev, tokens, k, n)
+        cases[name] = (lhs, rhs, sizes, torch.randn(lhs.shape[0], n, generator=gen, device=dev))
+    out = {k: {} for k in ("event", "graph", "plain_graph")}
+    for _ in range(3):
+        for name, (lhs, rhs, sizes, g) in cases.items():
+            call = lambda: gm.grouped_matmul_backward(lhs, rhs, sizes, g)  # noqa: E731
+            host_sizes = sizes.tolist()
+
+            def plain():
+                d_lhs, d_rhs = torch.zeros_like(lhs), torch.zeros_like(rhs)
+                s = 0
+                for e, c in enumerate(host_sizes):
+                    if c:
+                        torch.matmul(g[s:s + c], rhs[e].T, out=d_lhs[s:s + c])
+                        torch.matmul(lhs[s:s + c].T, g[s:s + c], out=d_rhs[e])
+                    s += c
+                return d_lhs, d_rhs
+
+            out["event"].setdefault(name, []).append(cs.time_cuda(call, 5))
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["plain_graph"].setdefault(name, []).append(cs.time_graph(plain, calls=5))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -203,7 +246,8 @@ def main() -> int:
     dev = torch.device("cuda")
     only = set(sys.argv[2:])
 
-    module = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg"}
+    module = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg",
+              "grouped_matmul_backward": "grouped_matmul"}
 
     def wanted(kernel):
         return (not only or kernel in only) and importlib.util.find_spec(
@@ -243,6 +287,12 @@ def main() -> int:
     if wanted("segment_rows"):
         for kind, per_shape in segment_rows_times(dev).items():
             out["segment_rows" if kind == "event" else f"segment_rows_{kind}"] = per_shape
+    if wanted("grouped_matmul_backward") and hasattr(
+            importlib.import_module("repro_torch.kernels.grouped_matmul"),
+            "grouped_matmul_backward"):
+        for kind, per_shape in gmm_backward_times(dev).items():
+            key = "grouped_matmul_backward"
+            out[key if kind == "event" else f"{key}_{kind}"] = per_shape
     print(sys.argv[1], json.dumps(out))
     return 0
 
