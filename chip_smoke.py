@@ -82,14 +82,16 @@ Four phases, each of which fails the run:
    16-byte boundary: each sum within 1e-5 · Σ|row| of its ticket; and
    the launcher into an output filled with NaN: every element written,
    every ticket with no row exactly 0.
-   ``grouped_matmul_backward`` (kernel B6, B3's backward: d_lhs on B3's
-   engine with the weights read transposed, d_rhs in float32 FMAs)
-   against its plain version (float32 ``torch.matmul`` per group) on B3's
-   eleven cases with a random cotangent and at granite's training shapes
-   (8192 rows, gate / up and down): each product within 1e-5 · its
-   max|plain|, d_lhs rows past the groups and d_rhs of empty groups
-   exactly 0, two launches a call, and the launchers into outputs filled
-   with NaN equal to the wrapper's (every element written); then
+   ``grouped_matmul_backward`` (kernel B6, B3's backward: d_lhs and d_rhs
+   on ``wgmma`` in 3xTF32) against its plain version (float32
+   ``torch.matmul`` per group) on B3's eleven cases with a random
+   cotangent, at granite's training shapes (8192 rows, gate / up and
+   down), with a Zipf hot expert (half the 8192 rows on one group), and
+   at K 1000, N 520 (off every tile) with rows past the groups: each
+   product within 1e-5 · its max|plain|, d_lhs rows past the groups and
+   d_rhs of empty groups exactly 0, two launches a call, and the
+   launchers into outputs filled with NaN equal to the wrapper's (every
+   element written); then
    ``grouped_matmul`` on CUDA inputs that require grad: its backward
    launches B6 twice and holds to the plain gradients.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
@@ -287,11 +289,12 @@ Four phases, each of which fails the run:
    the training rows at distinct tickets (what the hot tickets'
    contention costs), its bytes bound, its plain version and
    ``torch.zeros`` + ``index_add_`` by events and by graph.  B6 at the
-   training shapes (8192 rows, gate / up and down) and the decode gate /
-   up shape, by events and by CUDA-graph replay (each product's launch
-   alone too), beside its bound (the larger of its bytes and two products
-   of 3 × 2·rows·K·N TF32 tensor operations; the float32-FMA count and
-   this design's own floor printed too), its plain version, the
+   training shapes (8192 rows, gate / up and down; gate / up with a Zipf
+   hot expert) and the decode gate / up shape, by events and by
+   CUDA-graph replay (each product's launch alone too), beside its bound
+   (the larger of its bytes and two products of 3 × 2·rows·K·N TF32
+   tensor operations; the float32-FMA count and this design's own floor
+   printed too), its plain version, the
    per-expert float32 ``torch.matmul`` loop and the backward of
    ``torch._grouped_mm`` at bf16.
 
@@ -3460,14 +3463,28 @@ def phase4_segment_rows(sr, th, gen, device, reps=5):
 MOE_TRAIN_ARCH = "granite_moe_1b_a400m"  # 24 layers, d 1024, 32 experts top-8, moe_d_ff 512
 B6_SHAPES = {"train_gate_up": (1024, 1024, 512), "train_down": (1024, 512, 1024),
              "decode_gate_up": (8, 1024, 512)}   # tokens (top-8 of 32 experts), K, N
+B6_ZIPF = {"train_zipf_gate_up": (8192, 1024, 512)}  # rows in Zipf groups (zipf_sizes), K, N
 DP_LAYERS, DP_STEPS = 4, 8      # lm_train_dp: qwen3-0.6b's widths at 4 of its 28 layers
 DP_RTOL = 1e-5                  # DP step vs one-member step: grad_norm (tests/test_torch_dp.py)
 
 
+def b6_shape_cases(gen, device):
+    """name → (lhs, rhs, sizes) at B6's timed shapes: ``B6_SHAPES`` (tokens
+    routed top-8 over 32 experts) and ``B6_ZIPF`` (rows in Zipf groups, the
+    largest about half of them)."""
+    cases = {name: gmm_case(gen, device, tokens, k, n)
+             for name, (tokens, k, n) in B6_SHAPES.items()}
+    for name, (rows, k, n) in B6_ZIPF.items():
+        cases[name] = gmm_arrays(gen, device, zipf_sizes(rows, 32, gen, device), k, n)
+    return cases
+
+
 def gmm_bwd_cases(gen, device):
-    """name → (lhs, rhs, sizes, g): B3's cases (:func:`gmm_cases`) and the
+    """name → (lhs, rhs, sizes, g): B3's cases (:func:`gmm_cases`), the
     training shapes of granite's backward (8192 rows: gate / up K 1024, N
-    512; down K 512, N 1024), each with a random cotangent g (M, N); the
+    512; down K 512, N 1024), gate / up with a Zipf hot expert (half the
+    rows on one group) and K 1000, N 520 (off the 128-wide tiles) with 29
+    rows past the groups, each with a random cotangent g (M, N); the
     unaligned case's g is 4 bytes off a 16-byte boundary too."""
     import torch
 
@@ -3475,6 +3492,9 @@ def gmm_bwd_cases(gen, device):
     for name in ("train_gate_up", "train_down"):
         tokens, k, n = B6_SHAPES[name]
         cases[name] = gmm_case(gen, device, tokens, k, n)
+    rows, k, n = B6_ZIPF["train_zipf_gate_up"]
+    cases["train_zipf"] = gmm_arrays(gen, device, zipf_sizes(rows, 32, gen, device), k, n)
+    cases["odd_tiles"] = gmm_case(gen, device, 300, 1000, 520, tail=29)
     out = {}
     for name, (lhs, rhs, sizes) in cases.items():
         m, n = lhs.shape[0], rhs.shape[2]
@@ -3519,12 +3539,12 @@ def check_gmm_bwd(gm, lhs, rhs, sizes, g, label):
 
 
 def phase2_grouped_matmul_backward(gm, gen, device):
-    """B6 (``grouped_matmul_backward``: d_lhs on B3's engine with the
-    weights read transposed, d_rhs by float32 FMAs) against its plain
-    version (a loop of float32 ``torch.matmul`` per group, TF32 off) on
-    :func:`gmm_bwd_cases` (:func:`check_gmm_bwd`); then ``grouped_matmul``
-    on CUDA tensors that require grad: its backward launches B6 twice and
-    gives the plain gradients.  Returns the worst |Δ|."""
+    """B6 (``grouped_matmul_backward``: d_lhs and d_rhs on ``wgmma`` in
+    3xTF32) against its plain version (a loop of float32 ``torch.matmul``
+    per group, TF32 off) on :func:`gmm_bwd_cases` (:func:`check_gmm_bwd`);
+    then ``grouped_matmul`` on CUDA tensors that require grad: its
+    backward launches B6 twice and gives the plain gradients.  Returns the
+    worst |Δ|."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3863,10 +3883,11 @@ def b6_bound(lhs, rhs, sizes):
     d_lhs and d_rhs written once, 3.35 TB/s), ``tf32x3_ms`` (two products
     of 3 × 2·rows·K·N TF32 tensor operations, the float32-accurate tensor
     path, 495 TFLOP/s), ``fp32_ms`` (the two products' 2·rows·K·N float32
-    FMA operations, 67 TFLOP/s), ``kernels_ms`` (what this design's two
-    products need at best: d_lhs 3×TF32 on the tensor cores, d_rhs f32
-    FMAs), and the headline ``bound_ms`` / ``bound_by``, the larger of
-    bytes and the tensor count."""
+    FMA operations, 67 TFLOP/s), ``kernels_ms`` (what this design needs at
+    best: both products in 3×TF32 on the tensor cores, or its bytes, the
+    larger), and the headline ``bound_ms`` / ``bound_by``, the larger of
+    bytes and the tensor count (this design reads and writes nothing else,
+    so the two agree)."""
     m, k = lhs.shape
     g, _, n = rhs.shape
     touched = int((sizes > 0).sum())
@@ -3876,7 +3897,7 @@ def b6_bound(lhs, rhs, sizes):
     t_ms = 2 * 3 * ops / TF32_OPS_PER_S * 1e3
     return {"bound_ms": max(b_ms, t_ms), "bound_by": "bytes" if b_ms >= t_ms else "operations",
             "bytes_ms": b_ms, "tf32x3_ms": t_ms, "fp32_ms": 2 * ops / FP32_OPS_PER_S * 1e3,
-            "kernels_ms": max(b_ms, 3 * ops / TF32_OPS_PER_S * 1e3 + ops / FP32_OPS_PER_S * 1e3)}
+            "kernels_ms": max(b_ms, t_ms)}
 
 
 def grouped_mm_backward_library(lhs, rhs, sizes, g):
@@ -3913,7 +3934,8 @@ def grouped_mm_backward_library(lhs, rhs, sizes, g):
 
 def phase4_grouped_matmul_backward(gm, gen, device, reps=5):
     """B6 at the training shapes (8192 rows: gate / up K 1024, N 512; down
-    K 512, N 1024) and the decode gate / up shape (64 rows): the wrapper by
+    K 512, N 1024; gate / up with a Zipf hot expert) and the decode gate /
+    up shape (64 rows) (:func:`b6_shape_cases`): the wrapper by
     CUDA events (median of ``reps``), by CUDA-graph replay, and each
     product's launch alone by graph replay; beside :func:`b6_bound`, its
     plain version (held against it), the per-expert float32
@@ -3925,8 +3947,8 @@ def phase4_grouped_matmul_backward(gm, gen, device, reps=5):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     per_shape, worst = {}, 0.0
-    for name, (tokens, k, n) in B6_SHAPES.items():
-        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n)
+    for name, (lhs, rhs, sizes) in b6_shape_cases(gen, device).items():
+        k, n = lhs.shape[1], rhs.shape[2]
         g = torch.randn(lhs.shape[0], n, generator=gen, device=device)
         d_lhs, d_rhs = torch.empty_like(lhs), torch.empty_like(rhs)
 

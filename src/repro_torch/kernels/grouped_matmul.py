@@ -18,10 +18,10 @@ so the wrapper reads no size on the host (a decode step of
 granite-moe-1b-a400m makes 72 calls).  The call is an autograd node: on CPU
 tensors its backward runs B6's plain version; on CUDA tensors it
 launches kernel B6 (:func:`grouped_matmul_backward`, ragged_dot's VJP: one
-launch for ``d_lhs[r] = g[r] @ rhs[e(r)]ᵀ``, B3's engine with the weights
-read transposed, and one for ``d_rhs[e] = lhs[rows_e]ᵀ @ g[rows_e]``,
-float32 FMAs; ``d_lhs`` rows past the groups and ``d_rhs`` of an empty
-group are zeros; counted in ``grouped_matmul_backward.launches``).  No path
+launch for ``d_lhs[r] = g[r] @ rhs[e(r)]ᵀ`` and one for ``d_rhs[e] =
+lhs[rows_e]ᵀ @ g[rows_e]``, both on ``wgmma`` in 3xTF32; ``d_lhs`` rows past
+the groups and ``d_rhs`` of an empty group are zeros; counted in
+``grouped_matmul_backward.launches``).  No path
 falls back to a plain version when a build or launch fails.
 :func:`grouped_matmul_backward_plain` (a loop of float32 ``torch.matmul``
 per group) is B6's oracle on the card and nothing else.
@@ -44,11 +44,21 @@ float32 rounding (4-7e-7 of max|out| on the card), not bit for bit.
 
 B6's bound at granite-moe-1b-a400m's training shape (8192 rows, K 1024,
 N 512), per product: 3 · 2 · 8192 · 1024 · 512 ≈ 25.8 GFLOP of 3xTF32,
-≈ 0.052 ms at 495 TFLOP/s, or ≈ 0.13 ms as float32 FMAs at 67 TFLOP/s;
-d_lhs's bytes (g, the weights, the output) ≈ 0.035 ms.  d_lhs runs B3's
-tensor-core engine; d_rhs, whose contraction (a group's rows) is
-contiguous in neither operand, is a tiled float32-FMA kernel for now, so
-its floor is the 0.13 ms FMA time (a training step makes 144 B6 launches).
+≈ 0.052 ms at 495 TFLOP/s; its bytes ≈ 0.03-0.04 ms a product (a training
+step makes 144 B6 launches).  Both products run one kernel template
+(``b6::kernel`` in the source), with the same 3xTF32 arithmetic and
+per-stage partial sums as B3 but 128 × 128 output tiles: two consumer
+warpgroups only issue ``wgmma``s, and two split warpgroups take the
+32-deep stages in turn, each waiting for its own TMA slot, splitting the
+operands into TF32 big and small parts (d_rhs transposes both, since its
+contraction, a group's rows, is contiguous in neither lhs nor g) and
+refilling its slot with its next stage.  So a group's weights are split
+once per 128 rows in d_lhs, not once per 32 as B3's engine did.  The
+source note says what the card showed against the other layouts tried
+(one split warpgroup, both on the same stage, 64-wide tiles, splitting a
+hot group's rows over several items); a group with half the rows makes
+d_rhs's items long, so Zipf-sized groups take about twice the time of
+routed ones.
 """
 from __future__ import annotations
 

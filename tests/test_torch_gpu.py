@@ -1873,6 +1873,10 @@ def _b6_inputs(cuda, rows, groups, k, n, empty, sizes, offset, seed):
         ids = torch.topk(torch.randn(rows // 8, groups - empty, generator=g, device=cuda), 8,
                          dim=-1).indices.reshape(-1) + empty
         sizes = torch.bincount(ids, minlength=groups).to(torch.int32)
+    elif sizes == "zipf":  # a hot expert: about half the rows on one group
+        import chip_smoke
+
+        sizes = chip_smoke.zipf_sizes(rows, groups, g, cuda)
     else:
         sizes = torch.tensor(sizes, dtype=torch.int32, device=cuda)
     m = max(rows, int(sizes.clamp(min=0).sum()))  # rows past the groups where rows > Σ sizes
@@ -1892,11 +1896,16 @@ def _b6_inputs(cuda, rows, groups, k, n, empty, sizes, offset, seed):
     (70, 4, 1024, 512, 0, (5, 0, 17, 42), 1),  # operands 4 bytes off a 16-byte boundary
     (37, 4, 256, 192, 0, (0, 0, 0, 0), 0),     # every group empty, every row past them
     (4000, 4, 512, 256, 0, (3, 3900, 0, 97), 0),  # one hot group
+    (8192, 32, 1024, 512, 0, "zipf", 0),       # chip_smoke.zipf_sizes: a hot expert, half the rows
+    (2048, 32, 1024, 512, 12, "routed", 0),    # 12 of 32 groups empty at granite's widths
+    (2400, 32, 1000, 520, 0, "routed", 0),     # K and N off the 128-wide tiles
+    (2000, 8, 1000, 520, 0, "routed", 1),      # all three 4 bytes off: the cp.async paths
+    (1100, 4, 1024, 512, 0, (300, 0, 500, 200), 0),  # 100 rows past the last group
 ])
 def test_grouped_matmul_backward_kernel_matches_plain(cuda, rows, groups, k, n, empty, sizes,
                                                       offset):
     """B6 against its plain version (a loop of float32 torch.matmul per
-    group, TF32 off): d_lhs in 3xTF32 and d_rhs in float32 FMAs sum in
+    group, TF32 off): both products in 3xTF32 on the tensor cores sum in
     another order, so each within 1e-5 of its max|plain|; d_lhs rows past
     the groups and d_rhs of empty groups exactly 0; two launches.  The
     launchers write into outputs filled with NaN, which must come out equal

@@ -84,6 +84,44 @@ def test_grouped_matmul_backward_matches_ragged_dot_vjp(case):
         assert not got_rhs[torch.from_numpy(sizes <= 0)].any()  # empty groups: exact zeros
 
 
+def _tf32(x):
+    """TF32 rounding, half away from zero, as the kernels' split."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_drhs_precision_argument_over_a_hot_group(seed):
+    """Why B6's d_rhs runs 3xTF32 with a fresh partial sum per 32-row stage
+    (csrc/grouped_matmul.cu): its contraction is a group's rows, and one hot
+    group of 4096 rows (K = N = 64) summed so, in 128 stages of the three
+    products small·big + big·small + big·big, each stage's partial rounded
+    to float32 and added to a float32 sum, lands within 1e-5 · max|out| of
+    the float64 product; one TF32 product (big·big) does not."""
+    rng = np.random.default_rng(seed)
+    rows, k, n = 4096, 64, 64
+    lhs = rng.standard_normal((rows, k)).astype(np.float32)
+    g = rng.standard_normal((rows, n)).astype(np.float32)
+    want = lhs.astype(np.float64).T @ g.astype(np.float64)
+    scale = np.abs(want).max()
+    lb, gb = _tf32(lhs), _tf32(g)
+    ls, gs = _tf32(lhs - lb), _tf32(g - gb)
+
+    def emulate(terms):
+        total = np.zeros((k, n), dtype=np.float32)
+        for r in range(0, rows, 32):
+            part = np.zeros((k, n))
+            for x, y in terms:
+                part += x[r:r + 32].astype(np.float64).T @ y[r:r + 32].astype(np.float64)
+            total += part.astype(np.float32)
+        return total
+
+    err3 = np.abs(emulate(((ls, gb), (lb, gs), (lb, gb))) - want).max()
+    err1 = np.abs(emulate(((lb, gb),)) - want).max()
+    assert err3 <= 1e-5 * scale, (err3, scale)
+    assert err1 > 1e-5 * scale, (err1, scale)
+
+
 def test_grouped_matmul_backward_need_and_checks():
     lhs, rhs, sizes, g = (torch.from_numpy(x) for x in vjp_inputs([3, 0, 5], 8, 6, 2, seed=3))
     d_lhs, d_rhs = gm.grouped_matmul_backward(lhs, rhs, sizes, g, need=(True, False))

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Kernel B3 (``csrc/grouped_matmul.cu``) and textual variants of it, each
-built, held to ``grouped_matmul_plain`` and timed on the card.
+"""Kernels B3 and B6 (``csrc/grouped_matmul.cu``) and textual variants of
+the source, each built, held to its plain version and timed on the card.
 
-    python3 tools/gmm_variants.py [VARIANT ...]      (default: base)
+    python3 tools/gmm_variants.py [--b6] [VARIANT ...]      (default: base)
 
-A variant is the source with a few lines replaced (``+`` joins several):
+Without ``--b6`` each variant runs B3; with it, B6.  A variant is the
+source with a few lines replaced (``+`` joins several):
 
 - ``base``: the source as it is;
 - ``one``: one CTA an SM instead of two;
@@ -16,15 +17,26 @@ A variant is the source with a few lines replaced (``+`` joins several):
   operations;
 - ``trace``: ``clock64()`` stamps a stage on CTA 0 (the consumer's waits,
   barrier and wgmma issue, the producer's waits), printed after the
-  timings.
+  timings;
+- B6's: ``n64`` (64-wide N tiles: d_rhs's g columns and d_lhs's rows,
+  half the split's reuse), ``regs152`` and ``regs168`` (the consumers'
+  registers a thread after ``setmaxnreg``, against 160; the split
+  warpgroups get the rest), ``b6trace`` (``clock64()`` stamps a stage on
+  CTA 0: its split warpgroup's wait for the copies, A's loads and the wait
+  for a free buffer, A's stores with B's loads and the barrier, the refill
+  with B's stores; the first consumer thread's wait and its wgmmas).
 
 Each variant is compiled with ``nvcc -Xptxas -v`` (the ptxas report is
 printed), every ``mbarrier`` wait traps after 2^24 polls instead of
-hanging, and the variant then runs in a subprocess with a time limit:
-four identity diagnostics, ``chip_smoke.gmm_cases`` (|Δ| <= GMM_RTOL ·
+hanging, and the variant then runs in a subprocess with a time limit.
+B3: four identity diagnostics, ``chip_smoke.gmm_cases`` (|Δ| <= GMM_RTOL ·
 max|plain|, rows past Σ sizes 0) and ``chip_smoke.GMM_SHAPES`` timed warm
-and cold (CUDA events) and by CUDA-graph replay beside ``gmm_bound``.
-Libraries and sources go to ``build/gmm_variants/``.
+and cold (CUDA events) and by CUDA-graph replay beside ``gmm_bound``.  B6:
+``chip_smoke.gmm_bwd_cases`` (each product within GMM_RTOL · max|plain|,
+outputs filled with NaN first, d_lhs rows past Σ sizes and empty groups'
+d_rhs 0) and ``chip_smoke.b6_shape_cases`` by CUDA-graph replay (the call,
+each product alone) beside ``b6_bound``.  Libraries and sources go to
+``build/gmm_variants/``.
 """
 import ctypes
 import json
@@ -47,6 +59,12 @@ GUARD = [("  uint32_t done;\n  do {", "  uint32_t done, spins = 0;\n  do {"),
 TRACE_POINT = "  if (tr) g_trace[r0 * 8 + {}] = clock64();\n"
 PRODUCER = ("        if (blockIdx.x == 0 && lane == 0 && ring < 500) "
             "g_trace[ring * 8 + {}] = clock64();\n")
+SPLIT = ("  {{ const uint32_t gs_ = 2 * k + sw; if (blockIdx.x == 0 && ts == 0 && gs_ < 500) "
+         "g_trace[gs_ * 8 + {}] = clock64(); }}\n")
+MMA = "    if (blockIdx.x == 0 && tid == 0 && ring < 500) g_trace[ring * 8 + {}] = clock64();\n"
+TRACE_EXPORT = ('}  // extern "C"', "int gmm_trace(void* host) {\n  return static_cast<int>("
+                "cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace)));\n}\n\n"
+                '}  // extern "C"')
 
 SUBS = {
     "one": [("constexpr int kCtasPerSm = 2; ", "constexpr int kCtasPerSm = 1; ")],
@@ -76,9 +94,28 @@ SUBS = {
          PRODUCER.format(5)),
         ("        mbar_wait(sh.empty_l(ls), ((ring / kLStages) & 1) ^ 1);\n",
          "        mbar_wait(sh.empty_l(ls), ((ring / kLStages) & 1) ^ 1);\n" + PRODUCER.format(7)),
-        ('}  // extern "C"', "int gmm_trace(void* host) {\n  return static_cast<int>("
-                             "cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace)));\n}\n\n"
-                             '}  // extern "C"'),
+        TRACE_EXPORT,
+    ],
+    "n64": [("constexpr int kNT = 128; ", "constexpr int kNT = 64; ")],
+    "regs152": [("constexpr int kMmaRegs = 160; ", "constexpr int kMmaRegs = 152; "),
+                ("constexpr int kSplitRegs = 96; ", "constexpr int kSplitRegs = 104; ")],
+    "regs168": [("constexpr int kMmaRegs = 160; ", "constexpr int kMmaRegs = 168; "),
+                ("constexpr int kSplitRegs = 96; ", "constexpr int kSplitRegs = 88; ")],
+    "b6trace": [
+        ("namespace {\n", "namespace {\n__device__ long long g_trace[4096];\n"),
+        ("      mbar_wait(sh.full(sw), k & 1);\n",
+         SPLIT.format(0) + "      mbar_wait(sh.full(sw), k & 1);\n" + SPLIT.format(1)),
+        ("  mbar_wait(sh.op_empty(sw), (k & 1) ^ 1);  // the consumers are done with the buffer\n",
+         "  mbar_wait(sh.op_empty(sw), (k & 1) ^ 1);\n" + SPLIT.format(2)),
+        ("  split_sync(sw);  // the warpgroup has read the slot\n",
+         "  split_sync(sw);\n" + SPLIT.format(3)),
+        ("      fence_async_shared();\n      mbar_arrive(sh.op_full(sw));\n",
+         SPLIT.format(4) + "      fence_async_shared();\n      mbar_arrive(sh.op_full(sw));\n"),
+        ("    mbar_wait(sh.op_full(buf), (ring / kBufs) & 1);\n",
+         MMA.format(5) + "    mbar_wait(sh.op_full(buf), (ring / kBufs) & 1);\n" + MMA.format(6)),
+        ("      default: mma_stage<N, 4>(sh, buf, wg, part); break;\n    }\n",
+         "      default: mma_stage<N, 4>(sh, buf, wg, part); break;\n    }\n" + MMA.format(7)),
+        TRACE_EXPORT,
     ],
 }
 
@@ -123,19 +160,99 @@ def print_trace(lib, name, buf):
               f"{e[4] - e[3]:6d} | {nxt - e[0]:6d} | {e[5] - e[6]:7d} {e[2] - e[5]:7d}")
 
 
+def print_b6_trace(name, buf):
+    t = list(buf)
+    base = t[0]
+    print(f"trace {name} (cycles; CTA 0): stage: start, split warpgroup: +wait copies, +A loads "
+          f"and wait buffer, +A stores, B loads, barrier, +refill, B stores | consumer: waited, "
+          f"wgmmas | period of the warpgroup (two stages)")
+    for r in list(range(0, 6)) + list(range(28, 34)) + list(range(120, 124)):
+        e, nxt = t[r * 8:(r + 1) * 8], t[(r + 2) * 8]
+        if not e[0] or not nxt:
+            continue
+        print(f"  {r:3d}: {e[0] - base:8d} {e[1] - e[0]:6d} {e[2] - e[1]:6d} {e[3] - e[2]:6d} "
+              f"{e[4] - e[3]:6d} | {e[6] - e[5]:6d} {e[7] - e[6]:6d} | {nxt - e[0]:6d}")
+
+
+def load(so):
+    """The variant's library, with the wrapper's argument types, installed
+    as the wrapper's library."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    lib = ctypes.CDLL(so)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for f in (lib.grouped_matmul_launch, lib.grouped_matmul_dlhs_launch,
+              lib.grouped_matmul_drhs_launch):
+        f.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
+        f.restype = ctypes.c_int
+    lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.grouped_matmul_error_string.restype = ctypes.c_char_p
+    gm._kernel_library = lambda: lib
+    return lib
+
+
+def run_b6(so):
+    """B6 of the variant: held to its plain version on ``gmm_bwd_cases``,
+    timed on ``b6_shape_cases`` by graph replay.  Returns an exit code."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import grouped_matmul as gm
+
+    lib = load(so)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    for name, (lhs, rhs, sizes, g) in cs.gmm_bwd_cases(gen, dev).items():
+        d_lhs, d_rhs = torch.full_like(lhs, float("nan")), torch.full_like(rhs, float("nan"))
+        gm._launch_dlhs(g.contiguous(), rhs.contiguous(), sizes, d_lhs)
+        gm._launch_drhs(lhs.contiguous(), g.contiguous(), sizes, d_rhs)
+        torch.cuda.synchronize()
+        w_lhs, w_rhs = gm.grouped_matmul_backward_plain(lhs, rhs, sizes, g)
+        total = min(int(sizes.clamp(min=0).sum()), lhs.shape[0])
+        good, errs = True, []
+        for got, want in ((d_lhs, w_lhs), (d_rhs, w_rhs)):
+            err = float((got - want).abs().nan_to_num(float("inf")).max()) if got.numel() else 0.0
+            scale = float(want.abs().max()) if want.numel() else 0.0
+            good &= bool(torch.isfinite(got).all()) and err <= cs.GMM_RTOL * scale
+            errs.append(f"max|Δ|={err:.3g} rel={err / max(scale, 1e-30):.3g}")
+        good &= not bool(d_lhs[total:].any()) and not bool(d_rhs[sizes <= 0].any())
+        ok &= good
+        print(f"case {name}: M={lhs.shape[0]} K={lhs.shape[1]} N={rhs.shape[2]} d_lhs "
+              f"{errs[0]}, d_rhs {errs[1]} {'ok' if good else 'FAIL'}", flush=True)
+    res = {}
+    for name, (lhs, rhs, sizes) in cs.b6_shape_cases(gen, dev).items():
+        g = torch.randn(lhs.shape[0], rhs.shape[2], generator=gen, device=dev)
+        d_lhs, d_rhs = torch.empty_like(lhs), torch.empty_like(rhs)
+        r = res[name] = dict(
+            graph=cs.time_graph(lambda: gm.grouped_matmul_backward(lhs, rhs, sizes, g)),
+            dlhs=cs.time_graph(lambda: gm._launch_dlhs(g, rhs, sizes, d_lhs)),
+            drhs=cs.time_graph(lambda: gm._launch_drhs(lhs, g, sizes, d_rhs)),
+            **cs.b6_bound(lhs, rhs, sizes))
+        print(f"time {name}: graph {r['graph']:.4f} (d_lhs {r['dlhs']:.4f}, d_rhs "
+              f"{r['drhs']:.4f}) ms; bound {r['bound_ms']:.4f} ({r['bound_by']}); largest group "
+              f"{int(sizes.max())} rows", flush=True)
+        if hasattr(lib, "gmm_trace"):
+            for what, fn in (("d_lhs", lambda: gm._launch_dlhs(g, rhs, sizes, d_lhs)),
+                             ("d_rhs", lambda: gm._launch_drhs(lhs, g, sizes, d_rhs))):
+                fn()
+                torch.cuda.synchronize()
+                buf = (ctypes.c_longlong * 4096)()
+                lib.gmm_trace.argtypes = [ctypes.c_void_p]
+                if lib.gmm_trace(ctypes.addressof(buf)) == 0:
+                    print_b6_trace(f"{name} {what}", buf)
+    print("times " + json.dumps(res))
+    return 0 if ok else 1
+
+
 def run(so):
     import torch
 
     import chip_smoke as cs
     from repro_torch.kernels import grouped_matmul as gm
 
-    lib = ctypes.CDLL(so)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_matmul_launch.argtypes = [ptr] * 4 + [ctypes.c_longlong, i32, i32, i32, ptr]
-    lib.grouped_matmul_launch.restype = ctypes.c_int
-    lib.grouped_matmul_error_string.argtypes = [ctypes.c_int]
-    lib.grouped_matmul_error_string.restype = ctypes.c_char_p
-    gm._kernel_library = lambda: lib
+    lib = load(so)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -187,10 +304,12 @@ def run(so):
 
 
 def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--run":
-        return run(sys.argv[2])
+    if len(sys.argv) > 3 and sys.argv[1] == "--run":
+        return (run_b6 if sys.argv[3] == "b6" else run)(sys.argv[2])
     os.makedirs(OUT, exist_ok=True)
-    names = sys.argv[1:] or ["base"]
+    args = sys.argv[1:]
+    kernel = "b6" if args[:1] == ["--b6"] else "b3"
+    names = args[1 if kernel == "b6" else 0:] or ["base"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
@@ -208,7 +327,7 @@ def main():
             continue
         print(f"== run {name}", flush=True)
         try:
-            p = subprocess.run([sys.executable, __file__, "--run", so], timeout=150)
+            p = subprocess.run([sys.executable, __file__, "--run", so, kernel], timeout=240)
             print(f"== run {name}: rc {p.returncode}", flush=True)
             rc |= p.returncode != 0
         except subprocess.TimeoutExpired:

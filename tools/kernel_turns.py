@@ -27,9 +27,11 @@ phase-4 shapes (the training shape, 1024 rows of d = 1024 at Zipf
 tickets, and R = G = 16384), by events, by CUDA-graph replay
 (``<kernel>_graph``) and by the wrapper's host µs a call
 (``<kernel>_host_us``).  ``grouped_matmul_backward`` (kernel B6) runs on
-its own inputs too, ``chip_smoke.B6_SHAPES`` (seed 0: granite's training
-gate / up and down shapes, 8192 rows, and the decode gate / up shape), by
-events and by CUDA-graph replay (``<kernel>_graph``), beside its plain
+its own inputs too, ``chip_smoke.b6_shape_cases`` (seed 0: granite's
+training gate / up and down shapes, 8192 rows, gate / up with a Zipf hot
+expert, and the decode gate / up shape), by events and by CUDA-graph
+replay (``<kernel>_graph``; each product's launch alone,
+``<kernel>_dlhs_graph`` and ``<kernel>_drhs_graph``), beside its plain
 version's products by graph replay (``<kernel>_plain_graph``: the
 per-group ``torch.matmul`` loop with the sizes read beforehand, since the
 plain version's host read of the sizes cannot be captured); a tree
@@ -205,22 +207,22 @@ def segment_rows_times(dev):
 
 
 def gmm_backward_times(dev):
-    """B6 at ``chip_smoke.B6_SHAPES`` on the same seeded inputs in every
-    tree, three timings a shape: the wrapper by events and by CUDA-graph
-    replay, and the plain version's two products a group by graph
-    replay."""
+    """B6 at ``chip_smoke.b6_shape_cases`` on the same seeded inputs in
+    every tree, five timings a shape: the wrapper by events and by
+    CUDA-graph replay, each product's launch alone by graph replay, and the
+    plain version's two products a group by graph replay."""
     from repro_torch.kernels import grouped_matmul as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = {}
-    for name, (tokens, k, n) in cs.B6_SHAPES.items():
-        lhs, rhs, sizes = cs.gmm_case(gen, dev, tokens, k, n)
-        cases[name] = (lhs, rhs, sizes, torch.randn(lhs.shape[0], n, generator=gen, device=dev))
-    out = {k: {} for k in ("event", "graph", "plain_graph")}
+    cases = {name: (lhs, rhs, sizes, torch.randn(lhs.shape[0], rhs.shape[2], generator=gen,
+                                                 device=dev))
+             for name, (lhs, rhs, sizes) in cs.b6_shape_cases(gen, dev).items()}
+    out = {k: {} for k in ("event", "graph", "dlhs_graph", "drhs_graph", "plain_graph")}
     for _ in range(3):
         for name, (lhs, rhs, sizes, g) in cases.items():
             call = lambda: gm.grouped_matmul_backward(lhs, rhs, sizes, g)  # noqa: E731
+            d_lhs, d_rhs = torch.empty_like(lhs), torch.empty_like(rhs)
             host_sizes = sizes.tolist()
 
             def plain():
@@ -235,6 +237,10 @@ def gmm_backward_times(dev):
 
             out["event"].setdefault(name, []).append(cs.time_cuda(call, 5))
             out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["dlhs_graph"].setdefault(name, []).append(
+                cs.time_graph(lambda: gm._launch_dlhs(g, rhs, sizes, d_lhs)))
+            out["drhs_graph"].setdefault(name, []).append(
+                cs.time_graph(lambda: gm._launch_drhs(lhs, g, sizes, d_rhs)))
             out["plain_graph"].setdefault(name, []).append(cs.time_graph(plain, calls=5))
     return out
 
