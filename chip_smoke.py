@@ -222,11 +222,23 @@ Four phases, each of which fails the run:
    device time in a step (one step's launches replayed from a CUDA graph).
    Phase 3 train_dp (lm_train_dp): ``make_manual_dp_step`` on a (pod 2,
    data 2) mesh of four virtual members of the card, qwen3-0.6b's widths
-   at 4 of its 28 layers, int8 compression over pod, 8 steps of 8 × 128
-   tokens: losses finite and falling, one ticket and one B5 launch a
-   member and step; one uncompressed float32 step against the one-member
-   step on the whole batch (grad_norm within 1e-5, parameters within lr).
-   Prints ms a step.
+   at 4 of its 28 layers, int8 compression over pod, 30 steps of 8 × 128
+   tokens, and the uncompressed step beside it from the same parameters
+   and batches, then both from a second seed: every loss curve finite and
+   falling, one ticket and one B5 launch a member and step; one uncompressed float32 step against the
+   one-member step on the whole batch (grad_norm within 1e-5, parameters
+   within lr).  Prints ms a step, the curves and the last-loss gaps.
+   Phase 3 train_placed (lm_train_placed): ``train_loop`` of qwen3-0.6b at
+   full width and depth on a (data 2, model 2) mesh of four virtual
+   members, parameters and AdamW state placed by ``param_specs``
+   (``jit_train_step``), 10 steps of 8 × 128 tokens: losses finite and
+   falling, one ticket and one B5 launch a data-parallel member and step
+   and no other kernel, one copy of each part on the card; a float32
+   placed step (4 layers) and two placed granite-moe-1b-a400m steps (4 of
+   24 layers, (data 2, model 2), B3 and B6 on the path) against the
+   one-member step from the same state (the train_dp gate).  Prints ms a
+   step and peak MiB beside the one-member step's, and the memory held
+   and peaked in the last step's gradient and update stages.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -3464,7 +3476,10 @@ MOE_TRAIN_ARCH = "granite_moe_1b_a400m"  # 24 layers, d 1024, 32 experts top-8, 
 B6_SHAPES = {"train_gate_up": (1024, 1024, 512), "train_down": (1024, 512, 1024),
              "decode_gate_up": (8, 1024, 512)}   # tokens (top-8 of 32 experts), K, N
 B6_ZIPF = {"train_zipf_gate_up": (8192, 1024, 512)}  # rows in Zipf groups (zipf_sizes), K, N
-DP_LAYERS, DP_STEPS = 4, 8      # lm_train_dp: qwen3-0.6b's widths at 4 of its 28 layers
+DP_LAYERS, DP_STEPS = 4, 30     # lm_train_dp: qwen3-0.6b's widths at 4 of its 28 layers
+DP_SEEDS = 2                    # lm_train_dp: int8 against uncompressed from this many seeds
+PLACED_STEPS = 10               # lm_train_placed: qwen3-0.6b at full width and depth
+PLACED_MOE_LAYERS = 4           # lm_train_placed: granite-moe-1b-a400m at 4 of its 24 layers
 DP_RTOL = 1e-5                  # DP step vs one-member step: grad_norm (tests/test_torch_dp.py)
 
 
@@ -3765,6 +3780,62 @@ def phase3_lm_train_moe(kmods, device, seed):
     return rec
 
 
+def run_steps(kmods, step, params, opt, batches):
+    """``step`` over ``batches`` from ``(params, opt)``, a CUDA event at
+    each step's start and one after the last, the launch counts set to 0
+    just before and read just after.  Returns ``(params, opt, losses,
+    step_ms sorted (the first step's left out), launches, wall s)``."""
+    import torch
+
+    events, hist = [], []
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    for b in batches:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+        params, opt, m = step(params, opt, b)
+        hist.append(m)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    events.append(end)
+    losses = [float(m["loss"]) for m in hist]
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, len(batches)))
+    return params, opt, losses, step_ms, launches, wall
+
+
+def falling(losses, k=5) -> bool:
+    """Every loss finite and the mean of the last ``k`` below the mean of
+    the first ``k``."""
+    import math
+
+    return (all(math.isfinite(x) for x in losses)
+            and sum(losses[-k:]) / k < sum(losses[:k]) / k)
+
+
+def one_member_gate(tf, m_x, m_one, p_x, p_one, label):
+    """The train_dp gate of a step against the one-member step: grad_norm
+    within DP_RTOL, lr equal and > 0, the parameters within lr and a median
+    1e-3 of it (the CPU tests' rule).  Returns the numbers compared."""
+    import torch
+
+    lr = float(m_one["lr"])
+    gn_x, gn_one = float(m_x["grad_norm"]), float(m_one["grad_norm"])
+    diffs = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(tf._leaves(p_x),
+                                                                tf._leaves(p_one))])
+    dmax, dmed = float(diffs.max()), float(diffs.median())
+    check(abs(gn_x - gn_one) <= DP_RTOL * gn_one and float(m_x["lr"]) == lr and lr > 0
+          and dmax <= lr and dmed <= 1e-3 * lr,
+          f"{label}: vs one-member step: grad_norm {gn_x} / {gn_one}, lr "
+          f"{float(m_x['lr'])} / {lr}, params max|Δ| {dmax}, median {dmed}")
+    return {"grad_norm": gn_x, "grad_norm_one": gn_one, "lr": lr,
+            "params_max_abs_diff": dmax, "params_median_abs_diff": dmed}
+
+
 def phase3_lm_train_dp(kmods, device, seed):
     """``make_manual_dp_step`` on the card as a (pod 2, data 2) mesh of four
     virtual members (``virtual_devices(4)``): qwen3-0.6b at its published
@@ -3772,16 +3843,18 @@ def phase3_lm_train_dp(kmods, device, seed):
     bf16 compute over float32 parameters, ticketed embedding, int8
     gradient compression over the pod axis, DP_STEPS steps of
     ``SyntheticLM(batch=8, seq=128)`` (2 rows a member), peak lr 1e-3,
-    warmup 2.  The launch counts are set to 0 just before the steps and
-    read just after: one ticket and one B5 launch a member and step, no
-    other kernel.  Gates: every loss finite, the last below the first.
-    Then, without compression and in float32, one step of the DP step
-    against the one-member ``make_train_step`` on the whole batch (lr
-    1e-3 at step 0: warmup 0): grad_norm within DP_RTOL, lr equal, the
-    parameters within lr and a median 1e-3 of it (the CPU test's rule).
-    Prints ms a step (CUDA events, median).  Returns the record."""
+    warmup 2; then the uncompressed step over the same batches from the
+    same parameters; then both again from a second seed's parameters and
+    batches (DP_SEEDS), for the gap between their last losses.  The launch
+    counts are set to 0 just before each run and read just after: one
+    ticket and one B5 launch a member and step, no other kernel.  Gates:
+    each loss curve finite and falling (the mean of its last 5 below the
+    mean of its first 5).  Then, without
+    compression and in float32, one step of the DP step against the
+    one-member ``make_train_step`` on the whole batch (lr 1e-3 at step 0:
+    warmup 0) under :func:`one_member_gate`.  Prints ms a step (CUDA
+    events, median) and both loss curves.  Returns the record."""
     import dataclasses
-    import math
 
     import torch
 
@@ -3799,42 +3872,54 @@ def phase3_lm_train_dp(kmods, device, seed):
         mesh = sharding.make_mesh((2, 2), ("pod", "data"), devices=members)
     hp = tloop.TrainHParams(peak_lr=1e-3, warmup=2, total_steps=DP_STEPS,
                             ticketed_embedding=True, grad_compression="int8")
+    hp_f = dataclasses.replace(hp, grad_compression=None)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = tf.init_params(gen, cfg, device)
+    p_f = tf.tree_map(lambda t: t.clone(), params)
     n_params = sum(t.numel() for t in tf._leaves(params))
-    opt = adamw.init(params)
-    step = tloop.make_manual_dp_step(mesh, cfg, hp)
     data = iter(SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=False,
                             device=device))
     batches = [next(data) for _ in range(DP_STEPS)]
-    events, hist = [], []
-    sync()
-    reset_launches(kmods)
-    t0 = time.perf_counter()
-    for b in batches:
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        events.append(e)
-        params, opt, m = step(params, opt, b)
-        hist.append(m)
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    sync()
-    wall = time.perf_counter() - t0
-    launches = read_launches(kmods)
-    events.append(end)
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     members_n = 4
     want = {k: 0 for k in kmods}
     want.update(ticket_hash=members_n * DP_STEPS, segment_rows=members_n * DP_STEPS)
+    params, _, losses, step_ms, launches, wall = run_steps(
+        kmods, tloop.make_manual_dp_step(mesh, cfg, hp), params, adamw.init(params), batches)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     check(launches == want, f"phase3 lm_train_dp: launches {launches}, expected {want}")
-    losses = [float(m["loss"]) for m in hist]
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"phase3 lm_train_dp: losses not finite and falling {losses}")
-    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, DP_STEPS))
+    check(falling(losses), f"phase3 lm_train_dp: int8 losses not finite and falling {losses}")
     ms = step_ms[len(step_ms) // 2]
-    del params, opt
+    del params
+    p_f, _, losses_f, step_ms_f, launches_f, _ = run_steps(
+        kmods, tloop.make_manual_dp_step(mesh, cfg, hp_f), p_f, adamw.init(p_f), batches)
+    check(launches_f == want, f"phase3 lm_train_dp: uncompressed launches {launches_f}, "
+          f"expected {want}")
+    check(falling(losses_f), f"phase3 lm_train_dp: uncompressed losses not finite and falling "
+          f"{losses_f}")
+    ms_f = step_ms_f[len(step_ms_f) // 2]
+    del p_f
+    gaps = [losses[-1] - losses_f[-1]]
+    curves = [(losses, losses_f)]
+    for s2 in range(1, DP_SEEDS):  # int8 against uncompressed from another seed
+        g2 = torch.Generator(device=device).manual_seed(seed + 2 + 100 * s2)
+        p8 = tf.init_params(g2, cfg, device)
+        pf = tf.tree_map(lambda t: t.clone(), p8)
+        d2 = iter(SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed + 100 * s2,
+                              track_stats=False, device=device))
+        b2 = [next(d2) for _ in range(DP_STEPS)]
+        pair = []
+        for hp_x, px in ((hp, p8), (hp_f, pf)):
+            px, _, lx, _, lnx, _ = run_steps(kmods, tloop.make_manual_dp_step(mesh, cfg, hp_x),
+                                             px, adamw.init(px), b2)
+            check(lnx == want, f"phase3 lm_train_dp seed {s2}: launches {lnx}, expected {want}")
+            check(falling(lx), f"phase3 lm_train_dp seed {s2} ({hp_x.grad_compression}): "
+                  f"losses not finite and falling {lx}")
+            pair.append(lx)
+            del px
+        curves.append(tuple(pair))
+        gaps.append(pair[0][-1] - pair[1][-1])
+        del p8, pf, b2
 
     # one uncompressed float32 step against the one-member step on the whole batch
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3845,34 +3930,263 @@ def phase3_lm_train_dp(kmods, device, seed):
     o_dp, o_one = adamw.init(p_dp), adamw.init(p_one)
     p_dp, o_dp, m_dp = tloop.make_manual_dp_step(mesh, cfg32, hp32)(p_dp, o_dp, batches[0])
     p_one, o_one, m_one = tloop.make_train_step(cfg32, hp32)(p_one, o_one, batches[0])
-    lr = float(m_one["lr"])
-    gn_dp, gn_one = float(m_dp["grad_norm"]), float(m_one["grad_norm"])
-    diffs = torch.cat([(a - b).abs().reshape(-1)
-                       for a, b in zip(tf._leaves(p_dp), tf._leaves(p_one))])
-    dmax, dmed = float(diffs.max()), float(diffs.median())
-    check(abs(gn_dp - gn_one) <= DP_RTOL * gn_one and float(m_dp["lr"]) == lr and lr > 0
-          and dmax <= lr and dmed <= 1e-3 * lr,
-          f"phase3 lm_train_dp: DP step vs one-member step: grad_norm {gn_dp} / {gn_one}, lr "
-          f"{float(m_dp['lr'])} / {lr}, params max|Δ| {dmax}, median {dmed}")
-    del p_dp, p_one, o_dp, o_one, diffs
+    vs_one = one_member_gate(tf, m_dp, m_one, p_dp, p_one, "phase3 lm_train_dp: DP step")
+    del p_dp, p_one, o_dp, o_one
     torch.cuda.empty_cache()
     ntok = TRAIN_BATCH * TRAIN_SEQ
+    gap = gaps[0]
     rec = {"stream": "lm_train_dp", "arch": cfg.name, "layers": DP_LAYERS, "params": n_params,
            "mesh": {"pod": 2, "data": 2}, "grad_compression": "int8", "dtype": cfg.dtype,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": DP_STEPS, "wall_s": wall,
            "step_ms": ms, "step_ms_range": [step_ms[0], step_ms[-1]],
            "tokens_per_s": ntok / ms * 1e3, "peak_mib": peak_mib, "losses": losses,
-           "vs_one_member": {"grad_norm_dp": gn_dp, "grad_norm_one": gn_one, "lr": lr,
-                             "params_max_abs_diff": dmax, "params_median_abs_diff": dmed},
-           "launches": launches, "card": card_line()}
+           "uncompressed": {"losses": losses_f, "step_ms": ms_f,
+                            "step_ms_range": [step_ms_f[0], step_ms_f[-1]],
+                            "launches": launches_f},
+           "last_loss_gap_int8_minus_f32": gap, "last_loss_gaps_by_seed": gaps,
+           "more_seeds": [{"losses": a, "uncompressed_losses": b} for a, b in curves[1:]],
+           "vs_one_member": vs_one, "launches": launches, "card": card_line()}
     log("phase3 " + json.dumps(rec))
     log(f"phase3 lm_train_dp: {cfg.name} widths at {DP_LAYERS} layers ({n_params} parameters) "
         f"on a (pod 2, data 2) "
         f"mesh of 4 virtual members, int8 over pod: {DP_STEPS} steps of {ntok} tokens, "
-        f"{ms:.2f} ms a step (median), {ntok / ms * 1e3:.0f} tokens/s, peak {peak_mib:.0f} MiB; "
-        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; launches a step: ticket 4, B5 4 (one a "
-        f"member); uncompressed float32 step vs one member on the whole batch: grad_norm "
-        f"{gn_dp:.6g} / {gn_one:.6g}, params max|Δ| {dmax:.3g} (lr {lr:g}), median {dmed:.3g} ok; "
+        f"{ms:.2f} ms a step (median; uncompressed {ms_f:.2f} ms), {ntok / ms * 1e3:.0f} "
+        f"tokens/s, peak {peak_mib:.0f} MiB; loss int8 {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"uncompressed {losses_f[0]:.3f} -> {losses_f[-1]:.3f} (last gap {gap:+.4f}); launches "
+        f"a step: ticket 4, B5 4 (one a member); uncompressed float32 step vs one member on the "
+        f"whole batch: grad_norm {vs_one['grad_norm']:.6g} / {vs_one['grad_norm_one']:.6g}, "
+        f"params max|Δ| {vs_one['params_max_abs_diff']:.3g} (lr {vs_one['lr']:g}), median "
+        f"{vs_one['params_median_abs_diff']:.3g} ok; {rec['card']}")
+    for i, (a, b) in enumerate(curves):
+        log(f"phase3 lm_train_dp seed {i} losses int8 " + " ".join(f"{x:.4f}" for x in a))
+        log(f"phase3 lm_train_dp seed {i} losses f32  " + " ".join(f"{x:.4f}" for x in b))
+    log("phase3 lm_train_dp last-loss gaps int8 - uncompressed by seed: "
+        + " ".join(f"{g:+.4f}" for g in gaps))
+    return rec
+
+
+def placed_steps_vs_one(kmods, tf, sharding, tloop, cfg, hp, mesh, params, batches, label):
+    """Placed steps (``jit_train_step`` on ``mesh``) from ``params``, each
+    against the one-member ``make_train_step`` from the same state (the
+    placed state gathered whole) under :func:`one_member_gate`.  The launch
+    counts of the placed steps alone are summed.  Returns (the gate's
+    numbers a step, the placed steps' launches)."""
+    from repro_torch.optim import adamw
+
+    opt = adamw.init(params)
+    step = tloop.jit_train_step(mesh, cfg, hp, params, opt)(batches[0])
+    one = tloop.make_train_step(cfg, hp)
+    out, launches = [], {k: 0 for k in kmods}
+    for i, b in enumerate(batches):
+        p_one = tf.tree_map(lambda t: t.clone(), sharding.unplace(params))
+        o_one = tf.tree_map(lambda t: t.clone(), sharding.unplace(opt))
+        p_one, o_one, m_one = one(p_one, o_one, b)
+        sync()
+        reset_launches(kmods)
+        params, opt, m = step(params, opt, b)
+        sync()
+        for k, v in read_launches(kmods).items():
+            launches[k] += v
+        out.append(one_member_gate(tf, m, m_one, sharding.unplace(params), p_one,
+                                   f"{label} step {i + 1}"))
+        del p_one, o_one
+    return out, launches
+
+
+def phase3_lm_train_placed(kmods, device, seed, one_member):
+    """The placed training path on the card, three parts.
+
+    1. ``train_loop`` of qwen3-0.6b at full width and depth (28 layers,
+       bf16 compute over float32 parameters, random weights from a seeded
+       card generator) on a (data 2, model 2) mesh of ``virtual_devices(4)``:
+       the parameters placed by ``param_shardings``, the AdamW state as
+       ``jit_train_step`` places it, PLACED_STEPS steps of
+       ``SyntheticLM(batch=8, seq=128, track_stats=False)``, ticketed
+       embedding, peak lr 1e-3, warmup 2.  The launch counts are set to 0
+       just before ``train_loop`` and read just after: one ticket and one
+       B5 launch a data-parallel member and step, no other kernel.  Gates:
+       every loss finite, the mean of the last 5 below the mean of the
+       first 5; the card holds one copy of each part (the placed elements
+       equal the parameter count).
+    2. In float32 with TF32 off, qwen3-0.6b's widths at DP_LAYERS layers on
+       (data 2, model 2): one placed step against the one-member step on
+       the whole batch (:func:`one_member_gate`, warmup 0).
+    3. granite-moe-1b-a400m at its published widths, PLACED_MOE_LAYERS of
+       its 24 layers, float32, on (data 2, model 2) (``moe/w_*`` placed
+       ``("model", None, None)``): two placed steps, each against the
+       one-member step from the same state under the same gate (so the
+       load-balance loss of the two members is the whole batch's, as the
+       one-member step's); B3 and B6 launched by the placed steps.
+
+    Prints ms a step (CUDA events between step starts, median) and the
+    peak MiB over what was held before, beside the one-member step's
+    (``one_member``, phase 3 train's record), and the launch counts.  Each
+    step's memory is read at its start, at the stage boundary
+    (``_apply_update``'s entry: the gathered copies freed, the gradient sum
+    held) and after the update, the card's peak counter reset at each:
+    held and peak MiB of the gradient stage (gather, both members' forward
+    and backward, the sum) and of the update stage (clip, AdamW); the last
+    step's are printed.  Returns the record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    with sharding.virtual_devices(4) as members:
+        mesh = sharding.make_mesh((2, 2), ("data", "model"), devices=members)
+    hp = tloop.TrainHParams(peak_lr=1e-3, warmup=2, total_steps=PLACED_STEPS,
+                            ticketed_embedding=True)
+    data = SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=False,
+                       device=device)
+    events, stages = [], []
+    jit_step = tloop.jit_train_step
+    apply_update = tloop._apply_update
+
+    def restart_peak():  # the peak so far kept in overall[0], the card's counter reset
+        overall[0] = max(overall[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def staged_update(*a, **kw):
+        mib = lambda b: b / 2 ** 20  # noqa: E731
+        grads_peak, grads_held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        restart_peak()
+        out = apply_update(*a, **kw)
+        stages.append({"before_step_mib": mib(stages_start[0]),
+                       "gradient_stage_peak_mib": mib(grads_peak),
+                       "gradient_sum_held_mib": mib(grads_held),
+                       "update_stage_peak_mib": mib(torch.cuda.max_memory_allocated()),
+                       "after_update_mib": mib(torch.cuda.memory_allocated())})
+        return out
+
+    def timed_jit(*args, **kw):
+        compile_step = jit_step(*args, **kw)
+
+        def compiled(batch_tree):
+            step = compile_step(batch_tree)
+
+            def run(*a):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                events.append(e)
+                restart_peak()
+                stages_start[0] = torch.cuda.memory_allocated()
+                return step(*a)
+
+            return run
+
+        return compiled
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2 ** 20
+    stages_start, overall = [0], [0]
+    tloop.jit_train_step = timed_jit
+    tloop._apply_update = staged_update
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    try:
+        params, opt, hist = tloop.train_loop(mesh, cfg, hp, iter(data), steps=PLACED_STEPS,
+                                             params=tf.init_params(gen, cfg, device),
+                                             log_every=1)
+    finally:
+        tloop.jit_train_step = jit_step
+        tloop._apply_update = apply_update
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    peak_mib = max(overall[0], torch.cuda.max_memory_allocated()) / 2 ** 20
+    events.append(end)
+    steps = len(events) - 1
+    check(steps == PLACED_STEPS and len(hist) == PLACED_STEPS,
+          f"phase3 lm_train_placed: {steps} steps, {len(hist)} logged, expected {PLACED_STEPS}")
+    losses = [h["loss"] for h in hist]
+    check(falling(losses), f"phase3 lm_train_placed: losses not finite and falling {losses}")
+    ndp = mesh.shape["data"]
+    want = {k: 0 for k in kmods}
+    want.update(ticket_hash=ndp * steps, segment_rows=ndp * steps)
+    check(launches == want, f"phase3 lm_train_placed: launches {launches}, expected {want}")
+    leaves = list(tf._leaves(params))
+    n_params = sum(p.shape.numel() for p in leaves)
+    held = sum(t.numel() for p in leaves for t in p.copies.values())
+    table = params["embed"]["table"]
+    check(held == n_params and len(table.copies) == mesh.shape["model"]
+          and table.shard((0, 0)).data_ptr() == table.shard((1, 0)).data_ptr(),
+          f"phase3 lm_train_placed: {held} elements placed for {n_params} parameters, "
+          f"{len(table.copies)} copies of the table")
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(1, steps))
+    ms = step_ms[len(step_ms) // 2]
+    first_ms = events[0].elapsed_time(events[1])
+    del params, opt, leaves, table
+    torch.cuda.empty_cache()
+
+    # 2. one float32 placed step against the one-member step (4 layers)
+    cfg32 = dataclasses.replace(cfg, n_layers=DP_LAYERS, dtype="float32")
+    hp32 = tloop.TrainHParams(peak_lr=1e-3, warmup=0, total_steps=PLACED_STEPS,
+                              ticketed_embedding=True)
+    batches = [next(iter(SyntheticLM(cfg32, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed + 1,
+                                     track_stats=False, device=device)))]
+    f32, _ = placed_steps_vs_one(kmods, tf, sharding, tloop, cfg32, hp32, mesh,
+                                 tf.init_params(gen, cfg32, device), batches,
+                                 "phase3 lm_train_placed float32")
+    torch.cuda.empty_cache()
+
+    # 3. granite-moe at 4 of 24 layers on (data 2, model 2): two placed steps
+    mcfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=PLACED_MOE_LAYERS,
+                               dtype="float32")
+    moe_layers = sum(mcfg.is_moe_layer(i) for i in range(mcfg.n_layers))
+    mdata = iter(SyntheticLM(mcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed + 2,
+                             track_stats=False, device=device))
+    moe, moe_launches = placed_steps_vs_one(kmods, tf, sharding, tloop, mcfg, hp32, mesh,
+                                            tf.init_params(gen, mcfg, device),
+                                            [next(mdata), next(mdata)],
+                                            "phase3 lm_train_placed granite")
+    check(moe_launches["grouped_matmul"] == 2 * ndp * 3 * moe_layers
+          and moe_launches["grouped_matmul_backward"] == 2 * ndp * 6 * moe_layers
+          and moe_launches["ticket_hash"] == 2 * ndp and moe_launches["segment_rows"] == 2 * ndp,
+          f"phase3 lm_train_placed granite: launches {moe_launches} in two steps")
+    torch.cuda.empty_cache()
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"stream": "lm_train_placed", "arch": cfg.name, "params": n_params,
+           "mesh": {"data": 2, "model": 2}, "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": steps, "wall_s": wall, "step_ms": ms,
+           "first_step_ms": first_ms, "step_ms_range": [step_ms[0], step_ms[-1]],
+           "tokens_per_s": ntok / ms * 1e3, "peak_mib": peak_mib, "held_before_mib": held_mib,
+           "peak_over_held_mib": peak_mib - held_mib, "last_step_memory": stages[-1],
+           "one_member_step_ms": one_member["step_ms"],
+           "one_member_peak_over_held_mib": one_member["peak_over_held_mib"], "losses": losses,
+           "float32_vs_one_member": f32, "granite_vs_one_member": moe,
+           "granite_launches": moe_launches, "launches": launches, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_train_placed: {cfg.name} at full width ({n_params} parameters, {cfg.dtype} "
+        f"compute over float32) on a (data 2, model 2) mesh of 4 virtual members, placed by "
+        f"param_specs: {steps} steps of {ntok} tokens, {ms:.2f} ms a step (median; first "
+        f"{first_ms:.1f} ms; one member {one_member['step_ms']:.2f} ms), {ntok / ms * 1e3:.0f} "
+        f"tokens/s, peak {peak_mib - held_mib:.0f} MiB over the {held_mib:.0f} MiB held before "
+        f"(one member {one_member['peak_over_held_mib']:.0f} MiB over its own); loss {losses[0]:.3f} -> {losses[-1]:.3f}; launches "
+        f"a step: ticket {ndp}, B5 {ndp} (one a data member), no other kernel; float32 placed "
+        f"step vs one member: grad_norm {f32[0]['grad_norm']:.6g} / "
+        f"{f32[0]['grad_norm_one']:.6g}, params max|Δ| {f32[0]['params_max_abs_diff']:.3g} ok; "
+        f"granite ({PLACED_MOE_LAYERS} layers, (data 2, model 2)) two steps vs one member: "
+        f"max|Δ| {max(r['params_max_abs_diff'] for r in moe):.3g} (lr {moe[0]['lr']:g}), B3 "
+        f"{moe_launches['grouped_matmul']}, B6 {moe_launches['grouped_matmul_backward']} ok; "
+        f"{rec['card']}")
+    st = stages[-1]
+    log(f"phase3 lm_train_placed memory, last step: {st['before_step_mib']:.0f} MiB held before "
+        f"it; gradient stage (gather, two members' forward and backward, the float32 sum) peak "
+        f"{st['gradient_stage_peak_mib']:.0f} MiB, {st['gradient_sum_held_mib']:.0f} MiB held at "
+        f"its end (gathered copy freed, gradient sum held); update stage peak "
+        f"{st['update_stage_peak_mib']:.0f} MiB, {st['after_update_mib']:.0f} MiB after it; "
         f"{rec['card']}")
     return rec
 
@@ -5116,7 +5430,8 @@ def main(argv=None) -> int:
     log(f"phase3 lm in {time.perf_counter() - t_lm:.1f} s")
     log("== phase 3 train: qwen3-0.6b at full width (lm_train)")
     t_train = time.perf_counter()
-    recs.append(phase3_lm_train(kmods, device, args.seed))
+    train_rec = phase3_lm_train(kmods, device, args.seed)
+    recs.append(train_rec)
     log(f"phase3 lm_train in {time.perf_counter() - t_train:.1f} s")
     log("== phase 3 train_moe: granite-moe-1b-a400m at full width (lm_train_moe)")
     t_moe = time.perf_counter()
@@ -5126,6 +5441,10 @@ def main(argv=None) -> int:
     t_dp = time.perf_counter()
     recs.append(phase3_lm_train_dp(kmods, device, args.seed))
     log(f"phase3 lm_train_dp in {time.perf_counter() - t_dp:.1f} s")
+    log("== phase 3 train_placed: train_loop over a (data 2, model 2) mesh (lm_train_placed)")
+    t_placed = time.perf_counter()
+    recs.append(phase3_lm_train_placed(kmods, device, args.seed, train_rec))
+    log(f"phase3 lm_train_placed in {time.perf_counter() - t_placed:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 

@@ -1,4 +1,4 @@
-"""Checkpointing: atomic commits, async host offload, restore onto a device.
+"""Checkpointing: atomic commits, async host offload, restore onto a device or a mesh.
 
 Port of ``repro.checkpoint.manager``; a commit written by either package
 reads in the other (the same ``step_{step:08d}`` layout, npz key paths and
@@ -9,11 +9,12 @@ Fault-tolerance contract:
     written temp dir — a crash mid-save never corrupts the latest commit;
   * ``restore_latest`` resumes from the newest commit (the step counter is
     part of the state);
-  * leaves are saved as full host arrays and restored onto the device the
-    caller names (the reference's ``shardings=`` becomes ``device=``; a
-    restore by LM placement rules comes with the LM placement slice,
-    ROADMAP.md item 10c; a sharded stream's carry restores through
-    ``engine/elastic.py``, onto any member count);
+  * leaves are saved as full host arrays (a placed leaf, a
+    ``parallel.sharding.PlacedTensor``, gathered whole) and restored onto
+    the device the caller names (``device=``) or placed by the shardings
+    the caller names (the reference's ``shardings=``): a commit restores
+    onto another mesh than the one that saved it (a sharded stream's
+    carry restores through ``engine/elastic.py``, onto any member count);
   * saving runs on a background thread (async, off the critical path) with
     a barrier before the next save (at most one in flight).  The leaves are
     copied to host BEFORE ``save`` returns: the port updates tensors in
@@ -33,7 +34,11 @@ import torch
 
 def host_copy(x) -> np.ndarray:
     """A host numpy copy of a leaf, never a view of live state (a CPU
-    tensor's ``numpy()`` shares its memory)."""
+    tensor's ``numpy()`` shares its memory); a placed leaf whole."""
+    from repro_torch.parallel.sharding import PlacedTensor
+
+    if isinstance(x, PlacedTensor):
+        return x.full("cpu").numpy()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         return x.numpy().copy() if x.device.type == "cpu" else x.cpu().numpy()
@@ -71,8 +76,10 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 def _unflatten_into(tree_template, flat: dict[str, np.ndarray], device=None, prefix=()):
     """The template's structure with each leaf read from ``flat`` under its
-    key path: tensors for tensor leaves (on ``device``, else the host),
-    numpy arrays for the others."""
+    key path: tensors for tensor and placed leaves (on ``device``, else the
+    host), numpy arrays for the others."""
+    from repro_torch.parallel.sharding import PlacedTensor
+
     if tree_template is None:
         return None
     if isinstance(tree_template, dict):
@@ -89,7 +96,7 @@ def _unflatten_into(tree_template, flat: dict[str, np.ndarray], device=None, pre
     arr = flat[key]
     shape = tuple(tree_template.shape) if hasattr(tree_template, "shape") else ()
     assert arr.shape == shape, f"{key}: ckpt {arr.shape} vs model {shape}"
-    if isinstance(tree_template, torch.Tensor):
+    if isinstance(tree_template, (torch.Tensor, PlacedTensor)):
         t = torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
         return t.to(device) if device is not None else t
     return arr
@@ -195,16 +202,28 @@ class CheckpointManager:
     def latest_step(self) -> int | None:
         return latest_commit_step(self.dir)
 
-    def restore_latest(self, params_template, opt_template=None, *, device=None):
+    def restore_latest(self, params_template, opt_template=None, *, device=None,
+                       shardings=None):
         """``(params[, opt], step)`` from the newest commit, each leaf
-        shaped as the template's and placed on ``device`` (host tensors
-        when None), or ``None`` when nothing has been committed."""
+        shaped as the template's and put on ``device`` (host tensors when
+        None), or ``None`` when nothing has been committed.  ``shardings``
+        (a tree of ``parallel.sharding.NamedSharding``, as the reference's)
+        places the parameters by it instead; the optimizer state then
+        comes back as host tensors, as the reference's does.  The two are
+        exclusive."""
+        if device is not None and shardings is not None:
+            raise ValueError("restore_latest takes device= or shardings=, not both")
         step = self.latest_step()
         if step is None:
             return None
         path = os.path.join(self.dir, f"step_{step:08d}")
         pflat = dict(np.load(os.path.join(path, "params.npz")))
-        out = [_unflatten_into(params_template, pflat, device)]
+        params = _unflatten_into(params_template, pflat, device)
+        if shardings is not None:
+            from repro_torch.parallel.sharding import place
+
+            params = place(params, shardings)
+        out = [params]
         if opt_template is not None:
             oflat = dict(np.load(os.path.join(path, "opt.npz")))
             out.append(_unflatten_into(opt_template, oflat, device))

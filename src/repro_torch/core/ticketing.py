@@ -171,14 +171,18 @@ def direct_ticketing(keys: torch.Tensor, domain: int):
 
 
 def lookup(table: TicketTable, keys: torch.Tensor, *, seed: int = 0) -> torch.Tensor:
-    """Read-only probe: 0-based tickets, -1 for absent or sentinel keys."""
+    """Read-only probe: 0-based tickets, -1 for absent or sentinel keys.
+    The probe stops at an empty slot or after ``capacity`` slots, so an
+    absent key on a full table ends too."""
     flat = keys.reshape(-1).to(torch.int32)
     mask = table.capacity - 1
     slot = slot_hash(flat, table.capacity, seed=seed)
     valid = flat != EMPTY_I32
     active = valid.clone()
     out = torch.full(flat.shape, -1, dtype=torch.int32, device=flat.device)
-    while bool(active.any()):
+    for _ in range(table.capacity):
+        if not bool(active.any()):
+            break
         probed_key = table.keys[slot]
         probed_tk = table.tickets[slot]
         hit = active & (probed_tk != 0) & (probed_key == flat)

@@ -21,13 +21,21 @@ aggregated through its expert.
   ``grouped_matmul``'s backward (kernel B6 on a card), the shared expert
   through torch's own ops; the histogram, like the reference's one-hot
   sum, carries no gradient.
+* ``router_stats`` / ``split_aux``: the load-balance loss of a batch split
+  over data-parallel members.  ``f_e`` and ``P_e`` are both batch means, so
+  the mean of the members' losses is not the whole batch's; inside
+  ``router_stats`` each ``route`` records its counts and ``P_e``, and
+  ``split_aux`` forms from every member's records the member terms
+  ``router_aux_loss · E · Σ_e f_e^batch · P_e^member`` / n, whose sum is
+  the whole batch's loss and whose gradients are its gradients.
 
-Expert-parallel dispatch (``moe_mlp_ep`` / ``_moe_ep_shardmapped``) needs
-the LM placement rules, a later slice (ROADMAP item 10); the transformer's
-``moe_impl="ep"`` raises until then.
+Expert-parallel dispatch (``moe_mlp_ep`` / ``_moe_ep_shardmapped``) is a
+later slice (ROADMAP item 10c2b); the transformer's ``moe_impl="ep"``
+raises until then.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -54,6 +62,46 @@ def moe_init(gen, cfg: ModelConfig, device=None) -> Params:
     return p
 
 
+_STATS: list = []  # the open router_stats records, innermost last
+
+
+@contextlib.contextmanager
+def router_stats():
+    """Inside, every ``route`` call appends ``(histogram, p_e)`` (its
+    (E_pad,) token counts and its real experts' mean probabilities, with
+    their graph) to the yielded list, in call order (layer order)."""
+    records: list = []
+    _STATS.append(records)
+    try:
+        yield records
+    finally:
+        _STATS.pop()
+
+
+def split_aux(cfg: ModelConfig, members: list) -> list:
+    """The load-balance loss of a batch split in equal parts over members,
+    as one term a member: ``members`` holds each member's ``router_stats``
+    records (same layers, same order).  A member's term is
+    ``router_aux_loss · E · Σ_layers Σ_e f_e · P_e^member / n``, with
+    ``f_e`` the whole batch's routed share (the members' counts summed; no
+    gradient) and ``P_e^member`` on that member's device, so the terms sum
+    to the whole batch's aux and each carries its member's share of the
+    router's gradient."""
+    e, n = cfg.moe_num_experts, len(members)
+    home = members[0][0][0].device
+    terms = [None] * n
+    for layer in zip(*members):
+        counts = layer[0][0].to(home)
+        for hist, _ in layer[1:]:
+            counts = counts + hist.to(home)
+        f_e = counts[:e] / torch.clamp(torch.sum(counts), min=1.0)
+        for i, (_, p_e) in enumerate(layer):
+            t = torch.sum(f_e.to(p_e.device) * p_e)
+            terms[i] = t if terms[i] is None else terms[i] + t
+    scale = cfg.router_aux_loss * e / n
+    return [None if t is None else t * scale for t in terms]
+
+
 class RouterOut(NamedTuple):
     weights: torch.Tensor    # (T, k) combine weights (softmax over chosen)
     experts: torch.Tensor    # (T, k) int32 expert ids
@@ -77,6 +125,8 @@ def route(p: Params, cfg: ModelConfig, x2d: torch.Tensor) -> RouterOut:
     f_e = hist[:e] / torch.clamp(torch.sum(hist), min=1.0)
     p_e = torch.mean(probs, dim=0)
     aux = cfg.router_aux_loss * e * torch.sum(f_e * p_e)
+    if _STATS:
+        _STATS[-1].append((hist, p_e))
     return RouterOut(w.to(x2d.dtype), ids, aux, hist)
 
 

@@ -51,8 +51,8 @@ from repro_torch.models.layers import (
     ticketed_embed,
 )
 
-EP_SLICE = ("moe_impl='ep' (expert-parallel dispatch, moe_mlp_ep) needs the LM placement "
-            "rules of parallel/sharding.py, a later slice (ROADMAP item 10)")
+EP_SLICE = ("moe_impl='ep' (expert-parallel dispatch, moe_mlp_ep) needs the experts' "
+            "placement over members, a later slice (ROADMAP item 10c2b)")
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -14,10 +14,10 @@ step per round.
 
 Placement: the mesh is the port's ``parallel.sharding.Mesh`` of one
 member; parameters and caches live on that member's device.  A mesh of
-more than one member needs the LM placement rules (ROADMAP item 10) and
-raises until they land.  The reference's ``serve_cache_shardings`` and
-``jit_serve_step`` have no counterpart: nothing is jitted here, and their
-placement is that slice's work.
+more than one member needs the caches' placement over members (ROADMAP
+item 10c2c) and raises until it lands.  The reference's
+``serve_cache_shardings`` and ``jit_serve_step`` have no counterpart:
+nothing is jitted here, and their placement is that slice's work.
 """
 from __future__ import annotations
 
@@ -29,8 +29,8 @@ import torch
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
-PLACEMENT_SLICE = ("a ServeLoop over a mesh of more than one member needs the LM placement "
-                   "rules of parallel/sharding.py, a later slice (ROADMAP item 10)")
+PLACEMENT_SLICE = ("a ServeLoop over a mesh of more than one member needs the caches' "
+                   "placement over members, a later slice (ROADMAP item 10c2c)")
 
 
 def make_serve_step(cfg: ModelConfig, *, memory=None):

@@ -1,4 +1,4 @@
-"""Training (port of ``repro.train``): the step and loop on one mesh member
+"""Training (port of ``repro.train``): the steps and the loop on a mesh
 (``loop``), restart and straggler policy (``fault_tolerance``), and
 worker-failure bookkeeping and re-meshing (``elastic``)."""
 from repro_torch.train.elastic import (
@@ -9,6 +9,7 @@ from repro_torch.train.elastic import (
     mark_failed,
     remesh,
     reset_failures,
+    reshard_restore,
 )
 from repro_torch.train.fault_tolerance import ElasticRunner, StragglerPolicy
 from repro_torch.train.loop import (
@@ -35,5 +36,6 @@ __all__ = [
     "mark_failed",
     "remesh",
     "reset_failures",
+    "reshard_restore",
     "train_loop",
 ]

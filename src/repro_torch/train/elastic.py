@@ -8,9 +8,10 @@ kept (the DATA axis absorbs the loss).  A sharded stream re-meshes onto
 its survivors in place (``engine/elastic.py`` ``remesh_stream``); the
 serving layer (``serve/query_server.py``) lets a quantum that raises
 :class:`WorkerFailure` restore from its stream's last checkpoint, or
-propagate when there is none.  ``reshard_restore`` restores LM parameters
-by their placement rules, so it comes with the LM stack (ROADMAP.md
-item 10).
+propagate when there is none.  :func:`reshard_restore` restores an LM
+training commit placed by the parameters' placement rules on a new mesh,
+the survivors' after a loss: commits hold whole host arrays, so any mesh
+whose ``model`` axis divides the parameters takes them.
 """
 from __future__ import annotations
 
@@ -62,5 +63,15 @@ def remesh(model_parallel: int):
     return largest_mesh(available_devices(), model_parallel)
 
 
+def reshard_restore(ckpt_manager, params_template, opt_template, mesh):
+    """The latest commit of ``ckpt_manager`` with its parameters placed on
+    ``mesh`` by ``param_shardings`` (``(params, opt, step)``; ``opt`` as
+    host tensors, as the reference returns it; None without a commit)."""
+    from repro_torch.parallel.sharding import param_shardings
+
+    return ckpt_manager.restore_latest(
+        params_template, opt_template, shardings=param_shardings(mesh, params_template))
+
+
 __all__ = ["WorkerFailure", "available_devices", "failed_ids", "largest_mesh",
-           "mark_failed", "remesh", "reset_failures"]
+           "mark_failed", "remesh", "reset_failures", "reshard_restore"]

@@ -192,9 +192,11 @@ def test_manual_dp_step_updates_one_shared_copy_once():
 
 
 def test_manual_dp_step_refuses_a_member_on_another_device():
-    """Members share the parameters' one copy; a member on another device
-    (its own copy of the parameters) raises, naming the placement slice,
-    before any member computes."""
+    """A member on another device than the parameters' gets a copy of the
+    parameters of its own (placement, one copy a device).  Where no card
+    exists, a mesh naming ``cuda:0`` raises the port's no-card
+    ``RuntimeError`` before any member computes, and the caller's state is
+    as it was; on a card the step runs with a copy on each device."""
     _, tcfg = cfgs()
     hp = tloop.TrainHParams(ticketed_embedding=False)
     members = [sharding.MeshDevice(0, torch.device("cpu")),
@@ -204,8 +206,13 @@ def test_manual_dp_step_refuses_a_member_on_another_device():
     params = ttf.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
     opt = tadamw.init(params)
     before = [t.clone() for t in ttf._leaves(params)]
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        step(params, opt, tbatch(batch_np(tcfg.vocab_size, 4, 8, seed=3)))
+    batch = tbatch(batch_np(tcfg.vocab_size, 4, 8, seed=3))
+    if torch.cuda.is_available():
+        params2, opt2, _ = step(params, opt, batch)
+        assert set(params2["embed"]["table"].copies) == {("cpu", (0, 0)), ("cuda:0", (0, 0))}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            step(params, opt, batch)
     assert int(opt.step) == 0
     assert all(torch.equal(a, b) for a, b in zip(ttf._leaves(params), before))
 

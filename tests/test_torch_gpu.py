@@ -2095,3 +2095,54 @@ def test_ticketed_embed_backward_on_the_card_matches_the_cpu(cuda, b, s, vocab, 
     got = got.cpu()
     assert torch.equal(got.abs().sum(1) > 0, want.abs().sum(1) > 0)
     assert bool(((got - want).abs() <= 1e-5 * absum).all())
+
+
+@pytest.mark.gpu
+def test_manual_dp_step_with_a_member_on_the_card_and_one_on_the_cpu(cuda):
+    """``make_manual_dp_step`` over a (pod 1, data 2) mesh whose members sit
+    on the CPU and on the card (reduced qwen3-0.6b, float32, ticketed
+    embedding, three steps): each device keeps its own copy of the
+    parameters and AdamW state, the two copies agree within float32
+    rounding (1e-6), and the result equals the one-member step on the
+    whole batch within lr and a median 1e-3 of it (grad_norm within rtol
+    1e-5), the tolerances of tests/test_torch_dp.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3_0_6b", reduced=True), dtype="float32")
+    hp = tloop.TrainHParams(peak_lr=1e-3, warmup=0, total_steps=50, ticketed_embedding=True)
+    members = [sharding.MeshDevice(0, torch.device("cpu")),
+               sharding.MeshDevice(1, torch.device("cuda", 0))]
+    step = tloop.make_manual_dp_step(sharding.make_mesh((1, 2), ("pod", "data"), devices=members),
+                                     cfg, hp)
+    p_one = tf.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    params = tf.tree_map(lambda t: t.clone(), p_one)
+    opt, o_one = adamw.init(params), adamw.init(p_one)
+    one = tloop.make_train_step(cfg, hp)
+    rng = np.random.default_rng(0)
+    lrs = []
+    t0 = th.ticket_hash.launches
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 17)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        params, opt, m = step(params, opt, batch)
+        p_one, o_one, m1 = one(p_one, o_one, batch)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(m1["grad_norm"]), rtol=1e-5)
+        lrs.append(float(m1["lr"]))
+    assert th.ticket_hash.launches - t0 == 3     # the card member's embedding backward
+    diffs = []
+    for leaf, want in zip(tf._leaves(params), tf._leaves(p_one)):
+        whole = (0,) * leaf.ndim
+        assert set(leaf.copies) == {("cpu", whole), ("cuda:0", whole)}
+        on_cpu, on_card = leaf.copies[("cpu", whole)], leaf.copies[("cuda:0", whole)]
+        assert on_card.device.type == "cuda"
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-6, atol=1e-6)
+        diffs.append((on_cpu - want).abs().reshape(-1))
+    diffs = torch.cat(diffs)
+    assert float(diffs.max()) <= sum(lrs) and float(diffs.median()) <= 1e-3 * sum(lrs)
+    for dev in ("cpu", "cuda:0"):
+        assert int(opt.step.copies[(dev, ())]) == 3

@@ -166,3 +166,28 @@ def test_event_publisher_is_delta_based():
     finally:
         tmet.disable()
         tmet.clear()
+
+
+
+def test_lookup_of_an_absent_key_on_a_full_table_returns_minus_one():
+    """No empty slot stops the probe on a full table: ``lookup`` bounds it
+    at ``capacity`` slots.  Run in a thread under a time limit of its own,
+    so that an unbounded probe fails the test instead of hanging it."""
+    import threading
+
+    from repro_torch.core import ticketing as ttk
+
+    cap = 64
+    present = _t(np.arange(1, cap + 1, dtype=np.uint32) * np.uint32(2654435761))
+    tickets, table = ttk.get_or_insert(ttk.make_table(cap, device="cpu"), present)
+    assert int(table.count) == cap and bool((table.tickets != 0).all())
+    absent = 7
+    assert absent not in present.tolist()
+    probe = torch.cat([present[[5, 0]], torch.tensor([absent, ttk.EMPTY_I32], dtype=torch.int32)])
+    out = {}
+    worker = threading.Thread(target=lambda: out.update(got=ttk.lookup(table, probe)),
+                              daemon=True)
+    worker.start()
+    worker.join(timeout=10.0)
+    assert not worker.is_alive(), "lookup did not end on a full table"
+    assert out["got"].tolist() == [int(tickets[5]), int(tickets[0]), -1, -1]

@@ -287,14 +287,21 @@ def test_train_step_matches_reference_over_three_steps():
 
 
 def test_train_step_ignores_grad_compression_and_stubs_raise():
+    """The steps take ``grad_compression`` and ignore it where the
+    reference does; ``jit_train_step`` and ``train_loop`` on two members,
+    once refusals, now run (the placed step is held to the reference in
+    ``tests/test_torch_placement.py``)."""
     _, tcfg = cfgs()
-    hp = tloop.TrainHParams(grad_compression="int8")
+    hp = tloop.TrainHParams(grad_compression="int8", ticketed_embedding=False)
     assert callable(tloop.make_train_step(tcfg, hp))
-    with pytest.raises(NotImplementedError, match="10c"):
-        tloop.jit_train_step(cpu_mesh(), tcfg, hp, None, None)
+    params = ttf.init_params(torch.Generator().manual_seed(0), tcfg, device=CPU)
+    compile_step = tloop.jit_train_step(cpu_mesh(), tcfg, hp, params, tadamw.init(params))
+    assert callable(compile_step)
     assert callable(tloop.make_manual_dp_step(cpu_mesh(), tcfg, hp))
-    with pytest.raises(NotImplementedError, match="10c"):
-        tloop.train_loop(cpu_mesh(2), tcfg, hp, iter([]), steps=1)
+    data = iter(SyntheticLM(tcfg, batch=2, seq=8, track_stats=False, device=CPU))
+    p2, o2, hist = tloop.train_loop(cpu_mesh(2), tcfg, hp, data, steps=1, log_every=1)
+    assert isinstance(p2["embed"]["table"], sharding.PlacedTensor)
+    assert int(o2.step.full(CPU)) == 1 and len(hist) == 1 and np.isfinite(hist[0]["loss"])
     assert [f.name for f in dataclasses.fields(tloop.TrainHParams)] == \
         [f.name for f in dataclasses.fields(jloop.TrainHParams)]
     assert tloop.TrainHParams() == tloop.TrainHParams(**dataclasses.asdict(jloop.TrainHParams()))
