@@ -239,6 +239,23 @@ Four phases, each of which fails the run:
    one-member step from the same state (the train_dp gate).  Prints ms a
    step and peak MiB beside the one-member step's, and the memory held
    and peaked in the last step's gradient and update stages.
+   Phase 3 lm_ep: expert parallelism at granite-moe-1b-a400m's full width
+   and depth on virtual members: a ``make_train_step(moe_impl="ep")`` step
+   on (data 1, model 4) at a capacity that drops nothing against the dense
+   step from the same state (loss and grad_norm), three more timed beside
+   train_moe's dense step; 30 steps of the reference's ``moe_ts2`` setting
+   on (data 2, model 2) (token slice, int8 dispatch, capacity factor 1.0),
+   losses falling, the rows dropped per layer printed; EP ``forward`` and
+   ``decode_step`` against dense; the members' expert stacks views of the
+   layer stacks; the segment kernel once a member and layer, ticket and
+   B5 once a step, no B3 / B6.  Phase 3 serve_members: ``ServeLoop`` on a
+   (data 2, model 2) mesh against the one-member loop for qwen3-0.6b and
+   granite-moe-1b-a400m at full width (tokens equal or a near-tied top-2
+   where they first differ, one copy a cache part, B3 and segment
+   launches a data member and step, a ``jit_serve_step(seq_shard=True)``
+   step), the decode ms beside one member's.  Phase 3 launch:
+   ``launch.serve.main`` and ``launch.train.main`` through their
+   ``main(argv)`` on four virtual members.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -318,6 +335,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4191,6 +4209,468 @@ def phase3_lm_train_placed(kmods, device, seed, one_member):
     return rec
 
 
+# -- expert parallelism, serving over members and the launch CLIs: lm_ep,
+# serve_members, launch ------------------------------------------------------------
+
+EP_ARCH = "granite_moe_1b_a400m"  # 24 layers, d 1024, 32 experts top-8, moe_d_ff 512
+EP_TS2_STEPS = 30               # lm_ep: moe_ts2 steps on (data 2, model 2)
+EP_TIMED_STEPS = 3              # lm_ep: EP steps timed on (data 1, model 4)
+EP_SLACK = 1.25                 # lm_ep: no-drop capacity over the dense step's largest group
+EP_LOSS_RTOL = 5e-3             # lm_ep: EP vs dense step, loss (bf16 experts vs B3's float32)
+EP_GNORM_RTOL = 5e-2            # lm_ep: EP vs dense step, grad_norm
+SERVE_ARCHS = ("qwen3_0_6b", "granite_moe_1b_a400m")
+SERVE_NEW = 16                  # serve_members: new tokens a request
+SERVE_MARGIN = 0.25             # serve_members: top-2 logit margin under which a token may differ
+LAUNCH_TRAIN_STEPS = 10         # launch: launch.train.main at qwen3-0.6b full width
+
+
+def moe_ts2_capacity(cfg, tokens, dp, model):
+    """The reference's capacity for its ``moe_ts2`` cell
+    (``src/repro/launch/dryrun.py:55-80`` ``_ep_info``): the tokens of a
+    data member, sliced over ``model``, times k over E_pad (factor 1.0),
+    rounded up to 8, at least 8."""
+    t_local = max(max(tokens // dp, 1) // model, 1)
+    cap = t_local * cfg.moe_top_k * 1.0 / cfg.moe_experts_padded
+    return max(8, int((cap + 7) // 8 * 8))
+
+
+def ep_mesh(shape, axes=("data", "model")):
+    from repro_torch.parallel import sharding
+
+    with sharding.virtual_devices(int(math.prod(shape))) as members:
+        return sharding.make_mesh(shape, axes, devices=members)
+
+
+def dropped_per_layer(records, layers, cap):
+    """Rows past ``cap`` per layer from a step's ``router_stats`` records
+    (each member's route, layer by layer): Σ over members and experts of
+    max(0, count − cap)."""
+    per = len(records) // layers
+    return [int(sum(float((hist - cap).clamp(min=0).sum()) for hist, _ in
+                    records[i * per:(i + 1) * per])) for i in range(layers)]
+
+
+def phase3_lm_ep(kmods, device, seed, moe_rec):
+    """Expert parallelism at granite-moe-1b-a400m's full width and depth (24
+    layers, d 1024, 32 experts top-8, moe_d_ff 512, bf16 compute over
+    float32 parameters, random weights from a seeded card generator) on
+    virtual members of the card, five parts.
+
+    1. ``make_train_step(moe_impl="ep")`` on (data 1, model 4), train_moe's
+       batch (``SyntheticLM(batch=8, seq=128)``: 1024 tokens, 8192 routed
+       rows), at a capacity that drops nothing: EP_SLACK × the largest
+       expert group of the dense forward at that batch (printed), rounded
+       up to 8, checked against every member's routed counts in the EP
+       step.  From the same state, the EP step's loss within EP_LOSS_RTOL
+       and grad_norm within EP_GNORM_RTOL of the dense step's (EP computes
+       the experts in bf16, B3 in float32).  Then EP_TIMED_STEPS EP steps
+       timed by CUDA events beside train_moe's dense step (``moe_rec``),
+       with the card's peak MiB over what was held.
+    2. The reference's ``moe_ts2`` setting on (data 2, model 2): token
+       slice, int8 dispatch, the capacity of its ``_ep_info`` rule
+       (:func:`moe_ts2_capacity`), EP_TS2_STEPS steps from fresh weights:
+       losses finite and the mean of the last 5 below the mean of the
+       first 5; the rows dropped per layer of the first and last step.
+    3. ``forward`` (2 × 64 tokens, (data 1, model 4)) and a cached prefill
+       of 8 tokens plus 4 ``decode_step`` calls (batch 2, (data 2, model
+       2), token slice) with EP against the dense path: logits max|Δ| /
+       max|logit| < LM_REL.
+    4. Launches, set to 0 just before each run and read just after: an EP
+       step or forward launches the segment kernel once a member and
+       layer (``route``), an EP training step ticket 1 and B5 1 (the
+       ticketed embedding's backward), and nothing else; the dense step
+       B3 72, B6 144, segment 24, ticket 1, B5 1.
+    5. The members' expert stacks are views: each member's ``w_gate`` in
+       an EP call lies in its layer stack's storage at rows r·E_local.
+    Returns the record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(EP_ARCH)
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    hp = tloop.TrainHParams(total_steps=EP_TS2_STEPS, ticketed_embedding=True, **TRAIN_HP)
+    data = iter(SyntheticLM(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, track_stats=False,
+                            device=device))
+    batch = next(data)
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    none = {k: 0 for k in kmods}
+
+    def launched(fn, *args, **kw):
+        sync()
+        reset_launches(kmods)
+        out = fn(*args, **kw)
+        sync()
+        return out, read_launches(kmods)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2 ** 20
+    params = tf.init_params(gen, cfg, device)
+    # 1. capacity from the dense forward's largest expert group
+    with torch.no_grad(), moe.router_stats() as recs:
+        _, fl = launched(tf.forward, params, cfg, batch, ticketed_embedding=False)
+    largest = max(int(h.max()) for h, _ in recs)
+    del recs
+    cap = int(math.ceil(largest * EP_SLACK / 8) * 8)
+    check(fl == {**none, "grouped_matmul": 3 * layers, "segment_agg": layers},
+          f"phase3 lm_ep: dense forward launches {fl}")
+    mesh14 = ep_mesh((1, 4))
+    info14 = {"mesh": mesh14, "dp": ("data",), "capacity_per_expert": cap}
+    # the dense step and the EP step from the same state
+    p_d = tf.tree_map(lambda t: t.clone(), params)
+    (p_d, _, m_dense), ld = launched(tloop.make_train_step(cfg, hp), p_d, adamw.init(p_d), batch)
+    m_dense = {k: float(v) for k, v in m_dense.items()}
+    del p_d
+    torch.cuda.empty_cache()
+    check(ld == {**none, "grouped_matmul": 3 * layers, "grouped_matmul_backward": 6 * layers,
+                 "segment_agg": layers, "ticket_hash": 1, "segment_rows": 1},
+          f"phase3 lm_ep: dense step launches {ld}")
+    ep_step = tloop.make_train_step(cfg, hp, moe_impl="ep", ep_info=info14)
+    opt = adamw.init(params)
+    want_ep = {**none, "segment_agg": 4 * layers, "ticket_hash": 1, "segment_rows": 1}
+    with moe.router_stats() as recs:
+        (params, opt, m_ep), le = launched(ep_step, params, opt, batch)
+        ep_largest = max(int(h.max()) for h, _ in recs)
+        n_recs = len(recs)
+    del recs
+    m_ep = {k: float(v) for k, v in m_ep.items()}
+    check(n_recs == 4 * layers and ep_largest <= cap,
+          f"phase3 lm_ep: {n_recs} routes, largest EP group {ep_largest} > capacity {cap}")
+    check(le == want_ep, f"phase3 lm_ep: EP step launches {le}, expected {want_ep}")
+    d_loss = abs(m_ep["loss"] - m_dense["loss"]) / abs(m_dense["loss"])
+    d_gn = abs(m_ep["grad_norm"] - m_dense["grad_norm"]) / m_dense["grad_norm"]
+    check(math.isfinite(m_ep["loss"]) and d_loss <= EP_LOSS_RTOL and d_gn <= EP_GNORM_RTOL,
+          f"phase3 lm_ep: EP step vs dense from the same state: loss {m_ep['loss']} / "
+          f"{m_dense['loss']} (rel {d_loss:.3g} > {EP_LOSS_RTOL}?), grad_norm "
+          f"{m_ep['grad_norm']} / {m_dense['grad_norm']} (rel {d_gn:.3g} > {EP_GNORM_RTOL}?)")
+    batches = [next(data) for _ in range(EP_TIMED_STEPS)]
+    params, opt, t_losses, t_ms, t_launches, _ = run_steps(kmods, ep_step, params, opt, batches)
+    check(t_launches == {k: v * EP_TIMED_STEPS for k, v in want_ep.items()}
+          and all(math.isfinite(x) for x in t_losses),
+          f"phase3 lm_ep: timed EP steps launches {t_launches}, losses {t_losses}")
+    ep_ms = t_ms[len(t_ms) // 2]
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    held_state_mib = torch.cuda.memory_allocated() / 2 ** 20
+    # 5. the members' expert stacks are views of the layer stacks
+    stack = params["layers"]["moe"]["w_gate"]
+    seen = []
+    real_ep = moe.moe_mlp_ep
+
+    def spy(p_locals, *a, **kw):
+        if not seen:
+            seen.append([p["w_gate"] for p in p_locals])
+        return real_ep(p_locals, *a, **kw)
+
+    moe.moe_mlp_ep = spy
+    try:
+        toks = batches[0]["tokens"][:2, :64]
+        with torch.no_grad():
+            (ep_out, lf) = launched(tf.forward, params, cfg, {"tokens": toks},
+                                    ticketed_embedding=False, moe_impl="ep", ep_info=info14)
+    finally:
+        moe.moe_mlp_ep = real_ep
+    e_local = cfg.moe_experts_padded // 4
+    views = [w.untyped_storage().data_ptr() == stack.untyped_storage().data_ptr()
+             and w.data_ptr() == stack[0, r * e_local].data_ptr() for r, w in enumerate(seen[0])]
+    check(all(views), f"phase3 lm_ep: member expert stacks not views of the layer stack {views}")
+    check(lf == {**none, "segment_agg": 4 * layers}, f"phase3 lm_ep: EP forward launches {lf}")
+    # 3. forward and decode with EP against dense
+    with torch.no_grad():
+        dense_out = tf.forward(params, cfg, {"tokens": toks}, ticketed_embedding=False)
+        fwd_rel = float((ep_out.logits - dense_out.logits).abs().max()) / (
+            float(dense_out.logits.abs().max()) + 1e-6)
+        mesh22 = ep_mesh((2, 2))
+        info_ts = {"mesh": mesh22, "dp": ("data",), "capacity_per_expert": cap,
+                   "token_slice": True}
+        c_ep = tf.init_caches(cfg, 2, 16, cfg.dtype, device=device)
+        c_d = tf.init_caches(cfg, 2, 16, cfg.dtype, device=device)
+        dec_rel, ld_ep = 0.0, dict(none)
+        for a, b in ((0, 8), (8, 9), (9, 10), (10, 11), (11, 12)):
+            (lg_ep, c_ep), l1 = launched(tf.decode_step, params, cfg, toks[:, a:b], c_ep,
+                                         moe_impl="ep", ep_info=info_ts)
+            lg_d, c_d = tf.decode_step(params, cfg, toks[:, a:b], c_d)
+            dec_rel = max(dec_rel, float((lg_ep - lg_d).abs().max()) / (
+                float(lg_d.abs().max()) + 1e-6))
+            ld_ep = {k: ld_ep[k] + v for k, v in l1.items()}
+    check(fwd_rel < LM_REL and dec_rel < LM_REL and bool(torch.isfinite(ep_out.logits).all()),
+          f"phase3 lm_ep: EP vs dense logits: forward rel {fwd_rel}, decode rel {dec_rel}")
+    check(ld_ep == {**none, "segment_agg": 5 * 4 * layers},
+          f"phase3 lm_ep: EP decode launches {ld_ep}")
+    n_params = sum(t.numel() for t in tf._leaves(params))
+    del params, opt, batches, c_ep, c_d, ep_out, dense_out, seen, stack
+    torch.cuda.empty_cache()
+    # 2. moe_ts2 on (data 2, model 2): 30 steps from fresh weights
+    cap2 = moe_ts2_capacity(cfg, ntok, 2, 2)
+    info2 = {"mesh": mesh22, "dp": ("data",), "capacity_per_expert": cap2, "token_slice": True,
+             "quantize_dispatch": True}
+    params = tf.init_params(gen, cfg, device)
+    ts2 = tloop.make_train_step(cfg, hp, moe_impl="ep", ep_info=info2)
+    steps2 = [next(data) for _ in range(EP_TS2_STEPS)]
+    drops = []
+
+    def recorded(p, o, b):
+        with moe.router_stats() as recs:
+            out = ts2(p, o, b)
+            drops.append(dropped_per_layer(recs, layers, cap2))
+        return out
+
+    params, opt, losses, ms2, l2, wall2 = run_steps(kmods, recorded, params, adamw.init(params),
+                                                    steps2)
+    want2 = {**none, "segment_agg": 4 * layers * EP_TS2_STEPS, "ticket_hash": EP_TS2_STEPS,
+             "segment_rows": EP_TS2_STEPS}
+    check(l2 == want2, f"phase3 lm_ep moe_ts2: launches {l2}, expected {want2}")
+    check(falling(losses), f"phase3 lm_ep moe_ts2: losses not finite and falling {losses}")
+    ts2_ms = ms2[len(ms2) // 2]
+    del params, opt, steps2
+    torch.cuda.empty_cache()
+    rec = {"stream": "lm_ep", "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "routed_rows": ntok * cfg.moe_top_k,
+           "largest_dense_group": largest, "largest_ep_group": ep_largest, "capacity": cap,
+           "dense_step": m_dense, "ep_step": m_ep, "loss_rel": d_loss, "grad_norm_rel": d_gn,
+           "ep_step_ms": ep_ms, "ep_step_ms_range": [t_ms[0], t_ms[-1]],
+           "dense_step_ms_train_moe": moe_rec["step_ms"], "peak_mib": peak_mib,
+           "held_before_mib": held_mib, "peak_over_held_mib": peak_mib - held_mib,
+           "held_with_state_mib": held_state_mib,
+           "forward_rel": fwd_rel, "decode_rel": dec_rel, "stack_views": views,
+           "moe_ts2": {"mesh": {"data": 2, "model": 2}, "capacity": cap2, "steps": EP_TS2_STEPS,
+                       "losses": losses, "step_ms": ts2_ms, "step_ms_range": [ms2[0], ms2[-1]],
+                       "wall_s": wall2, "dropped_first_step": drops[0],
+                       "dropped_last_step": drops[-1], "launches": l2},
+           "launches": {k: le[k] + t_launches[k] + lf[k] + ld_ep[k] + l2[k] + fl[k] + ld[k]
+                        for k in kmods},
+           "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_ep: {cfg.name} at full width and depth ({n_params} parameters, {cfg.dtype} "
+        f"compute over float32), EP on (data 1, model 4) virtual members, {ntok} tokens "
+        f"({ntok * cfg.moe_top_k} routed rows), largest expert group {largest} (dense) / "
+        f"{ep_largest} (EP), capacity {cap}: EP step vs dense from the same state loss "
+        f"{m_ep['loss']:.5f} / {m_dense['loss']:.5f} (rel {d_loss:.3g}), grad_norm "
+        f"{m_ep['grad_norm']:.5f} / {m_dense['grad_norm']:.5f} (rel {d_gn:.3g}); EP step "
+        f"{ep_ms:.2f} ms (median of {EP_TIMED_STEPS}) beside train_moe's dense step "
+        f"{moe_rec['step_ms']:.2f} ms; peak {peak_mib - held_mib:.0f} MiB over the "
+        f"{held_mib:.0f} MiB held before; forward rel {fwd_rel:.4g}, decode rel {dec_rel:.4g} "
+        f"< {LM_REL}; launches an EP step: segment {4 * layers} (one a member and layer), "
+        f"ticket 1, B5 1, no B3 / B6; expert stacks are views ok; {rec['card']}")
+    log(f"phase3 lm_ep moe_ts2: (data 2, model 2), token slice, int8 dispatch, capacity {cap2}, "
+        f"{EP_TS2_STEPS} steps: loss {losses[0]:.3f} -> {losses[-1]:.3f}, {ts2_ms:.2f} ms a step "
+        f"(median); rows dropped per layer, first step {drops[0]}, last step {drops[-1]} (of "
+        f"{ntok * cfg.moe_top_k} routed rows); {rec['card']}")
+    return rec
+
+
+def phase3_serve_members(kmods, device, seed):
+    """``ServeLoop`` over a (data 2, model 2) mesh of ``virtual_devices(4)``
+    against the one-member loop, for qwen3-0.6b and granite-moe-1b-a400m
+    at full width (their configs' bf16 compute over float32 parameters,
+    random weights from a seeded card generator, the same for both
+    loops): 8 requests of 4 + 3·i prompt tokens and SERVE_NEW new tokens,
+    slots 8, max_len 128.  Gates: every request done; its tokens equal,
+    or, at the first token where they differ, the one-member step's top-2
+    logit margin for that row under SERVE_MARGIN (splitting the batch
+    changes the GEMMs' shapes, and bf16 sums may round another way); the
+    placed cache holds one copy a part (held elements = the cache's
+    element count; ``length`` one tensor the four members share); launches
+    a decode step over members: B3 72 and segment 24 a data member for
+    granite, none for qwen3.  Then one ``jit_serve_step(seq_shard=True)``
+    step at batch 1 against the one-member step: logits rel < LM_REL.
+    Prints the decode step's ms (events, after the prefill) beside the
+    one-member step's.  Returns the records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import Request, ServeLoop, jit_serve_step, make_serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh1 = sharding.make_mesh((1, 1), ("data", "model"), devices=[sharding.MeshDevice(0, device)])
+    mesh22 = ep_mesh((2, 2))
+    plen = max(LM_PROMPTS)
+    recs = []
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) \
+            if cfg.moe_num_experts else 0
+        gen = torch.Generator(device=device).manual_seed(seed + 6)
+        torch.cuda.empty_cache()
+        params = tf.init_params(gen, cfg, device)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=device)
+                   for n in LM_PROMPTS]
+        runs = {}
+        for name, mesh in (("one", mesh1), ("members", mesh22)):
+            loop = ServeLoop(mesh, cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+            step, events, margins = loop.step_fn, [], []
+
+            def counted(*args, step=step, events=events, margins=margins):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                events.append(e)
+                out = step(*args)
+                top = torch.topk(out[1][:, -1].float(), 2, dim=-1).values
+                margins.append(top[:, 0] - top[:, 1])
+                return out
+
+            loop.step_fn = counted
+            reqs = [Request(uid=i, prompt=p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+            sync()
+            reset_launches(kmods)
+            loop.run_batch(reqs)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            sync()
+            launches = read_launches(kmods)
+            steps = len(events)
+            check(steps == plen + SERVE_NEW - 1 and all(r.done for r in reqs),
+                  f"phase3 serve_members {arch} {name}: {steps} steps")
+            per = 1 if name == "one" else 2
+            want = {k: 0 for k in kmods}
+            want.update(grouped_matmul=3 * moe_layers * steps * per,
+                        segment_agg=moe_layers * steps * per)
+            check(launches == want, f"phase3 serve_members {arch} {name}: launches {launches}, "
+                  f"expected {want}")
+            runs[name] = {"tokens": [r.generated for r in reqs], "launches": launches,
+                          "decode_ms": events[plen].elapsed_time(end) / (steps - plen),
+                          "margins": torch.stack(margins).cpu(), "loop": loop}
+        one, mem = runs["one"], runs["members"]
+        diffs = []
+        for i, (a, b) in enumerate(zip(one["tokens"], mem["tokens"])):
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if j is not None:
+                m = float(one["margins"][plen - 1 + j, i])
+                diffs.append({"request": i, "first_diff": j, "margin": m})
+                check(m < SERVE_MARGIN, f"phase3 serve_members {arch}: request {i} differs at "
+                      f"token {j} where the one-member margin is {m} >= {SERVE_MARGIN}")
+        caches = mem["loop"].caches
+        leaves = []
+        sharding._map_with_path(lambda path, leaf: leaves.append(leaf), caches)
+        held = sum(t.numel() for leaf in leaves for t in leaf.copies.values())
+        count = sum(leaf.shape.numel() for leaf in leaves)
+        length = caches.length
+        check(held == count and len(length.copies) == 1
+              and length.shard((0, 0)).data_ptr() == length.shard((1, 1)).data_ptr(),
+              f"phase3 serve_members {arch}: {held} cache elements held for {count}")
+        # one seq_shard step at batch 1
+        one_c = tf.init_caches(cfg, 1, LM_MAX_LEN, cfg.dtype, device=device)
+        seq_step = jit_serve_step(mesh22, cfg, mem["loop"].params, one_c, seq_shard=True)
+        tok = prompts[0][:1].reshape(1, 1).to(torch.int32)
+        nxt, lg, placed = seq_step(mem["loop"].params, tok, one_c)
+        o_nxt, o_lg, _ = make_serve_step(cfg)(params, tok, tf.init_caches(
+            cfg, 1, LM_MAX_LEN, cfg.dtype, device=device))
+        seq_rel = float((lg - o_lg).abs().max()) / (float(o_lg.abs().max()) + 1e-6)
+        check(seq_rel < LM_REL and placed.k.sharding.spec[2] == ("data", "model"),
+              f"phase3 serve_members {arch}: seq_shard step rel {seq_rel}")
+        rec = {"stream": f"serve_members_{arch}", "arch": cfg.name, "mesh": {"data": 2,
+               "model": 2}, "slots": LM_SLOTS, "prompts": LM_PROMPTS, "max_new": SERVE_NEW,
+               "decode_ms_one": one["decode_ms"], "decode_ms_members": mem["decode_ms"],
+               "token_diffs": diffs, "cache_elements": count, "cache_held": held,
+               "seq_shard_rel": seq_rel, "seq_shard_next_equal": bool(torch.equal(nxt, o_nxt)),
+               "launches_one": one["launches"], "launches_members": mem["launches"],
+               "launches": {k: one["launches"][k] + mem["launches"][k] for k in kmods},
+               "card": card_line()}
+        recs.append(rec)
+        log("phase3 " + json.dumps(rec))
+        log(f"phase3 serve_members: {cfg.name} at full width, {LM_SLOTS} requests × {SERVE_NEW} "
+            f"tokens on (data 2, model 2) virtual members: decode {mem['decode_ms']:.2f} ms a "
+            f"step beside one member's {one['decode_ms']:.2f} ms; tokens equal in "
+            f"{LM_SLOTS - len(diffs)} of {LM_SLOTS} requests, the rest under a {SERVE_MARGIN} "
+            f"margin {diffs}; cache {held} elements held for {count}; seq_shard step at batch "
+            f"1 rel {seq_rel:.4g}; launches a step over members: B3 {6 * moe_layers}, "
+            f"segment {2 * moe_layers}; {rec['card']}")
+        del params, runs, one, mem, caches, leaves, length, placed, seq_step
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase3_launch(kmods, device, seed):
+    """The launch CLIs through their ``main(argv)`` on ``virtual_devices(4)``:
+    ``launch.serve.main`` with qwen3-0.6b at full width (8 requests, 16 new
+    tokens, slots 4: a (data 4, model 1) mesh), its closing line printed
+    and every request done; ``launch.train.main`` with qwen3-0.6b at full
+    width for LAUNCH_TRAIN_STEPS steps (the placed step over 4 data
+    members; the loss logged at the last step finite; launches ticket and
+    B5 one a data member and step, scan_ticket and segment one a batch
+    for ``SyntheticLM``'s stats plan), then with the reduced config for 4
+    steps committing every 2 and again with ``--elastic`` to step 6 from
+    that commit (the manager's latest commit 6).  Returns the record."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.parallel import sharding
+
+    recs = {}
+    with sharding.virtual_devices(4), tempfile.TemporaryDirectory() as d:
+        out = io.StringIO()
+        sync()
+        reset_launches(kmods)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            served = lserve.main(["--arch", "qwen3_0_6b", "--requests", "8", "--max-new", "16"])
+        serve_s = time.perf_counter() - t0
+        ls = read_launches(kmods)
+        line = out.getvalue().strip().splitlines()[-1]
+        check(len(served) == 8 and all(r.done and len(r.generated) == 16 for r in served)
+              and line.startswith("served 8 requests, 128 tokens in ")
+              and ls == {k: 0 for k in kmods},
+              f"phase3 launch serve: {len(served)} served, line {line!r}, launches {ls}")
+        log(f"phase3 launch serve: {line}")
+        del served
+        torch.cuda.empty_cache()
+        out = io.StringIO()
+        sync()
+        reset_launches(kmods)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            params, opt, hist = ltrain.main(["--arch", "qwen3_0_6b", "--steps",
+                                             str(LAUNCH_TRAIN_STEPS), "--ckpt-dir", d + "/full",
+                                             "--ckpt-every", "1000"])
+        train_s = time.perf_counter() - t0
+        lt = read_launches(kmods)
+        n = LAUNCH_TRAIN_STEPS
+        want = {k: 0 for k in kmods}
+        want.update(ticket_hash=4 * n, segment_rows=4 * n, scan_ticket=n + 1,
+                    segment_agg=n + 1)
+        check(len(hist) == 1 and math.isfinite(hist[0]["loss"]) and lt == want,
+              f"phase3 launch train: logged {hist}, launches {lt}, expected {want}")
+        log("phase3 launch train: " + out.getvalue().strip().splitlines()[-1])
+        del params, opt
+        torch.cuda.empty_cache()
+        small = ["--arch", "qwen3_0_6b", "--reduced", "--ckpt-dir", d + "/small",
+                 "--ckpt-every", "2"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            ltrain.main(small + ["--steps", "4"])
+            _, opt_e, _ = ltrain.main(small + ["--steps", "6", "--elastic"])
+        latest = CheckpointManager(d + "/small").latest_step()
+        check(latest == 6 and int(opt_e.step.full("cpu")) == 6,
+              f"phase3 launch train --elastic: latest commit {latest}")
+        recs = {"stream": "launch", "serve_line": line, "serve_s": serve_s,
+                "train_loss": hist[0]["loss"], "train_sec_per_step": hist[0]["sec_per_step"],
+                "train_s": train_s, "train_launches": lt, "elastic_latest_commit": latest,
+                "launches": {k: ls[k] + lt[k] for k in kmods}, "card": card_line()}
+    log("phase3 " + json.dumps(recs))
+    log(f"phase3 launch: serve.main qwen3-0.6b on 4 virtual members in {serve_s:.1f} s; "
+        f"train.main {LAUNCH_TRAIN_STEPS} steps at full width in {train_s:.1f} s (loss "
+        f"{hist[0]['loss']:.3f} at step {n}, {hist[0]['sec_per_step']:.3f} s a step); reduced "
+        f"--elastic resumed to commit {latest}; {recs['card']}")
+    return recs
+
+
 def b6_bound(lhs, rhs, sizes):
     """The least time of one B6 call (both products): a dict of
     ``bytes_ms`` (lhs, g, the touched experts' weights and sizes read once;
@@ -5435,7 +5915,8 @@ def main(argv=None) -> int:
     log(f"phase3 lm_train in {time.perf_counter() - t_train:.1f} s")
     log("== phase 3 train_moe: granite-moe-1b-a400m at full width (lm_train_moe)")
     t_moe = time.perf_counter()
-    recs.append(phase3_lm_train_moe(kmods, device, args.seed))
+    moe_rec = phase3_lm_train_moe(kmods, device, args.seed)
+    recs.append(moe_rec)
     log(f"phase3 lm_train_moe in {time.perf_counter() - t_moe:.1f} s")
     log("== phase 3 train_dp: make_manual_dp_step on a (pod 2, data 2) mesh (lm_train_dp)")
     t_dp = time.perf_counter()
@@ -5445,6 +5926,18 @@ def main(argv=None) -> int:
     t_placed = time.perf_counter()
     recs.append(phase3_lm_train_placed(kmods, device, args.seed, train_rec))
     log(f"phase3 lm_train_placed in {time.perf_counter() - t_placed:.1f} s")
+    log("== phase 3 lm_ep: granite-moe-1b-a400m with expert parallelism over members (lm_ep)")
+    t_ep = time.perf_counter()
+    recs.append(phase3_lm_ep(kmods, device, args.seed, moe_rec))
+    log(f"phase3 lm_ep in {time.perf_counter() - t_ep:.1f} s")
+    log("== phase 3 serve_members: ServeLoop over a (data 2, model 2) mesh (serve_members)")
+    t_sm = time.perf_counter()
+    recs += phase3_serve_members(kmods, device, args.seed)
+    log(f"phase3 serve_members in {time.perf_counter() - t_sm:.1f} s")
+    log("== phase 3 launch: the serve and train CLIs on 4 virtual members (launch)")
+    t_launch = time.perf_counter()
+    recs.append(phase3_launch(kmods, device, args.seed))
+    log(f"phase3 launch in {time.perf_counter() - t_launch:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 

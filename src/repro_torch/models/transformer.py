@@ -50,9 +50,7 @@ from repro_torch.models.layers import (
     softcap,
     ticketed_embed,
 )
-
-EP_SLICE = ("moe_impl='ep' (expert-parallel dispatch, moe_mlp_ep) needs the experts' "
-            "placement over members, a later slice (ROADMAP item 10c2b)")
+from repro_torch.parallel import sharding
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -141,14 +139,90 @@ def _attn_block(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
         if moe_impl == "ep":
-            raise NotImplementedError(EP_SLICE)
-        m, aux = moe_lib.moe_mlp_dense(p["moe"], cfg, h)
+            m, aux = _moe_ep_shardmapped(p["moe"], cfg, h, ep_info)
+        else:
+            m, aux = moe_lib.moe_mlp_dense(p["moe"], cfg, h)
     else:
         m = mlp(p["mlp"], h, cfg.mlp_kind)
     if cfg.post_block_norm:
         m = apply_norm(cfg.norm_kind, p["ln_mlp_post"], m)
     x = x + m * cfg.residual_multiplier
     return x, new_cache, aux
+
+
+def _local_moe(p_moe: Params, r: int, e_local: int, device) -> Params:
+    """Member r's MoE parameters on ``device``: the expert stacks' rows
+    ``[r·E_local, (r+1)·E_local)`` (a view where the stack is on ``device``),
+    the router and shared expert whole."""
+    rows = slice(r * e_local, (r + 1) * e_local)
+    return {k: (v[rows].to(device) if k in ("w_gate", "w_up", "w_down")
+                else tree_map(lambda t: t.to(device), v)) for k, v in p_moe.items()}
+
+
+def _moe_ep_shardmapped(p_moe: Params, cfg: ModelConfig, h, ep_info: dict):
+    """Expert parallelism over ``ep_info["mesh"]`` (the reference's
+    ``shard_map`` of ``moe_mlp_ep``, ``transformer.py:110-179``): experts
+    split over ``model``, tokens over the data axes ``ep_info["dp"]``,
+    dispatch and return by ``all_to_all`` (``moe.moe_mlp_ep``).  ``ep_info``
+    = {mesh, dp (axis tuple), capacity_per_expert, token_slice,
+    quantize_dispatch}, as the reference's.
+
+    ``h`` (B, S, D) is split along B over the data-parallel coordinates in
+    member order; each coordinate's rows go to every member of its
+    ``model`` group.  Member r of a group computes with the expert stacks'
+    rows ``[r·E_local, (r+1)·E_local)``: a view of the stack where the
+    member shares its device, no copy.  ``E_pad % model`` ≠ 0 raises
+    ``ValueError``, as does a B that does not split over the data members.
+
+    Without ``token_slice`` every member of a group dispatches all of its
+    coordinate's tokens (the reference's replicated dispatch) and the
+    group's output is its first member's.  With it, member r dispatches
+    rows ``[r·ts, (r+1)·ts)`` of the flattened tokens (ts = ceil(T / n),
+    zero rows padding the last slice; they are routed and count in the aux
+    loss, as in the reference) and the slices are gathered back and cut to
+    T.
+
+    The aux loss is the reference's: without ``token_slice`` the mean over
+    the data-parallel coordinates of each one's loss (``pmean(aux, dp)``),
+    with it the mean over every member (``pmean(aux, dp + ("model",))``).
+    That is a mean of means, not the whole batch's load-balance loss that
+    ``jit_train_step`` forms with ``moe.split_aux``: this path keeps the
+    reference's rule.  Returns ``(out on h's device, aux)``."""
+    mesh = ep_info["mesh"]
+    dp = tuple(ep_info["dp"])
+    cap = ep_info["capacity_per_expert"]
+    token_slice = ep_info.get("token_slice", False)
+    quantize = ep_info.get("quantize_dispatch", False)
+    n = mesh.shape["model"]
+    if cfg.moe_experts_padded % n:
+        raise ValueError(f"{cfg.moe_experts_padded} (padded) experts do not split over a "
+                         f"model axis of {n}")
+    groups = [list(g) for g in
+              sharding.member_grid(mesh, dp + ("model",)).reshape(-1, n)]
+    b, s, d = h.shape
+    if b % len(groups):
+        raise ValueError(f"{b} rows do not split over {len(groups)} data-parallel members")
+    e_local = cfg.moe_experts_padded // n
+    outs, auxes = [], []
+    for group, hl in zip(groups, h.tensor_split(len(groups))):
+        p_locals = [_local_moe(p_moe, r, e_local, m.device) for r, m in enumerate(group)]
+        kw = dict(members=group, capacity_per_expert=cap, quantize_dispatch=quantize)
+        if not token_slice:
+            res = moe_lib.moe_mlp_ep(p_locals, cfg, [hl.to(m.device) for m in group], **kw)
+            outs.append(res[0][0].to(h.device))
+            auxes.append(res[0][1].to(h.device))
+            continue
+        t = hl.shape[0] * s
+        ts = -(-t // n)  # ceil for tiny decode batches
+        x2 = hl.reshape(t, d)
+        if ts * n != t:
+            x2 = torch.cat([x2, torch.zeros((ts * n - t, d), dtype=x2.dtype, device=x2.device)])
+        res = moe_lib.moe_mlp_ep(
+            p_locals, cfg, [x2[r * ts:(r + 1) * ts].to(m.device)[None] for r, m in enumerate(group)],
+            **kw)
+        outs.append(torch.cat([o[0].to(h.device) for o, _ in res])[:t].reshape(-1, s, d))
+        auxes += [a.to(h.device) for _, a in res]
+    return torch.cat(outs), torch.stack(auxes).mean()
 
 
 def _mamba_block_init(gen, cfg: ModelConfig, device=None) -> Params:

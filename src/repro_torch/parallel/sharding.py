@@ -1,10 +1,9 @@
 """The mesh seam: a single-controller device mesh and its collectives.
 
 Port of ``repro.parallel.sharding``: its ``shard_map`` seam, its
-data-parallel axes (``dp_axes``, ``batch_spec``) and its LM placement rules
-(``spec_for_path``, ``param_specs``, ``param_shardings``); the cache rules
-(``cache_specs``) wait for serving over members, ROADMAP item 10c2c.  The
-reference runs one Python process that holds a ``jax.sharding.Mesh`` and
+data-parallel axes (``dp_axes``, ``batch_spec``), its LM placement rules
+(``spec_for_path``, ``param_specs``, ``param_shardings``) and its decode
+cache rules (``cache_specs``).  The reference runs one Python process that holds a ``jax.sharding.Mesh`` and
 ``shard_map``\\ s each chunk over it; the port keeps that model.  A
 :class:`Mesh` is a numpy array of :class:`MeshDevice` members, each a
 ``torch.device`` with an id.  One process drives every member: a member's
@@ -168,6 +167,19 @@ def dp_axes(mesh: Mesh) -> tuple:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
+def member_grid(mesh: Mesh, axes: Sequence[str]) -> np.ndarray:
+    """The members at each coordinate of ``axes`` (in that order; index 0
+    of every other axis), an object array shaped by those axes' sizes: the
+    members that compute where the other axes only replicate.  A missing
+    axis raises ``ValueError``."""
+    axes = list(axes)
+    missing = [a for a in axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"the mesh axes {tuple(axes)} are needed; {mesh!r} lacks {missing}")
+    arr = np.moveaxis(mesh.devices, [mesh.axis_names.index(a) for a in axes], range(len(axes)))
+    return arr.reshape(*arr.shape[:len(axes)], -1)[..., 0]
+
+
 def batch_spec(mesh: Mesh) -> tuple:
     """The reference's ``batch_spec``, ``P(dp_axes(mesh), None)``, as the
     tuple of its entries (a lone axis name unwrapped, as ``P`` keeps it): a
@@ -261,6 +273,38 @@ def spec_for_path(path: str, ndim: int, shape=None) -> tuple:
                 spec = [a if shape[i] != 1 else None for i, a in enumerate(spec)]
             return tuple(spec)
     return ()
+
+
+def cache_specs(mesh: Mesh, cfg, caches: Any) -> Any:
+    """The reference's decode cache specs (``sharding.py:158-196``) as
+    tuples, leaf for leaf: k/v (..., B, S, KVH, hd) split over the
+    data-parallel axes on B and over ``model`` on the KV heads where
+    ``cfg.n_kv_heads`` divides, on the sequence otherwise (the
+    flash-decoding layout); SSM / RWKV ``state`` (..., B, H, ...) on B and
+    on H; ``conv`` (..., B, K-1, C) and ``last_x`` (..., B, D) tails on B;
+    ``length`` and anything else replicated."""
+    dp = dp_axes(mesh)
+    dpe = dp if len(dp) > 1 else dp[0]
+    msize = mesh.shape[M]
+
+    def spec(path, leaf):
+        nd = 0 if leaf is None else len(leaf.shape)
+        if nd == 0 or "length" in path:
+            return ()
+        lead = (None,) * (nd - 4)
+        if path.split("/")[-1] in ("k", "v"):
+            if cfg.n_kv_heads % msize == 0:
+                return lead + (dpe, None, M, None)
+            return lead + (dpe, M, None, None)
+        if "state" in path:
+            return lead + (dpe, M, None, None)
+        if "conv" in path and nd >= 3:
+            return (None,) * (nd - 3) + (dpe, None, None)
+        if "last_x" in path and nd >= 2:
+            return (None,) * (nd - 2) + (dpe, None)
+        return ()
+
+    return _map_with_path(spec, caches)
 
 
 def _map_with_path(fn, tree, *rest, path=()):
@@ -426,14 +470,11 @@ def _check_devices(mesh: Mesh) -> None:
         resolve_device(dev)
 
 
-def place_leaf(x, sharding: NamedSharding, path: str = "") -> PlacedTensor:
-    """One leaf placed by ``sharding`` (see :func:`place`)."""
-    if isinstance(x, PlacedTensor):
-        if x.sharding == sharding:
-            return x
-        x = x.full()
-    x = torch.as_tensor(x).detach()
-    shape = tuple(x.shape)
+def check_divides(shape, sharding: NamedSharding, path: str = "") -> None:
+    """Raise ``ValueError`` naming ``path`` where ``sharding`` does not fit
+    a leaf of ``shape``: a spec longer than its rank, or a dim that its
+    parts do not divide (what the reference's pjit refuses)."""
+    shape = tuple(shape)
     if len(sharding.spec) > len(shape):
         raise ValueError(f"{path}: spec {sharding.spec} for a rank-{len(shape)} leaf")
     for i, n in enumerate(shape):
@@ -442,6 +483,17 @@ def place_leaf(x, sharding: NamedSharding, path: str = "") -> PlacedTensor:
             raise ValueError(
                 f"{path}: {sharding!r} splits dim {i} into {k} parts, which {n} does not "
                 f"divide (shape {shape})")
+
+
+def place_leaf(x, sharding: NamedSharding, path: str = "") -> PlacedTensor:
+    """One leaf placed by ``sharding`` (see :func:`place`)."""
+    if isinstance(x, PlacedTensor):
+        if x.sharding == sharding:
+            return x
+        x = x.full()
+    x = torch.as_tensor(x).detach()
+    shape = tuple(x.shape)
+    check_divides(shape, sharding, path)
     _check_devices(sharding.mesh)
     part_shape = sharding.shard_shape(shape)
     copies = {}
@@ -547,11 +599,14 @@ __all__ = [
     "all_gather",
     "all_to_all",
     "batch_spec",
+    "cache_specs",
+    "check_divides",
     "devices",
     "dp_axes",
     "gather",
     "is_placed",
     "make_mesh",
+    "member_grid",
     "param_shardings",
     "param_specs",
     "place",

@@ -40,7 +40,6 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
-import numpy as np
 import torch
 
 from repro_torch.models import moe
@@ -112,13 +111,8 @@ def _dp_grid(mesh) -> list:
     """The members that compute, one per data-parallel coordinate (index 0
     on every other axis): a list over pods (one pod without a pod axis) of
     lists over ``data``, in member order."""
-    dp = sharding.dp_axes(mesh)
-    missing = [a for a in dp if a not in mesh.axis_names]
-    if missing:
-        raise ValueError(f"a data-parallel step needs the mesh axes {dp}; {mesh!r} lacks {missing}")
-    arr = np.moveaxis(mesh.devices, [mesh.axis_names.index(a) for a in dp], range(len(dp)))
-    arr = arr.reshape(*arr.shape[:len(dp)], -1)[..., 0]
-    return [list(row) for row in arr.reshape(-1, mesh.shape["data"])]
+    grid = sharding.member_grid(mesh, sharding.dp_axes(mesh))
+    return [list(row) for row in grid.reshape(-1, mesh.shape["data"])]
 
 
 def _split_batch(batch, n: int, split=None) -> list:

@@ -2146,3 +2146,67 @@ def test_manual_dp_step_with_a_member_on_the_card_and_one_on_the_cpu(cuda):
     assert float(diffs.max()) <= sum(lrs) and float(diffs.median()) <= 1e-3 * sum(lrs)
     for dev in ("cpu", "cuda:0"):
         assert int(opt.step.copies[(dev, ())]) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token_slice,quantize", [(False, False), (True, False), (True, True)])
+def test_expert_parallel_members_on_the_card(cuda, token_slice, quantize):
+    """``moe_impl="ep"`` over a (data 2, model 2) mesh of virtual members of
+    the card (reduced granite-moe-1b-a400m, float32, TF32 off, capacity 64:
+    nothing drops): the forward's logits are the dense path's (B3 in
+    float32) within 1e-5 of their max, or within 1e-3 under int8 dispatch
+    (one code step); each member's experts are a view of the layer's stack
+    on the card; the segment kernel launches once a member and layer
+    (``route``), B3 not at all; a ``make_train_step`` step's loss is
+    finite and its ticketed embedding backward launches the ticket kernel
+    and B5 once."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import segment_rows as sr
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m", reduced=True), dtype="float32")
+    params = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    with sharding.virtual_devices(4) as members:
+        mesh = sharding.make_mesh((2, 2), ("data", "model"), devices=members)
+    assert all(m.device.type == "cuda" for m in mesh.devices.reshape(-1))
+    info = {"mesh": mesh, "dp": ("data",), "capacity_per_expert": 64,
+            "token_slice": token_slice, "quantize_dispatch": quantize}
+    toks = torch.randint(0, cfg.vocab_size, (4, 17), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    dense = tf.forward(params, cfg, batch, ticketed_embedding=False)
+    seen, real = [], moe.moe_mlp_ep
+
+    def spy(p_locals, *a, **kw):
+        seen.append([p["w_gate"] for p in p_locals])
+        return real(p_locals, *a, **kw)
+
+    moe.moe_mlp_ep = spy
+    s0, b0 = sa.segment_agg.launches, gm.grouped_matmul.launches
+    try:
+        ep = tf.forward(params, cfg, batch, ticketed_embedding=False, moe_impl="ep", ep_info=info)
+    finally:
+        moe.moe_mlp_ep = real
+    torch.cuda.synchronize()
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert sa.segment_agg.launches - s0 == 4 * layers and gm.grouped_matmul.launches == b0
+    rel = float((ep.logits - dense.logits).abs().max() / dense.logits.abs().max())
+    assert rel <= (1e-3 if quantize else 1e-5), rel
+    stack = params["layers"]["moe"]["w_gate"]
+    for r, w in enumerate(seen[0]):
+        assert w.device.type == "cuda"
+        assert w.untyped_storage().data_ptr() == stack.untyped_storage().data_ptr()
+        assert w.data_ptr() == stack[0, r * (cfg.moe_experts_padded // 2)].data_ptr()
+    hp = tloop.TrainHParams(peak_lr=1e-3, warmup=0, total_steps=10, ticketed_embedding=True)
+    t0, r0 = th.ticket_hash.launches, sr.segment_rows.launches
+    _, _, m = tloop.make_train_step(cfg, hp, moe_impl="ep", ep_info=info)(
+        params, adamw.init(params), batch)
+    assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
+    assert th.ticket_hash.launches - t0 == 1 and sr.segment_rows.launches - r0 == 1
+    sharding.reset_virtual_devices()

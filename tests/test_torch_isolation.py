@@ -50,5 +50,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                    "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.clip",
                    "repro_torch.optim.compression", "repro_torch.optim.schedules",
                    "repro_torch.train.loop", "repro_torch.train.fault_tolerance",
-                   "repro_torch.kernels.segment_rows", "repro_torch.data.pipeline"):
+                   "repro_torch.kernels.segment_rows", "repro_torch.data.pipeline",
+                   "repro_torch.launch", "repro_torch.launch.mesh", "repro_torch.launch.train",
+                   "repro_torch.launch.serve"):
         assert module in walked, module

@@ -525,11 +525,29 @@ def test_layer_windows_and_padded_vocab():
 
 
 def test_expert_parallel_moe_raises_until_the_placement_slice():
+    """``moe_impl="ep"`` runs over a (data 1, model 4) mesh of CPU members
+    (with ample capacity, the dense logits) and raises where the padded
+    experts do not split over the model axis (tests/test_torch_ep.py holds
+    it to the reference's EP)."""
+    from repro_torch.parallel import sharding
+
     cfg = f32("granite_moe_1b_a400m")
     tp = ttf.init_params(torch.Generator().manual_seed(0), tcfg_of(cfg), device=CPU)
-    with pytest.raises(NotImplementedError, match="placement"):
-        ttf.forward(tp, tcfg_of(cfg), {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    moe_impl="ep")
+    batch = {"tokens": torch.arange(8, dtype=torch.int32).reshape(2, 4)}
+    dense = ttf.forward(tp, tcfg_of(cfg), batch, ticketed_embedding=False)
+    for shape, ok in (((1, 4), True), ((1, 3), False)):
+        with sharding.virtual_devices(shape[0] * shape[1], CPU) as members:
+            mesh = sharding.make_mesh(shape, ("data", "model"), devices=members)
+        info = {"mesh": mesh, "dp": ("data",), "capacity_per_expert": 64}
+        if ok:
+            ep = ttf.forward(tp, tcfg_of(cfg), batch, ticketed_embedding=False, moe_impl="ep",
+                             ep_info=info)
+            assert rel_err(ep.logits.numpy(), dense.logits.numpy()) < 1e-5
+        else:
+            with pytest.raises(ValueError, match="do not split over a model axis of 3"):
+                ttf.forward(tp, tcfg_of(cfg), batch, ticketed_embedding=False, moe_impl="ep",
+                            ep_info=info)
+    sharding.reset_virtual_devices()
 
 
 def test_init_params_defaults_to_the_card():

@@ -80,12 +80,20 @@ def test_serve_step_is_greedy_over_decode_step():
 
 
 def test_serve_loop_on_more_than_one_member_raises():
+    """A loop over two data members serves the one-member loop's tokens
+    (tests/test_torch_serve_members.py holds it to the reference's loop on
+    the same meshes); more requests than slots raise ``ValueError`` on
+    either."""
     _, tcfg, _, tp = both("qwen3_0_6b")
-    with pytest.raises(NotImplementedError, match="placement"):
-        tengine.ServeLoop(cpu_mesh(2), tcfg, tp, slots=2, max_len=16)
-    loop = tengine.ServeLoop(cpu_mesh(), tcfg, tp, slots=2, max_len=16)
-    with pytest.raises(ValueError, match="slots"):
-        loop.run_batch([tengine.Request(uid=i, prompt=[1], max_new=1) for i in range(3)])
+    loops = [tengine.ServeLoop(cpu_mesh(n), tcfg, tp, slots=2, max_len=16) for n in (1, 2)]
+    got = []
+    for loop in loops:
+        reqs = [tengine.Request(uid=i, prompt=[1 + i, 5], max_new=4) for i in range(2)]
+        got.append([r.generated for r in loop.run_batch(reqs)])
+        with pytest.raises(ValueError, match="slots"):
+            loop.run_batch([tengine.Request(uid=i, prompt=[1], max_new=1) for i in range(3)])
+    assert got[0] == got[1] and all(len(g) == 4 for g in got[0])
+    sharding.reset_virtual_devices()
 
 
 def test_serve_loop_moves_params_onto_its_member_and_serves_bfloat16():
