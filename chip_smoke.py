@@ -256,6 +256,18 @@ Four phases, each of which fails the run:
    step), the decode ms beside one member's.  Phase 3 launch:
    ``launch.serve.main`` and ``launch.train.main`` through their
    ``main(argv)`` on four virtual members.
+   Phase dryrun: ``launch.dryrun.run_cell`` (a trace of one member's step
+   on meta tensors) for qwen3-0.6b and granite-moe-1b-a400m at train_4k,
+   qwen3-0.6b at decode_32k and granite-moe-1b-a400m at prefill_32k on
+   16×16, each cell's per-member peak, FLOPs, bytes, collective bytes,
+   roofline terms (an H100 SXM's datasheet constants) and bottleneck
+   printed; then the dry run of train's and train_moe's one-member steps
+   (8 × 128 tokens) against the same step on the card, run once under the
+   same counting mode: predicted FLOPs within DRYRUN_FLOPS_RTOL of the
+   card step's count, predicted peak within DRYRUN_PEAK_RANGE of the
+   card's ``max_memory_allocated`` over what was held; the largest
+   roofline term beside phase 3's median step ms, the HBM constant beside
+   the card's total memory.
 4. timing — CUDA events, median of 5 after 50 ms of warm-up calls, on
    one 2^21-row main-path chunk of each class, beside its bound, its plain
    version and one library call: the fused kernel (low, high, unique at
@@ -355,6 +367,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
 TF32_OPS_PER_S = 495e12         # H100 SXM tensor-core TF32 peak, dense
 SUM_RTOL = 1e-4                 # |Δsum| ≤ SUM_RTOL · Σ|v| over the group
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k"), ("granite_moe_1b_a400m", "train_4k"),
+                ("qwen3_0_6b", "decode_32k"), ("granite_moe_1b_a400m", "prefill_32k"))
+DRYRUN_FLOPS_RTOL = 0.01        # dry run vs the card step's count, FLOPs
+DRYRUN_PEAK_RANGE = (0.8, 1.25)  # dry run's peak over the card's, one-member step
 
 
 class SmokeFailure(RuntimeError):
@@ -4224,16 +4240,6 @@ SERVE_MARGIN = 0.25             # serve_members: top-2 logit margin under which 
 LAUNCH_TRAIN_STEPS = 10         # launch: launch.train.main at qwen3-0.6b full width
 
 
-def moe_ts2_capacity(cfg, tokens, dp, model):
-    """The reference's capacity for its ``moe_ts2`` cell
-    (``src/repro/launch/dryrun.py:55-80`` ``_ep_info``): the tokens of a
-    data member, sliced over ``model``, times k over E_pad (factor 1.0),
-    rounded up to 8, at least 8."""
-    t_local = max(max(tokens // dp, 1) // model, 1)
-    cap = t_local * cfg.moe_top_k * 1.0 / cfg.moe_experts_padded
-    return max(8, int((cap + 7) // 8 * 8))
-
-
 def ep_mesh(shape, axes=("data", "model")):
     from repro_torch.parallel import sharding
 
@@ -4268,7 +4274,7 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
        with the card's peak MiB over what was held.
     2. The reference's ``moe_ts2`` setting on (data 2, model 2): token
        slice, int8 dispatch, the capacity of its ``_ep_info`` rule
-       (:func:`moe_ts2_capacity`), EP_TS2_STEPS steps from fresh weights:
+       (``launch/dryrun.py`` ``_ep_info``), EP_TS2_STEPS steps from fresh weights:
        losses finite and the mean of the last 5 below the mean of the
        first 5; the rows dropped per layer of the first and last step.
     3. ``forward`` (2 × 64 tokens, (data 1, model 4)) and a cached prefill
@@ -4289,8 +4295,10 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import _ep_info
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeCell
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding
     from repro_torch.train import loop as tloop
@@ -4411,9 +4419,11 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
     del params, opt, batches, c_ep, c_d, ep_out, dense_out, seen, stack
     torch.cuda.empty_cache()
     # 2. moe_ts2 on (data 2, model 2): 30 steps from fresh weights
-    cap2 = moe_ts2_capacity(cfg, ntok, 2, 2)
-    info2 = {"mesh": mesh22, "dp": ("data",), "capacity_per_expert": cap2, "token_slice": True,
-             "quantize_dispatch": True}
+    # the dry run's moe_ts2 cell on (data 2, model 2): token slice, int8 dispatch,
+    # capacity factor 1.0
+    cell2 = ShapeCell("lm_ep", TRAIN_SEQ, TRAIN_BATCH, "train")
+    info2 = _ep_info(mesh22, cfg, cell2, "moe_ts2")[0]
+    cap2 = info2["capacity_per_expert"]
     params = tf.init_params(gen, cfg, device)
     ts2 = tloop.make_train_step(cfg, hp, moe_impl="ep", ep_info=info2)
     steps2 = [next(data) for _ in range(EP_TS2_STEPS)]
@@ -4793,6 +4803,148 @@ def phase4_grouped_matmul_backward(gm, gen, device, reps=5):
     return {"ms": head["kernel_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "max_abs_err": worst, "per_shape": per_shape}
+
+
+# -- phase dryrun: the production cells and the one-member steps -----------------------
+
+
+def dryrun_calibrate(kmods, device, seed, arch, step_ms):
+    """The dry run of ``make_train_step``'s one-member step (8 × 128 tokens,
+    TRAIN_HP, ``ticketed_embedding``, as phase 3's) on meta tensors, and
+    the same step once on the card under the same ``CostMode``: FLOPs
+    against FLOPs (DRYRUN_FLOPS_RTOL), the predicted peak against the
+    card's ``max_memory_allocated`` over what was held before the
+    parameters (DRYRUN_PEAK_RANGE).  Launches, set to 0 just before each
+    run and read just after: none in the meta trace (the wrappers' meta
+    branches); in the card step phase 3's a step (ticket 1, B5 1; MoE
+    also B3 3, B6 6 and the segment kernel 1 a layer).  Returns the
+    record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tloop
+
+    cfg = get_config(arch)
+    hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
+    meta = torch.device("meta")
+    params = sp.abstract_params(cfg)
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device=meta)
+             for k in ("tokens", "targets")}
+    args = (params, sp.abstract_opt(params), batch)
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    pred = dr.trace(dr.CellStep(tloop.make_train_step(cfg, hp), args, dr._tensors(args), [], 1,
+                                0, 0))
+    trace_s = time.perf_counter() - t0
+    none = {k: 0 for k in kmods}
+    check(read_launches(kmods) == none,
+          f"dryrun {arch}: the meta trace launched kernels {read_launches(kmods)}")
+    del params, args, batch
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = tf.init_params(gen, cfg, device)
+    opt = adamw.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+    step = tloop.make_train_step(cfg, hp)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kmods)
+    with dr.CostMode() as mode:
+        _, _, metrics = step(params, opt, batch)
+    sync()
+    launches = read_launches(kmods)
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) if cfg.moe_num_experts else 0
+    want = dict(none, ticket_hash=1, segment_rows=1)
+    if layers:
+        want.update(grouped_matmul=3 * layers, grouped_matmul_backward=6 * layers,
+                    segment_agg=layers)
+    check(launches == want, f"dryrun {arch}: the card step launched {launches}, expected {want}")
+    card_peak = torch.cuda.max_memory_allocated() - held
+    loss = float(metrics["loss"])
+    del params, opt, batch, metrics, step
+    torch.cuda.empty_cache()
+
+    flops, flops_card = pred["cost"]["flops"], mode.flops
+    peak = pred["memory"]["peak_bytes"]
+    terms = {"compute": flops / roofline.H100_PEAK_FLOPS_BF16,
+             "memory": pred["cost"]["bytes accessed"] / roofline.H100_HBM_BW}
+    top = max(terms, key=terms.get)
+    rec = {"arch": arch, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "flops": flops,
+           "flops_card": flops_card, "flops_ratio": flops / flops_card,
+           "bytes": pred["cost"]["bytes accessed"], "bytes_card": mode.bytes,
+           "peak_mib": peak / 2 ** 20, "card_peak_mib": card_peak / 2 ** 20,
+           "peak_ratio": peak / card_peak, "terms_ms": {k: v * 1e3 for k, v in terms.items()},
+           "bound_by": top, "step_ms": step_ms, "trace_s": trace_s, "loss": loss,
+           "launches": launches}
+    check(math.isfinite(loss), f"dryrun {arch}: the card step's loss {loss} is not finite")
+    check(abs(flops / flops_card - 1) <= DRYRUN_FLOPS_RTOL,
+          f"dryrun {arch}: predicted FLOPs {flops:.6e} vs the card step's {flops_card:.6e}")
+    lo, hi = DRYRUN_PEAK_RANGE
+    check(lo <= peak / card_peak <= hi,
+          f"dryrun {arch}: predicted peak {peak / 2 ** 20:.0f} MiB vs the card's "
+          f"{card_peak / 2 ** 20:.0f} MiB over what was held")
+    log(f"dryrun calibrate {arch} (8 x 128, one member): FLOPs {flops:.6e} predicted vs "
+        f"{flops_card:.6e} counted on the card step (x{flops / flops_card:.5f}); bytes "
+        f"{rec['bytes']:.4e} vs {mode.bytes:.4e}; peak {peak / 2 ** 20:.0f} MiB predicted vs "
+        f"{card_peak / 2 ** 20:.0f} MiB max_memory_allocated over what was held "
+        f"(x{peak / card_peak:.3f}); largest roofline term {top} {terms[top] * 1e3:.3f} ms "
+        f"beside phase 3's median step {step_ms:.2f} ms ({step_ms / (terms[top] * 1e3):.1f}x); "
+        f"trace {trace_s:.1f} s; {card_line()}")
+    return rec
+
+
+def phase_dryrun(kmods, device, seed, train_rec, moe_rec):
+    """The dry run's production cells, then its calibration against the
+    card (:func:`dryrun_calibrate`).  Returns the records."""
+    import torch
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline
+
+    cells = []
+    reset_launches(kmods)
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dr.run_cell(arch, shape, with_cost=False, verbose=False)
+        rf, mem = r["roofline"], r["memory"]
+        check(rf["hlo_flops"] > 0 and mem["peak_bytes"] > 0 and math.isfinite(rf["hlo_bytes"]),
+              f"dryrun {arch} {shape}: no work counted ({rf})")
+        cell = {"arch": arch, "shape": shape, "mesh": r["mesh"], "mode": r["mode"],
+                "peak_gib": mem["peak_bytes"] / 2 ** 30,
+                "argument_gib": mem["argument_bytes"] / 2 ** 30,
+                "fits_80gb": mem["peak_bytes"] <= roofline.H100_HBM_BYTES,
+                "flops": rf["hlo_flops"], "bytes": rf["hlo_bytes"], "coll_bytes": rf["coll_bytes"],
+                "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+                "collective_s": rf["collective_s"], "bottleneck": rf["bottleneck"],
+                "useful_flops_frac": rf["useful_flops_frac"], "s": time.perf_counter() - t0}
+        cells.append(cell)
+        check(read_launches(kmods) == {k: 0 for k in kmods},
+              f"dryrun {arch} {shape}: a meta trace launched kernels {read_launches(kmods)}")
+        log(f"dryrun {arch} x {shape} x {r['mesh']}: per member peak {cell['peak_gib']:.2f} GiB "
+            f"({'fits' if cell['fits_80gb'] else 'exceeds'} 80 GB; arguments "
+            f"{cell['argument_gib']:.2f} GiB), FLOPs {cell['flops']:.4e}, bytes "
+            f"{cell['bytes']:.4e}, collective bytes {cell['coll_bytes']:.4e}; compute "
+            f"{cell['compute_s']:.4f} s, memory {cell['memory_s']:.4f} s, collective "
+            f"{cell['collective_s']:.4f} s (H100 SXM datasheet constants) -> {cell['bottleneck']}; "
+            f"{cell['s']:.1f} s")
+    calib = [dryrun_calibrate(kmods, device, seed, TRAIN_ARCH, train_rec["step_ms"]),
+             dryrun_calibrate(kmods, device, seed, MOE_TRAIN_ARCH, moe_rec["step_ms"])]
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dryrun HBM constant {roofline.H100_HBM_BYTES:.4e} B (datasheet) beside the card's "
+        f"total_memory {total} B; {card_line()}")
+    rec = {"cells": cells, "calibration": calib, "hbm_constant": roofline.H100_HBM_BYTES,
+           "total_memory": total, "card": card_line()}
+    log("dryrun " + json.dumps(rec))
+    return rec
 
 
 # -- phase 4: timing --------------------------------------------------------------
@@ -5940,6 +6092,11 @@ def main(argv=None) -> int:
     log(f"phase3 launch in {time.perf_counter() - t_launch:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
+
+    log("== phase dryrun: production cells on meta tensors, and the one-member steps")
+    t_dry = time.perf_counter()
+    phase_dryrun(kmods, device, args.seed, train_rec, moe_rec)
+    log(f"phase dryrun in {time.perf_counter() - t_dry:.1f} s")
 
     log("== phase 4: timing")
     t0 = time.perf_counter()

@@ -66,6 +66,8 @@ import ctypes
 
 import torch
 
+from repro_torch.launch.roofline import counted
+
 
 def _check(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor):
     if lhs.dim() != 2 or rhs.dim() != 3 or group_sizes.dim() != 1:
@@ -98,6 +100,8 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
         ctx.save_for_backward(lhs, rhs, group_sizes)
+        if lhs.device.type == "meta":  # a dry run: the shape only
+            return lhs.new_empty((lhs.shape[0], rhs.shape[2]))
         if lhs.device.type == "cpu":
             return grouped_matmul_plain(lhs, rhs, group_sizes)
         return _launch(lhs, rhs, group_sizes)
@@ -109,19 +113,43 @@ class _GroupedMatmul(torch.autograd.Function):
                                        need=ctx.needs_input_grad[:2]) + (None,)
 
 
+def _b3_work(lhs, rhs, group_sizes):
+    """B3's bound (PERF.md §6): 2·M·K·N FLOPs (every row in a group, as the
+    MoE layer's rows are); lhs, every expert's weights, the sizes and the
+    output, each once."""
+    (m, k), (g, _, n) = lhs.shape, rhs.shape
+    return 2 * m * k * n, 4 * (m * k + g * k * n + g + m * n)
+
+
+@counted(_b3_work)
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """``ragged_dot(lhs, rhs, group_sizes)`` in float32 (see the module
     docstring).  CUDA tensors launch the Hopper kernel, and B6 in the
     backward; CPU tensors run :func:`grouped_matmul_plain`, and
-    :func:`grouped_matmul_backward_plain` in the backward; any other device
-    raises."""
+    :func:`grouped_matmul_backward_plain` in the backward; ``meta`` tensors
+    (a dry run) give the output's shape and compute nothing; any other
+    device raises."""
     lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
     dev = lhs.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"grouped_matmul runs on cuda or cpu tensors, not {dev}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"grouped_matmul runs on cuda, cpu or meta tensors, not {dev}")
     return _GroupedMatmul.apply(lhs, rhs, group_sizes)
 
 
+def _b6_work(lhs, rhs, group_sizes, g, *, need=(True, True)):
+    """B6's bound (PERF.md §6), a product each: 2·M·K·N FLOPs; d_lhs reads
+    g and the weights and writes (M, K), d_rhs reads lhs and g and writes
+    (G, K, N); the sizes once a product."""
+    (m, k), (e, _, n) = lhs.shape, rhs.shape
+    flops = nbytes = 0
+    if need[0]:
+        flops, nbytes = flops + 2 * m * k * n, nbytes + 4 * (m * n + e * k * n + m * k + e)
+    if need[1]:
+        flops, nbytes = flops + 2 * m * k * n, nbytes + 4 * (m * k + m * n + e * k * n + e)
+    return flops, nbytes
+
+
+@counted(_b6_work)
 def grouped_matmul_backward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
                             g: torch.Tensor, *, need=(True, True)):
     """Kernel B6: ``(d_lhs, d_rhs)``, the VJP of ``grouped_matmul(lhs, rhs,
@@ -130,9 +158,13 @@ def grouped_matmul_backward(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: t
     names which of the two to compute (None for the other).  CUDA tensors
     launch one kernel a product (``csrc/grouped_matmul.cu``; the sizes stay
     on the device) and raise if they cannot; CPU tensors run
-    :func:`grouped_matmul_backward_plain`."""
+    :func:`grouped_matmul_backward_plain`; ``meta`` tensors give the
+    shapes."""
     lhs, rhs, group_sizes = _check(lhs, rhs, group_sizes)
     g = _check_cotangent(lhs, rhs, g)
+    if lhs.device.type == "meta":
+        return (torch.empty_like(lhs) if need[0] else None,
+                torch.empty_like(rhs) if need[1] else None)
     if lhs.device.type == "cpu":
         d_lhs, d_rhs = grouped_matmul_backward_plain(lhs, rhs, group_sizes, g)
         return d_lhs if need[0] else None, d_rhs if need[1] else None

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import updates as up
+from repro_torch.launch.roofline import counted
 
 _NEUTRAL = {"sum": 0.0, "count": 0.0, "min": float("inf"), "max": float("-inf")}
 _KIND_CODE = {"sum": 0, "count": 1, "min": 2, "max": 3}
@@ -113,6 +114,14 @@ def _launch(tickets, values, acc, num_groups, kind, strategy_code) -> None:
         )
 
 
+def _segment_work(tickets, values, *, num_groups: int, **_):
+    """The segment kernel's bound (PERF.md §6): one operation a row;
+    tickets and values read once, the accumulator written once."""
+    n = tickets.shape[0]
+    return n, 8 * n + 4 * num_groups
+
+
+@counted(_segment_work)
 def segment_agg(tickets: torch.Tensor, values: torch.Tensor, *, num_groups: int,
                 kind: str = "sum", strategy: str = "scatter",
                 morsel_size: int = 1024, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -120,10 +129,13 @@ def segment_agg(tickets: torch.Tensor, values: torch.Tensor, *, num_groups: int,
     float32 accumulator, or into ``out`` in place (see the module
     docstring).  CUDA tensors launch the Hopper kernel (counted in
     ``segment_agg.launches``); CPU tensors run :func:`segment_agg_plain`;
-    any other device raises."""
+    ``meta`` tensors (a dry run) give the accumulator's shape; any other
+    device raises."""
     tickets, values = _prepare(tickets, values, num_groups, kind, strategy, morsel_size)
     dev = tickets.device
     _check_out(out, num_groups, dev)
+    if dev.type == "meta":
+        return out if out is not None else values.new_empty((num_groups,))
     if dev.type == "cpu":
         return segment_agg_plain(tickets, values, num_groups=num_groups, kind=kind,
                                  strategy=strategy, morsel_size=morsel_size, out=out)

@@ -32,6 +32,8 @@ import ctypes
 
 import torch
 
+from repro_torch.launch.roofline import counted
+
 _INT32_MAX = 0x7FFFFFFF
 
 
@@ -55,12 +57,23 @@ def _check(rows: torch.Tensor, tickets: torch.Tensor, num_groups: int):
     return rows, tickets
 
 
+def _b5_work(rows, tickets, num_groups: int):
+    """B5's bound (PERF.md §6): one add a row element; rows and tickets
+    read once, the G × d sums written once."""
+    r, d = rows.shape
+    return r * d, 4 * (r * d + r + num_groups * d)
+
+
+@counted(_b5_work)
 def segment_rows(rows: torch.Tensor, tickets: torch.Tensor, num_groups: int) -> torch.Tensor:
     """``(num_groups, d)`` float32 sums of ``rows`` by ticket (see the
     module docstring).  CUDA tensors launch the Hopper kernel; CPU tensors
-    run :func:`segment_rows_plain`; any other device raises."""
+    run :func:`segment_rows_plain`; ``meta`` tensors (a dry run) give the
+    output's shape; any other device raises."""
     rows, tickets = _check(rows, tickets, num_groups)
     dev = rows.device
+    if dev.type == "meta":
+        return rows.new_empty((num_groups, rows.shape[1]))
     if dev.type == "cpu":
         return segment_rows_plain(rows, tickets, num_groups)
     if dev.type != "cuda":

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import ticketing as tk
 from repro_torch.core.hashing import EMPTY_I32, to_i32_bits
+from repro_torch.launch.roofline import counted
 
 _INT32_MAX = 0x7FFFFFFF
 
@@ -58,6 +59,15 @@ def _as_keys(keys: torch.Tensor) -> torch.Tensor:
     return keys.contiguous()
 
 
+def _ticket_work(keys, *, capacity: int, max_groups: int, **_):
+    """The ticket kernel's bound (PERF.md §6), in bytes (no FLOP): keys
+    read and tickets written once, the table's 8-byte slots, ``key_by_ticket``
+    and the count written once."""
+    n = keys.shape[0]
+    return 0, 8 * n + 8 * capacity + 4 * max_groups + 4
+
+
+@counted(_ticket_work)
 def ticket_hash(keys: torch.Tensor, *, capacity: int, max_groups: int,
                 morsel_size: int = 1024):
     """Ticket a key column against a fresh table of ``capacity`` slots.
@@ -72,10 +82,14 @@ def ticket_hash(keys: torch.Tensor, *, capacity: int, max_groups: int,
     Returns ``(tickets (N,), table_keys (C,), table_tickets (C,),
     key_by_ticket (G,), count ())``, all int32.  CUDA tensors launch the
     Hopper kernel (counted in ``ticket_hash.launches``); CPU tensors run
-    :func:`ticket_hash_plain`; any other device raises."""
+    :func:`ticket_hash_plain`; ``meta`` tensors (a dry run) give the
+    outputs' shapes; any other device raises."""
     keys = _as_keys(keys)
     _check(keys, capacity, max_groups, morsel_size)
     dev = keys.device
+    if dev.type == "meta":
+        return (torch.empty_like(keys), keys.new_empty((capacity,)), keys.new_empty((capacity,)),
+                keys.new_empty((max_groups,)), keys.new_empty(()))
     if dev.type == "cpu":
         return ticket_hash_plain(keys, capacity=capacity, max_groups=max_groups,
                                  morsel_size=morsel_size)

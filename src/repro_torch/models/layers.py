@@ -17,7 +17,11 @@ Params = dict
 
 def randn(gen: torch.Generator, shape, device, std: float = 1.0) -> torch.Tensor:
     """A float32 standard-normal draw of ``shape`` from ``gen`` (made on the
-    generator's device), times ``std``, on ``device``."""
+    generator's device), times ``std``, on ``device``; on a ``meta``
+    device only the shape (``launch/specs.py`` ``abstract_params``), with
+    nothing drawn."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
     return (x * std).to(device)
 
@@ -87,9 +91,11 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 def quantize_dense_params(params: Params) -> Params:
     """Weight-only int8 transform: every 2-D dense kernel {"w": (in,out)}
     becomes {"w_q8": int8, "w_scale": (1,out) f32}; stacked kernels
-    (…, in, out) keep their leading (L, …) dims.  The reference also maps
-    ``ShapeDtypeStruct`` trees for its dry run; the port has no dry run
-    yet (ROADMAP item 11)."""
+    (…, in, out) keep their leading (L, …) dims.  On a tree of ``meta``
+    tensors (``launch/specs.py`` ``abstract_params``) it maps shapes and
+    dtypes only: the dry run's ``twobuf_q8w`` variant
+    (``launch/dryrun.py``), as the reference maps ``ShapeDtypeStruct``
+    trees for its own."""
 
     def walk(node):
         if isinstance(node, dict):

@@ -11,6 +11,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.launch.roofline import record_collective
+
 BLOCK = 256
 
 
@@ -57,7 +59,9 @@ def compressed_psum(tensors: Sequence[torch.Tensor], dst) -> torch.Tensor:
         q, scale = q.to(dst.device), scale.to(dst.device)  # int8 blocks travel
         qsum = q.to(torch.int32) if qsum is None else qsum.add_(q)
         ssum = scale.clone() if ssum is None else ssum.add_(scale)
-    return dequantize(qsum, ssum / float(len(tensors)), n, x.shape, x.dtype)
+    out = dequantize(qsum, ssum / float(len(tensors)), n, x.shape, x.dtype)
+    record_collective("all-reduce", out)
+    return out
 
 
 __all__ = ["BLOCK", "compressed_psum", "dequantize", "quantize"]

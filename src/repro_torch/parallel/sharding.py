@@ -37,6 +37,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch.roofline import record_collective
+
 
 @dataclass(frozen=True)
 class MeshDevice:
@@ -447,7 +449,9 @@ class PlacedTensor:
             t = self.copies.get((_dev_key(torch.device(device)), (0,) * self.ndim))
             if t is not None:
                 return t
-        return self.full(device)
+        out = self.full(device)
+        record_collective("all-gather", out)
+        return out
 
     def map(self, fn) -> "PlacedTensor":
         """A PlacedTensor of the same sharding with ``fn`` of each copy
@@ -552,18 +556,23 @@ def shard(x: torch.Tensor, members: Sequence[MeshDevice]) -> list:
 def all_gather(tensors: Sequence[torch.Tensor], members: Sequence[MeshDevice]) -> list:
     """Tiled all-gather: every member gets the members' tensors
     concatenated along dim 0, in member order (a fresh tensor each)."""
-    return [torch.cat([t.to(m.device) for t in tensors]) for m in members]
+    out = [torch.cat([t.to(m.device) for t in tensors]) for m in members]
+    record_collective("all-gather", out)
+    return out
 
 
 def gather(tensors: Sequence[torch.Tensor], dst: MeshDevice) -> torch.Tensor:
     """The tiled concatenation of the members' tensors on one member."""
-    return torch.cat([t.to(dst.device) for t in tensors])
+    out = torch.cat([t.to(dst.device) for t in tensors])
+    record_collective("all-gather", out)
+    return out
 
 
 def _reduce(tensors, dst: MeshDevice, op) -> torch.Tensor:
     out = tensors[0].to(dst.device, copy=True)  # never a member's own storage
     for t in tensors[1:]:
         op(out, t.to(dst.device), out=out)
+    record_collective("all-reduce", out)
     return out
 
 
@@ -588,7 +597,9 @@ def all_to_all(buckets: Sequence[torch.Tensor], members: Sequence[MeshDevice]) -
     for b in buckets:
         if b.shape[0] != n:
             raise ValueError(f"a bucket tensor of {b.shape[0]} rows for {n} members")
-    return [torch.stack([b[j].to(m.device) for b in buckets]) for j, m in enumerate(members)]
+    out = [torch.stack([b[j].to(m.device) for b in buckets]) for j, m in enumerate(members)]
+    record_collective("all-to-all", out)
+    return out
 
 
 __all__ = [

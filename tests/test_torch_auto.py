@@ -30,6 +30,10 @@ from repro_torch.engine import plan_api as tapi
 from repro_torch.engine.columns import Table as TTable
 from repro_torch.kernels import hybrid_registers as thr
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 jgb = importlib.import_module("repro.engine.groupby")
 tgb = importlib.import_module("repro_torch.engine.groupby")
 

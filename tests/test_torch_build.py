@@ -3,8 +3,13 @@ is named by its source, the ``csrc`` headers that source includes and the
 compiler flags, so an edited header rebuilds every kernel that includes
 it.  No compiler is needed: these tests stop short of ``nvcc``."""
 import pytest
+import torch
 
 from repro_torch.kernels import build
+
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
 
 
 def _sources(tmp_path):

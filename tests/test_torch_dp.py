@@ -43,6 +43,10 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import sharding
 from repro_torch.train import loop as tloop
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-5
 
 

@@ -46,6 +46,10 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve.query_server import AggregationServer
 from repro_torch.train.elastic import WorkerFailure
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 AggSpec, ExecutionPolicy, GroupByPlan = tapi.AggSpec, tapi.ExecutionPolicy, tapi.GroupByPlan
 SaturationPolicy = tapi.SaturationPolicy
 

@@ -49,12 +49,18 @@ import torch
 from repro import configs as jconfigs
 from repro.models import moe as jmoe
 from repro.models import transformer as jtf
+from repro_torch.launch import dryrun as tdryrun
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.config import ModelConfig as TModelConfig
+from repro_torch.models.config import ShapeCell as TShapeCell
 from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import sharding
 from repro_torch.train import loop as tloop
+
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
@@ -147,13 +153,15 @@ TRAIN_STEPS = 3
 TRAIN_HP = dict(peak_lr=1e-3, warmup=0, total_steps=10)
 
 
-def moe_ts2_capacity(cfg, batch_tokens, dp, model):
-    """The reference's ``_ep_info`` capacity for ``moe_ts2``
-    (``launch/dryrun.py:55-80``): tokens a data member, sliced over
-    ``model``, times k over E_pad, rounded up to 8, at least 8."""
-    t_local = max(max(batch_tokens // dp, 1) // model, 1)
-    cap = t_local * cfg.moe_top_k * 1.0 / cfg.moe_experts_padded
-    return max(8, int((cap + 7) // 8 * 8))
+def moe_ts2_capacity(cfg, b, s, mesh_shape, axes):
+    """The dry run's ``_ep_info`` capacity for a ``moe_ts2`` training cell
+    of ``b`` × ``s`` tokens on a mesh of ``mesh_shape`` (the reference's
+    rule, ``launch/dryrun.py``)."""
+    n = int(np.prod(mesh_shape))
+    members = [sharding.MeshDevice(i, torch.device("meta")) for i in range(n)]
+    mesh = sharding.make_mesh(mesh_shape, axes, devices=members)
+    info, _ = tdryrun._ep_info(mesh, cfg, TShapeCell("ep_train", s, b, "train"), "moe_ts2")
+    return info["capacity_per_expert"]
 
 
 def jcfg_tcfg():
@@ -280,7 +288,8 @@ class JaxReference:
         inputs, self._out = str(d / "in.npz"), str(d / "out.npz")
         np.savez(inputs, train_tokens=self.train_tokens, fwd_tokens=self.fwd_tokens,
                  dec_tokens=self.dec_tokens, moe_x=self.moe_x, moe_g=self.moe_g)
-        self.train_cap = moe_ts2_capacity(jcfg, B * S, TRAIN_MESH[0][0], TRAIN_MESH[0][1])
+        self.train_cap = moe_ts2_capacity(TModelConfig(**dataclasses.asdict(jcfg)), B, S,
+                                          *TRAIN_MESH)
         args = {"inputs": inputs, "out": self._out, "train_mesh": TRAIN_MESH,
                 "train_hp": TRAIN_HP, "train_cap": self.train_cap, "train_steps": TRAIN_STEPS,
                 "moe_cases": MOE_CASES, "forward_cases": FORWARD_CASES,

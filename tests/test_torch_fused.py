@@ -21,6 +21,10 @@ from repro_torch.core import resize as tresize
 from repro_torch.core import ticketing as ttk
 from repro_torch.kernels import fused_groupby as tfk
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 ACC_TOL = 1e-6
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 

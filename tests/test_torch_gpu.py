@@ -36,6 +36,10 @@ from repro_torch.kernels import preagg as pa
 from repro_torch.kernels import segment_agg as sa
 from repro_torch.kernels import ticket_hash as th
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS = tuple(k for _, k in SPECS4)
 M = 1024
@@ -2210,3 +2214,46 @@ def test_expert_parallel_members_on_the_card(cuda, token_slice, quantize):
     assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
     assert th.ticket_hash.launches - t0 == 1 and sr.segment_rows.launches - r0 == 1
     sharding.reset_virtual_devices()
+
+
+@pytest.mark.gpu
+def test_counted_wrappers_still_launch_on_the_card(cuda):
+    """The four wrappers the dry run counts by formula (``launch/roofline.py``
+    ``counted``) launch their kernels on CUDA tensors and count each launch,
+    with no dry run active and inside a ``CostMode`` (which then adds the
+    kernels' formula FLOPs instead of their inner ops)."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import segment_rows as sr
+    from repro_torch.launch import dryrun
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    lhs = torch.randn(96, 64, generator=g, device=cuda)
+    rhs = torch.randn(4, 64, 32, generator=g, device=cuda)
+    sizes = torch.tensor([30, 0, 50, 16], dtype=torch.int32, device=cuda)
+    cot = torch.randn(96, 32, generator=g, device=cuda)
+    keys = torch.randint(0, 100, (2048,), generator=g, device=cuda, dtype=torch.int32)
+    tickets = torch.randint(-1, 40, (256,), generator=g, device=cuda, dtype=torch.int32)
+    vals = torch.randn(256, generator=g, device=cuda)
+    rows = torch.randn(256, 16, generator=g, device=cuda)
+
+    def calls():
+        gm.grouped_matmul(lhs, rhs, sizes)
+        gm.grouped_matmul_backward(lhs, rhs, sizes, cot)
+        sa.segment_agg(tickets, vals, num_groups=40, kind="count", strategy="onehot",
+                       morsel_size=1)
+        th.ticket_hash(keys, capacity=256, max_groups=128)
+        sr.segment_rows(rows, tickets, 40)
+
+    counters = ((gm, "grouped_matmul", 1), (gm, "grouped_matmul_backward", 2),
+                (sa, "segment_agg", 1), (th, "ticket_hash", 1), (sr, "segment_rows", 1))
+    for mode in (None, dryrun.CostMode()):
+        before = [getattr(mod, fn).launches for mod, fn, _ in counters]
+        if mode is None:
+            calls()
+        else:
+            with mode:
+                calls()
+        torch.cuda.synchronize()
+        after = [getattr(mod, fn).launches for mod, fn, _ in counters]
+        assert [a - b for a, b in zip(after, before)] == [n for _, _, n in counters]
+    assert mode.flops == 3 * 2 * 96 * 64 * 32 + 256 + 256 * 16

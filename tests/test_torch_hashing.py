@@ -16,6 +16,10 @@ from repro_torch.engine import columns as tcol
 from repro_torch.engine import morsels as tmor
 from repro_torch.obs import metrics as tmet
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 SPECIALS = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE], dtype=np.uint32)
 
 

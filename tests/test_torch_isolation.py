@@ -6,6 +6,12 @@ import subprocess
 import sys
 import textwrap
 
+import torch
+
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent("""
@@ -30,7 +36,7 @@ _PROBE = textwrap.dedent("""
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, os.path.join(REPO, "chip_smoke.py")],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -52,5 +58,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                    "repro_torch.train.loop", "repro_torch.train.fault_tolerance",
                    "repro_torch.kernels.segment_rows", "repro_torch.data.pipeline",
                    "repro_torch.launch", "repro_torch.launch.mesh", "repro_torch.launch.train",
-                   "repro_torch.launch.serve"):
+                   "repro_torch.launch.serve", "repro_torch.launch.specs",
+                   "repro_torch.launch.roofline", "repro_torch.launch.dryrun"):
         assert module in walked, module

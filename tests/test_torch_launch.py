@@ -26,6 +26,10 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as ttf
 from repro_torch.parallel import sharding
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 TRAIN_ARGS = ["--arch", "qwen3_0_6b", "--reduced", "--batch", "4", "--seq", "16"]
 
 

@@ -32,6 +32,10 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.config import ModelConfig as TModelConfig
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 B, S = 2, 32
 CPU = "cpu"
 

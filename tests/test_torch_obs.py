@@ -34,6 +34,10 @@ from repro_torch.engine import (
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 N = 2048
 CHUNK = 512
 CPU = ExecutionPolicy(device="cpu")

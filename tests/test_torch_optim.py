@@ -19,6 +19,10 @@ from repro_torch.optim import clip as tclip
 from repro_torch.optim import compression as tcomp
 from repro_torch.optim import schedules as tsched
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-6, 1e-7
 
 

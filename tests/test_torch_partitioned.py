@@ -30,6 +30,10 @@ from repro_torch.engine.columns import Table
 from repro_torch.engine.groupby import GroupByOverflowError
 from repro_torch.kernels import preagg as pa
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 KINDS = ("sum", "count", "min", "max")
 
 

@@ -43,6 +43,10 @@ from repro_torch.parallel import sharding
 from repro_torch.train import elastic
 from repro_torch.train import loop as tloop
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 LOSS_RTOL = 1e-5
 
@@ -314,7 +318,9 @@ def test_placed_moe_step_matches_the_reference_step_from_the_same_state():
             step = tloop.jit_train_step(mesh, tcfg, thp, p, o)(tbatch(bn))
         before_p = sharding.unplace(p, CPU) if i else ttf.tree_map(lambda t: t.clone(), p)
         before_o = sharding.unplace(o, CPU) if i else tadamw.init(p)
-        to_jax = lambda tree: jax.tree.map(lambda t: jnp.asarray(t.numpy()), tree)  # noqa: E731
+        # copies: jnp.asarray may alias a CPU tensor's memory, and JAX runs the
+        # step asynchronously while the port's steps below write before_p in place
+        to_jax = lambda tree: jax.tree.map(lambda t: jnp.asarray(t.numpy().copy()), tree)  # noqa: E731
         same_p, _, jm = jstep(to_jax(before_p), jadamw.AdamWState(*map(to_jax, before_o)),
                               {k: jnp.asarray(v) for k, v in bn.items()})
         with torch.no_grad():

@@ -22,6 +22,10 @@ from repro_torch.engine.groupby import GroupByOverflowError
 from repro_torch.kernels import fused_groupby as tfk
 from repro_torch.kernels import ops as tops
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -40,6 +40,10 @@ from repro_torch.obs import metrics as tmet
 
 from test_torch_gpu import _serialized_edges
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 jgb = importlib.import_module("repro.engine.groupby")
 tgb = importlib.import_module("repro_torch.engine.groupby")
 

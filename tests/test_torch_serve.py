@@ -42,6 +42,10 @@ from repro_torch.train import elastic as telastic
 from repro.engine.columns import Table as JTable
 from repro.engine.groupby import GroupByOverflowError as JOverflow
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 N = 4096
 CHUNK = 512
 SUM_RTOL = 1e-5

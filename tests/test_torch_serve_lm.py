@@ -23,6 +23,10 @@ from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.parallel import sharding
 from repro_torch.serve import engine as tengine
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 
 def cpu_mesh(n=1):
     with sharding.virtual_devices(n, "cpu") as members:

@@ -41,6 +41,10 @@ from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.parallel import sharding
 from repro_torch.serve import engine as tengine
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 ARCHS = ["qwen3_0_6b", "granite_moe_1b_a400m", "zamba2_1_2b", "rwkv6_1_6b"]

@@ -63,6 +63,10 @@ from repro_torch.kernels import fused_groupby as fk
 from repro_torch.parallel import sharding
 from repro_torch.train import elastic as telastic
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 AggSpec, ExecutionPolicy, GroupByPlan = tapi.AggSpec, tapi.ExecutionPolicy, tapi.GroupByPlan
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,10 @@ from repro_torch.engine import spill as tsp
 from repro_torch.engine.columns import Table
 from repro_torch.obs import trace as ttrace
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 N = 4096
 CHUNK = 512
 BUDGET = 64  # device residency budget, far below every matrix cardinality

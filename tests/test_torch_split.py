@@ -32,6 +32,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import segment_agg as tsa
 from repro_torch.kernels import ticket_hash as tth
 
+# One intra-op thread: the suite's xdist workers share the cores, and a pool
+# per worker of torch's default size oversubscribes them many times over.
+torch.set_num_threads(1)
+
 SUM_RTOL, SUM_ATOL = 1e-6, 1e-5
 EMPTY_U32 = 0xFFFFFFFF
 KINDS = ("sum", "count", "min", "max")
@@ -102,9 +106,13 @@ def test_ticket_hash_checks_its_arguments():
         tth.ticket_hash(keys, capacity=256, max_groups=64, morsel_size=256)
     with pytest.raises(ValueError, match="power of 2"):
         tth.ticket_hash(keys[:768], capacity=300, max_groups=64, morsel_size=256)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tth.ticket_hash(keys[:768].to("meta"), capacity=256, max_groups=64,
-                        morsel_size=256)
+    # meta tensors (the dry run, launch/dryrun.py) get the outputs' shapes
+    # and dtypes, and nothing is launched
+    got = tth.ticket_hash(keys[:768].to("meta"), capacity=256, max_groups=64, morsel_size=256)
+    want = tth.ticket_hash_plain(keys[:768], capacity=256, max_groups=64, morsel_size=256)
+    assert [(t.device.type, t.shape, t.dtype) for t in got] == \
+        [("meta", t.shape, t.dtype) for t in want]
+    assert tth.ticket_hash.launches == 0
 
 
 # -- the ticket-map checker (the kernel's contract with the plain version) ----
