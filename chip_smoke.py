@@ -213,8 +213,9 @@ Four phases, each of which fails the run:
    (24 layers, 32 experts top-8, 1.33 B float32 parameters and AdamW
    moments, bf16 compute) trained the same way (30 steps of 8 × 128
    tokens, the same hyperparameters, ticketed embedding): losses finite
-   and falling, aux finite and > 0 every step; exactly 72 B3, 144 B6 and
-   24 segment launches (``route``), one ticket and one B5 launch a step,
+   and falling, aux finite and > 0 every step; exactly 144 B3, 144 B6 and
+   48 segment launches (``route``; each layer's forward runs again in its
+   recompute under remat), one ticket and one B5 launch a step,
    and the stats plan's per batch; layer 0's MoE gradients (input, router,
    the three expert tensors) at the last batch's activations, through the
    kernels against the plain versions, within 1e-5 of each leaf's
@@ -247,8 +248,9 @@ Four phases, each of which fails the run:
    on (data 2, model 2) (token slice, int8 dispatch, capacity factor 1.0),
    losses falling, the rows dropped per layer printed; EP ``forward`` and
    ``decode_step`` against dense; the members' expert stacks views of the
-   layer stacks; the segment kernel once a member and layer, ticket and
-   B5 once a step, no B3 / B6.  Phase 3 serve_members: ``ServeLoop`` on a
+   layer stacks; the segment kernel once a member and layer (twice in a
+   training step: the forward and the recompute), ticket and B5 once a
+   step, no B3 / B6.  Phase 3 serve_members: ``ServeLoop`` on a
    (data 2, model 2) mesh against the one-member loop for qwen3-0.6b and
    granite-moe-1b-a400m at full width (tokens equal or a near-tied top-2
    where they first differ, one copy a cache part, B3 and segment
@@ -256,6 +258,19 @@ Four phases, each of which fails the run:
    step), the decode ms beside one member's.  Phase 3 launch:
    ``launch.serve.main`` and ``launch.train.main`` through their
    ``main(argv)`` on four virtual members.
+   Phase 3 remat (lm_remat): qwen3-0.6b at full width and depth, 3
+   ``make_train_step`` steps of 4 × 4096 tokens (train_4k's sequence) on
+   one member, which fit the card only because every block is
+   rematerialised (``transformer._remat``): losses finite, ticket and B5
+   once a step, the card's peak within DRYRUN_PEAK_RANGE of the dry run's
+   prediction for the same step, the prediction with the blocks called
+   directly (over 80 GB) printed beside it, with the step ms.  Phase 3
+   remat_families (lm_remat_families): all ten configs at published
+   widths and cut depth (2 layers; zamba2 one super-block; seamless 2 + 2),
+   2 × 256 text tokens: float32 gradients with remat against the blocks
+   called directly (each leaf within FAMILY_RTOL of its max|g|), then one
+   training step, its loss finite; B3 6, B6 6 and segment 2 launches a
+   MoE layer under remat.
    Phase dryrun: ``launch.dryrun.run_cell`` (a trace of one member's step
    on meta tensors) for qwen3-0.6b and granite-moe-1b-a400m at train_4k,
    qwen3-0.6b at decode_32k and granite-moe-1b-a400m at prefill_32k on
@@ -346,6 +361,7 @@ name and power limit from ``nvidia-smi``, and the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3097,6 +3113,7 @@ def phase4_grouped_matmul(gm, gen, device, reps=5):
 TRAIN_ARCH = "qwen3_0_6b"       # 28 layers, d 1024, vocab 151,936, d_ff 3072, tied
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 30
 TRAIN_HP = {"peak_lr": 1e-3, "warmup": 20}   # examples/train_lm.py's
+FWD_RUNS = 2                    # under autograd a block runs twice: forward, then its recompute
 ROWS_RTOL = 1e-5                # B5 vs plain: |Δ| <= ROWS_RTOL · Σ|row| of the ticket (atomic order)
 
 
@@ -3745,8 +3762,9 @@ def phase3_lm_train_moe(kmods, device, seed):
     ``SyntheticLM(batch=8, seq=128)``, TRAIN_STEPS steps, TRAIN_HP,
     ``ticketed_embedding``).  Gates: the shared ones (losses finite and
     falling, the stats plan, ``token_stats``); ``aux`` finite and > 0 every
-    step; launches exactly, a step: B3 72 (3 a layer), B6 144 (one a
-    product, two a B3 call), the segment kernel 24 (``route``'s histogram),
+    step; launches exactly, a step: B3 144 (3 a layer, forward and
+    recompute), B6 144 (one a product, two a B3 call), the segment kernel
+    48 (``route``'s histogram, forward and recompute),
     ticket 1 and B5 1 (the embedding's backward), and a batch the stats
     plan's ``scan_ticket`` 1 and segment 1; no other kernel; layer 0's MoE
     gradients through the kernels against the plain versions
@@ -3770,9 +3788,10 @@ def phase3_lm_train_moe(kmods, device, seed):
     params, launches, steps, batches = run["params"], run["launches"], run["steps"], run["batches"]
     layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
     want = {k: 0 for k in kmods}
-    want.update(grouped_matmul=3 * layers * steps, grouped_matmul_backward=6 * layers * steps,
-                segment_agg=layers * steps + batches, ticket_hash=steps, segment_rows=steps,
-                scan_ticket=batches)
+    want.update(grouped_matmul=FWD_RUNS * 3 * layers * steps,
+                grouped_matmul_backward=6 * layers * steps,
+                segment_agg=FWD_RUNS * layers * steps + batches, ticket_hash=steps,
+                segment_rows=steps, scan_ticket=batches)
     check(launches == want, f"phase3 lm_train_moe: launches {launches}, expected {want} "
           f"({steps} steps, {batches} batches pulled)")
     aux = [h["aux"] for h in run["hist"]]
@@ -3791,9 +3810,10 @@ def phase3_lm_train_moe(kmods, device, seed):
     ms = run["step_ms"]
     ntok = TRAIN_BATCH * TRAIN_SEQ
     rec = {**run["rec"], "aux": aux,
-           "launches_per_step": {"grouped_matmul": 3 * layers,
+           "launches_per_step": {"grouped_matmul": FWD_RUNS * 3 * layers,
                                  "grouped_matmul_backward": 6 * layers,
-                                 "segment_agg": layers, "ticket_hash": 1, "segment_rows": 1},
+                                 "segment_agg": FWD_RUNS * layers, "ticket_hash": 1,
+                                 "segment_rows": 1},
            "b6_device_ms_per_step": b6_ms, "b3_device_ms_per_step": b3_ms,
            "b6_share_of_step": b6_ms / ms,
            "layer0_grad": {k: {"max_abs_err": e, "scale": sc} for k, (e, sc) in grad_res.items()}}
@@ -3805,9 +3825,10 @@ def phase3_lm_train_moe(kmods, device, seed):
         f"{rec['peak_mib']:.0f} MiB ({rec['peak_over_held_mib']:.0f} over the "
         f"{rec['held_before_mib']:.0f} MiB earlier phases hold); loss {run['losses'][0]:.3f} -> "
         f"{run['losses'][-1]:.3f} (first 5 {run['first5']:.3f}, last 5 {run['last5']:.3f}); aux "
-        f"{aux[0]:.4f} -> {aux[-1]:.4f}; launches a step: B3 {3 * layers}, B6 {6 * layers}, "
-        f"segment {layers} (+1 a batch, stats), ticket 1, B5 1; device time a step (graph "
-        f"replay): B6 {b6_ms:.2f} ms ({b6_ms / ms:.1%} of the step), B3 {b3_ms:.2f} ms; layer 0 "
+        f"{aux[0]:.4f} -> {aux[-1]:.4f}; launches a step: B3 {FWD_RUNS * 3 * layers} (forward "
+        f"and recompute), B6 {6 * layers}, segment {FWD_RUNS * layers} (+1 a batch, stats), "
+        f"ticket 1, B5 1; device time a step (graph replay): B6 {b6_ms:.2f} ms "
+        f"({b6_ms / ms:.1%} of the step), B3 {b3_ms:.2f} ms; layer 0 "
         f"gradients kernels vs plain worst max|Δ|/max|g| {worst:.3g} ok; {card_line()}")
     del params, run
     torch.cuda.empty_cache()
@@ -4185,7 +4206,7 @@ def phase3_lm_train_placed(kmods, device, seed, one_member):
                                             tf.init_params(gen, mcfg, device),
                                             [next(mdata), next(mdata)],
                                             "phase3 lm_train_placed granite")
-    check(moe_launches["grouped_matmul"] == 2 * ndp * 3 * moe_layers
+    check(moe_launches["grouped_matmul"] == 2 * ndp * FWD_RUNS * 3 * moe_layers
           and moe_launches["grouped_matmul_backward"] == 2 * ndp * 6 * moe_layers
           and moe_launches["ticket_hash"] == 2 * ndp and moe_launches["segment_rows"] == 2 * ndp,
           f"phase3 lm_train_placed granite: launches {moe_launches} in two steps")
@@ -4283,9 +4304,10 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
        max|logit| < LM_REL.
     4. Launches, set to 0 just before each run and read just after: an EP
        step or forward launches the segment kernel once a member and
-       layer (``route``), an EP training step ticket 1 and B5 1 (the
-       ticketed embedding's backward), and nothing else; the dense step
-       B3 72, B6 144, segment 24, ticket 1, B5 1.
+       layer (``route``; a training step twice, its recompute routes
+       again), an EP training step ticket 1 and B5 1 (the ticketed
+       embedding's backward), and nothing else; the dense step B3 144,
+       B6 144, segment 48, ticket 1, B5 1.
     5. The members' expert stacks are views: each member's ``w_gate`` in
        an EP call lies in its layer stack's storage at rows r·E_local.
     Returns the record."""
@@ -4341,19 +4363,21 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
     m_dense = {k: float(v) for k, v in m_dense.items()}
     del p_d
     torch.cuda.empty_cache()
-    check(ld == {**none, "grouped_matmul": 3 * layers, "grouped_matmul_backward": 6 * layers,
-                 "segment_agg": layers, "ticket_hash": 1, "segment_rows": 1},
+    check(ld == {**none, "grouped_matmul": FWD_RUNS * 3 * layers,
+                 "grouped_matmul_backward": 6 * layers, "segment_agg": FWD_RUNS * layers,
+                 "ticket_hash": 1, "segment_rows": 1},
           f"phase3 lm_ep: dense step launches {ld}")
     ep_step = tloop.make_train_step(cfg, hp, moe_impl="ep", ep_info=info14)
     opt = adamw.init(params)
-    want_ep = {**none, "segment_agg": 4 * layers, "ticket_hash": 1, "segment_rows": 1}
+    want_ep = {**none, "segment_agg": FWD_RUNS * 4 * layers, "ticket_hash": 1,
+               "segment_rows": 1}
     with moe.router_stats() as recs:
         (params, opt, m_ep), le = launched(ep_step, params, opt, batch)
         ep_largest = max(int(h.max()) for h, _ in recs)
         n_recs = len(recs)
     del recs
     m_ep = {k: float(v) for k, v in m_ep.items()}
-    check(n_recs == 4 * layers and ep_largest <= cap,
+    check(n_recs == FWD_RUNS * 4 * layers and ep_largest <= cap,
           f"phase3 lm_ep: {n_recs} routes, largest EP group {ep_largest} > capacity {cap}")
     check(le == want_ep, f"phase3 lm_ep: EP step launches {le}, expected {want_ep}")
     d_loss = abs(m_ep["loss"] - m_dense["loss"]) / abs(m_dense["loss"])
@@ -4432,12 +4456,13 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
     def recorded(p, o, b):
         with moe.router_stats() as recs:
             out = ts2(p, o, b)
-            drops.append(dropped_per_layer(recs, layers, cap2))
+            drops.append(dropped_per_layer(recs[:len(recs) // FWD_RUNS], layers, cap2))
         return out
 
     params, opt, losses, ms2, l2, wall2 = run_steps(kmods, recorded, params, adamw.init(params),
                                                     steps2)
-    want2 = {**none, "segment_agg": 4 * layers * EP_TS2_STEPS, "ticket_hash": EP_TS2_STEPS,
+    want2 = {**none, "segment_agg": FWD_RUNS * 4 * layers * EP_TS2_STEPS,
+             "ticket_hash": EP_TS2_STEPS,
              "segment_rows": EP_TS2_STEPS}
     check(l2 == want2, f"phase3 lm_ep moe_ts2: launches {l2}, expected {want2}")
     check(falling(losses), f"phase3 lm_ep moe_ts2: losses not finite and falling {losses}")
@@ -4470,7 +4495,8 @@ def phase3_lm_ep(kmods, device, seed, moe_rec):
         f"{ep_ms:.2f} ms (median of {EP_TIMED_STEPS}) beside train_moe's dense step "
         f"{moe_rec['step_ms']:.2f} ms; peak {peak_mib - held_mib:.0f} MiB over the "
         f"{held_mib:.0f} MiB held before; forward rel {fwd_rel:.4g}, decode rel {dec_rel:.4g} "
-        f"< {LM_REL}; launches an EP step: segment {4 * layers} (one a member and layer), "
+        f"< {LM_REL}; launches an EP step: segment {FWD_RUNS * 4 * layers} (one a member and "
+        f"layer, forward and recompute), "
         f"ticket 1, B5 1, no B3 / B6; expert stacks are views ok; {rec['card']}")
     log(f"phase3 lm_ep moe_ts2: (data 2, model 2), token slice, int8 dispatch, capacity {cap2}, "
         f"{EP_TS2_STEPS} steps: loss {losses[0]:.3f} -> {losses[-1]:.3f}, {ts2_ms:.2f} ms a step "
@@ -4681,6 +4707,272 @@ def phase3_launch(kmods, device, seed):
     return recs
 
 
+# -- per-layer remat: lm_remat, lm_remat_families --------------------------------------
+
+REMAT_BATCH, REMAT_SEQ, REMAT_STEPS = 4, 4096, 3   # train_4k's sequence; 4 of a member's 16 rows
+FAMILY_BATCH, FAMILY_TEXT = 2, 256  # remat_families: rows, text tokens (after a vision prefix)
+FAMILY_RTOL = 1e-5              # remat vs direct-call gradients: max|Δ| <= FAMILY_RTOL · max|g| a leaf
+
+
+@contextlib.contextmanager
+def direct_blocks(tf):
+    """A context in which ``transformer._remat`` returns the block itself:
+    the stacks call their blocks directly, as before remat (this script's
+    comparison only; the package has no such switch)."""
+    real = tf._remat
+    tf._remat = lambda block, policy=None: block
+    try:
+        yield
+    finally:
+        tf._remat = real
+
+
+def predicted_step(kmods, cfg, hp, batch, seq, *, direct=False):
+    """The dry run of ``make_train_step(cfg, hp)`` on one member at
+    ``batch`` × ``seq`` tokens (meta tensors under ``CostMode``), with the
+    blocks rematerialised or, with ``direct``, called directly.  No kernel
+    may launch.  Returns the trace's dict and its seconds."""
+    import torch
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop as tloop
+
+    meta = torch.device("meta")
+    params = sp.abstract_params(cfg)
+    toks = {k: torch.empty((batch, seq), dtype=torch.int32, device=meta)
+            for k in ("tokens", "targets")}
+    args = (params, sp.abstract_opt(params), toks)
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    with direct_blocks(tf) if direct else contextlib.nullcontext():
+        pred = dr.trace(dr.CellStep(tloop.make_train_step(cfg, hp), args, dr._tensors(args), [],
+                                    1, 0, 0))
+    secs = time.perf_counter() - t0
+    check(read_launches(kmods) == {k: 0 for k in kmods},
+          f"dryrun {cfg.name}: the meta trace launched kernels {read_launches(kmods)}")
+    return pred, secs
+
+
+def phase3_lm_remat(kmods, device, seed):
+    """qwen3-0.6b at published widths and depth (28 layers) on one member,
+    TRAIN_HP, ticketed embedding, bf16 compute over float32 parameters and
+    AdamW moments: REMAT_STEPS ``make_train_step`` steps of REMAT_BATCH ×
+    REMAT_SEQ tokens (``SyntheticLM`` batches; train_4k's sequence, 4 of a
+    16 × 16 member's 16 rows), which fit one card only because each block
+    is rematerialised.  The dry run of the same step predicts the peak
+    first, with remat and with the blocks called directly.  Launches, set
+    to 0 just before the steps and read just after: ticket 1 and B5 1 a
+    step, nothing else.  Gates: every loss finite; the card's
+    ``max_memory_allocated`` over what was held before the parameters
+    within DRYRUN_PEAK_RANGE of the prediction; the direct-call prediction
+    over the card's 80 GB (H100_HBM_BYTES).  Prints both predictions, the
+    card's peak, the steps' ms (the first left out), the roofline terms of
+    the predicted work and the card's name and power limit.  Returns the
+    record."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import roofline
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
+    pred, trace_s = predicted_step(kmods, cfg, hp, REMAT_BATCH, REMAT_SEQ)
+    pred_direct, _ = predicted_step(kmods, cfg, hp, REMAT_BATCH, REMAT_SEQ, direct=True)
+    peak, peak_direct = pred["memory"]["peak_bytes"], pred_direct["memory"]["peak_bytes"]
+    check(peak_direct > roofline.H100_HBM_BYTES,
+          f"phase3 lm_remat: without remat the step predicts {peak_direct / 2 ** 30:.1f} GiB, "
+          f"which fits the card: the phase would not need remat")
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = tf.init_params(gen, cfg, device)
+    opt = adamw.init(params)
+    data = iter(SyntheticLM(cfg, batch=REMAT_BATCH, seq=REMAT_SEQ, seed=seed, track_stats=False,
+                            device=device))
+    batches = [next(data) for _ in range(REMAT_STEPS)]
+    step = tloop.make_train_step(cfg, hp)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, step_ms, launches, wall = run_steps(kmods, step, params, opt, batches)
+    card_peak = torch.cuda.max_memory_allocated() - held
+    del params, opt, batches, step, data
+    torch.cuda.empty_cache()
+    want = {k: 0 for k in kmods}
+    want.update(ticket_hash=REMAT_STEPS, segment_rows=REMAT_STEPS)
+    check(launches == want, f"phase3 lm_remat: launches {launches}, expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"phase3 lm_remat: a loss is not finite {losses}")
+    lo, hi = DRYRUN_PEAK_RANGE
+    check(lo <= peak / card_peak <= hi,
+          f"phase3 lm_remat: predicted peak {peak / 2 ** 30:.2f} GiB vs the card's "
+          f"{card_peak / 2 ** 30:.2f} GiB over what was held")
+    ms = step_ms[len(step_ms) // 2]
+    flops, nbytes = pred["cost"]["flops"], pred["cost"]["bytes accessed"]
+    terms = {"compute": flops / roofline.H100_PEAK_FLOPS_BF16 * 1e3,
+             "memory": nbytes / roofline.H100_HBM_BW * 1e3}
+    tokens = REMAT_BATCH * REMAT_SEQ
+    rec = {"stream": "lm_remat", "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": REMAT_BATCH, "seq": REMAT_SEQ, "steps": REMAT_STEPS, "losses": losses,
+           "step_ms": ms, "step_ms_sorted": step_ms, "wall_s": wall,
+           "tokens_per_s": tokens / ms * 1e3, "predicted_peak_gib": peak / 2 ** 30,
+           "predicted_peak_direct_gib": peak_direct / 2 ** 30,
+           "card_peak_gib": card_peak / 2 ** 30, "peak_ratio": peak / card_peak,
+           "held_before_gib": held / 2 ** 30, "predicted_flops": flops,
+           "predicted_flops_direct": pred_direct["cost"]["flops"], "terms_ms": terms,
+           "trace_s": trace_s, "launches": launches, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_remat: {cfg.name} at full width and depth ({cfg.n_layers} layers, {cfg.dtype} "
+        f"compute over float32), {REMAT_STEPS} steps of {REMAT_BATCH} x {REMAT_SEQ} tokens: "
+        f"{ms:.2f} ms a step (median of steps 2-{REMAT_STEPS}; {step_ms}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s; loss {losses[0]:.3f} -> {losses[-1]:.3f}; peak "
+        f"{card_peak / 2 ** 30:.2f} GiB max_memory_allocated over the {held / 2 ** 30:.2f} GiB "
+        f"held before, predicted {peak / 2 ** 30:.2f} GiB with remat (x{peak / card_peak:.3f}) "
+        f"and {peak_direct / 2 ** 30:.2f} GiB with the blocks called directly (over the card's "
+        f"{roofline.H100_HBM_BYTES / 1e9:.0f} GB); predicted FLOPs {flops:.4e} (direct "
+        f"{pred_direct['cost']['flops']:.4e}, x{flops / pred_direct['cost']['flops']:.3f}), "
+        f"roofline compute {terms['compute']:.1f} ms, memory {terms['memory']:.1f} ms; "
+        f"launches a step: ticket 1, B5 1; trace {trace_s:.1f} s; {card_line()}")
+    return rec
+
+
+def family_config(arch):
+    """``arch`` at its published widths with the depth cut for
+    remat_families: 2 layers; zamba2 one super-block (``attn_every``
+    layers: the Mamba2 blocks and the shared attention block); seamless 2
+    encoder and 2 decoder layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    if cfg.encoder_layers:
+        return dataclasses.replace(cfg, n_layers=2, encoder_layers=2)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def phase3_lm_remat_families(kmods, device, seed):
+    """Every config's training path on the card at published widths and
+    cut depth (:func:`family_config`), one ``SyntheticLM`` batch of
+    FAMILY_BATCH rows × FAMILY_TEXT tokens (a vision config's
+    ``frontend_tokens`` patch positions before them; ``frontend_embeds``
+    and ``encoder_frames`` from its extras): the float32 gradients of
+    ``lm_loss`` with the blocks rematerialised and called directly, in the
+    same process, every leaf within FAMILY_RTOL of its max|g|; then one
+    ``make_train_step`` step in the config's dtype (TRAIN_HP, ticketed
+    embedding), its loss and gradient norm finite.  Launches, set to 0
+    just before each run and read just after: ticket 1 and B5 1 a run; a
+    MoE layer B3 6, B6 6 and the segment kernel 2 under remat (3, 6 and 1
+    called directly).
+    Prints the family, the layers, the step ms and, for the MoE configs,
+    B3's and B6's launches.  Returns the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tloop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    none = {k: 0 for k in kmods}
+    total = dict(none)
+    rows = []
+    hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
+
+    def launched(fn, *args):
+        sync()
+        reset_launches(kmods)
+        out = fn(*args)
+        sync()
+        return out, read_launches(kmods)
+
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = family_config(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        seq = FAMILY_TEXT + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        params = tf.init_params(gen, cfg, device)
+        batch = next(iter(SyntheticLM(cfg, batch=FAMILY_BATCH, seq=seq, seed=seed + i,
+                                      track_stats=False, device=device)))
+
+        def grads():
+            tree = tf.tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss, _ = tf.lm_loss(tree, cfg32, batch, ticketed_embedding=True)
+            return float(loss.detach()), torch.autograd.grad(loss, list(tf._leaves(tree)))
+
+        (loss_r, g_r), l_r = launched(grads)
+        with direct_blocks(tf):
+            (loss_d, g_d), l_d = launched(grads)
+        worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(g_r, g_d))
+        del g_r, g_d
+        torch.cuda.empty_cache()
+        step = tloop.make_train_step(cfg, hp)
+        opt = adamw.init(params)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        (params, opt, m), l_s = launched(step, params, opt, batch)
+        e1.record()
+        sync()
+        step_ms, step_loss, step_gn = e0.elapsed_time(e1), float(m["loss"]), float(m["grad_norm"])
+        del params, opt, m, step, batch
+        torch.cuda.empty_cache()
+        moe = sum(cfg.is_moe_layer(j) for j in range(cfg.n_layers)) if cfg.moe_num_experts else 0
+        want_r = dict(none, ticket_hash=1, segment_rows=1)
+        want_d = dict(want_r)
+        if moe:
+            want_r.update(grouped_matmul=FWD_RUNS * 3 * moe, grouped_matmul_backward=6 * moe,
+                          segment_agg=FWD_RUNS * moe)
+            want_d.update(grouped_matmul=3 * moe, grouped_matmul_backward=6 * moe,
+                          segment_agg=moe)
+        check(l_r == want_r and l_s == want_r and l_d == want_d,
+              f"phase3 lm_remat_families {arch}: launches remat {l_r}, direct {l_d}, step "
+              f"{l_s}; expected {want_r} (remat, step) and {want_d} (direct)")
+        check(math.isfinite(loss_r) and math.isfinite(step_loss) and math.isfinite(step_gn)
+              and worst <= FAMILY_RTOL,
+              f"phase3 lm_remat_families {arch}: loss {loss_r} / direct {loss_d}, step loss "
+              f"{step_loss}, grad_norm {step_gn}; remat vs direct gradients rel max|d| "
+              f"{worst:.3g} > {FAMILY_RTOL}?")
+        for k in kmods:
+            total[k] += l_r[k] + l_s[k]
+        row = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+               "encoder_layers": cfg.encoder_layers, "batch": FAMILY_BATCH, "seq": seq,
+               "loss_remat": loss_r, "loss_direct": loss_d, "grad_rel": worst,
+               "step_loss": step_loss, "step_grad_norm": step_gn, "step_ms": step_ms}
+        if moe:
+            row["b3_b6"] = {"remat": [l_r["grouped_matmul"], l_r["grouped_matmul_backward"]],
+                            "direct": [l_d["grouped_matmul"], l_d["grouped_matmul_backward"]]}
+        rows.append(row)
+        log(f"phase3 lm_remat_families {arch}: family {cfg.family}, {cfg.n_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+            + f", {FAMILY_BATCH} x {seq} tokens: remat vs direct float32 gradients rel max|d| "
+            f"{worst:.3g} (loss {loss_r:.6f} / {loss_d:.6f}); one {cfg.dtype} step {step_ms:.2f} "
+            f"ms, loss {step_loss:.4f}, grad_norm {step_gn:.4f}"
+            + (f"; B3 / B6 launches {l_r['grouped_matmul']} / {l_r['grouped_matmul_backward']} "
+               f"under remat, {l_d['grouped_matmul']} / {l_d['grouped_matmul_backward']} direct"
+               if moe else ""))
+    rec = {"stream": "lm_remat_families", "configs": rows, "launches": total,
+           "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    log(f"phase3 lm_remat_families: {len(rows)} configs, worst remat vs direct rel max|d| "
+        f"{max(r['grad_rel'] for r in rows):.3g} <= {FAMILY_RTOL}; {card_line()}")
+    return rec
+
+
 def b6_bound(lhs, rhs, sizes):
     """The least time of one B6 call (both products): a dict of
     ``bytes_ms`` (lhs, g, the touched experts' weights and sizes read once;
@@ -4817,34 +5109,21 @@ def dryrun_calibrate(kmods, device, seed, arch, step_ms):
     parameters (DRYRUN_PEAK_RANGE).  Launches, set to 0 just before each
     run and read just after: none in the meta trace (the wrappers' meta
     branches); in the card step phase 3's a step (ticket 1, B5 1; MoE
-    also B3 3, B6 6 and the segment kernel 1 a layer).  Returns the
-    record."""
+    also B3 6, B6 6 and the segment kernel 2 a layer: the forward and its
+    recompute).  Returns the record."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch import roofline
-    from repro_torch.launch import specs as sp
     from repro_torch.models import transformer as tf
     from repro_torch.optim import adamw
     from repro_torch.train import loop as tloop
 
     cfg = get_config(arch)
     hp = tloop.TrainHParams(total_steps=TRAIN_STEPS, ticketed_embedding=True, **TRAIN_HP)
-    meta = torch.device("meta")
-    params = sp.abstract_params(cfg)
-    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device=meta)
-             for k in ("tokens", "targets")}
-    args = (params, sp.abstract_opt(params), batch)
-    reset_launches(kmods)
-    t0 = time.perf_counter()
-    pred = dr.trace(dr.CellStep(tloop.make_train_step(cfg, hp), args, dr._tensors(args), [], 1,
-                                0, 0))
-    trace_s = time.perf_counter() - t0
+    pred, trace_s = predicted_step(kmods, cfg, hp, TRAIN_BATCH, TRAIN_SEQ)
     none = {k: 0 for k in kmods}
-    check(read_launches(kmods) == none,
-          f"dryrun {arch}: the meta trace launched kernels {read_launches(kmods)}")
-    del params, args, batch
 
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -4865,8 +5144,8 @@ def dryrun_calibrate(kmods, device, seed, arch, step_ms):
     layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) if cfg.moe_num_experts else 0
     want = dict(none, ticket_hash=1, segment_rows=1)
     if layers:
-        want.update(grouped_matmul=3 * layers, grouped_matmul_backward=6 * layers,
-                    segment_agg=layers)
+        want.update(grouped_matmul=FWD_RUNS * 3 * layers, grouped_matmul_backward=6 * layers,
+                    segment_agg=FWD_RUNS * layers)
     check(launches == want, f"dryrun {arch}: the card step launched {launches}, expected {want}")
     card_peak = torch.cuda.max_memory_allocated() - held
     loss = float(metrics["loss"])
@@ -6090,6 +6369,15 @@ def main(argv=None) -> int:
     t_launch = time.perf_counter()
     recs.append(phase3_launch(kmods, device, args.seed))
     log(f"phase3 launch in {time.perf_counter() - t_launch:.1f} s")
+    log("== phase 3 remat: qwen3-0.6b at full depth, 4 x 4096 tokens a step (lm_remat)")
+    t_remat = time.perf_counter()
+    recs.append(phase3_lm_remat(kmods, device, args.seed))
+    log(f"phase3 lm_remat in {time.perf_counter() - t_remat:.1f} s")
+    log("== phase 3 remat_families: every config's training path, remat vs direct "
+        "(lm_remat_families)")
+    t_fam = time.perf_counter()
+    recs.append(phase3_lm_remat_families(kmods, device, args.seed))
+    log(f"phase3 lm_remat_families in {time.perf_counter() - t_fam:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 

@@ -119,12 +119,16 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache |
     cc_ = cmat.reshape(b, nc, c, n)
     dtc = dt.reshape(b, nc, c, h)
 
-    # intra-chunk (quadratic in c): y_intra[t] = Σ_{u≤t} C_t·B_u exp(cum_t-cum_u) dt_u x_u
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])  # (b,nc,t,u,h)
+    # intra-chunk (quadratic in c): y_intra[t] = Σ_{u≤t} C_t·B_u exp(cum_t-cum_u) dt_u x_u.
+    # The mask goes on the exponent, before the exp: for u > t, cum_t − cum_u
+    # is a positive sum of decays whose exp overflows at published widths, and
+    # the reference's where after the exp sends 0 · inf = NaN into every
+    # gradient of the block (ROADMAP §3 fault 12).  The values are the same.
     mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
-    scores = torch.einsum("bztn,bzun->bztu", cc_, bc_)[..., None] * torch.where(
-        mask[None, None, :, :, None], decay, 0.0
-    )  # (b,nc,t,u,h)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None],
+                                  cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                                  float("-inf")))  # (b,nc,t,u,h)
+    scores = torch.einsum("bztn,bzun->bztu", cc_, bc_)[..., None] * decay  # (b,nc,t,u,h)
     y_intra = torch.einsum("bztuh,bzuh,bzuhd->bzthd", scores.to(x.dtype), dtc.to(x.dtype), xc)
 
     # inter-chunk: carry the state with a loop over chunks

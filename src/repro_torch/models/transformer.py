@@ -2,10 +2,13 @@
 
 Port of ``repro.models.transformer``.  Layer parameters stay stacked on a
 leading L axis, as in the reference; its ``jax.lax.scan`` over the stack
-is a Python loop here over views of the stack (``_unstack``).  Remat
-(``jax.checkpoint``) is not ported: a training step keeps every layer's
-activations, which is small beside the parameters and AdamW moments at
-the batch sizes the port trains (chip_smoke: 8 × 128 tokens).
+is a Python loop here over views of the stack (``_unstack``).  Each block
+of every stack is rematerialised as the reference's ``jax.checkpoint`` on
+the block body (:func:`_remat`): under autograd a block keeps only its
+inputs (``cfg.remat_policy="dots"``: also its 2-D products) and runs again
+in the backward, the standard remat-per-layer memory profile; without a
+gradient a block is a plain call.  The embedding, the vision projection,
+the final norm and the logits stay outside, as in the reference.
 
 Heterogeneous stacks (zamba2) run *super-blocks* of (attn_every−1 Mamba2
 layers + one shared-weight attention block); the shared attention
@@ -27,10 +30,16 @@ All forward paths return ``(logits, aux)`` where aux carries MoE aux losses
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -404,16 +413,6 @@ def _unstack(tree) -> list:
     return list(tree.unbind(0))
 
 
-def _run_attn_stack(p_layers, cfg, x, windows, memory=None, moe_impl="dense", ep_info=None):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, pl in enumerate(_unstack(p_layers)):
-        w = windows[i] if windows is not None else None
-        x, _, a = _attn_block(pl, cfg, x, window=w, memory=memory,
-                              moe_impl=moe_impl, ep_info=ep_info)
-        aux = aux + a
-    return x, aux
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -425,23 +424,84 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# rematerialisation: the reference's jax.checkpoint on each block
+# ---------------------------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the 2-D
+    products (``layers.dense`` lowers to ``mm`` / ``addmm``; in JAX they are
+    ``dot_general`` ops with no batch dims) and recompute everything else,
+    attention's batched ``bmm`` ops included.  A hand-written kernel is a
+    ctypes launch that no dispatch mode sees (B3 in ``grouped_matmul``,
+    ``route``'s histogram), so it is always recomputed; keying on the
+    product ops alone never keeps a buffer that a kernel fills after it
+    was allocated."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(cfg):
+    if cfg.remat_policy == "dots":
+        return _dots_with_no_batch_dims_saveable
+    return None  # full remat (save nothing)
+
+
+def _remat(block, policy=None):
+    """``block`` as ``jax.checkpoint(block, policy=policy)``: under autograd
+    (gradients enabled and some tensor argument, parameters included,
+    requiring grad) a non-reentrant ``torch.utils.checkpoint`` that keeps
+    the block's inputs and, with a ``policy``, what it saves
+    (``create_selective_checkpoint_contexts``), and runs the block again in
+    the backward; otherwise a plain call, as ``jax.checkpoint`` does
+    nothing without a gradient.  The recompute must see what the forward
+    saw (MoE routing sorts stably, B3 adds no float atomics), and
+    checkpoint's default ``determinism_check`` holds the recomputed saved
+    tensors' shapes to the first.  The blocks draw no random numbers, so
+    no RNG state is stashed."""
+    def run(*args, **kwargs):
+        tensors = [t for t in _leaves((args, tuple(kwargs.values())))
+                   if isinstance(t, torch.Tensor)]
+        if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+            return block(*args, **kwargs)
+        ctx = ({} if policy is None else
+               {"context_fn": functools.partial(create_selective_checkpoint_contexts, policy)})
+        return checkpoint(functools.partial(block, **kwargs), *args, use_reentrant=False,
+                          preserve_rng_state=False, **ctx)
+    return run
+
+
+def _run_attn_stack(p_layers, cfg, x, windows, memory=None, moe_impl="dense", ep_info=None):
+    block = _remat(_attn_block, _remat_policy(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, pl in enumerate(_unstack(p_layers)):
+        w = windows[i] if windows is not None else None
+        x, _, a = block(pl, cfg, x, window=w, memory=memory, moe_impl=moe_impl, ep_info=ep_info)
+        aux = aux + a
+    return x, aux
+
+
 def _run_hybrid_stack(p, cfg, x):
+    mamba, attn = _remat(_mamba_block), _remat(_attn_block)  # full remat, as the reference
     per = cfg.attn_every - 1
     n_super = cfg.n_layers // cfg.attn_every
     for i in range(n_super):
         p_super = _at(p["super"], i)
         for j in range(per):
-            x, _ = _mamba_block(_at(p_super, j), cfg, x)
-        x, _, _ = _attn_block(p["shared_attn"], cfg, x, window=cfg.sliding_window)
+            x, _ = mamba(_at(p_super, j), cfg, x)
+        x, _, _ = attn(p["shared_attn"], cfg, x, window=cfg.sliding_window)
     if "tail" in p:
         for j in range(next(iter(_leaves(p["tail"]))).shape[0]):
-            x, _ = _mamba_block(_at(p["tail"], j), cfg, x)
+            x, _ = mamba(_at(p["tail"], j), cfg, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _run_rwkv_stack(p_layers, cfg, x):
+    block = _remat(_rwkv_block)  # full remat, as the reference
     for pl in _unstack(p_layers):
-        x, _ = _rwkv_block(pl, cfg, x)
+        x, _ = block(pl, cfg, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -2257,3 +2257,45 @@ def test_counted_wrappers_still_launch_on_the_card(cuda):
         after = [getattr(mod, fn).launches for mod, fn, _ in counters]
         assert [a - b for a, b in zip(after, before)] == [n for _, _, n in counters]
     assert mode.flops == 3 * 2 * 96 * 64 * 32 + 256 + 256 * 16
+
+
+@pytest.mark.gpu
+def test_remat_gradients_with_b3_and_b6_under_recompute_on_the_card(cuda):
+    """Reduced granite-moe-1b-a400m in float32 (TF32 off) on the card:
+    ``lm_loss``'s gradients with every block rematerialised (B3 runs again
+    in each block's recompute: 6 launches a MoE layer, B6 6, the segment
+    kernel 2) against the blocks called directly (B3 3, B6 6, segment 1),
+    every leaf within 1e-5 of its max|grad| (the MoE combine's
+    ``index_add_`` adds in atomic order, so two runs differ in rounding)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m", reduced=True), dtype="float32")
+    params = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+
+    def grads():
+        counters = (gm.grouped_matmul, gm.grouped_matmul_backward, sa.segment_agg)
+        before = [c.launches for c in counters]
+        tree = tf.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = tf.lm_loss(tree, cfg, batch)
+        g = torch.autograd.grad(loss, list(tf._leaves(tree)))
+        torch.cuda.synchronize()
+        return g, [c.launches - b for c, b in zip(counters, before)]
+
+    got, launched = grads()
+    assert launched == [6 * layers, 6 * layers, 2 * layers]
+    real = tf._remat
+    tf._remat = lambda block, policy=None: block
+    try:
+        want, launched = grads()
+    finally:
+        tf._remat = real
+    assert launched == [3 * layers, 6 * layers, layers]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
