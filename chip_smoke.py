@@ -72,7 +72,12 @@ Four phases, each of which fails the run:
    blocks and N tiles), M = 1, all groups empty with rows past them, and
    lhs and rhs 4 bytes off a 16-byte boundary: |Δ| <= 1e-5 · max|plain|,
    rows past the groups exactly 0; the segment kernel's COUNT histogram of
-   a decode routing equal to the one-hot sum.
+   a decode routing equal to the one-hot sum.  At qwen2-moe-a2.7b's shapes
+   (60 experts top-4 in 64 groups, the last 4 empty: 32 decode rows and
+   1536 prefill rows, K 2048 → N 1408 and K 1408 → N 2048) B3 the same
+   way and through its launcher into a NaN-filled output, and the
+   histogram of both routings against the one-hot sum and the plain
+   version.
    ``segment_rows`` (kernel B5, the ticketed embedding's row segment sum)
    against its plain version (one ``index_add_``): 1024 rows of d = 1024
    at the tickets the ticket kernel gives 1024 Zipf token ids, R = G =
@@ -271,6 +276,32 @@ Four phases, each of which fails the run:
    called directly (each leaf within FAMILY_RTOL of its max|g|), then one
    training step, its loss finite; B3 6, B6 6 and segment 2 launches a
    MoE layer under remat.
+   Phase 3 serve_families (lm_serve_families): every config's serving path
+   at published widths and cut depth (``serve_config``: 2 layers; zamba2
+   ``attn_every + 2``, one super-block and a two-block Mamba2 tail;
+   seamless 2 + 2), bf16 compute over float32 parameters: (a) 2 × 48 tokens
+   decoded one at a time against ``forward`` (internvl2 after its 256
+   vision positions in one cached prefill with ``frontend_embeds``;
+   seamless with ``encoder_memory`` at every step), rel < 0.05 at every
+   position, the positions a MoE layer routed otherwise printed; (b) gemma2
+   and zamba2 prefill 4160 tokens through the cache (past their 4096-token
+   window, ``last_only``) and step 8 more, rwkv6 and zamba2 prefill 300
+   tokens on (a)'s caches (the chunked path seeded from the cache, a
+   ragged last chunk), each against ``forward`` within 0.05; (c)
+   ``ServeLoop(slots=8, max_len=128)`` on the lm phase's 8 prompts, 16 new
+   tokens: every request done, tokens equal to a greedy loop over
+   ``decode_step`` or a top-2 margin under 0.25 where they first differ;
+   (d) B3 3 and segment 1 a MoE layer and step, nothing else; (e) decode ms
+   a step, tokens/s and peak MiB beside the card.  ``decode_step_twobuf``
+   for qwen3-0.6b and qwen2-moe-a2.7b from a 64-token prefill's K/V, 8 tail
+   steps: the bf16 prefix against ``decode_step`` within 0.05, the int8
+   prefix (round(x / KV_Q8_SCALE), ±127) finite and within
+   ``int8_prefix_bound`` of it at the steps routed alike.  qwen2-moe's (a)
+   and two-buffer gates run at float32 (ROADMAP §3 fault 15: a bf16 router
+   near a tie picks another expert; the bf16 figures are printed).  Then
+   ``launch.serve.main`` for rwkv6-1.6b and zamba2-1.2b at full depth (8
+   requests, 16 new tokens, one member): every request done, the
+   reference's closing line.
    Phase dryrun: ``launch.dryrun.run_cell`` (a trace of one member's step
    on meta tensors) for qwen3-0.6b and granite-moe-1b-a400m at train_4k,
    qwen3-0.6b at decode_32k and granite-moe-1b-a400m at prefill_32k on
@@ -332,8 +363,8 @@ Four phases, each of which fails the run:
    scatter updates) timed the same two ways, the ticket launch alone,
    N × (``torch.unique(return_inverse=True)`` + one ``index_add_`` /
    ``scatter_reduce_`` a plane), its plain version (held against it) and
-   its bytes bound.  B3 at the decode shapes (64 rows, gate / up and down)
-   and the 4096-row prefill shape, warm (events), cold (events, the L2
+   its bytes bound.  B3 at the decode shapes (64 rows, gate / up and down),
+   the 4096-row prefill shape and qwen2-moe's decode shapes, warm (events), cold (events, the L2
    flushed before each call, as the served path meets it) and by CUDA-graph
    replay, beside its bound (the larger of the bytes of lhs, out and the
    touched experts' weights and the 3 × 2·rows·K·N TF32 tensor operations;
@@ -2826,6 +2857,74 @@ def phase2_grouped_matmul(gm, sa, gen, device):
     check(torch.equal(hist, onehot), "phase2 segment_agg count histogram != one-hot sum")
     log("phase2 segment_agg route histogram: 64 expert ids into 32 groups equal the one-hot "
         "sum ok")
+    return max(worst, phase2_qwen2moe(gm, sa, gen, device))
+
+
+QWEN2MOE_SHAPES = {"qwen2moe_decode_gate_up": (LM_SLOTS, 2048, 1408),
+                   "qwen2moe_decode_down": (LM_SLOTS, 1408, 2048),
+                   "qwen2moe_prefill_gate_up": (LM_SLOTS * 48, 2048, 1408),
+                   "qwen2moe_prefill_down": (LM_SLOTS * 48, 1408, 2048)}  # tokens, K, N
+
+
+def qwen2moe_ids(tokens, gen, device):
+    """Expert ids of ``tokens`` tokens routed top-4 over qwen2-moe-a2.7b's
+    60 experts."""
+    return routed_ids(tokens, 60, 4, gen, device)
+
+
+def qwen2moe_case(gen, device, tokens, k, n):
+    """lhs, rhs, sizes of one grouped matmul at qwen2-moe-a2.7b's routing:
+    ``tokens`` tokens top-4 over its 60 experts in 64 groups
+    (``moe_experts_padded``: the last 4 empty)."""
+    import torch
+
+    sizes = torch.bincount(qwen2moe_ids(tokens, gen, device), minlength=64).to(torch.int32)
+    return gmm_arrays(gen, device, sizes, k, n)
+
+
+def phase2_qwen2moe(gm, sa, gen, device):
+    """B3 and the segment kernel at qwen2-moe-a2.7b's shapes (QWEN2MOE_SHAPES:
+    a decode step of 8 slots × top-4 = 32 rows and a prefill of 8 × 48 × 4
+    = 1536 rows over 64 groups, the last 4 empty; gate / up K 2048 → N
+    1408, down K 1408 → N 2048): B3 held by :func:`check_gmm`, and its
+    launcher into an output filled with NaN equal to the wrapper's (every
+    element written); the segment kernel's COUNT histogram (onehot, 64
+    groups) of both routings equal to the one-hot sum and to its plain
+    version, the 4 padded groups 0.  The segment kernel folds into its
+    accumulator, so it gets no NaN-filled output.  Returns the worst |Δ| of
+    B3."""
+    import torch
+
+    worst = 0.0
+    for name, (tokens, k, n) in QWEN2MOE_SHAPES.items():
+        lhs, rhs, sizes = qwen2moe_case(gen, device, tokens, k, n)
+        label = f"phase2 grouped_matmul {name}"
+        err, scale = check_gmm(gm, lhs, rhs, sizes, label)
+        got = gm.grouped_matmul(lhs, rhs, sizes)
+        out = torch.full_like(got, float("nan"))
+        lib = gm._kernel_library()
+        gm._raise_on(lib, lib.grouped_matmul_launch(
+            lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), lhs.shape[0], k, n,
+            sizes.numel(), gm._stream(device)), label)
+        sync()
+        check(torch.equal(out, got), f"{label}: the launcher into a NaN-filled output differs "
+              f"from the wrapper's ({int(out.isnan().sum())} NaN left)")
+        worst = max(worst, err)
+        log(f"{label}: M={lhs.shape[0]} K={k} N={n}, groups {int((sizes > 0).sum())}/"
+            f"{sizes.numel()} non-empty (the last 4 padded: {sizes[-4:].tolist()}); "
+            f"max|Δ|={err:.3g} (scale {scale:.3g}); NaN-filled output written whole ok")
+    for tokens in (LM_SLOTS, LM_SLOTS * 48):
+        ids = qwen2moe_ids(tokens, gen, device).to(torch.int32)
+        ones = torch.ones(ids.numel(), device=device)
+        kw = dict(num_groups=64, kind="count", strategy="onehot", morsel_size=1)
+        hist = sa.segment_agg(ids, ones, **kw)
+        onehot = torch.nn.functional.one_hot(ids.long(), 64).sum(0).float()
+        plain = sa.segment_agg_plain(ids, ones, **kw)
+        check(torch.equal(hist, onehot) and torch.equal(hist, plain) and not bool(hist[60:].any()),
+              f"phase2 segment_agg qwen2-moe histogram of {ids.numel()} ids != one-hot sum / "
+              f"plain, or a padded group counted")
+        log(f"phase2 segment_agg qwen2-moe route histogram: {ids.numel()} expert ids into 64 "
+            f"groups equal the one-hot sum and the plain version, the 4 padded groups 0 ok")
     return worst
 
 
@@ -3042,8 +3141,10 @@ def grouped_mm_library(lhs, rhs, sizes):
 
 
 def phase4_grouped_matmul(gm, gen, device, reps=5):
-    """B3 at the decode shapes (64 rows; gate / up and down) and the
-    prefill shape (4096 rows): warm (CUDA events, median of ``reps``), cold
+    """B3 at the decode shapes (64 rows; gate / up and down), the
+    prefill shape (4096 rows) and qwen2-moe-a2.7b's decode shapes (32 rows
+    over 64 groups, the last 4 empty; K 2048 → N 1408 and K 1408 → N
+    2048): warm (CUDA events, median of ``reps``), cold
     (the same with the L2 flushed before each call: a decode step's 72
     calls touch 4.5 GiB of weights, so the served path finds them cold)
     and by CUDA-graph replay (device time without the wrapper's host
@@ -3057,8 +3158,11 @@ def phase4_grouped_matmul(gm, gen, device, reps=5):
     per_shape = {}
     worst = 0.0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    for name, (tokens, k, n) in GMM_SHAPES.items():
-        lhs, rhs, sizes = gmm_case(gen, device, tokens, k, n)
+    cases = {name: gmm_case(gen, device, *shape) for name, shape in GMM_SHAPES.items()}
+    cases.update({name: qwen2moe_case(gen, device, *QWEN2MOE_SHAPES[name])
+                  for name in ("qwen2moe_decode_gate_up", "qwen2moe_decode_down")})
+    for name, (lhs, rhs, sizes) in cases.items():
+        k, n = lhs.shape[1], rhs.shape[2]
 
         def call():
             return gm.grouped_matmul(lhs, rhs, sizes)
@@ -4973,6 +5077,562 @@ def phase3_lm_remat_families(kmods, device, seed):
     return rec
 
 
+# -- every config's serving path: lm_serve_families -------------------------------------
+
+SERVE_ROWS, SERVE_DECODE = 2, 48   # serve_families (a): rows, tokens decoded one at a time
+WINDOW_ARCHS = ("gemma2_2b", "zamba2_1_2b")  # (b): one cached prefill past the sliding window
+WINDOW_PAST, WINDOW_STEPS = 64, 8  # (b): window + 64 prefilled tokens (4160), then 8 decode steps
+RAGGED_ARCHS = ("rwkv6_1_6b", "zamba2_1_2b")  # (b): a cached prefill seeded from the cache
+RAGGED_PREFILL = 300            # (b): not a multiple of the 128-step chunk (ROADMAP §3 fault 14)
+TWOBUF_ARCHS = ("qwen3_0_6b", "qwen2_moe_a2_7b")  # the dense and moe families the two-buffer path takes
+TWOBUF_PREFIX, TWOBUF_STEPS = 64, 8
+FLOAT32_GATED_ARCHS = ("qwen2_moe_a2_7b",)  # (a) and two-buffer gates at float32 (fault 15)
+FULL_DEPTH_ARCHS = ("rwkv6_1_6b", "zamba2_1_2b")  # launch.serve.main at published depth
+
+
+def serve_config(arch):
+    """``arch`` at its published widths with the depth cut for
+    serve_families: 2 layers; zamba2 ``attn_every + 2`` (one super-block of
+    Mamba2 blocks and the shared attention block, then a two-block Mamba2
+    tail, so ``tail_ssm`` runs); seamless 2 encoder and 2 decoder layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=cfg.attn_every + 2)
+    if cfg.encoder_layers:
+        return dataclasses.replace(cfg, n_layers=2, encoder_layers=2)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def int8_prefix_bound(layers, sigma):
+    """The int8 two-buffer gate, from KV_Q8_SCALE's rounding (PERF.md §6):
+    an int8 prefix element is s·round(x / s), an error uniform on
+    ±s/2 of RMS e = s / √12 (none clamped while |x| <= 127.5·s).  In the
+    first-order model the K and V roundings each move an attention layer's
+    output by at most e / σ of its RMS, σ the smaller RMS of the prefix's K
+    and V, and q's per-head rounding to 127 levels of its max by at most e
+    (its step over its RMS is under s while that max is under 6.35 RMS);
+    over ``layers`` layers they add up undamped, and the ratio of two maxima
+    over the logits takes a factor 2: 6 · layers · e / min(σ, 1)."""
+    from repro_torch.models.attention import KV_Q8_SCALE
+
+    return 6 * layers * (KV_Q8_SCALE / math.sqrt(12)) / min(sigma, 1.0)
+
+
+def rel_by_position(dec, full):
+    """max|dec − full| / max|full| over rows and vocabulary, a value per
+    position (the reference's rule, ``tests/test_models.py:95-97``, at every
+    position)."""
+    return ((dec.float() - full.float()).abs().amax(dim=(0, 2))
+            / (full.float().abs().amax(dim=(0, 2)) + 1e-6))
+
+
+def serve_inputs(cfg, rows, text, gen, device):
+    """Tokens (rows, F + text) and the extras ``forward`` takes: a vision
+    config's ``frontend_embeds`` for its F = ``frontend_tokens`` patch
+    positions, an enc-dec config's ``encoder_frames`` over ``text`` frames
+    (0.02 · N(0, 1), as ``SyntheticLM``)."""
+    import torch
+
+    f = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, f + text), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    if f:
+        batch["frontend_embeds"] = 0.02 * torch.randn(rows, f, cfg.d_model, generator=gen,
+                                                      device=device)
+    if cfg.encoder_layers:
+        batch["encoder_frames"] = 0.02 * torch.randn(rows, text, cfg.d_model, generator=gen,
+                                                     device=device)
+    return batch, f
+
+
+@contextlib.contextmanager
+def recorded_routes(moe):
+    """A context in which every ``moe.route`` call also appends its expert
+    ids, sorted along top-k, to the yielded list (this script's diagnostic:
+    where two runs route a token otherwise)."""
+    real, seen = moe.route, []
+
+    def route(p, cfg, x2d):
+        out = real(p, cfg, x2d)
+        seen.append(out.experts.sort(dim=-1).values)
+        return out
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def rerouted_positions(fwd, dec, rows, layers):
+    """The positions at which the token-by-token decode's routes (``dec``:
+    a step's layers in order, each (rows, k)) differ from ``forward``'s
+    (``fwd``: a (rows · S, k) list a layer) in some layer and row."""
+    import torch
+
+    if not fwd:
+        return []
+    full = torch.stack([f.reshape(rows, -1, f.shape[-1]) for f in fwd])  # (L, rows, S, k)
+    steps = len(dec) // layers
+    got = torch.stack([torch.stack(dec[i * layers:(i + 1) * layers]) for i in range(steps)], 2)
+    off = full.shape[2] - steps
+    differ = (got != full[:, :, off:]).any(dim=-1).any(dim=0).any(dim=0)
+    return [off + int(i) for i in differ.nonzero().flatten()]
+
+
+def serve_decode_vs_forward(tf, params, cfg, gen, device, extra, batch=None):
+    """(a): SERVE_DECODE tokens decoded one at a time after a vision
+    config's frontend positions (one cached prefill with ``frontend_embeds``)
+    and with an enc-dec config's ``memory`` (``transformer.encoder_memory``
+    over the frames, as ``forward`` computes it) at every step, against
+    ``forward`` over the same tokens (``batch``, or new inputs): rel per
+    position, and the positions at which a MoE layer routed a token of the
+    decode otherwise than ``forward`` did.  The caches hold ``extra`` more
+    positions.  Returns (rel per position, the positions routed otherwise,
+    the caches, the batch, F, decode ms a step by events)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    if batch is None:
+        batch, f = serve_inputs(cfg, SERVE_ROWS, SERVE_DECODE, gen, device)
+    else:
+        f = batch["frontend_embeds"].shape[1] if "frontend_embeds" in batch else 0
+    with recorded_routes(moe) as fwd_routes:
+        full = tf.forward(params, cfg, batch, ticketed_embedding=False).logits
+    memory = (tf.encoder_memory(params, cfg, batch["encoder_frames"]) if cfg.encoder_layers
+              else None)
+    caches = tf.init_caches(cfg, SERVE_ROWS, f + SERVE_DECODE + extra, cfg.dtype, device=device)
+    toks = batch["tokens"]
+    outs = []
+    if f:
+        lg, caches = tf.decode_step(params, cfg, toks[:, :f], caches,
+                                    frontend_embeds=batch["frontend_embeds"])
+        outs.append(lg)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    with recorded_routes(moe) as dec_routes:
+        for i in range(SERVE_DECODE):
+            lg, caches = tf.decode_step(params, cfg, toks[:, f + i:f + i + 1], caches,
+                                        memory=memory)
+            outs.append(lg)
+    e1.record()
+    sync()
+    dec = torch.cat(outs, dim=1)
+    check(dec.shape == full.shape and bool(torch.isfinite(full).all())
+          and bool(torch.isfinite(dec).all()),
+          f"serve_families {cfg.name} (a): logits {tuple(dec.shape)} vs {tuple(full.shape)}, or "
+          f"not finite")
+    rel = rel_by_position(dec, full)
+    rerouted = rerouted_positions(fwd_routes, dec_routes, SERVE_ROWS, len(fwd_routes))
+    del full, dec, outs
+    return rel, rerouted, caches, batch, f, e0.elapsed_time(e1) / SERVE_DECODE
+
+
+def serve_window(tf, params, cfg, gen, device):
+    """(b) past the window: one cached prefill of ``sliding_window`` +
+    WINDOW_PAST tokens (``last_only``), then WINDOW_STEPS decode steps,
+    against ``forward`` over the same tokens at those positions (one row).
+    Returns rel per position (the prefill's last, then each step's)."""
+    import torch
+
+    n = cfg.sliding_window + WINDOW_PAST
+    toks = torch.randint(0, cfg.vocab_size, (1, n + WINDOW_STEPS), generator=gen, device=device,
+                         dtype=torch.int32)
+    full = tf.forward(params, cfg, {"tokens": toks}, ticketed_embedding=False).logits[:, n - 1:]
+    caches = tf.init_caches(cfg, 1, n + WINDOW_STEPS, cfg.dtype, device=device)
+    lg, caches = tf.decode_step(params, cfg, toks[:, :n], caches, last_only=True)
+    outs = [lg]
+    for i in range(WINDOW_STEPS):
+        lg, caches = tf.decode_step(params, cfg, toks[:, n + i:n + i + 1], caches)
+        outs.append(lg)
+    dec = torch.cat(outs, dim=1)
+    check(dec.shape == full.shape and bool(torch.isfinite(dec).all()),
+          f"serve_families {cfg.name} (b): window logits {tuple(dec.shape)} or not finite")
+    rel = rel_by_position(dec, full)
+    del full, dec, caches
+    return rel
+
+
+def serve_ragged(tf, params, cfg, caches, batch, device, gen):
+    """(b) seeded from the cache: one cached prefill of RAGGED_PREFILL
+    tokens on the caches (a) left after its SERVE_DECODE tokens (the
+    chunked path from the carried state, a last chunk of 300 mod 128 = 44
+    steps), against ``forward`` over all SERVE_DECODE + RAGGED_PREFILL
+    tokens at the prefilled positions.  Returns rel per position."""
+    import torch
+
+    more = torch.randint(0, cfg.vocab_size, (SERVE_ROWS, RAGGED_PREFILL), generator=gen,
+                         device=device, dtype=torch.int32)
+    toks = torch.cat([batch["tokens"], more], dim=1)
+    full = tf.forward(params, cfg, {"tokens": toks}, ticketed_embedding=False).logits
+    dec, _ = tf.decode_step(params, cfg, more, caches)
+    full = full[:, -RAGGED_PREFILL:]
+    check(dec.shape == full.shape and bool(torch.isfinite(dec).all()),
+          f"serve_families {cfg.name} (b): the {RAGGED_PREFILL}-token prefill's logits "
+          f"{tuple(dec.shape)} or not finite")
+    rel = rel_by_position(dec, full)
+    del full, dec
+    return rel
+
+
+def greedy_loop(tf, kmods, params, cfg, prompts, max_new, max_len, device):
+    """The lock-step greedy decode that ``ServeLoop`` runs, written over
+    ``decode_step`` alone: prompts right-padded with 0 to the longest and
+    prefilled a token a step, then ``max_new`` greedy tokens a row.  The
+    launches of its first step after the prefill are read around that step.
+    Returns (tokens a row, top-2 margins (rows, max_new), that step's
+    launches)."""
+    import torch
+
+    plen = max(int(p.numel()) for p in prompts)
+    toks = torch.zeros((len(prompts), plen), dtype=torch.int32, device=device)
+    for i, p in enumerate(prompts):
+        toks[i, :p.numel()] = p
+    caches = tf.init_caches(cfg, len(prompts), max_len, cfg.dtype, device=device)
+    out, margins, one = [], [], None
+    cur = toks[:, :1]
+    for t in range(plen + max_new - 1):
+        inp = toks[:, t:t + 1] if t < plen else cur
+        if t == plen:
+            sync()
+            reset_launches(kmods)
+        lg, caches = tf.decode_step(params, cfg, inp, caches)
+        if t == plen:
+            sync()
+            one = read_launches(kmods)
+        top = torch.topk(lg[:, -1].float(), 2, dim=-1).values
+        cur = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        if t >= plen - 1:
+            out.append(cur[:, 0])
+            margins.append(top[:, 0] - top[:, 1])
+    return torch.stack(out, 1).tolist(), torch.stack(margins, 1).cpu(), one
+
+
+def serve_loop_check(tf, kmods, params, cfg, gen, device, moe_layers):
+    """(c) and (d): ``ServeLoop(slots=8, max_len=128)`` on a one-member mesh
+    serves LM_PROMPTS with SERVE_NEW new tokens each; the launch counts are
+    set to 0 just before ``run_batch`` and read just after.  Every request
+    done; its tokens equal :func:`greedy_loop`'s over ``decode_step`` on the
+    same weights or, at the first token where they differ, that loop's
+    top-2 margin under SERVE_MARGIN; B3 3 and the segment kernel 1 a MoE
+    layer and step over the run and in one step alone, no other kernel.
+    Returns the loop's record (decode ms a step by events after the
+    prefill)."""
+    import torch
+
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import Request, ServeLoop
+
+    mesh = sharding.make_mesh((1, 1), ("data", "model"), devices=[sharding.MeshDevice(0, device)])
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=device,
+                             dtype=torch.int32) for n in LM_PROMPTS]
+    loop = ServeLoop(mesh, cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    step, events = loop.step_fn, []
+
+    def counted(*args):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+        return step(*args)
+
+    loop.step_fn = counted
+    reqs = [Request(uid=i, prompt=p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+    sync()
+    reset_launches(kmods)
+    t0 = time.perf_counter()
+    loop.run_batch(reqs)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kmods)
+    plen = max(LM_PROMPTS)
+    steps = len(events)
+    per_step = dict({k: 0 for k in kmods}, grouped_matmul=3 * moe_layers, segment_agg=moe_layers)
+    check(steps == plen + SERVE_NEW - 1 and all(r.done and len(r.generated) == SERVE_NEW
+                                                for r in reqs),
+          f"serve_families {cfg.name} (c): {steps} steps, requests done "
+          f"{[r.done for r in reqs]}")
+    check(launches == {k: v * steps for k, v in per_step.items()},
+          f"serve_families {cfg.name} (d): launches {launches} over {steps} steps, expected "
+          f"{per_step} a step")
+    want, margins, one = greedy_loop(tf, kmods, params, cfg, prompts, SERVE_NEW, LM_MAX_LEN,
+                                     device)
+    check(one == per_step, f"serve_families {cfg.name} (d): one step launched {one}, expected "
+          f"{per_step}")
+    diffs = []
+    for i, (r, w) in enumerate(zip(reqs, want)):
+        j = next((j for j, (a, b) in enumerate(zip(r.generated, w)) if a != b), None)
+        if j is not None:
+            m = float(margins[i, j])
+            diffs.append({"request": i, "first_diff": j, "margin": m})
+            check(m < SERVE_MARGIN, f"serve_families {cfg.name} (c): request {i} differs from "
+                  f"the greedy decode_step loop at token {j}, margin {m} >= {SERVE_MARGIN}")
+    decode_ms = events[plen].elapsed_time(end) / (steps - plen)
+    rec = {"steps": steps, "wall_s": wall, "prefill_ms": events[0].elapsed_time(events[plen]),
+           "decode_ms_per_step": decode_ms, "decode_tokens_per_s": LM_SLOTS / decode_ms * 1e3,
+           "tokens_per_s": LM_SLOTS * SERVE_NEW / wall, "token_diffs": diffs,
+           "launches_per_step": {k: v for k, v in one.items() if v}, "launches": launches}
+    del loop
+    return rec
+
+
+def twobuf_runs(tf, kmods, params, cfg, toks, device, moe_layers):
+    """One config's two-buffer runs on ``toks`` (rows, TWOBUF_PREFIX +
+    TWOBUF_STEPS): ``decode_step`` over a cached prefill of the prefix and
+    the steps; then ``decode_step_twobuf`` from that prefill's K/V as they
+    are and as round(x / KV_Q8_SCALE) clamped to ±127, each run's launches
+    read around its steps (B3 3 and the segment kernel 1 a MoE layer and
+    step) and its routing recorded (``moe.router_stats``).  Returns the
+    logits (one-buffer, prefix as is, int8 prefix), the routing histograms
+    of the two prefixes, the prefix K / V's smaller RMS and the count of
+    clamped elements."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.attention import KV_Q8_SCALE
+
+    n, rows = TWOBUF_PREFIX, toks.shape[0]
+    caches = tf.init_caches(cfg, rows, n + TWOBUF_STEPS, cfg.dtype, device=device)
+    _, caches = tf.decode_step(params, cfg, toks[:, :n], caches)
+    pk, pv = caches.k[:, :, :n].clone(), caches.v[:, :, :n].clone()
+    one = []
+    for i in range(TWOBUF_STEPS):
+        lg, caches = tf.decode_step(params, cfg, toks[:, n + i:n + i + 1], caches)
+        one.append(lg)
+    qk, qv = (torch.clamp(torch.round(t.float() / KV_Q8_SCALE), -127, 127).to(torch.int8)
+              for t in (pk, pv))
+    sigma = min(float(pk.float().pow(2).mean().sqrt()), float(pv.float().pow(2).mean().sqrt()))
+    clamped = int(sum(int((t.float().abs() > 127.5 * KV_Q8_SCALE).sum()) for t in (pk, pv)))
+    got, routing = {}, {}
+    for name, (k, v) in (("prefix", (pk, pv)), ("int8", (qk, qv))):
+        prefix, tail = tf.init_twobuf_caches(cfg, rows, n, TWOBUF_STEPS, cfg.dtype, device=device)
+        prefix = prefix._replace(k=k, v=v)
+        outs = []
+        sync()
+        reset_launches(kmods)
+        with moe.router_stats() as records:
+            for i in range(TWOBUF_STEPS):
+                lg, tail = tf.decode_step_twobuf(params, cfg, toks[:, n + i:n + i + 1], prefix,
+                                                 tail)
+                outs.append(lg)
+        sync()
+        launches = read_launches(kmods)
+        expect = dict({k_: 0 for k_ in kmods}, grouped_matmul=3 * moe_layers * TWOBUF_STEPS,
+                      segment_agg=moe_layers * TWOBUF_STEPS)
+        check(launches == expect, f"serve_families {cfg.name} two-buffer {name} ({cfg.dtype}): "
+              f"launches {launches}, expected {expect}")
+        got[name] = torch.cat(outs, dim=1)
+        routing[name] = [h.clone() for h, _ in records]
+        check(bool(torch.isfinite(got[name]).all()),
+              f"serve_families {cfg.name} two-buffer {name} ({cfg.dtype}): logits not finite")
+    return torch.cat(one, dim=1), got, routing, sigma, clamped
+
+
+def serve_twobuf(tf, kmods, params, cfg, arch, gen, device, moe_layers):
+    """``decode_step_twobuf`` for a dense or moe config (:func:`twobuf_runs`,
+    TWOBUF_PREFIX prefilled tokens, TWOBUF_STEPS tail steps).  Gates: the
+    bf16 prefix's logits against ``decode_step`` on the same tokens within
+    LM_REL; the int8 prefix's logits finite and within
+    :func:`int8_prefix_bound` of the bf16 prefix's.  For
+    FLOAT32_GATED_ARCHS (ROADMAP §3 fault 15: in bf16 the reference's own
+    two-buffer MoE decode misses its 0.05 rule, a near-tied router picking
+    another expert) the same runs at float32 compute carry both gates, and
+    the bf16 figures are printed beside them, ungated.  Prints how many
+    steps the int8 run routed as its comparator did.  Returns the record."""
+    import dataclasses
+
+    import torch
+
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_ROWS, TWOBUF_PREFIX + TWOBUF_STEPS),
+                         generator=gen, device=device, dtype=torch.int32)
+    runs = {"bfloat16": cfg}
+    if arch in FLOAT32_GATED_ARCHS:
+        runs["float32"] = dataclasses.replace(cfg, dtype="float32")
+    rec = {"prefix": TWOBUF_PREFIX, "steps": TWOBUF_STEPS}
+    for dtype, c in runs.items():
+        one, got, routing, sigma, clamped = twobuf_runs(tf, kmods, params, c, toks, device,
+                                                        moe_layers)
+        # the steps whose every MoE layer routed the int8 run's rows as the
+        # comparator's: the rounding model holds there only (a router that
+        # picks another expert is a discrete jump; fault 15)
+        per = [routing[k][i * moe_layers:(i + 1) * moe_layers] for k in ("prefix", "int8")
+               for i in range(TWOBUF_STEPS)]
+        alike = [i for i in range(TWOBUF_STEPS)
+                 if all(torch.equal(a, b) for a, b in zip(per[i], per[TWOBUF_STEPS + i]))]
+        rel_int8 = rel_by_position(got["int8"], got["prefix"])
+        rec[dtype] = {"rel_prefix_vs_decode": float(rel_by_position(got["prefix"], one).max()),
+                      "rel_int8_vs_prefix": float(rel_int8.max()),
+                      "rel_int8_routed_alike": float(rel_int8[alike].max()) if alike else None,
+                      "steps_routed_alike": len(alike),
+                      "int8_bound": int8_prefix_bound(cfg.n_layers, sigma), "kv_rms": sigma,
+                      "kv_clamped": clamped}
+    gated = "float32" if "float32" in runs else "bfloat16"
+    r = rec[gated]
+    rec["gated"] = gated
+    check(r["rel_prefix_vs_decode"] < LM_REL,
+          f"serve_families {cfg.name} two-buffer ({gated}) vs decode_step rel "
+          f"{r['rel_prefix_vs_decode']} >= {LM_REL}")
+    check(r["steps_routed_alike"] > 0 and r["rel_int8_routed_alike"] < r["int8_bound"],
+          f"serve_families {cfg.name} two-buffer int8 vs {gated} prefix rel "
+          f"{r['rel_int8_routed_alike']} over the {r['steps_routed_alike']} steps routed alike, "
+          f"bound {r['int8_bound']} (KV RMS {r['kv_rms']}, {r['kv_clamped']} clamped)")
+    return rec
+
+
+def serve_full_depth(kmods, device):
+    """``launch.serve.main(["--arch", a, "--requests", "8", "--max-new",
+    "16"])`` for each of FULL_DEPTH_ARCHS at published widths and depth
+    (rwkv6-1.6b's 24 layers, zamba2-1.2b's 38: six super-blocks and a
+    two-block tail) on one member, the CLI's own seeds: every request done
+    with 16 tokens, the closing line the reference's, no kernel launched
+    (neither family has a MoE layer).  Returns a record an arch."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from repro_torch.launch import serve as lserve
+    from repro_torch.parallel import sharding
+
+    line_re = re.compile(r"served 8 requests, 128 tokens in \d+\.\ds \(\d+\.\d tok/s\)$")
+    recs = []
+    for arch in FULL_DEPTH_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        sync()
+        reset_launches(kmods)
+        t0 = time.perf_counter()
+        with sharding.virtual_devices(1, device), contextlib.redirect_stdout(out):
+            served = lserve.main(["--arch", arch, "--requests", "8", "--max-new", "16"])
+        secs = time.perf_counter() - t0
+        launches = read_launches(kmods)
+        line = out.getvalue().strip().splitlines()[-1]
+        check(len(served) == 8 and all(r.done and len(r.generated) == 16 for r in served)
+              and line_re.match(line) is not None and launches == {k: 0 for k in kmods},
+              f"serve_families full depth {arch}: {len(served)} served, line {line!r}, "
+              f"launches {launches}")
+        rec = {"arch": arch, "line": line, "s": secs,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20, "launches": launches}
+        recs.append(rec)
+        log(f"phase3 serve_families full depth {arch}: launch.serve.main: {line} ({secs:.1f} s "
+            f"with init; peak {rec['peak_mib']:.0f} MiB); {card_line()}")
+        del served
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase3_serve_families(kmods, device, seed):
+    """Every config's serving path on the card at published widths and cut
+    depth (:func:`serve_config`), bf16 compute over float32 parameters from
+    a seeded card generator.  For each arch: (a) :func:`serve_decode_vs_forward`;
+    (b) :func:`serve_window` for WINDOW_ARCHS and :func:`serve_ragged` for
+    RAGGED_ARCHS; (c, d) :func:`serve_loop_check`; :func:`serve_twobuf` for
+    TWOBUF_ARCHS; (e) the decode ms a step (``ServeLoop``, events after the
+    prefill), tokens/s and peak MiB printed beside the card's name and power
+    limit.  Every (a) and (b) position within LM_REL.  Then
+    :func:`serve_full_depth`.  Returns the record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = {k: 0 for k in kmods}
+    rows = []
+    for i, arch in enumerate(ARCH_IDS):
+        t0 = time.perf_counter()
+        cfg = serve_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(seed + 40 + i)
+        params = tf.init_params(gen, cfg, device)
+        moe_layers = (sum(cfg.is_moe_layer(j) for j in range(cfg.n_layers))
+                      if cfg.moe_num_experts else 0)
+        extra = RAGGED_PREFILL if arch in RAGGED_ARCHS else 0
+        rel_a, rerouted, caches, batch, f, step_ms = serve_decode_vs_forward(
+            tf, params, cfg, gen, device, extra)
+        row = {"arch": arch, "family": cfg.family, "layers": cfg.n_layers,
+               "encoder_layers": cfg.encoder_layers, "frontend_positions": f,
+               "decoded": SERVE_DECODE, "rel_decode": float(rel_a.max()),
+               "rel_decode_at": int(rel_a.argmax()), "rerouted_positions": rerouted,
+               "decode_ms_rows2": step_ms, "gated": cfg.dtype}
+        if arch in FLOAT32_GATED_ARCHS:  # fault 15: the same tokens at float32 carry the gate
+            rel_a, rerouted32, *_ = serve_decode_vs_forward(
+                tf, params, dataclasses.replace(cfg, dtype="float32"), gen, device, 0, batch)
+            row.update(gated="float32", rel_decode_float32=float(rel_a.max()),
+                       rerouted_positions_float32=rerouted32)
+        check(float(rel_a.max()) < LM_REL,
+              f"serve_families {arch} (a): decode vs forward ({row['gated']}) rel "
+              f"{float(rel_a.max())} >= {LM_REL} at position {int(rel_a.argmax())}; routed "
+              f"otherwise at {rerouted}")
+        if arch in RAGGED_ARCHS:
+            rel = serve_ragged(tf, params, cfg, caches, batch, device, gen)
+            row["rel_ragged_prefill"] = float(rel.max())
+            check(float(rel.max()) < LM_REL,
+                  f"serve_families {arch} (b): the {RAGGED_PREFILL}-token prefill vs forward rel "
+                  f"{float(rel.max())} >= {LM_REL} at position {int(rel.argmax())}")
+        del caches, batch
+        if arch in WINDOW_ARCHS:
+            rel = serve_window(tf, params, cfg, gen, device)
+            row["rel_window"] = float(rel.max())
+            row["window_prefill"] = cfg.sliding_window + WINDOW_PAST
+            check(float(rel.max()) < LM_REL,
+                  f"serve_families {arch} (b): prefill past the window vs forward rel "
+                  f"{float(rel.max())} >= {LM_REL} at position {int(rel.argmax())}")
+        torch.cuda.empty_cache()
+        loop = serve_loop_check(tf, kmods, params, cfg, gen, device, moe_layers)
+        for k in kmods:
+            total[k] += loop["launches"][k]
+        row.update(serve_loop=loop)
+        if arch in TWOBUF_ARCHS:
+            row["twobuf"] = serve_twobuf(tf, kmods, params, cfg, arch, gen, device, moe_layers)
+        row["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        row["s"] = time.perf_counter() - t0
+        rows.append(row)
+        del params
+        log(f"phase3 serve_families {arch}: {cfg.family}, {cfg.n_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+            + (f", {f} vision positions prefilled" if f else "")
+            + f"; decode vs forward rel {row['rel_decode']:.4g} (worst at position "
+            f"{row['rel_decode_at']}; routed otherwise at {row['rerouted_positions']})"
+            + (f", at float32 {row['rel_decode_float32']:.4g} (routed otherwise at "
+               f"{row['rerouted_positions_float32']}) [float32 gated, fault 15]"
+               if "rel_decode_float32" in row else "")
+            + (f"; {RAGGED_PREFILL}-token prefill rel {row['rel_ragged_prefill']:.4g}"
+               if "rel_ragged_prefill" in row else "")
+            + (f"; {row['window_prefill']}-token prefill past the window + {WINDOW_STEPS} steps "
+               f"rel {row['rel_window']:.4g}" if "rel_window" in row else "")
+            + f"; ServeLoop {LM_SLOTS} x {SERVE_NEW} tokens: decode {loop['decode_ms_per_step']:.2f} "
+            f"ms a step, {loop['decode_tokens_per_s']:.1f} tokens/s decoding, "
+            f"{loop['tokens_per_s']:.1f} end to end, tokens vs the greedy decode_step loop: "
+            f"{LM_SLOTS - len(loop['token_diffs'])} of {LM_SLOTS} equal {loop['token_diffs']}; "
+            f"launches a step {loop['launches_per_step']}"
+            + "".join(f"; two-buffer {d} vs decode_step rel {v['rel_prefix_vs_decode']:.4g}, "
+                      f"int8 prefix vs {d} {v['rel_int8_vs_prefix']:.4g}, over the "
+                      f"{v['steps_routed_alike']} of {TWOBUF_STEPS} steps routed alike "
+                      f"{v['rel_int8_routed_alike'] or 0:.4g} (bound {v['int8_bound']:.4g}, KV RMS "
+                      f"{v['kv_rms']:.3f}, {v['kv_clamped']} clamped)"
+                      + (" [gated]" if d == row["twobuf"]["gated"] else " [not gated]")
+                      for d, v in row.get("twobuf", {}).items()
+                      if d in ("bfloat16", "float32"))
+            + f"; peak {row['peak_mib']:.0f} MiB; {row['s']:.1f} s; {card_line()}")
+    full_depth = serve_full_depth(kmods, device)
+    rec = {"stream": "lm_serve_families", "configs": rows, "full_depth": full_depth,
+           "launches": total, "card": card_line()}
+    log("phase3 " + json.dumps(rec))
+    return rec
+
+
 def b6_bound(lhs, rhs, sizes):
     """The least time of one B6 call (both products): a dict of
     ``bytes_ms`` (lhs, g, the touched experts' weights and sizes read once;
@@ -6378,6 +7038,11 @@ def main(argv=None) -> int:
     t_fam = time.perf_counter()
     recs.append(phase3_lm_remat_families(kmods, device, args.seed))
     log(f"phase3 lm_remat_families in {time.perf_counter() - t_fam:.1f} s")
+    log("== phase 3 serve_families: every config's serving path, and rwkv6 / zamba2 at full "
+        "depth (lm_serve_families)")
+    t_sf = time.perf_counter()
+    recs.append(phase3_serve_families(kmods, device, args.seed))
+    log(f"phase3 lm_serve_families in {time.perf_counter() - t_sf:.1f} s")
     launches = {k: sum(r["launches"][k] for r in recs) for k in kmods}
     log(f"phase3 done in {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}")
 

@@ -279,3 +279,19 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return (torch.tanh(x.float() / cap) * cap).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked recurrences (rwkv.py, ssm.py)
+# ---------------------------------------------------------------------------
+
+def chunk_runs(s: int, chunk: int) -> list:
+    """``(lo, hi, c)`` runs covering a sequence of ``s`` steps in chunks of
+    ``c`` steps: ``[0, s − s % c)`` in chunks of ``min(chunk, s)``, then the
+    ``s % c`` steps left as one shorter chunk, if any.  The reference's
+    chunked paths refuse an ``s`` that is not a multiple of the chunk
+    (ROADMAP §3 fault 14); the port runs the rest as a last chunk, seeded
+    from the state the full chunks leave."""
+    c = min(chunk, s)
+    full = s - s % c
+    return [(lo, hi, n) for lo, hi, n in ((0, full, c), (full, s, s - full)) if hi > lo]

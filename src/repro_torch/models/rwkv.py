@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, dense, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import Params, chunk_runs, dense, dense_init, rmsnorm, rmsnorm_init
 
 
 class RWKVCache(NamedTuple):
@@ -97,12 +97,28 @@ def rwkv6_time_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: RWKVCach
         return out, RWKVCache(x[:, -1, :], cache.last_x_ffn, st)
 
     # ---- chunked form over the sequence (see the reference for the
-    # factorization of the intra-chunk decay) ----
-    c = min(cfg.ssm_chunk, s)
-    if s % c:
-        raise ValueError(f"seq {s} not divisible by chunk {c}")
+    # factorization of the intra-chunk decay): chunks of ``ssm_chunk``
+    # steps, and a last, shorter chunk where s is not a multiple of it (the
+    # reference refuses such an s: ROADMAP §3 fault 14) ----
+    st = cache.state if cache is not None else torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
+    ys = []
+    logw = logw.reshape(b, s, h, hd)
+    for lo, hi, c in chunk_runs(s, cfg.ssm_chunk):
+        y_run, st = _wkv_chunks(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi], logw[:, lo:hi], u, st, c)
+        ys.append(y_run)
+    y = torch.cat(ys, dim=1).reshape(b, s, d).to(x.dtype)
+    out = dense(p["wo"], rmsnorm(p["ln_x"], y) * g)
+    new_cache = RWKVCache(x[:, -1, :], cache.last_x_ffn, st) if cache is not None else None
+    return out, new_cache
+
+
+def _wkv_chunks(r, k, v, logw, u, st, c: int):
+    """The chunked WKV over ``r``, ``k``, ``v``, ``logw`` (b, s, h, hd),
+    s a multiple of ``c``, from the state ``st`` (b, h, hd, hd): returns
+    (y (b, s, h, hd) float32, the state after the last step)."""
+    b, s, h, hd = r.shape
     nc = s // c
-    logdecay = -torch.exp(logw).reshape(b, nc, c, h, hd).float()
+    logdecay = -torch.exp(logw).reshape(b, nc, c, h, hd)
     cum = torch.cumsum(logdecay, dim=2)   # inclusive: Σ_{j≤t} ℓ_j
     cum_ex = cum - logdecay               # exclusive: Σ_{j<t} ℓ_j
 
@@ -113,7 +129,7 @@ def rwkv6_time_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: RWKVCach
     r_dec = rc * torch.exp(cum_ex)                          # r_t ⊙ e^{cum_ex[t]}
     k_dec = kc * torch.exp(torch.clamp(-cum, max=30.0))     # k_u ⊙ e^{−cum[u]}
 
-    mask_lt = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device), diagonal=-1)
+    mask_lt = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
     att = torch.einsum("bzthk,bzuhk->bztuh", r_dec, k_dec)
     att = torch.where(mask_lt[None, None, :, :, None], att, 0.0)
     y_intra = torch.einsum("bztuh,bzuhv->bzthv", att, vc)
@@ -126,16 +142,12 @@ def rwkv6_time_mix(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: RWKVCach
     tail = torch.exp(cum[:, :, -1:, :, :] - cum)            # decay u→chunk end
     dstate = torch.einsum("bzuhk,bzuhv->bzhkv", kc * tail, vc)
 
-    st = cache.state if cache is not None else torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     y_inter = []
     for z in range(nc):  # the reference's lax.scan over chunks
         y_inter.append(torch.einsum("bthk,bhkv->bthv", r_dec[:, z], st))
         st = st * chunk_decay[:, z][..., None] + dstate[:, z]
     y_inter = torch.stack(y_inter, dim=1)
-    y = (y_intra + y_inter).reshape(b, s, d).to(x.dtype)
-    out = dense(p["wo"], rmsnorm(p["ln_x"], y) * g)
-    new_cache = RWKVCache(x[:, -1, :], cache.last_x_ffn, st) if cache is not None else None
-    return out, new_cache
+    return (y_intra + y_inter).reshape(b, s, h, hd), st
 
 
 def rwkv6_channel_mix(p: Params, x: torch.Tensor, cache: RWKVCache | None):

@@ -15,7 +15,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, dense, dense_init, randn, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (
+    Params,
+    chunk_runs,
+    dense,
+    dense_init,
+    randn,
+    rmsnorm,
+    rmsnorm_init,
+)
 
 
 class SSMCache(NamedTuple):
@@ -107,10 +115,30 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache |
         out = dense(p["out_proj"], rmsnorm(p["norm"], y * F.silu(z)))
         return out, SSMCache(new_tail, st)
 
-    # ---- chunked SSD ----
-    c = min(cfg.ssm_chunk, s)
-    if s % c:
-        raise ValueError(f"seq {s} not divisible by chunk {c}")
+    # ---- chunked SSD: chunks of ``ssm_chunk`` steps, and a last, shorter
+    # chunk where s is not a multiple of it (the reference refuses such an
+    # s: ROADMAP §3 fault 14) ----
+    st = cache.state if cache is not None else torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for lo, hi, c in chunk_runs(s, cfg.ssm_chunk):
+        y_run, st = _ssd_chunks(da[:, lo:hi], xh[:, lo:hi], bmat[:, lo:hi], cmat[:, lo:hi],
+                                dt[:, lo:hi], st, c)
+        ys.append(y_run)
+    y = torch.cat(ys, dim=1)
+    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
+    y = y.reshape(b, s, d_inner)
+    out = dense(p["out_proj"], rmsnorm(p["norm"], y * F.silu(z)))
+    new_cache = SSMCache(new_tail, st) if cache is not None else None
+    return out, new_cache
+
+
+def _ssd_chunks(da, xh, bmat, cmat, dt, st, c: int):
+    """The chunked SSD over ``da``, ``dt`` (b, s, h), ``xh`` (b, s, h, hd),
+    ``bmat``, ``cmat`` (b, s, n), s a multiple of ``c``, from the state
+    ``st`` (b, h, hd, n): returns (y (b, s, h, hd) in ``xh``'s dtype, without
+    the D·x skip, and the state after the last step)."""
+    b, s, h, hd = xh.shape
+    n = bmat.shape[-1]
     nc = s // c
     dac = da.reshape(b, nc, c, h)
     cum = torch.cumsum(dac, dim=2)                     # within-chunk cumulative decay
@@ -124,19 +152,18 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache |
     # is a positive sum of decays whose exp overflows at published widths, and
     # the reference's where after the exp sends 0 · inf = NaN into every
     # gradient of the block (ROADMAP §3 fault 12).  The values are the same.
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xh.device))
     decay = torch.exp(torch.where(mask[None, None, :, :, None],
                                   cum[:, :, :, None, :] - cum[:, :, None, :, :],
                                   float("-inf")))  # (b,nc,t,u,h)
     scores = torch.einsum("bztn,bzun->bztu", cc_, bc_)[..., None] * decay  # (b,nc,t,u,h)
-    y_intra = torch.einsum("bztuh,bzuh,bzuhd->bzthd", scores.to(x.dtype), dtc.to(x.dtype), xc)
+    y_intra = torch.einsum("bztuh,bzuh,bzuhd->bzthd", scores.to(xh.dtype), dtc.to(xh.dtype), xc)
 
     # inter-chunk: carry the state with a loop over chunks
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (b,nc,h) total decay of chunk
     tail_decay = torch.exp(cum[:, :, -1:, :] - cum)  # (b,nc,c,h)
-    dstate = torch.einsum("bzch,bzcn,bzchd->bzhdn", (dtc * tail_decay).to(x.dtype), bc_, xc)
+    dstate = torch.einsum("bzch,bzcn,bzchd->bzhdn", (dtc * tail_decay).to(xh.dtype), bc_, xc)
 
-    st = cache.state if cache is not None else torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
     y_inter = []
     for zi in range(nc):  # the reference's lax.scan over chunks
         cseq = cc_[:, zi]
@@ -144,12 +171,7 @@ def mamba2_block(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: SSMCache |
                                     st.to(cseq.dtype)))
         st = st * chunk_decay[:, zi, :, None, None].to(st.dtype) + dstate[:, zi].to(st.dtype)
     y_inter = torch.stack(y_inter, dim=1)  # (b,nc,c,h,hd)
-    y = (y_intra + y_inter.to(x.dtype)).reshape(b, s, h, hd)
-    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(b, s, d_inner)
-    out = dense(p["out_proj"], rmsnorm(p["norm"], y * F.silu(z)))
-    new_cache = SSMCache(new_tail, st) if cache is not None else None
-    return out, new_cache
+    return (y_intra + y_inter.to(xh.dtype)).reshape(b, s, h, hd), st
 
 
 def make_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache:

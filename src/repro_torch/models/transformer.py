@@ -505,6 +505,17 @@ def _run_rwkv_stack(p_layers, cfg, x):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def encoder_memory(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """An enc-dec config's cross-attention memory (B, Se, D) over
+    ``encoder_frames`` (B, Se, D), as ``forward`` computes it (the
+    reference's ``transformer.py:408-412``): the frontend projection, the
+    encoder stack, its final norm.  A cached decode step takes it as
+    ``memory``."""
+    enc_in = dense(params["frontend_proj"], frames.to(torch_dtype(cfg.dtype)))
+    mem, _ = _run_attn_stack(params["encoder"]["layers"], cfg, enc_in, None)
+    return apply_norm(cfg.norm_kind, params["encoder"]["final_norm"], mem)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -530,11 +541,7 @@ def forward(
         f = vis.shape[1]
         x = torch.cat([vis, x[:, f:, :]], dim=1)
 
-    memory = None
-    if cfg.encoder_layers:
-        enc_in = dense(params["frontend_proj"], batch["encoder_frames"].to(x.dtype))
-        mem, _ = _run_attn_stack(params["encoder"]["layers"], cfg, enc_in, None)
-        memory = apply_norm(cfg.norm_kind, params["encoder"]["final_norm"], mem)
+    memory = encoder_memory(params, cfg, batch["encoder_frames"]) if cfg.encoder_layers else None
 
     windows = layer_windows(cfg)
     if cfg.family == "ssm":

@@ -415,7 +415,7 @@ def test_forward_bfloat16_at_the_reference_tolerance():
     assert rel_err(got.logits.numpy(), want.logits) < 0.05
 
 
-@pytest.mark.parametrize("arch", ["gemma2_2b", "granite_moe_1b_a400m", "zamba2_1_2b", "rwkv6_1_6b"])
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_decode_step_equals_reference(arch):
     cfg = f32(arch)
     tc = tcfg_of(cfg)
@@ -432,7 +432,7 @@ def test_decode_step_equals_reference(arch):
         assert rel_err(got.numpy(), want) < 1e-4, i
 
 
-@pytest.mark.parametrize("arch", ["qwen3_0_6b", "zamba2_1_2b", "rwkv6_1_6b"])
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_cached_prefill_last_only_equals_reference(arch):
     """A prefill THROUGH the cache (attention appends in place, SSM / RWKV
     run the chunked path seeded from the cache), logits of the last
@@ -451,6 +451,94 @@ def test_cached_prefill_last_only_equals_reference(arch):
     want, _ = jtf.decode_step(params, cfg, jnp.asarray(tokens[:, S:]), jc)
     got, _ = ttf.decode_step(tp, tc, t(tokens[:, S:]), tcache)
     assert rel_err(got.numpy(), want) < 1e-4
+
+
+def _cached_run(jcfg, params, tokens, splits):
+    """Both packages' ``decode_step`` over ``tokens`` (B, S) in cached
+    pieces of ``splits`` tokens from fresh caches: the last position's
+    logits of each piece, reference and port."""
+    tc = tcfg_of(jcfg)
+    tp = carry(params)
+    n = tokens.shape[1]
+    jc = jtf.init_caches(jcfg, B, n + 4, jnp.float32)
+    tcache = ttf.init_caches(tc, B, n + 4, torch.float32, device=CPU)
+    jstep = jax.jit(lambda p, tok, c: jtf.decode_step(p, jcfg, tok, c, last_only=True))
+    want, got, at = [], [], 0
+    for size in splits:
+        piece = tokens[:, at:at + size]
+        w, jc = jstep(params, jnp.asarray(piece), jc)
+        g, tcache = ttf.decode_step(tp, tc, t(piece), tcache, last_only=True)
+        want.append(np.asarray(w))
+        got.append(g.numpy())
+        at += size
+    return want, got
+
+
+def test_hybrid_tail_ssm_decode_equals_reference():
+    """zamba2 with ``n_layers = attn_every + 1``: one super-block and a
+    one-block Mamba2 tail (``tail_ssm``), decoded token by token and
+    prefilled through the cache."""
+    base = f32("zamba2_1_2b")
+    cfg = dataclasses.replace(base, n_layers=base.attn_every + 1)
+    params = jtf.init_params(jax.random.PRNGKey(8), cfg)
+    assert "tail" in params and jtf.init_caches(cfg, B, 4, jnp.float32)["tail_ssm"].state.shape[0] == 1
+    tokens = np.random.default_rng(20).integers(0, cfg.vocab_size, (B, 10)).astype(np.int32)
+    want, got = _cached_run(cfg, params, tokens, [1] * 10)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert rel_err(g, w) < 1e-4, i
+    want, got = _cached_run(cfg, params, tokens, [8, 1, 1])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert rel_err(g, w) < 1e-4, i
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "zamba2_1_2b"])
+def test_cached_prefill_past_the_window_equals_reference(arch):
+    """A cached prefill of 96 tokens, past the reduced configs' 64-token
+    sliding window (3 of their 32-step chunks), then 4 decode steps: the
+    window masks inside the cache."""
+    cfg = f32(arch)
+    assert cfg.sliding_window == 64
+    params = jtf.init_params(jax.random.PRNGKey(9), cfg)
+    tokens = np.random.default_rng(21).integers(0, cfg.vocab_size, (B, 100)).astype(np.int32)
+    want, got = _cached_run(cfg, params, tokens, [96, 1, 1, 1, 1])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert rel_err(g, w) < 1e-4, i
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1_2b", "rwkv6_1_6b"])
+def test_chunked_paths_take_a_ragged_last_chunk(arch):
+    """ROADMAP §3 fault 14: the reference's chunked SSD / WKV paths assert
+    that the sequence is a multiple of ``ssm_chunk``, so neither its
+    ``forward`` nor a cached prefill runs at 40 tokens of a 32-step chunk.
+    The port runs the last 8 steps as one shorter chunk.  The chunked form
+    is exact under any chunking, so the port is held to the reference with
+    ``ssm_chunk = 40`` (one chunk): ``forward``, and a 40-token cached
+    prefill seeded from a cache that holds 3 decoded tokens."""
+    cfg = f32(arch)
+    assert cfg.ssm_chunk == 32
+    one = dataclasses.replace(cfg, ssm_chunk=40)
+    params = jtf.init_params(jax.random.PRNGKey(10), cfg)
+    tokens = np.random.default_rng(22).integers(0, cfg.vocab_size, (B, 43)).astype(np.int32)
+    with pytest.raises(AssertionError):
+        jtf.forward(params, cfg, {"tokens": jnp.asarray(tokens[:, :40])}, ticketed_embedding=False)
+    want = jtf.forward(params, one, {"tokens": jnp.asarray(tokens[:, :40])}, ticketed_embedding=False)
+    got = ttf.forward(carry(params), tcfg_of(cfg), {"tokens": t(tokens[:, :40])},
+                      ticketed_embedding=False)
+    assert rel_err(got.logits.numpy(), want.logits) < 1e-4
+    tc = tcfg_of(cfg)
+    tp = carry(params)
+    jc = jtf.init_caches(one, B, 48, jnp.float32)
+    tcache = ttf.init_caches(tc, B, 48, torch.float32, device=CPU)
+    for i in range(3):
+        _, jc = jtf.decode_step(params, one, jnp.asarray(tokens[:, i:i + 1]), jc)
+        _, tcache = ttf.decode_step(tp, tc, t(tokens[:, i:i + 1]), tcache)
+    want, jc = jtf.decode_step(params, one, jnp.asarray(tokens[:, 3:]), jc)
+    got, tcache = ttf.decode_step(tp, tc, t(tokens[:, 3:]), tcache)
+    assert rel_err(got.numpy(), want) < 1e-4
+    leaves_w, leaves_g = jax.tree.leaves(jc), jax.tree.leaves(tcache)  # the same tree, both sorted
+    assert len(leaves_w) == len(leaves_g)
+    for w, g in zip(leaves_w, leaves_g):
+        assert rel_err(g.numpy(), w) < 1e-4
 
 
 def test_decode_step_with_memory_and_frontend_embeds():
@@ -489,6 +577,87 @@ def test_twobuf_decode_step_equals_reference():
         want, jtail = jtf.decode_step_twobuf(params, cfg, jnp.asarray(tokens[:, i:i + 1]), jpre, jtail)
         got, ttail = ttf.decode_step_twobuf(tp, tc, t(tokens[:, i:i + 1]), tpre, ttail)
         assert rel_err(got.numpy(), want) < 1e-4
+
+
+def test_twobuf_decode_int8_prefix_equals_reference():
+    """qwen2-moe (reduced, float32) with an int8 prefix: the reference's
+    recipe (a prefix decoded token by token, its K/V as round(x /
+    KV_Q8_SCALE) clamped to ±127) through both packages' two-buffer decode,
+    4 tail steps; B3 and the route's histogram on the MoE path."""
+    cfg = f32("qwen2_moe_a2_7b")
+    tc = tcfg_of(cfg)
+    params = jtf.init_params(jax.random.PRNGKey(11), cfg)
+    tp = carry(params)
+    s0, new = 12, 4
+    tokens = np.random.default_rng(23).integers(0, cfg.vocab_size, (B, s0 + new)).astype(np.int32)
+    jc = jtf.init_caches(cfg, B, s0, jnp.float32)
+    _, jc = jtf.decode_step(params, cfg, jnp.asarray(tokens[:, :s0]), jc)
+
+    def q8(a):
+        return np.clip(np.round(np.asarray(a, np.float32) / jattn.KV_Q8_SCALE), -127, 127).astype(np.int8)
+
+    pk, pv = q8(jc.k), q8(jc.v)
+    assert tattn.KV_Q8_SCALE == jattn.KV_Q8_SCALE
+    jpre, jtail = jtf.init_twobuf_caches(cfg, B, s0, 8, jnp.float32)
+    tpre, ttail = ttf.init_twobuf_caches(tc, B, s0, 8, torch.float32, device=CPU)
+    jpre = jpre._replace(k=jnp.asarray(pk), v=jnp.asarray(pv))
+    tpre = tpre._replace(k=t(pk), v=t(pv))
+    for i in range(new):
+        tok = tokens[:, s0 + i:s0 + i + 1]
+        want, jtail = jtf.decode_step_twobuf(params, cfg, jnp.asarray(tok), jpre, jtail)
+        got, ttail = ttf.decode_step_twobuf(tp, tc, t(tok), tpre, ttail)
+        assert rel_err(got.numpy(), want) < 1e-4, i
+    assert int(ttail.length[0]) == new
+
+
+def test_twobuf_bf16_moe_misses_the_reference_rule_in_the_reference():
+    """ROADMAP §3 fault 15, the reference's: in bf16 its two-buffer decode of
+    qwen2-moe misses its own 0.05 rule against ``decode_step`` on the same
+    tokens (its ``tests/test_perf_features.py:20-47`` recipe with the
+    prefix from a cached prefill, reduced config, its seed 0).  The flash
+    combine rounds the attention output otherwise than the one-buffer
+    step, and a near-tied router picks another expert, so a MoE step's
+    logits jump.  At float32 the two paths are the same function in both
+    packages (within 1e-4), which is what chip_smoke's serve_families
+    holds qwen2-moe's two-buffer decode to."""
+    n, new = 24, 8
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(jconfigs.get_config("qwen2_moe_a2_7b", reduced=True), dtype=dtype)
+        params = jtf.init_params(jax.random.PRNGKey(0), cfg)
+        tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (B, n + new), 0,
+                                               cfg.vocab_size)).astype(np.int32)
+        jd = jnp.dtype(dtype)
+        one = jax.jit(lambda p, tok, c, cfg=cfg: jtf.decode_step(p, cfg, tok, c))
+        two = jax.jit(lambda p, tok, pre, tl, cfg=cfg: jtf.decode_step_twobuf(p, cfg, tok, pre, tl))
+        jc = jtf.init_caches(cfg, B, n + new, jd)
+        _, jc = one(params, jnp.asarray(tokens[:, :n]), jc)
+        jpre, jtail = jtf.init_twobuf_caches(cfg, B, n, new, jd)
+        jpre = jpre._replace(k=jc.k[:, :, :n], v=jc.v[:, :, :n])
+        tc = tcfg_of(cfg)
+        tp = carry(params)
+        tcache = ttf.init_caches(tc, B, n + new, ttf.torch_dtype(dtype), device=CPU)
+        _, tcache = ttf.decode_step(tp, tc, t(tokens[:, :n]), tcache)
+        tpre, ttail = ttf.init_twobuf_caches(tc, B, n, new, ttf.torch_dtype(dtype), device=CPU)
+        tpre = tpre._replace(k=tcache.k[:, :, :n].clone(), v=tcache.v[:, :, :n].clone())
+        rows = {"ref_one": [], "ref_two": [], "port_one": [], "port_two": []}
+        for i in range(new):
+            tok = tokens[:, n + i:n + i + 1]
+            lg, jc = one(params, jnp.asarray(tok), jc)
+            rows["ref_one"].append(np.asarray(lg, np.float32))
+            lg, jtail = two(params, jnp.asarray(tok), jpre, jtail)
+            rows["ref_two"].append(np.asarray(lg, np.float32))
+            lg, tcache = ttf.decode_step(tp, tc, t(tok), tcache)
+            rows["port_one"].append(lg.float().numpy())
+            lg, ttail = ttf.decode_step_twobuf(tp, tc, t(tok), tpre, ttail)
+            rows["port_two"].append(lg.float().numpy())
+        got = {k: np.concatenate(v, axis=1) for k, v in rows.items()}
+        ref_rel = rel_err(got["ref_two"], got["ref_one"])
+        port_rel = rel_err(got["port_two"], got["port_one"])
+        print(dtype, "two-buffer vs one-buffer rel: reference", ref_rel, "port", port_rel)
+        if dtype == "bfloat16":
+            assert ref_rel >= 0.05, ref_rel  # the reference's miss
+        else:
+            assert ref_rel < 1e-4 and port_rel < 1e-4, (ref_rel, port_rel)
 
 
 def test_init_params_tree_equals_reference_and_round_trips():
