@@ -7,10 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero, printing no result, without them.
 Four phases, each of which fails the run:
 
-1. build — compile the port's seven CUDA sources (``fused_groupby``,
+1. build — compile the port's eight CUDA sources (``fused_groupby``,
    ``ticket_hash``, ``segment_agg``, ``hybrid_registers``, ``preagg``,
-   ``grouped_matmul`` (B3 and its backward B6), ``segment_rows``), one
-   ``nvcc`` each, all started together, and print
+   ``grouped_matmul`` (B3 and its backward B6), ``segment_rows``,
+   ``table_ops``), one ``nvcc`` each, all started together, and print
    the commands, the seconds and ``-Xptxas -v``.
 2. kernel vs plain — each kernel and its plain version on the same CUDA
    tensors.  ``fused_consume`` (its grid printed: CTAs, CTAs per
@@ -99,6 +99,19 @@ Four phases, each of which fails the run:
    element written); then
    ``grouped_matmul`` on CUDA inputs that require grad: its backward
    launches B6 twice and holds to the plain gradients.
+   The table ops (``kernels/table_ops.py``: GET_OR_INSERT into a carried
+   table through ``scan_ticket_kernel`` unchecked, ``lookup`` and
+   ``migrate`` of ``csrc/table_ops.cu``), each wrapper called under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside; a
+   host read under that mode must raise first) against its plain version (``core.ticketing`` / ``core.resize``): a
+   2^21-row chunk of the low, high and unique classes (3% EMPTY rows) into
+   the class stream's table holding the chunk's first half; low at G =
+   512 (tickets past G); a full 1024-slot table (absent keys end after C
+   probes) and a saturated one (4096 distinct keys into 1024 slots, -1
+   rows): ``get_or_insert`` and ``migrate`` (into 2C) with 0
+   ``table_map_discrepancies`` and equal counts and flags, ``lookup`` of
+   the chunk with absent and EMPTY keys equal, and GET_OR_INSERT on the
+   migrated table finding every key it holds.
 3. main path — ``GroupByPlan(...).stream(...)`` over N = 2^24 rows in 8
    chunks with aggs count(*), sum(v), mean(v), max(v), each stream held
    against a sort-based oracle (``torch.unique`` + float64 ``index_add_``
@@ -153,7 +166,13 @@ Four phases, each of which fails the run:
    ``scan_ticket``; serve_budget: a tenant budget of 64 groups fails only
    its own query.
    Every stream sets the launch counts to 0 just before it and reads them
-   just after, and must launch exactly the kernels of its route.
+   just after, and must launch exactly the kernels of its route, and of the
+   table ops (``table_ops_of``) only those its executor reaches: each
+   merge of the split, partitioned and P > 1 fused routes, each migration,
+   a hybrid's adoption and finalize and a spill's routing must launch its
+   kernel (``hold_table_ops``); every record prints the three table ops'
+   launches, ``grow_s`` (host seconds of the grows, synchronized) and,
+   where the route merges, ``merge_s``.
    Phase 3 checkpoints (``engine/elastic.py``): 2^24 rows in 8 chunks,
    integer-valued values, count(*), sum(v), min(v), max(v); body_low,
    body_unique, scan_high_grow (restored after bound grows), auto_low,
@@ -383,7 +402,13 @@ Four phases, each of which fails the run:
    tensor operations; the float32-FMA count and this design's own floor
    printed too), its plain version, the
    per-expert float32 ``torch.matmul`` loop and the backward of
-   ``torch._grouped_mm`` at bf16.
+   ``torch._grouped_mm`` at bf16.  The table ops by events and by a CUDA
+   graph's replay, beside their bytes bounds and their plain loops (once):
+   ``get_or_insert`` at split_unique's merge shape (2^24 key_by_ticket
+   lanes, 2^21 live, into 2^25 slots holding 2^21 keys; reset between
+   calls, untimed), ``migrate`` of 2^21 keys from 2^22 into 2^23 slots and
+   ``lookup`` of each class's chunk in a table holding it; no library call
+   computes them.
 
 The line before the last two is ``{"kernels": [...]}``, then the card's
 name and power limit from ``nvidia-smi``, and the last line is
@@ -408,7 +433,7 @@ M = 1024                        # morsel rows, the fused route's default
 SPECS4 = ((-1, "count"), (0, "sum"), (0, "min"), (0, "max"))
 KINDS4 = ("sum", "count", "min", "max")
 KERNELS = ("fused_groupby", "ticket_hash", "segment_agg", "hybrid_registers",
-           "preagg", "grouped_matmul", "segment_rows")  # CUDA sources
+           "preagg", "grouped_matmul", "segment_rows", "table_ops")  # CUDA sources
 SCAN_M = 4096                   # the scan route's morsel rows (ExecutionPolicy default)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor float32/int32 peak
@@ -1117,9 +1142,9 @@ def phase2_batched(fk, gen, device, rows=1 << 18):
     |Δ|."""
     import torch
 
-    from repro_torch.core import resize
     from repro_torch.core import ticketing as tk
     from repro_torch.core.hashing import table_capacity
+    from repro_torch.kernels import table_ops as tops
 
     classes = [("low", 1000)] * 3 + [("zipf", 1 << 15)] * 3 + [("unique", rows)] * 2
     keys = []
@@ -1141,7 +1166,7 @@ def phase2_batched(fk, gen, device, rows=1 << 18):
             fk.scan_ticket(t, km[i, :4].contiguous(),
                            torch.ones(4, dtype=torch.int32, device=device),
                            threshold=t.capacity // 2)
-            t = resize.migrate(t, 2 * t.capacity)
+            t = tops.migrate(t, 2 * t.capacity)  # the card's migration kernel
         tables.append(t)
     km8, tables8 = km, tables
     before = fk.scan_ticket_batched.launches
@@ -1480,6 +1505,9 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
     if hasattr(ex, "_merge"):
         ex._merge = synced(ex._merge, "s", "calls")
         ex._chunk_partial = synced(ex._chunk_partial, "chunk_s")
+    if hasattr(ex, "_merged"):  # the fused route's second-level merge
+        ex._merged = synced(ex._merged, "s", "calls")
+    carried_cap = ex._table.capacity if hasattr(ex, "_merge") else None
     # the spill executor's host routing (consume_async: the lookup's one
     # blocking read, admission, partitioning, staging; not synchronized at
     # its end, so the hot operator's launches are not counted) and finalize
@@ -1496,39 +1524,39 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
         lambda: spill_methods["finalize"](se), "finalize_s", "finalizes",
         table=spill_host)()
     host = {"observe_s": 0.0, "grow_s": 0.0, "grows": 0}
-    restore = None
-    if default_plan:
-        # the resolver's per-chunk sample and statistics, and the operator's
-        # host-side grows (bound and migration), each synchronized on both
-        # sides: both already wait for the device (the sample's read, the
-        # count's read)
-        from repro_torch.engine.groupby import GroupByOperator
+    # the resolver's per-chunk sample and statistics, and the host-side
+    # grows (bound and migration: the operator's, the fused state's, the
+    # split and partitioned routes' carried table), each synchronized on
+    # both sides: all already wait for the device (the sample's read, the
+    # count's read)
+    from repro_torch.engine.groupby import GroupByOperator
 
-        def timed(hook, key, count=None):
-            def run(*a):
-                sync(device)
-                h0 = time.perf_counter()
-                r = hook(*a)
-                sync(device)
-                host[key] += time.perf_counter() - h0
-                if count:
-                    host[count] += 1
-                return r
-            return run
+    def timed(hook, key, count=None):
+        def run(*a):
+            sync(device)
+            h0 = time.perf_counter()
+            r = hook(*a)
+            sync(device)
+            host[key] += time.perf_counter() - h0
+            if count:
+                host[count] += 1
+            return r
+        return run
 
-        if hasattr(ex, "_observe"):
-            ex._observe = timed(ex._observe, "observe_s")
-        grow = GroupByOperator._grow
-        GroupByOperator._grow = lambda op, m: timed(lambda: grow(op, m), "grow_s", "grows")()
-        restore = grow
+    if hasattr(ex, "_observe"):
+        ex._observe = timed(ex._observe, "observe_s")
+    for grow_hook in ("_grow_state", "_grow_carried"):
+        if hasattr(ex, grow_hook):
+            setattr(ex, grow_hook, timed(getattr(ex, grow_hook), "grow_s", "grows"))
+    grow = restore = GroupByOperator._grow
+    GroupByOperator._grow = lambda op, m: timed(lambda: grow(op, m), "grow_s", "grows")()
     try:
         if probe is not None:
             handle.pump(2)
             probe(handle)
         out = handle.result()
     finally:
-        if restore is not None:
-            GroupByOperator._grow = restore
+        GroupByOperator._grow = restore
         for m, fn in spill_methods.items():
             setattr(tsp.SpillExecutor, m, fn)
     if device.type == "cuda":
@@ -1561,7 +1589,7 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
     path = executor_path(ex)
     for k in path:
         check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
-    for k in set(kmods) - set(path):
+    for k in set(kmods) - set(path) - table_ops_of(ex):
         check(launches[k] == 0, f"{name}: the {k} kernel ran on the {kernel} route")
     rec = {
         "stream": name, "kernel": kernel, "update": update, "pipeline": pipeline,
@@ -1569,7 +1597,9 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
         "groups": g, "max_groups": max_groups, "saturation": saturation,
         "programs": programs, "wall_s": wall, "rows_per_s": n / wall,
         "max_memory_allocated": peak, "launches": launches,
+        "table_ops": {k: launches[k] for k in TABLE_OPS},
         "max_sum_err_over_abs": err_sum, "aggs": [a.name for a in plan.aggs],
+        "grow_s": host["grow_s"], "grows": host["grows"],
     }
     inner = getattr(ex, "_inner", ex)
     iname = type(inner).__name__
@@ -1583,7 +1613,7 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
                    escalated=bool(getattr(ex, "_escalated", False)),
                    pauses=dev.get("pauses"), bound_grows=dev.get("bound_grows"),
                    migrations=dev.get("migrations"), table_capacity=dev.get("table_capacity"),
-                   **host)
+                   observe_s=host["observe_s"])
         if type(inner).__name__ == "_HybridExecutor":
             rec["heavy_keys"] = int((inner._heavy != -1).sum())
         if type(inner).__name__ == "_DirectExecutor":
@@ -1592,7 +1622,7 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
         fk = kmods["fused_groupby"][0]
         rec.update(migrations=dev["migrations"], bound_grows=dev["bound_grows"],
                    table_capacity=dev["table_capacity"], pauses=dev["pauses"],
-                   grid=list(fk.fused_consume.grid))
+                   grid=list(fk.fused_consume.grid), merge_s=merge["s"])
         check(programs > 1 or fk.fused_consume.grid[1] > 1, f"{name}: one CTA per program")
         if saturation == "raise":
             # a RAISE stream whose groups fit its bound never halts: one
@@ -1652,10 +1682,53 @@ def run_stream(kmods, api, name, keys, vals, *, max_groups=None, saturation=None
                    chunk_bound=ex._chunk_bound, chunk_capacity=ex._capacity,
                    carried_bound=ex._max_groups,
                    table_capacity=ex._table.capacity)
+    hold_table_ops(name, iname, rec, launches, programs, merge["calls"],
+                   carried_cap is not None and ex._table.capacity > carried_cap)
     log("phase3 " + json.dumps(rec))
     if keep:
         rec["_out"] = out
     return rec
+
+
+TABLE_OPS = ("table_get_or_insert", "table_lookup", "table_migrate")
+
+
+def table_ops_of(ex):
+    """The table ops an executor may launch: its merges and hybrid
+    adoption (``get_or_insert``), its lookups (hybrid finalize, spill
+    routing) and its migrations (``migrate``, every grow)."""
+    name = type(ex).__name__
+    if name == "_ResolvingExecutor":  # may escalate to hybrid
+        return table_ops_of(ex._inner) | set(TABLE_OPS)
+    if name in ("_PallasExecutor", "_PartitionedExecutor", "_FusedExecutor"):
+        return {"table_get_or_insert", "table_migrate"}
+    if name == "_ScanExecutor":
+        return {"table_migrate"} | (
+            {"table_get_or_insert"} if ex._plan.execution.pipeline == "host" else set())
+    if name == "_HybridExecutor":
+        return set(TABLE_OPS)
+    if name == "SpillExecutor":
+        return {"table_lookup", "table_migrate"}
+    if name == "_ShardedExecutor":
+        return {"table_migrate"}
+    return set()
+
+
+def hold_table_ops(name, iname, rec, launches, programs, merges, carried_grew):
+    """Each table op a stream's executor reached ran as its kernel: a
+    merge (split, partitioned, fused at P > 1), a migration, a hybrid's
+    adoption and finalize, a spill's routing."""
+    must = set()
+    if merges and (iname != "_FusedExecutor" or programs > 1):
+        must.add("table_get_or_insert")
+    if (rec.get("migrations") or 0) > 0 or carried_grew:
+        must.add("table_migrate")
+    if iname == "_HybridExecutor":
+        must |= {"table_get_or_insert", "table_lookup"}
+    if iname == "SpillExecutor":
+        must.add("table_lookup")
+    for k in must:
+        check(launches[k] > 0, f"{name}: the {k} kernel was never launched")
 
 
 def check_against_oracle(out, order, o, name):
@@ -2240,7 +2313,7 @@ def ckpt_stream(kmods, api, tel, ckpt, name, plan, keys, vals, root, *, chunks=8
           f"one on {final_path}")
     for k in after:
         check(launches[k] > 0, f"{name}: the {k} kernel was not launched after the restore")
-    for k in set(kmods) - set(after):
+    for k in set(kmods) - set(after) - table_ops_of(restored.executor):
         check(launches[k] == 0, f"{name}: the {k} kernel ran after the restore off its route")
     hold_exact(out_saved, o, f"{name} saved stream", domain=domain)
     big = hold_exact(out, o, f"{name} restored", domain=domain)
@@ -6902,6 +6975,238 @@ def phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls
     log("phase4 scan " + json.dumps(timing["scan_per_class"]))
 
 
+# -- the table ops: GET_OR_INSERT into a carried table, lookup, migrate --------
+
+TABLE_REPLACES = {"table_get_or_insert": "src/repro/core/ticketing.py:82",
+                  "table_lookup": "src/repro/core/ticketing.py:213",
+                  "table_migrate": "src/repro/core/resize.py:34"}
+
+
+def no_sync(fn, *a):
+    """``fn(*a)`` with any host sync on the card an error."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def table_ops_case(tops, label, keys, cap, g, device, *, first=None, full=False):
+    """One carried table (``first`` inserted by the plain version), then
+    each wrapper under ``no_sync`` against its plain version: the chunk's
+    GET_OR_INSERT (map, count and flag), a lookup of the chunk with absent
+    and EMPTY keys (equal) and the migration into 2C (map).  Returns the
+    largest discrepancy count and the plain seconds."""
+    import torch
+
+    from repro_torch.core import resize
+    from repro_torch.core import ticketing as tk
+
+    base = tk.make_table(cap, g, device=device)
+    if first is not None:
+        _, base = tk.get_or_insert(base, first)
+    known = int(base.count)
+    ktab = tk.TicketTable(*(x.clone() for x in base))
+    kt, _ = no_sync(tops.get_or_insert, ktab, keys)
+    (pt, ptab), p_s = timed(tk.get_or_insert, base, keys)
+    bad = tops.table_map_discrepancies(ktab, ptab, known=known, keys=keys, tickets=(kt, pt),
+                                       full=full)
+    check(bad == 0 and int(ktab.count) == int(ptab.count)
+          and bool(ktab.overflowed) == bool(ptab.overflowed),
+          f"phase2 table {label}: get_or_insert {bad} discrepancies, counts "
+          f"{int(ktab.count)} / {int(ptab.count)}")
+    absent = torch.tensor([-1, 0x7EADBEEF, 12345, -5], dtype=torch.int32, device=device)
+    probe = torch.cat([keys, absent])
+    for table in (ptab, ktab):
+        check(torch.equal(no_sync(tops.lookup, table, probe), tk.lookup(table, probe)),
+              f"phase2 table {label}: lookup differs from its plain version")
+    km = no_sync(tops.migrate, ptab, 2 * cap)
+    pm = resize.migrate(ptab, 2 * cap)
+    bad_m = tops.table_map_discrepancies(km, pm)
+    check(bad_m == 0, f"phase2 table {label}: migrate {bad_m} discrepancies")
+    held = torch.where(tk.lookup(pm, keys) >= 0, keys, -1)
+    again, _ = no_sync(tops.get_or_insert, km, held)  # scan_ticket reads what migrate wrote
+    check(torch.equal(again, tk.lookup(pm, held)) and int(km.count) == int(ptab.count),
+          f"phase2 table {label}: GET_OR_INSERT on the migrated table found other tickets")
+    log(f"phase2 table {label}: {keys.numel()} rows into C={cap}, G={g} holding {known} "
+        f"keys: count {int(ptab.count)} (overflowed {bool(ptab.overflowed)}, -1 rows "
+        f"{int(((pt < 0) & (keys != -1)).sum())}); get_or_insert and migrate 0 "
+        f"discrepancies, lookup equal, no host sync in the wrappers; plain {p_s:.2f} s ok")
+    return max(bad, bad_m), p_s
+
+
+def phase2_table_ops(tops, gen, device, rows=1 << 21, n=1 << 24):
+    """The table ops against their plain versions on the card
+    (``table_ops_case``, each wrapper under ``torch.cuda.set_sync_debug_mode
+    ("error")``): a 2^21-row chunk of each §4.1 class (3% EMPTY rows) into
+    the class stream's table (C, G as its split stream) holding the chunk's
+    first half; low at G = 512 (tickets past G, the sticky flag); a full
+    table of 1024 slots (absent keys end after C probes) and a saturated
+    one (4096 distinct keys into it: -1 rows).  Returns the largest
+    discrepancy count."""
+    import torch
+
+    from repro_torch.core.hashing import table_capacity
+
+    probe = torch.ones(4, device=device)
+    try:
+        no_sync(lambda: int(probe.sum()))
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "phase2 table: the sync debug mode let a host read through")
+    worst = 0
+    for cls, dist, g in (("low", "uniform", 1024), ("high", "zipf", n // 10),
+                         ("unique", "uniform", n)):
+        keys = to_i32(gen_keys(n, cls, dist, gen, device)[:rows])
+        keys[torch.rand(rows, generator=gen, device=device) < 0.03] = -1
+        worst = max(worst, table_ops_case(tops, cls, keys, table_capacity(g), g, device,
+                                          first=keys[:rows // 2])[0])
+        del keys
+    low = to_i32(gen_keys(rows, "low", "uniform", gen, device))
+    worst = max(worst, table_ops_case(tops, "low past G", low, 2048, 512, device,
+                                      first=low[:1000])[0])
+    wide = torch.randint(0, 4096, (1 << 16,), generator=gen, device=device,
+                         dtype=torch.int32) * 7919
+    worst = max(worst, table_ops_case(tops, "full", wide[:1 << 12], 1024, 4096, device,
+                                      first=torch.arange(1024, dtype=torch.int32,
+                                                         device=device) * 7919, full=True)[0])
+    worst = max(worst, table_ops_case(tops, "saturated", wide, 1024, 4096, device,
+                                      full=True)[0])
+    return worst
+
+
+def table_bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_graph_reset(fn, reset, reps=5):
+    """Median milliseconds of ``fn`` replayed from a CUDA graph of one call,
+    ``reset`` (untimed, outside the graph) before each replay: for a call
+    that updates its inputs in place."""
+    import torch
+
+    reset()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(reps):
+        reset()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase4_table_ops(tops, chunk_classes, gen, device, reps=5, n=1 << 24):
+    """The table ops timed by CUDA events (median of ``reps``) and by a
+    CUDA graph's replay, beside their bytes bounds and their plain loops
+    (once, host clock, synchronized):
+      * get_or_insert at split_unique's merge shape: 2^24 key_by_ticket
+        lanes, 2^21 of them live and new, into a 2^25-slot table (G 2^24)
+        holding the previous chunk's 2^21 keys (the table reset between
+        calls, untimed), and the rest of that merge, the partial's
+        ``scatter_update`` (sum, max) over all lanes and over the live ones;
+      * migrate of 2^21 keys from 2^22 slots into 2^23;
+      * lookup of each class's 2^21-row chunk in a table holding it.
+    No library call computes these functions."""
+    import torch
+
+    from repro_torch.core import resize
+    from repro_torch.core import ticketing as tk
+    from repro_torch.core import updates as up
+    from repro_torch.core.hashing import table_capacity
+
+    out = {}
+    live = 1 << 21
+    perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    prev, new = perm[:live], perm[live:2 * live]
+    fresh = tk.make_table(1 << 25, n, device=device)
+    tops.get_or_insert(fresh, prev)
+    kbt = torch.full((n,), -1, dtype=torch.int32, device=device)
+    kbt[:live] = new
+    work = tk.TicketTable(*(x.clone() for x in fresh))
+
+    def reset():
+        for w, f in zip(work, fresh):
+            w.copy_(f)
+
+    g_ms = time_cuda(lambda: tops.get_or_insert(work, kbt), reps, reset)
+    g_graph = time_graph_reset(lambda: tops.get_or_insert(work, kbt), reset, reps)
+    reset()
+    (_, ptab), p_s = timed(tk.get_or_insert, fresh, kbt)
+    tickets, _ = tops.get_or_insert(work, kbt)
+    bad = tops.table_map_discrepancies(work, ptab, known=live)
+    check(bad == 0, f"phase4 table get_or_insert: {bad} discrepancies at the merge shape")
+    g_bound = table_bound_ms(8 * n + 12 * live)  # lanes in, tickets out; a new key's slot, kbt
+    # the rest of a split merge at this shape: the partial's scatter into
+    # the carried plane (``core.updates.scatter_update``, sum and max), over
+    # all lanes (the -1 lanes fold their neutral into slot 0) and over the
+    # live lanes alone
+    acc = torch.zeros(n, device=device)
+    part = torch.rand(n, generator=gen, device=device)
+    scatter = {f"{kind}_{lanes}": time_cuda(
+        lambda kind=kind, m=m: up.scatter_update(acc, tickets[:m], part[:m], kind=kind), reps)
+        for kind in ("sum", "max") for lanes, m in (("all", n), ("live", live))}
+    out["table_get_or_insert"] = {
+        "ms": g_ms, "graph_ms": g_graph, "plain_ms": p_s * 1e3, "bound_ms": g_bound,
+        "bound_by": "bytes", "library_ms": None, "max_abs_err": float(bad),
+        "shape": f"{n} lanes, {live} live, into 2^25 slots holding {live}",
+        "merge_scatter_ms": scatter}
+    del fresh, work, ptab, kbt, tickets, acc, part
+
+    src = tk.make_table(1 << 22, 1 << 21, device=device)
+    tops.get_or_insert(src, perm[:live])
+    m_ms = time_cuda(lambda: tops.migrate(src, 1 << 23), reps)
+    m_graph = time_graph(lambda: tops.migrate(src, 1 << 23), calls=5, reps=reps)
+    pm, pm_s = timed(resize.migrate, src, 1 << 23)
+    bad_m = tops.table_map_discrepancies(tops.migrate(src, 1 << 23), pm)
+    check(bad_m == 0, f"phase4 table migrate: {bad_m} discrepancies")
+    out["table_migrate"] = {
+        "ms": m_ms, "graph_ms": m_graph, "plain_ms": pm_s * 1e3,
+        "bound_ms": table_bound_ms(8 * (1 << 22) + 8 * (1 << 23)), "bound_by": "bytes",
+        "library_ms": None, "max_abs_err": float(bad_m),
+        "shape": f"{live} keys, 2^22 -> 2^23 slots"}
+    del src, pm, perm
+
+    per_class = {}
+    for name, (keys, g) in chunk_classes.items():
+        k32 = to_i32(keys)
+        table = tk.make_table(table_capacity(g), g, device=device)
+        tops.get_or_insert(table, k32)
+        ms = time_cuda(lambda: tops.lookup(table, k32), reps)
+        graph = time_graph(lambda: tops.lookup(table, k32), calls=5, reps=reps)
+        want, l_s = timed(tk.lookup, table, k32)
+        check(torch.equal(tops.lookup(table, k32), want), f"phase4 table lookup {name}: differs")
+        d = int(torch.unique(k32).numel())
+        per_class[name] = {"ms": ms, "graph_ms": graph, "plain_ms": l_s * 1e3,
+                           "bound_ms": table_bound_ms(8 * k32.numel() + 8 * d)}
+        del table, want
+    u = per_class["unique"]
+    out["table_lookup"] = {"ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
+                           "bound_ms": u["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                           "max_abs_err": 0.0, "per_class": per_class}
+    for name, rec in out.items():
+        log(f"phase4 {name}: events {rec['ms']:.4f} ms, graph {rec['graph_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms (bytes), plain {rec['plain_ms']:.1f} ms, "
+            f"library none; {json.dumps({k: v for k, v in rec.items() if k != 'ms'})}")
+    return out
+
+
 def toolchain(build):
     import torch
 
@@ -6937,6 +7242,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import preagg as pa
     from repro_torch.kernels import segment_agg as sa
     from repro_torch.kernels import segment_rows as sr
+    from repro_torch.kernels import table_ops as tops
     from repro_torch.kernels import ticket_hash as th
 
     # name → (module, wrapper) whose ``launches`` counts that kernel
@@ -6947,7 +7253,9 @@ def main(argv=None) -> int:
              "hybrid_registers": (hr, "hybrid_registers"), "preagg": (pa, "preagg"),
              "grouped_matmul": (gm, "grouped_matmul"),
              "grouped_matmul_backward": (gm, "grouped_matmul_backward"),
-             "segment_rows": (sr, "segment_rows")}
+             "segment_rows": (sr, "segment_rows"),
+             "table_get_or_insert": (tops, "get_or_insert"), "table_lookup": (tops, "lookup"),
+             "table_migrate": (tops, "migrate")}
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     gen = torch.Generator(device=device)
@@ -6978,6 +7286,7 @@ def main(argv=None) -> int:
     split_err["grouped_matmul"] = phase2_grouped_matmul(gm, sa, gen, device)
     split_err["segment_rows"] = phase2_segment_rows(sr, th, gen, device)
     split_err["grouped_matmul_backward"] = phase2_grouped_matmul_backward(gm, gen, device)
+    table_err = phase2_table_ops(tops, gen, device)
     log(f"phase2 done in {time.perf_counter() - t0:.1f} s")
 
     log("== phase 3: the main path")
@@ -7070,6 +7379,7 @@ def main(argv=None) -> int:
     timing["grouped_matmul"] = phase4_grouped_matmul(gm, gen, device)
     timing["segment_rows"] = phase4_segment_rows(sr, th, gen, device)
     timing["grouped_matmul_backward"] = phase4_grouped_matmul_backward(gm, gen, device)
+    timing.update(phase4_table_ops(tops, chunk_classes, gen, device))
     phase4_profiles(timing, ticket_calls, scan_calls, hybrid_calls, preagg_calls)
     log("phase4 hybrid " + json.dumps(timing["hybrid_registers"]["per_class"]))
     for name in chunk_classes:
@@ -7080,6 +7390,8 @@ def main(argv=None) -> int:
     timing["fused_groupby"]["max_abs_err"] = max(max_err, timing["fused_groupby"]["max_abs_err"])
     for name, err in split_err.items():
         timing[name]["max_abs_err"] = max(err, timing[name]["max_abs_err"])
+    for name in TABLE_OPS:  # map discrepancies (lookup: equal or not), phase 2 and 4
+        timing[name]["max_abs_err"] = max(float(table_err), timing[name]["max_abs_err"])
     log(f"phase4 done in {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
 
@@ -7097,10 +7409,12 @@ def main(argv=None) -> int:
                 "scan_ticket_batched": "src/repro/engine/executors.py:613",
                 "grouped_matmul": "src/repro/models/moe.py:109",
                 "grouped_matmul_backward": "src/repro/models/moe.py:109",
-                "segment_rows": "src/repro/models/layers.py:150"}
+                "segment_rows": "src/repro/models/layers.py:150", **TABLE_REPLACES}
     source = {"scan_ticket": "fused_groupby", "scan_ticket_batched": "fused_groupby",
               "segment_agg_serialized": "segment_agg",
-              "grouped_matmul_backward": "grouped_matmul"}
+              "grouped_matmul_backward": "grouped_matmul",
+              "table_get_or_insert": "fused_groupby", "table_lookup": "table_ops",
+              "table_migrate": "table_ops"}
     kernels = [{
         "name": name,
         "route": "cuda",

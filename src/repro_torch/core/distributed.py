@@ -238,7 +238,10 @@ def grow_sharded_carry(carry: ShardedCarry, new_max_local: int,
     """Pause-time growth on every member: widen the bound (pad
     ``key_by_ticket`` with EMPTY and every accumulator with its kind's
     neutral — tickets are stable) and/or migrate the probe table
-    (``resize.migrate``).  Uniform across members."""
+    (``kernels.table_ops.migrate``: the card's kernel on CUDA members).
+    Uniform across members."""
+    from repro_torch.kernels import table_ops
+
     tables, states = [], []
     for t, s in zip(carry.tables, carry.states):
         if new_max_local > t.max_groups:
@@ -246,7 +249,7 @@ def grow_sharded_carry(carry: ShardedCarry, new_max_local: int,
             t = t._replace(key_by_ticket=torch.cat([t.key_by_ticket, pad]))
             s = up.grow_agg_state(s, new_max_local)
         if new_capacity > t.capacity:
-            t = resize.migrate(t, new_capacity)
+            t = table_ops.migrate(t, new_capacity)
         tables.append(t)
         states.append(s)
     return ShardedCarry(tuple(tables), tuple(states))

@@ -3,7 +3,10 @@
 Every stored key owns an immutable ticket, so migration into a bigger
 table is a pure relocation: the same claim rounds as
 :func:`~repro_torch.core.ticketing.get_or_insert` without ticket issuance.
-The key→ticket map is preserved exactly.
+The key→ticket map is preserved exactly.  :func:`migrate` is the plain
+version of the card's migration kernel (``kernels.table_ops.migrate``);
+the grows take the relocation as an argument, so this module imports no
+kernel.
 """
 from __future__ import annotations
 
@@ -47,11 +50,15 @@ def migrate(table: tk.TicketTable, new_capacity: int) -> tk.TicketTable:
 
 
 def grow_bound(
-    table: tk.TicketTable, new_max_groups: int, load_factor: float = 0.5
+    table: tk.TicketTable, new_max_groups: int, load_factor: float = 0.5, *,
+    relocate=None,
 ) -> tk.TicketTable:
     """Widen ``max_groups`` (the ``key_by_ticket`` length) to
     ``new_max_groups``, migrating the probe table if the capacity rule
-    demands more slots for the new bound."""
+    demands more slots for the new bound.  ``relocate(table,
+    new_capacity)`` does the migration (default :func:`migrate`; the
+    engine passes ``kernels.table_ops.migrate``, the card's kernel on CUDA
+    tensors)."""
     if new_max_groups < table.max_groups:
         raise ValueError(
             f"grow_bound cannot shrink: {new_max_groups} < {table.max_groups}"
@@ -67,7 +74,7 @@ def grow_bound(
         )
     cap_needed = table_capacity(new_max_groups, load_factor)
     if cap_needed > table.capacity:
-        table = migrate(table, cap_needed)
+        table = (relocate or migrate)(table, cap_needed)
     return table
 
 
@@ -76,9 +83,11 @@ def table_nbytes(table: tk.TicketTable) -> int:
     return int(sum(t.numel() * t.element_size() for t in table))
 
 
-def maybe_resize(table: tk.TicketTable, load_factor: float = 0.5) -> tk.TicketTable:
+def maybe_resize(table: tk.TicketTable, load_factor: float = 0.5, *,
+                 relocate=None) -> tk.TicketTable:
     """Host-side growth check between morsels (the host pipeline's resize
-    point): double the capacity once the count passes the load factor."""
+    point): double the capacity once the count passes the load factor
+    (``relocate`` as in :func:`grow_bound`)."""
     if int(table.count) > load_factor * table.capacity:
-        return migrate(table, 2 * table.capacity)
+        return (relocate or migrate)(table, 2 * table.capacity)
     return table

@@ -961,7 +961,7 @@ class _HybridExecutor(_ExecutorBase):
             op._events = obs_metrics.zero_event_vector(op._device)
         if op.grow_bound:
             op._grow(int(self._heavy.shape[0]))  # headroom for the inserts
-        _, op._table = tk.get_or_insert(op._table, self._heavy)
+        _, op._table = op._tops.get_or_insert(op._table, self._heavy)
         self._op = op
         self._init_regs()
         return self
@@ -979,7 +979,7 @@ class _HybridExecutor(_ExecutorBase):
         )
         # heavy keys own the FIRST tickets: a key whose every row the
         # registers absorb still gets its group
-        _, op._table = tk.get_or_insert(op._table, self._heavy)
+        _, op._table = op._tops.get_or_insert(op._table, self._heavy)
         return op
 
     def consume(self, chunk: Table) -> None:
@@ -1010,7 +1010,7 @@ class _HybridExecutor(_ExecutorBase):
         their tickets' slots: a pure read of the live state, so
         ``finalize`` stays idempotent."""
         op = self._op
-        heavy_tickets = tk.lookup(op._table, self._heavy)  # -1 for padding
+        heavy_tickets = op._tops.lookup(op._table, self._heavy)  # -1 for padding
         accs = []
         for s, ((_, kind), acc) in enumerate(zip(op._state.specs, op._state.accs)):
             merge_kind = "sum" if kind in ("sum", "count") else kind
@@ -1056,8 +1056,8 @@ class _IncrementalMergeExecutor(_ExecutorBase):
     input (here: kernel launches against a table made fresh per chunk):
     run it over EACH chunk, then merge the chunk's bounded partial (at most
     ``max_groups`` (key, partial) entries) into a carried ticket table +
-    merge accumulators (``get_or_insert`` + ``scatter_update``).  State is
-    O(max_groups); no chunks are retained.
+    merge accumulators (``kernels.table_ops.get_or_insert``, in place, +
+    ``scatter_update``).  State is O(max_groups); no chunks are retained.
 
     Saturation: the per-chunk pipeline recovers chunk-locally under GROW
     (one blocking sync per chunk); the carried UNION bound grows by padding
@@ -1071,6 +1071,9 @@ class _IncrementalMergeExecutor(_ExecutorBase):
     materializes the pipeline's native layout (its own ticket order)."""
 
     def __init__(self, plan: GroupByPlan, device: torch.device):
+        from repro_torch.kernels import table_ops
+
+        self._tops = table_ops
         self._plan = plan
         self._device = device
         self._specs = expand_agg_specs(plan.aggs)
@@ -1098,7 +1101,8 @@ class _IncrementalMergeExecutor(_ExecutorBase):
 
     def _grow_carried(self, new_max: int) -> None:
         self._table = resize.grow_bound(
-            self._table, new_max, self._plan.execution.load_factor
+            self._table, new_max, self._plan.execution.load_factor,
+            relocate=self._tops.migrate,
         )
         for spec, acc in self._accs.items():
             pad = up.init_acc(new_max - acc.shape[0], spec[1], device=self._device)
@@ -1114,7 +1118,7 @@ class _IncrementalMergeExecutor(_ExecutorBase):
                 self._grow_carried(
                     max(4 * self._max_groups, self._host_count + issued, 64)
                 )
-        tickets, self._table = tk.get_or_insert(self._table, kbt)
+        tickets, self._table = self._tops.get_or_insert(self._table, kbt)
         for spec, acc in partials.items():
             # a partial may hold more slots than keys (partitioned: fewer
             # exchanged rows than the bound); the keys' slots lead

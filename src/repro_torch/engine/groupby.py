@@ -25,9 +25,11 @@ sync:
 
 ``poll`` reads the info vector once.  While a morsel is still todo it
 grows exactly as the reference does (``_grow``: the bound ×4 or count + M,
-capacity ×2 by ``resize.migrate``, a forced doubling when a pause survives
-a replay at the same first-todo morsel), relaunches on the todo mask and
-updates the newly committed rows only.  Unchecked streams never sync.
+capacity ×2 by ``kernels.table_ops.migrate``, the card's migration kernel
+on CUDA tensors and ``resize.migrate`` on the CPU, a forced doubling when
+a pause survives a replay at the same first-todo morsel), relaunches on
+the todo mask and updates the newly committed rows only.  Unchecked
+streams never sync.
 
 On the card a morsel of more than ``fused_groupby.MAX_MORSEL_ROWS`` rows is
 split into sub-morsels of at most that many rows, each with its own room
@@ -261,12 +263,14 @@ class GroupByOperator:
 
     def __post_init__(self):
         from repro_torch.kernels import fused_groupby as fk
+        from repro_torch.kernels import table_ops
 
         if self.pipeline not in ("scan", "host"):
             raise ValueError(f"pipeline must be 'scan' or 'host', not {self.pipeline!r}")
         if self.raw_keys and len(self.key_columns) != 1:
             raise ValueError("raw_keys needs exactly one key column")
         self._fk = fk
+        self._tops = table_ops
         self._device = resolve_device(self.device)
         cap = self.capacity or table_capacity(self.max_groups, self.load_factor)
         self._table = tk.make_table(cap, max_groups=self.max_groups, device=self._device)
@@ -411,7 +415,7 @@ class GroupByOperator:
                     # the pause survived a replay with no growth condition met
                     # (an earlier chunk's poll already grew, or a probe
                     # cluster saturated): double, so the replay progresses
-                    self._table = resize.migrate(self._table, 2 * self._table.capacity)
+                    self._table = self._tops.migrate(self._table, 2 * self._table.capacity)
                     self.migrations += 1
                 replayed = start
                 bound = self._table.max_groups
@@ -426,13 +430,14 @@ class GroupByOperator:
         cap_before = self._table.capacity
         if self.grow_bound and count > self.max_groups - morsel_rows:
             new_max = max(4 * self.max_groups, count + morsel_rows, 64)
-            self._table = resize.grow_bound(self._table, new_max, self.load_factor)
+            self._table = resize.grow_bound(self._table, new_max, self.load_factor,
+                                            relocate=self._tops.migrate)
             self._state = up.grow_agg_state(self._state, new_max)
             self.max_groups = new_max
             self.bound_grows += 1
             grew = True
         if count > self.load_factor * self._table.capacity:
-            self._table = resize.migrate(self._table, 2 * self._table.capacity)
+            self._table = self._tops.migrate(self._table, 2 * self._table.capacity)
             grew = True
         if self._table.capacity != cap_before:
             self.migrations += 1  # a bound grow may migrate too
@@ -440,8 +445,9 @@ class GroupByOperator:
 
     def _consume_host_loop(self, km, vm, num) -> None:
         """The reference pipeline: one Python iteration per morsel with a
-        blocking resize check, GET_OR_INSERT (``core.ticketing``, plain
-        PyTorch on any device), a saturation replay, and one update.  With
+        blocking resize check, GET_OR_INSERT (``kernels.table_ops``: the
+        card's kernel on CUDA tensors, ``core.ticketing`` on the CPU), a
+        saturation replay, and one update.  With
         ``check_overflow=False`` the checks are skipped (fixed capacity,
         rows past a saturated table drop)."""
         for i in range(num):
@@ -450,14 +456,15 @@ class GroupByOperator:
                     self._grow(km.shape[1])
                 else:
                     cap_before = self._table.capacity
-                    self._table = resize.maybe_resize(self._table, self.load_factor)
+                    self._table = resize.maybe_resize(self._table, self.load_factor,
+                                                      relocate=self._tops.migrate)
                     if self._table.capacity != cap_before:
                         self.migrations += 1
-            tickets, self._table = tk.get_or_insert(self._table, km[i])
+            tickets, self._table = self._tops.get_or_insert(self._table, km[i])
             while self.check_overflow and bool(((tickets < 0) & (km[i] != EMPTY_I32)).any()):
-                self._table = resize.migrate(self._table, 2 * self._table.capacity)
+                self._table = self._tops.migrate(self._table, 2 * self._table.capacity)
                 self.migrations += 1
-                tickets, self._table = tk.get_or_insert(self._table, km[i])
+                tickets, self._table = self._tops.get_or_insert(self._table, km[i])
             self._state = up.update_agg_state(
                 self._state, tickets, {c: v[i] for c, v in vm.items()}, self._update_fn,
             )

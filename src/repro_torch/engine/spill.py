@@ -20,8 +20,9 @@ bytes stay ≤ hot table + one partition table — ≤ 2× the residency
 footprint whenever a partition's cardinality fits the budget.
 
 Host side, as in the reference: per chunk, ONE blocking read brings the
-keys and the hot-table hits (``tk.lookup``) to the host, where routing,
-admission and partitioning run in numpy on the keys' uint32 values.  On a
+keys and the hot-table hits (``kernels.table_ops.lookup``, the card's
+lookup kernel on CUDA tensors) to the host, where routing, admission and
+partitioning run in numpy on the keys' uint32 values.  On a
 card the cold value columns are gathered on the device in partition order
 and copied with ``non_blocking=True`` into pinned host buffers on a side
 CUDA stream, after an event on the main stream, so the copy overlaps the
@@ -154,7 +155,7 @@ class SpillExecutor(_ExecutorBase):
     module docstring).
 
     Per chunk: canonicalize the keys, fold the sketch, probe the hot table
-    (one ``tk.lookup``), read keys and hits to the host once, and route
+    (one ``table_ops.lookup``), read keys and hits to the host once, and route
     there: rows whose key is hot, or newly admitted under the budget, feed
     the hot operator with the other rows masked to EMPTY; the cold rows go
     to the :class:`SpillManager`.  Admission demotes half the resident
@@ -218,7 +219,7 @@ class SpillExecutor(_ExecutorBase):
     def consume_async(self, chunk: Table):
         keys, vals = _chunk_keys_values(self._plan, chunk, self._device)
         self._rows += int(keys.shape[0])
-        hits_dev = tk.lookup(self._op._table, keys)
+        hits_dev = self._op._tops.lookup(self._op._table, keys)
         # the chunk's one blocking read: keys and hits together
         both = torch.stack([keys, hits_dev]).cpu()
         self._sketch.update(both[0])
@@ -349,7 +350,7 @@ class SpillExecutor(_ExecutorBase):
                 self._readmission_passes += 1
             peak = max(peak, self._residency_bytes + self._device_bytes(pop))
             kbt_p = pop._table.key_by_ticket
-            t_hot = tk.lookup(op._table, kbt_p)
+            t_hot = op._tops.lookup(op._table, kbt_p)
             # keys demoted after admission fold into their hot ticket (-1:
             # absent, parked); the rest are groups the device never held
             fresh = (kbt_p != EMPTY_I32) & (t_hot < 0)

@@ -19,6 +19,10 @@ grouped_matmul — the MoE layer's expert FFNs over expert-sorted rows
 segment_rows — whole float32 rows summed by ticket (``csrc/segment_rows.cu``,
   kernel B5, the ticketed embedding's backward in place of
   ``jax.ops.segment_sum``).
+table_ops — GET_OR_INSERT into a carried table (``scan_ticket_kernel``
+  unchecked), lookup and migrate (``csrc/table_ops.cu``): the merges, grows,
+  lookups and migrations of the executors, in place of the reference's
+  ``core.ticketing`` / ``core.resize`` while loops.
 
 Each wrapper launches its kernel for CUDA tensors (built at first use by
 ``build``) and runs its plain PyTorch version for CPU tensors.

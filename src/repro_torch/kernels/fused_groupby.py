@@ -172,17 +172,21 @@ def grow_fused_state(
 ) -> FusedState:
     """§4.4 growth at a pause boundary: widen every local bound
     (``resize.grow_bound``) and/or migrate its probe slots
-    (``resize.migrate``; tickets are immutable, so the key→ticket map is
-    kept exactly), padding the accumulators with per-kind neutrals.
-    Returns a new state; ``state`` is not modified."""
+    (``table_ops.migrate``, the card's kernel on CUDA tensors; tickets are
+    immutable, so the key→ticket map is kept exactly), padding the
+    accumulators with per-kind neutrals.  Returns a new state; ``state`` is
+    not modified."""
+    from repro_torch.kernels import table_ops
+
     tables = []
     for p in range(state.programs):
         t = program_table(state, p)
         t = t._replace(overflowed=torch.zeros((), dtype=torch.bool, device=state.device))
         if new_max_groups is not None and new_max_groups > t.max_groups:
-            t = resize.grow_bound(t, new_max_groups, load_factor)
+            t = resize.grow_bound(t, new_max_groups, load_factor,
+                                  relocate=table_ops.migrate)
         if new_capacity is not None and new_capacity > t.capacity:
-            t = resize.migrate(t, new_capacity)
+            t = table_ops.migrate(t, new_capacity)
         tables.append(t)
     g_new = tables[0].max_groups
     accs = state.accs.clone()
@@ -208,9 +212,11 @@ def merge_fused_state(
     load_factor: float = 0.5,
 ):
     """Second-level merge: fold the P local (key_by_ticket, accs) partials
-    into ONE global ticket space.  Pure (fresh tensors, ``state`` is not
-    modified), so ``snapshot()`` may call it repeatedly while the kernel
-    keeps updating the state in place.
+    into ONE global ticket space, each program's keys by one
+    ``table_ops.get_or_insert`` (the card's kernel on CUDA tensors) into a
+    fresh table.  Pure (fresh tensors, ``state`` is not modified), so
+    ``snapshot()`` may call it repeatedly while the kernel keeps updating
+    the state in place.
 
     Returns ``(table, accs)``: a global :class:`TicketTable` and a list of
     ``(max_groups,)`` raw partials aligned with ``kinds``.  With a single
@@ -221,13 +227,15 @@ def merge_fused_state(
         t = program_table(state, 0)
         table = tk.TicketTable(*(x.clone() for x in t))
         return table, [state.accs[s, 0].clone() for s in range(len(kinds))]
+    from repro_torch.kernels import table_ops
+
     dev = state.device
     table = tk.make_table(table_capacity(max_groups, load_factor), max_groups,
                           device=dev)
     accs = [torch.full((max_groups + 1,), _NEUTRAL[k], dtype=torch.float32, device=dev)
             for k in kinds]  # slot max_groups parks dropped entries
     for p in range(state.programs):
-        tickets, table = tk.get_or_insert(table, state.kbt[p])
+        tickets, table = table_ops.get_or_insert(table, state.kbt[p])
         ok = tickets >= 0
         idx = torch.where(ok, tickets, torch.full_like(tickets, max_groups)).to(torch.int64)
         for s, k in enumerate(kinds):
@@ -586,11 +594,13 @@ def prepare_scan_ticket(table, keys, todo, *, checked=True, grow_bound=False, th
     return tickets, aux[:INFO_LEN].view(1, INFO_LEN), args, (aux, tensors)
 
 
-def launch_scan_ticket(call):
+def launch_scan_ticket(call, *, counter=None):
     """Launch the kernel on :func:`prepare_scan_ticket`'s call on the
-    current stream (counted; a call with no morsel launches nothing) and
-    return :func:`scan_ticket`'s ``(tickets, info)``.  Raises if the
-    kernel cannot be built or launched."""
+    current stream (counted in ``counter.launches``, :func:`scan_ticket`
+    by default, whose ``grid`` it sets too; a call with no morsel launches
+    nothing) and return :func:`scan_ticket`'s ``(tickets, info)``.  Raises
+    if the kernel cannot be built or launched."""
+    counter = scan_ticket if counter is None else counter
     tickets, info, args, _ = call
     if args is None:
         return tickets, info
@@ -602,8 +612,8 @@ def launch_scan_ticket(call):
         raise RuntimeError(
             "scan_ticket kernel launch failed: " + lib.fused_groupby_error_string(err).decode()
         )
-    scan_ticket.launches += 1
-    scan_ticket.grid = (grid[0], grid[1])
+    counter.launches += 1
+    counter.grid = (grid[0], grid[1])
     return tickets, info
 
 

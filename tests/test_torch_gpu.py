@@ -18,7 +18,11 @@ order, so when a launch pauses, its set of committed morsels is checked
 replayed is held to the plain version's.  The split route's
 ticket kernel is held the same way (one ticket per key, gap-free, the same
 key set and count, the same unresolved rows), its segment kernel with
-COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group."""
+COUNT/MIN/MAX exact and SUM within 1e-4 of Σ|v| over the group.  The table
+ops (GET_OR_INSERT into a carried table, lookup, migrate) are held by
+``table_ops.table_map_discrepancies`` (lookup bit for bit), with any host
+sync inside a wrapper an error, and every executor site that merges,
+grows, looks up or migrates a table launches them on the card."""
 import dataclasses
 
 import numpy as np
@@ -34,6 +38,7 @@ from repro_torch.kernels import fused_groupby as fk
 from repro_torch.kernels import hybrid_registers as hr
 from repro_torch.kernels import preagg as pa
 from repro_torch.kernels import segment_agg as sa
+from repro_torch.kernels import table_ops as tops
 from repro_torch.kernels import ticket_hash as th
 
 # One intra-op thread: the suite's xdist workers share the cores, and a pool
@@ -1149,7 +1154,7 @@ def _batched_lanes(cuda, n_lanes, rows, seed, cards=(1000, 30000, 300), bound=No
             first = km[i, :2].contiguous()
             fk.scan_ticket(table, first, torch.ones(2, dtype=torch.int32, device=cuda),
                            threshold=table.capacity // 2)
-            table = resize.migrate(table, 2 * table.capacity)
+            table = tops.migrate(table, 2 * table.capacity)  # the migration kernel
         lanes.append((table, table.capacity // 2, g - 4096))
     return km, lanes
 
@@ -1414,7 +1419,7 @@ def test_scan_ticket_batched_fold_saturating_lane_folds_nothing_then_replays(cud
         assert all(bool((a == a[0]).all()) for a in kst[1].accs)
     for i in (0, 2):
         _assert_fold_map(km[i], vals[i], ktab[i], kst[i], specs)
-    ktab[1] = resize.migrate(ktab[1], 8192)
+    ktab[1] = tops.migrate(ktab[1], 8192)  # the migration kernel's layout
     todo = ktodo[1:2].clone()
     values = [{"v0": vals[1, :, :, 0].contiguous()}]
     _, info = fk.scan_ticket_batched([ktab[1]], [km[1]], todo, thresholds=[1 << 30],
@@ -2299,3 +2304,204 @@ def test_remat_gradients_with_b3_and_b6_under_recompute_on_the_card(cuda):
     assert launched == [3 * layers, 6 * layers, layers]
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# -- the table ops: GET_OR_INSERT into a carried table, lookup, migrate --------------
+
+TABLE_CASES = {  # name → (distinct keys, capacity, G, rows)
+    "low": (1000, 2048, 1024, 1 << 16),
+    "high": (1 << 14, 1 << 16, 1 << 15, 1 << 17),
+    "unique": (1 << 17, 1 << 19, 1 << 18, 1 << 17),
+    "past_g": (3000, 8192, 1000, 1 << 15),
+    "saturated": (5000, 1024, 8192, 1 << 14),
+}
+
+
+def _table_keys(cuda, case, seed):
+    distinct, cap, g, rows = TABLE_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if case == "unique":
+        keys = torch.randperm(1 << 24, generator=gen, device=cuda)[:rows]
+    else:
+        keys = torch.randint(0, distinct, (rows,), generator=gen, device=cuda)
+    keys = ((keys * 2654435761) & 0xFFFFFFFF).to(torch.int64)
+    keys = torch.where(keys >= 1 << 31, keys - (1 << 32), keys).to(torch.int32)
+    keys[torch.rand(rows, generator=gen, device=cuda) < 0.03] = -1  # EMPTY rows
+    return keys, cap, g
+
+
+def _no_sync(fn, *a):
+    """``fn(*a)`` with any host sync on the card an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_sync_debug_mode_refuses_a_host_read(cuda):
+    """The mode the table ops run under in these tests is live: a read of
+    the card from the host raises."""
+    t = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError):
+        _no_sync(lambda: int(t.sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_table_ops_match_plain(cuda, case):
+    """The three kernels against their plain versions on a carried table
+    (its first half of the keys inserted by the plain version): the same
+    map, count and flag for ``get_or_insert`` and ``migrate`` (the table
+    ops' map check), ``lookup`` equal bit for bit, absent and EMPTY keys
+    included, on a full table too; no host sync inside a wrapper."""
+    keys, cap, g = _table_keys(cuda, case, 201)
+    half = keys.shape[0] // 2
+    _, base = tk.get_or_insert(tk.make_table(cap, g, device=cuda), keys[:half])
+    known = int(base.count)
+    ktab = tk.TicketTable(*(x.clone() for x in base))
+    before = tops.get_or_insert.launches
+    kt, same = _no_sync(tops.get_or_insert, ktab, keys)
+    pt, ptab = tk.get_or_insert(base, keys)
+    torch.cuda.synchronize()
+    assert same is ktab and tops.get_or_insert.launches == before + 1
+    full = case == "saturated"
+    assert int(ktab.count) == int(ptab.count) and bool(ktab.overflowed) == bool(ptab.overflowed)
+    assert tops.table_map_discrepancies(ktab, ptab, known=known, keys=keys, tickets=(kt, pt),
+                                        full=full) == 0
+    if full:
+        assert int(ptab.count) == cap and bool((pt[keys != -1] < 0).any())
+    if case == "past_g":
+        assert int(ptab.count) > g and bool(ktab.overflowed)
+
+    probe = torch.cat([keys, torch.tensor([-1, 0x7EADBEEF, 12345], dtype=torch.int32,
+                                          device=cuda)])
+    for table in (ptab, ktab):
+        got = _no_sync(tops.lookup, table, probe)
+        assert torch.equal(got, tk.lookup(table, probe))
+
+    m_before = tops.migrate.launches
+    km = _no_sync(tops.migrate, ktab, 2 * cap)
+    pm = resize.migrate(ktab, 2 * cap)
+    torch.cuda.synchronize()
+    assert tops.migrate.launches == m_before + 1
+    assert km.key_by_ticket is ktab.key_by_ticket and km.count is ktab.count
+    assert tops.table_map_discrepancies(km, pm) == 0
+    # the kernels that probe a table read what migrate wrote: every key it
+    # holds is found, and none is inserted again
+    held = torch.where(tk.lookup(pm, keys) >= 0, keys, -1)
+    n = int(km.count)
+    again, _ = _no_sync(tops.get_or_insert, km, held)
+    assert int(km.count) == n and torch.equal(again, tk.lookup(pm, held))
+
+
+@pytest.mark.gpu
+def test_table_migrate_into_too_few_slots_raises(cuda):
+    keys = torch.arange(100, dtype=torch.int32, device=cuda) * 7919
+    _, t = tk.get_or_insert(tk.make_table(256, 128, device=cuda), keys)
+    with pytest.raises(RuntimeError, match="do not fit 64 slots"):
+        tops.migrate(t, 64)
+    small = tops.migrate(t, 128)  # fewer slots, but the keys fit: no raise
+    assert tops.table_map_discrepancies(small, resize.migrate(t, 128)) == 0
+
+
+@pytest.mark.gpu
+def test_table_ops_failed_build_raises_and_never_falls_back(cuda, monkeypatch, tmp_path):
+    keys = torch.arange(500, dtype=torch.int32, device=cuda)
+    _, t = tk.get_or_insert(tk.make_table(1024, 512, device=cuda), keys)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (forced by the test)")
+
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(tops, "_LIB", None)
+    before = (tops.lookup.launches, tops.migrate.launches)
+    for call in (lambda: tops.lookup(t, keys), lambda: tops.migrate(t, 2048)):
+        with pytest.raises(RuntimeError, match="forced by the test"):
+            call()
+    assert (tops.lookup.launches, tops.migrate.launches) == before
+
+
+TABLE_ROUTES = {  # name → (plan keywords, key cardinality, the table ops it must launch)
+    "split": (dict(max_groups=2048, saturation="raise", execution=dict(kernel="split")), 1000,
+              {"get_or_insert"}),
+    "split_grow": (dict(max_groups=64, saturation="grow", execution=dict(kernel="split")),
+                   3000, {"get_or_insert", "migrate"}),
+    "partitioned": (dict(strategy="partitioned", max_groups=2048, saturation="raise"), 1000,
+                    {"get_or_insert"}),
+    "fused_p4": (dict(max_groups=2048, saturation="raise",
+                      execution=dict(kernel="fused", kernel_programs=4)), 1000,
+                 {"get_or_insert"}),
+    "fused_grow": (dict(max_groups=64, saturation="grow", execution=dict(kernel="fused")),
+                   3000, {"migrate"}),
+    "scan_grow": (dict(max_groups=64, saturation="grow", execution=dict(kernel="scan_body")),
+                  3000, {"migrate"}),
+    "auto": (dict(strategy="auto"), 1 << 18, {"migrate"}),
+    "host": (dict(max_groups=64, saturation="grow",
+                  execution=dict(kernel="off", pipeline="host")), 3000,
+             {"get_or_insert", "migrate"}),
+    "hybrid": (dict(strategy="hybrid", max_groups=2048, saturation="raise"), 1000,
+               {"get_or_insert", "lookup"}),
+    "spill": (dict(max_groups=256, saturation="spill", execution=dict(kernel="scan_body")),
+              3000, {"lookup"}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(TABLE_ROUTES))
+def test_no_executor_site_reaches_the_plain_loops_on_the_card(cuda, monkeypatch, route):
+    """With ``core.ticketing.get_or_insert`` / ``lookup`` and
+    ``core.resize.migrate`` refusing CUDA tensors, every route still runs
+    on the card: its merges, grows, lookups and migrations launch the
+    table ops' kernels, and the result holds the oracle's map."""
+    def refusing(fn):
+        def call(table, *a, **k):
+            if table.keys.is_cuda:
+                raise AssertionError(f"{fn.__name__} reached with CUDA tensors")
+            return fn(table, *a, **k)
+        return call
+
+    for mod, name in ((tk, "get_or_insert"), (tk, "lookup"), (resize, "migrate")):
+        monkeypatch.setattr(mod, name, refusing(getattr(mod, name)))
+    kw, card, wanted = TABLE_ROUTES[route]
+    kw = dict(kw)
+    rows = 1 << 18
+    gen = torch.Generator(device=cuda).manual_seed(211)
+    keys = torch.randint(0, card, (rows,), generator=gen, device=cuda)
+    if route == "hybrid":
+        keys[torch.rand(rows, generator=gen, device=cuda) < 0.3] = 7  # a heavy key
+    plan = api.GroupByPlan(keys=("k",), aggs=(api.AggSpec("count"),), raw_keys=True,
+                           execution=api.ExecutionPolicy(**kw.pop("execution", {})),
+                           **dict({"strategy": "concurrent"}, **kw))
+    before = {n: getattr(tops, n).launches for n in ("get_or_insert", "lookup", "migrate")}
+    out = plan.stream([api.Table({"k": keys[i:i + 32768]})
+                       for i in range(0, rows, 32768)]).result()
+    torch.cuda.synchronize()
+    launched = {n: getattr(tops, n).launches - b for n, b in before.items()}
+    for name in wanted:
+        assert launched[name] > 0, (route, launched)
+    uk, cnt = torch.unique(keys, return_counts=True)
+    n = int(out["__num_groups__"][0])
+    order = torch.argsort(out["key"][:n])
+    assert n == uk.numel() and torch.equal(out["key"][:n][order], uk)
+    assert torch.equal(out["count(*)"][:n][order].long(), cnt)
+
+
+@pytest.mark.gpu
+def test_sharded_grow_migrates_on_the_card(card_mesh, monkeypatch):
+    from repro_torch.core import distributed as dist
+    monkeypatch.setattr(resize, "migrate", None)  # the plain loop is never reached
+    carry = dist.make_sharded_carry(card_mesh, 64, ((None, "count"),), capacity=128)
+    keys = torch.arange(60, dtype=torch.int32, device="cuda") * 101
+    tables = tuple(tops.get_or_insert(t, keys)[1] for t in carry.tables)
+    carry = carry._replace(tables=tables)
+    before = tops.migrate.launches
+    grown = dist.grow_sharded_carry(carry, 256, 512)
+    assert tops.migrate.launches == before + 4
+    for t in grown.tables:
+        assert t.capacity == 512 and torch.equal(tk.lookup(t, keys),
+                                                 torch.arange(60, dtype=torch.int32,
+                                                              device="cuda"))
