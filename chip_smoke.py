@@ -7037,6 +7037,65 @@ def table_ops_case(tops, label, keys, cap, g, device, *, first=None, full=False)
     return max(bad, bad_m), p_s
 
 
+def table_edge_cases(tops, device):
+    """The redesigned lookup and migration on ``table_ops.edge_case_table``
+    (a cluster wrapping from C - 1 to 0, a full table, keys sharing a home
+    8 slots before a tile's end, a table smaller than one tile, tables just
+    under and over lookup's shared-memory threshold), each wrapper under
+    ``no_sync``: every lookup path equal to the plain version, absent and
+    EMPTY keys included; migrate at ratios 2, 4 and 16 on the path the rule
+    names (counted), 0 map discrepancies, and on the migrated table lookup
+    equal and GET_OR_INSERT finding every key, inserting none.  Returns the
+    largest discrepancy count."""
+    import torch
+
+    from repro_torch.core import resize
+    from repro_torch.core import ticketing as tk
+
+    worst = 0
+    max_shared = tops._library().table_ops_max_shared_slots()
+    for case in tops.EDGE_CASES:
+        table, probe = tops.edge_case_table(case, device)
+        want = tk.lookup(table, probe)
+        path = tops.lookup_path(table.capacity)
+        before = dict(tops.lookup.paths)
+        check(torch.equal(no_sync(tops.lookup, table, probe), want)
+              and tops.lookup.paths[path] == before[path] + 1,
+              f"phase2 table edge {case}: lookup ({path}) differs or was not counted")
+        for forced in ("shared", "probe"):
+            if forced == "shared" and table.capacity > max_shared:
+                continue
+            out = torch.empty_like(probe)
+            no_sync(tops._launch_lookup, table, probe, out, forced)
+            check(torch.equal(out, want), f"phase2 table edge {case}: lookup path {forced} "
+                  "differs from its plain version")
+        paths = []
+        for ratio in tops.EDGE_RATIOS:
+            c2 = ratio * table.capacity
+            mpath = tops.migrate_path(table.capacity, c2)
+            before = dict(tops.migrate.paths)
+            km = no_sync(tops.migrate, table, c2)
+            pm = resize.migrate(table, c2)
+            bad = tops.table_map_discrepancies(km, pm)
+            worst = max(worst, bad)
+            check(bad == 0 and tops.migrate.paths[mpath] == before[mpath] + 1,
+                  f"phase2 table edge {case}: migrate x{ratio} ({mpath}) {bad} discrepancies")
+            check(torch.equal(no_sync(tops.lookup, km, probe), tk.lookup(pm, probe)),
+                  f"phase2 table edge {case}: lookup on the x{ratio} table differs")
+            held = torch.where(tk.lookup(pm, probe) >= 0, probe, -1)
+            n = int(km.count)
+            again, _ = no_sync(tops.get_or_insert, km, held)
+            check(int(km.count) == n and torch.equal(again, tk.lookup(pm, held)),
+                  f"phase2 table edge {case}: GET_OR_INSERT on the x{ratio} table found "
+                  "other tickets or inserted a key")
+            paths.append(mpath)
+        log(f"phase2 table edge {case}: C={table.capacity} holding {int(table.count)} keys, "
+            f"{probe.numel()} probes; lookup {path} (and each path forced) equal; migrate x"
+            f"{'/'.join(map(str, tops.EDGE_RATIOS))} by {'/'.join(paths)}: 0 discrepancies, "
+            "every key found again, none inserted; no host sync ok")
+    return worst
+
+
 def phase2_table_ops(tops, gen, device, rows=1 << 21, n=1 << 24):
     """The table ops against their plain versions on the card
     (``table_ops_case``, each wrapper under ``torch.cuda.set_sync_debug_mode
@@ -7044,8 +7103,8 @@ def phase2_table_ops(tops, gen, device, rows=1 << 21, n=1 << 24):
     the class stream's table (C, G as its split stream) holding the chunk's
     first half; low at G = 512 (tickets past G, the sticky flag); a full
     table of 1024 slots (absent keys end after C probes) and a saturated
-    one (4096 distinct keys into it: -1 rows).  Returns the largest
-    discrepancy count."""
+    one (4096 distinct keys into it: -1 rows); then ``table_edge_cases``.
+    Returns the largest discrepancy count."""
     import torch
 
     from repro_torch.core.hashing import table_capacity
@@ -7075,7 +7134,7 @@ def phase2_table_ops(tops, gen, device, rows=1 << 21, n=1 << 24):
                                                          device=device) * 7919, full=True)[0])
     worst = max(worst, table_ops_case(tops, "saturated", wide, 1024, 4096, device,
                                       full=True)[0])
-    return worst
+    return max(worst, table_edge_cases(tops, device))
 
 
 def table_bound_ms(nbytes):
@@ -7121,8 +7180,11 @@ def phase4_table_ops(tops, chunk_classes, gen, device, reps=5, n=1 << 24):
         holding the previous chunk's 2^21 keys (the table reset between
         calls, untimed), and the rest of that merge, the partial's
         ``scatter_update`` (sum, max) over all lanes and over the live ones;
-      * migrate of 2^21 keys from 2^22 slots into 2^23;
-      * lookup of each class's 2^21-row chunk in a table holding it.
+      * migrate of 2^21 keys from 2^22 slots into 2^23 (and, as ``x4``,
+        into 2^24);
+      * lookup of each class's 2^21-row chunk in a table holding it, with
+        its path and its sector floor beside the bytes bound: each distinct
+        key's two 32-B sectors (one a table array) instead of its 8 B.
     No library call computes these functions."""
     import torch
 
@@ -7171,17 +7233,23 @@ def phase4_table_ops(tops, chunk_classes, gen, device, reps=5, n=1 << 24):
 
     src = tk.make_table(1 << 22, 1 << 21, device=device)
     tops.get_or_insert(src, perm[:live])
-    m_ms = time_cuda(lambda: tops.migrate(src, 1 << 23), reps)
-    m_graph = time_graph(lambda: tops.migrate(src, 1 << 23), calls=5, reps=reps)
-    pm, pm_s = timed(resize.migrate, src, 1 << 23)
-    bad_m = tops.table_map_discrepancies(tops.migrate(src, 1 << 23), pm)
-    check(bad_m == 0, f"phase4 table migrate: {bad_m} discrepancies")
-    out["table_migrate"] = {
-        "ms": m_ms, "graph_ms": m_graph, "plain_ms": pm_s * 1e3,
-        "bound_ms": table_bound_ms(8 * (1 << 22) + 8 * (1 << 23)), "bound_by": "bytes",
-        "library_ms": None, "max_abs_err": float(bad_m),
-        "shape": f"{live} keys, 2^22 -> 2^23 slots"}
-    del src, pm, perm
+    mig = {}
+    for ratio in (2, 4):
+        c2 = ratio << 22
+        m_ms = time_cuda(lambda: tops.migrate(src, c2), reps)
+        m_graph = time_graph(lambda: tops.migrate(src, c2), calls=5, reps=reps)
+        pm, pm_s = timed(resize.migrate, src, c2)
+        bad_m = tops.table_map_discrepancies(tops.migrate(src, c2), pm)
+        check(bad_m == 0, f"phase4 table migrate x{ratio}: {bad_m} discrepancies")
+        mig[ratio] = {
+            "ms": m_ms, "graph_ms": m_graph, "plain_ms": pm_s * 1e3,
+            "bound_ms": table_bound_ms(8 * (1 << 22) + 8 * c2), "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": float(bad_m),
+            "path": tops.migrate_path(1 << 22, c2),
+            "shape": f"{live} keys, 2^22 -> 2^{21 + ratio.bit_length()} slots"}
+        del pm
+    out["table_migrate"] = dict(mig[2], x4=mig[4])
+    del src, perm
 
     per_class = {}
     for name, (keys, g) in chunk_classes.items():
@@ -7194,7 +7262,9 @@ def phase4_table_ops(tops, chunk_classes, gen, device, reps=5, n=1 << 24):
         check(torch.equal(tops.lookup(table, k32), want), f"phase4 table lookup {name}: differs")
         d = int(torch.unique(k32).numel())
         per_class[name] = {"ms": ms, "graph_ms": graph, "plain_ms": l_s * 1e3,
-                           "bound_ms": table_bound_ms(8 * k32.numel() + 8 * d)}
+                           "bound_ms": table_bound_ms(8 * k32.numel() + 8 * d),
+                           "sector_floor_ms": table_bound_ms(8 * k32.numel() + 64 * d),
+                           "path": tops.lookup_path(table.capacity)}
         del table, want
     u = per_class["unique"]
     out["table_lookup"] = {"ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
@@ -7204,6 +7274,12 @@ def phase4_table_ops(tops, chunk_classes, gen, device, reps=5, n=1 << 24):
         log(f"phase4 {name}: events {rec['ms']:.4f} ms, graph {rec['graph_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms (bytes), plain {rec['plain_ms']:.1f} ms, "
             f"library none; {json.dumps({k: v for k, v in rec.items() if k != 'ms'})}")
+    log("phase4 table_lookup graph ms / bytes bound / sector floor (path): " + "; ".join(
+        f"{name} {r['graph_ms']:.4f} / {r['bound_ms']:.4f} / {r['sector_floor_ms']:.4f} "
+        f"({r['path']})" for name, r in per_class.items()))
+    log("phase4 table_migrate graph ms / bound (path): " + "; ".join(
+        f"x{ratio} {r['graph_ms']:.4f} / {r['bound_ms']:.4f} ({r['path']})"
+        for ratio, r in mig.items()))
     return out
 
 

@@ -14,14 +14,25 @@ one ``jax.lax.while_loop`` program there:
   over the keys cut into morsels of :data:`MORSEL_ROWS`: unchecked, that
   kernel has this contract (no room check, every morsel commits).
 * :func:`lookup` — ``repro.core.ticketing.lookup`` (:213, loop :237): the
-  read-only probe, ``lookup_kernel`` of ``csrc/table_ops.cu``.
+  read-only probe, ``csrc/table_ops.cu`` on one of two paths.  A table of
+  at most :data:`LOOKUP_SHARED_SLOTS` slots is copied into each CTA's
+  shared memory and probed there (``lookup_shared_kernel``); a larger one
+  is probed in device memory with several rows a thread, each row's home
+  slot (ticket and key word) loaded before any compare
+  (``lookup_probe_kernel``).
 * :func:`migrate` — ``repro.core.resize.migrate`` (``core/resize.py:34``,
   loop :73): every (key, ticket) pair relocated into C' slots,
-  ``key_by_ticket``, count and flag kept; ``migrate_kernel`` of
-  ``csrc/table_ops.cu``.
+  ``key_by_ticket``, count and flag kept.  Into more slots, and at least
+  :data:`MIGRATE_TILE_SLOTS`, a CTA builds each tile of new slots in
+  shared memory from the old range that holds its keys and stores it
+  whole, and a second launch places the keys that ran past a tile's end
+  (``migrate_tiled_kernel``, ``migrate_overflow_kernel``); no fill pass.
+  Into as many or fewer slots, or into a table smaller than one tile, a
+  fill and one thread an old slot (``migrate_slot_kernel``).
 
 Each wrapper launches its kernel for CUDA tensors (built at first use,
-counted in ``<wrapper>.launches``) and raises if it cannot; for CPU
+counted in ``<wrapper>.launches``; :func:`lookup` and :func:`migrate`
+also count each path in ``<wrapper>.paths``) and raises if it cannot; for CPU
 tensors it runs the plain version, the port's ``core.ticketing`` /
 ``core.resize`` function, which matches the reference bit for bit.  No
 wrapper reads the card from the host, except :func:`migrate` into fewer
@@ -48,6 +59,12 @@ from repro_torch.core import ticketing as tk
 from repro_torch.core.hashing import EMPTY_I32, slot_hash
 
 MORSEL_ROWS = 4096  # rows a scan_ticket morsel takes in get_or_insert
+# lookup probes in shared memory up to this many slots, past it in device
+# memory: on an H100 the shared path was faster at every size it takes
+# (table_ops_max_shared_slots(), 2^14 slots; tools/kernel_turns.py's
+# table_lookup_paths)
+LOOKUP_SHARED_SLOTS = 1 << 14
+MIGRATE_TILE_SLOTS = 2048  # new slots a CTA of the tiled migration (table_ops_tile_slots())
 _INT32_MAX = 0x7FFFFFFF
 
 
@@ -122,18 +139,36 @@ def lookup(table: tk.TicketTable, keys: torch.Tensor) -> torch.Tensor:
     out = torch.empty(flat.shape, dtype=torch.int32, device=dev)
     if flat.shape[0] == 0:
         return out.reshape(keys.shape)
-    lib = _library()
-    err = lib.table_lookup_launch(
-        flat.data_ptr(), flat.shape[0], table.keys.data_ptr(), table.tickets.data_ptr(),
-        table.capacity, out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError("table lookup kernel launch failed: "
-                           + lib.table_ops_error_string(err).decode())
+    path = lookup_path(table.capacity)
+    _launch_lookup(table, flat, out, path)
     lookup.launches += 1
+    lookup.paths[path] += 1
     return out.reshape(keys.shape)
 
 
 lookup.launches = 0  # kernel launches (CUDA tensors only)
+lookup.paths = {"shared": 0, "probe": 0}  # launches by path
+
+_LOOKUP_MODES = {"shared": 0, "probe": 1}
+
+
+def lookup_path(capacity: int) -> str:
+    """The lookup kernel's path for a table of ``capacity`` slots."""
+    return "shared" if capacity <= LOOKUP_SHARED_SLOTS else "probe"
+
+
+def _launch_lookup(table: tk.TicketTable, flat: torch.Tensor, out: torch.Tensor,
+                   path: str) -> None:
+    """One launch of the lookup kernel on ``path`` (uncounted: the wrapper
+    counts; ``tools/kernel_turns.py`` times each path through this)."""
+    lib = _library()
+    err = lib.table_lookup_launch(
+        flat.data_ptr(), flat.shape[0], table.keys.data_ptr(), table.tickets.data_ptr(),
+        table.capacity, out.data_ptr(), _LOOKUP_MODES[path],
+        torch._C._cuda_getCurrentRawStream(out.device.index))
+    if err != 0:
+        raise RuntimeError("table lookup kernel launch failed: "
+                           + lib.table_ops_error_string(err).decode())
 
 
 def migrate(table: tk.TicketTable, new_capacity: int) -> tk.TicketTable:
@@ -152,24 +187,36 @@ def migrate(table: tk.TicketTable, new_capacity: int) -> tk.TicketTable:
     _check_table(table)
     if new_capacity > _INT32_MAX:
         raise ValueError(f"new_capacity={new_capacity} does not fit int32")
+    path = migrate_path(table.capacity, new_capacity)
     nk = torch.empty((new_capacity,), dtype=torch.int32, device=dev)
     nt = torch.empty((new_capacity,), dtype=torch.int32, device=dev)
-    error = torch.empty((1,), dtype=torch.int32, device=dev)
+    aux = torch.empty((2,), dtype=torch.int32, device=dev)  # error flag, overflow count
+    ovf = (torch.empty((table.capacity,), dtype=torch.int32, device=dev)
+           if path == "tiled" else None)
     lib = _library()
     err = lib.table_migrate_launch(
         table.keys.data_ptr(), table.tickets.data_ptr(), table.capacity, nk.data_ptr(),
-        nt.data_ptr(), new_capacity, error.data_ptr(),
-        torch._C._cuda_getCurrentRawStream(dev.index))
+        nt.data_ptr(), new_capacity, aux.data_ptr(), None if ovf is None else ovf.data_ptr(),
+        int(path == "tiled"), torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError("table migrate kernel launch failed: "
                            + lib.table_ops_error_string(err).decode())
     migrate.launches += 1
-    if new_capacity < table.capacity and int(error[0]) != 0:
+    migrate.paths[path] += 1
+    if new_capacity < table.capacity and int(aux[0]) != 0:
         raise RuntimeError(f"migrate: the table's keys do not fit {new_capacity} slots")
     return tk.TicketTable(nk, nt, table.key_by_ticket, table.count, table.overflowed)
 
 
 migrate.launches = 0  # kernel launches (CUDA tensors only)
+migrate.paths = {"tiled": 0, "slot": 0}  # launches by path
+
+
+def migrate_path(capacity: int, new_capacity: int) -> str:
+    """The migration kernel's path from ``capacity`` into ``new_capacity``
+    slots: ``"tiled"`` for a grow into at least one tile, else ``"slot"``."""
+    return "tiled" if new_capacity > capacity and new_capacity >= MIGRATE_TILE_SLOTS else "slot"
+
 
 _LIB = None  # the loaded library, bound once by _library
 
@@ -181,10 +228,13 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load_library("table_ops")
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.table_lookup_launch.argtypes = [ptr, i64, ptr, ptr, i32, ptr, ptr]
+        lib.table_lookup_launch.argtypes = [ptr, i64, ptr, ptr, i32, ptr, i32, ptr]
         lib.table_lookup_launch.restype = i32
-        lib.table_migrate_launch.argtypes = [ptr, ptr, i64, ptr, ptr, i32, ptr, ptr]
+        lib.table_migrate_launch.argtypes = [ptr, ptr, i64, ptr, ptr, i32, ptr, ptr, i32, ptr]
         lib.table_migrate_launch.restype = i32
+        for name in ("table_ops_tile_slots", "table_ops_max_shared_slots"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
         lib.table_ops_error_string.argtypes = [i32]
         lib.table_ops_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -280,3 +330,54 @@ def table_map_discrepancies(out: tk.TicketTable, ref: tk.TicketTable, *,
         else:
             bad += int((ok != (pt >= 0)).sum())
     return bad
+
+
+def keys_with_home(home: int, capacity: int, count: int, start: int = 1 << 30) -> torch.Tensor:
+    """The ``count`` smallest int32 keys from ``start`` on (CPU) whose home
+    slot in ``capacity`` slots is ``home``."""
+    found, lo, step = [], start, 1 << 22
+    while sum(f.numel() for f in found) < count:
+        cand = torch.arange(lo, lo + step, dtype=torch.int64).to(torch.int32)
+        found.append(cand[slot_hash(cand, capacity) == home])
+        lo += step
+    return torch.cat(found)[:count]
+
+
+# name → (capacity, random keys, (home, keys homed there) or None); G = capacity
+EDGE_CASES = {
+    # a cluster of 100 keys from slot C - 3 wraps from C - 1 to 0, in the old
+    # table and at the last tile of every new one
+    "wrap": (8192, 2000, (8192 - 3, 100)),
+    # 300 keys share home 4088, 8 slots before a tile's end at every ratio:
+    # each new home's share overflows into the next tile
+    "shared_home": (8192, 2000, (4096 - 8, 300)),
+    "full": (8192, 8192, None),  # every slot taken: no ticket-0 slot to stop a scan
+    "small": (64, 30, None),  # grows into fewer slots than one tile
+    "plain": (8192, 4096, None),  # load 1/2
+    # lookup just under and just over the shared-memory threshold, at load 1/2
+    "shared_edge": (LOOKUP_SHARED_SLOTS, LOOKUP_SHARED_SLOTS // 2, None),
+    "past_shared": (2 * LOOKUP_SHARED_SLOTS, LOOKUP_SHARED_SLOTS, None),
+}
+EDGE_RATIOS = (2, 4, 16)
+
+
+def edge_case_table(name: str, device=None):
+    """``(table, probe)`` of :data:`EDGE_CASES` ``name``: a table built by
+    the plain GET_OR_INSERT on ``device`` (the same on every device), and
+    probe keys, its keys, absent keys (some homed in its longest cluster)
+    and EMPTY rows.  Seeded, so every caller gets the same table."""
+    cap, n_random, homed = EDGE_CASES[name]
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    keys = (torch.randperm(1 << 22, generator=gen)[:n_random] * 7 + 12345).to(torch.int32)
+    absent = (torch.randperm(1 << 22, generator=gen)[:64] * 7 + 12346).to(torch.int32)
+    if homed is not None:
+        home, count = homed
+        near = keys_with_home(home, cap, count + 16)
+        keys, absent = torch.cat([near[:count], keys]), torch.cat([near[count:], absent])
+    if name == "full":
+        keys = keys[:cap]
+    table = tk.make_table(cap, cap, device=device)
+    _, table = tk.get_or_insert(table, keys.to(device))
+    empty = torch.full((8,), EMPTY_I32, dtype=torch.int32)
+    probe = torch.cat([keys, absent, empty])[torch.randperm(keys.numel() + 72, generator=gen)]
+    return table, probe.to(device)

@@ -2406,6 +2406,67 @@ def test_table_migrate_into_too_few_slots_raises(cuda):
     assert tops.table_map_discrepancies(small, resize.migrate(t, 128)) == 0
 
 
+def _placed_past(table, homes, lo, hi):
+    """How many keys homed in [homes[0], homes[1]) sit in slots [lo, hi)."""
+    occ = torch.nonzero(table.tickets > 0).reshape(-1)
+    home = slot_hash(table.keys[occ], table.capacity)
+    return int(((home >= homes[0]) & (home < homes[1]) & (occ >= lo) & (occ < hi)).sum())
+
+
+@pytest.mark.gpu
+def test_table_ops_constants_match_the_library(cuda):
+    lib = tops._library()
+    assert lib.table_ops_tile_slots() == tops.MIGRATE_TILE_SLOTS
+    assert tops.LOOKUP_SHARED_SLOTS <= lib.table_ops_max_shared_slots()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(tops.EDGE_CASES))
+def test_table_ops_on_edge_tables(cuda, case):
+    """The redesigned lookup and migration on ``table_ops.edge_case_table``
+    (a cluster wrapping from C - 1 to 0, a full table, keys sharing a home
+    8 slots before a tile's end, a table smaller than one tile, tables just
+    under and over the shared-memory threshold), no host sync inside:
+    every lookup path equals the plain version bit for bit, absent and
+    EMPTY keys included; migrate at ratios 2, 4 and 16 gives 0 map
+    discrepancies on the path the rule names (counted), and on the migrated
+    table lookup and GET_OR_INSERT find every key and insert none."""
+    table, probe = tops.edge_case_table(case, cuda)
+    want = tk.lookup(table, probe)
+    path = tops.lookup_path(table.capacity)
+    assert path == ("probe" if case == "past_shared" else "shared")
+    before = dict(tops.lookup.paths)
+    assert torch.equal(_no_sync(tops.lookup, table, probe), want)
+    assert tops.lookup.paths == {k: v + (k == path) for k, v in before.items()}
+    for forced in ("shared", "probe"):
+        if forced == "shared" and table.capacity > tops._library().table_ops_max_shared_slots():
+            continue
+        out = torch.empty_like(probe)
+        _no_sync(tops._launch_lookup, table, probe, out, forced)
+        assert torch.equal(out, want), forced
+    c = table.capacity
+    for ratio in tops.EDGE_RATIOS:
+        c2 = ratio * c
+        mpath = tops.migrate_path(c, c2)
+        assert mpath == ("slot" if case == "small" else "tiled")
+        before = dict(tops.migrate.paths)
+        km = _no_sync(tops.migrate, table, c2)
+        pm = resize.migrate(table, c2)
+        torch.cuda.synchronize()
+        assert tops.migrate.paths == {k: v + (k == mpath) for k, v in before.items()}
+        assert tops.table_map_discrepancies(km, pm) == 0, (case, ratio)
+        if case == "shared_home":  # a tile's share of the home ran into the next tile
+            assert sum(_placed_past(km, (h, h + 1), h + 8, c2)
+                       for h in range(4088, c2, c)) > 0, ratio
+        if case == "wrap":  # the last tile's keys ran past slot C2 - 1 into slot 0 on
+            assert _placed_past(km, (c2 - tops.MIGRATE_TILE_SLOTS, c2), 0, 64) > 0
+        assert torch.equal(_no_sync(tops.lookup, km, probe), tk.lookup(pm, probe))
+        held = torch.where(tk.lookup(pm, probe) >= 0, probe, -1)
+        n = int(km.count)
+        again, _ = _no_sync(tops.get_or_insert, km, held)
+        assert int(km.count) == n and torch.equal(again, tk.lookup(pm, held))
+
+
 @pytest.mark.gpu
 def test_table_ops_failed_build_raises_and_never_falls_back(cuda, monkeypatch, tmp_path):
     keys = torch.arange(500, dtype=torch.int32, device=cuda)

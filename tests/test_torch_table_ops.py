@@ -4,7 +4,9 @@ The three wrappers, GET_OR_INSERT into a carried table, lookup and
 migrate, run their plain versions on CPU tensors: those must equal
 ``repro.core.ticketing.get_or_insert`` / ``lookup`` and
 ``repro.core.resize.migrate`` bit for bit (uniform, zipf and unique keys,
-EMPTY padding, a saturated table, tickets past G).  ``get_or_insert``
+EMPTY padding, a saturated table, tickets past G), and ``lookup`` and
+``migrate`` on ``table_ops.edge_case_table``'s adversarial tables grown
+2, 4 and 16 times (the inputs the card tests use).  ``get_or_insert``
 updates its table in place on every device.  ``table_map_discrepancies``,
 the map check that holds the card kernels to these plain versions, gives
 0 on a plain table whose slots are re-placed along valid probe chains and
@@ -125,6 +127,67 @@ def test_migrate_matches_the_reference(case):
         assert got.key_by_ticket is tt.key_by_ticket and got.count is tt.count
     with pytest.raises(ValueError, match="power of 2"):
         tops.migrate(tt, 3 * tt.capacity)
+
+
+_EDGE = {}  # edge-case tables, built once a process
+
+
+def _edge(name):
+    if name not in _EDGE:
+        _EDGE[name] = tops.edge_case_table(name)
+    return _EDGE[name]
+
+
+def _to_jax(tt):
+    return jtk.TicketTable(jnp.asarray(tt.keys.numpy().view(np.uint32)),
+                           jnp.asarray(tt.tickets.numpy()),
+                           jnp.asarray(tt.key_by_ticket.numpy().view(np.uint32)),
+                           jnp.asarray(np.int32(int(tt.count))),
+                           jnp.asarray(np.bool_(bool(tt.overflowed))))
+
+
+def _jax_lookup(jt, probe, full):
+    """The reference's lookup of ``probe`` on ``jt``; on a full table only
+    of its keys (it loops forever on an absent one, ROADMAP fault 1), the
+    others -1 as the port's bounded probe gives them."""
+    probe = probe.numpy().view(np.uint32)
+    if not full:
+        return np.asarray(jtk.lookup(jt, jnp.asarray(probe)))
+    present = np.isin(probe, np.asarray(jt.keys)) & (probe != EMPTY)
+    want = np.full(probe.shape, -1, np.int32)
+    want[present] = np.asarray(jtk.lookup(jt, jnp.asarray(probe[present])))
+    return want
+
+
+@pytest.mark.parametrize("ratio", tops.EDGE_RATIOS)
+@pytest.mark.parametrize("case", sorted(tops.EDGE_CASES))
+def test_plain_lookup_and_migrate_on_edge_tables_match_the_reference(case, ratio):
+    """The card tests' adversarial tables (``table_ops.edge_case_table``: a
+    cluster wrapping from C - 1 to 0, a full table, keys sharing a home
+    before a tile's end, a table smaller than one tile, tables at the
+    shared-memory threshold) through the plain ``lookup`` and ``migrate``
+    against ``repro.core.ticketing.lookup`` / ``repro.core.resize.migrate``
+    bit for bit, grown by ``ratio``: the card tests' inputs are valid tables
+    and their oracles are right."""
+    tt, probe = _edge(case)
+    jt = _to_jax(tt)
+    full = int(tt.count) == tt.capacity
+    assert full == (case == "full")
+    if ratio == tops.EDGE_RATIOS[0]:
+        assert np.array_equal(_jax_lookup(jt, probe, full), tops.lookup(tt, probe).numpy())
+    got = tops.migrate(tt, ratio * tt.capacity)
+    want = jresize.migrate(jt, ratio * tt.capacity)
+    _assert_same(want, got)
+    assert tops.unreachable_slots(got).sum() == 0
+    assert np.array_equal(_jax_lookup(want, probe, False), tops.lookup(got, probe).numpy())
+    occ = torch.nonzero(got.tickets > 0).reshape(-1)
+    home = slot_hash(got.keys[occ], got.capacity)
+    tile, c2 = tops.MIGRATE_TILE_SLOTS, got.capacity
+    if case == "wrap":  # keys of the last tile sit past slot C2 - 1, from slot 0 on
+        assert bool(tt.tickets[-1] > 0) and bool(tt.tickets[0] > 0)
+        assert int(((home >= c2 - tile) & (occ < tile)).sum()) > 0
+    if case == "shared_home":  # keys homed 8 slots before a tile's end run into the next
+        assert int(((home % tile == tile - 8) & (occ >= home + 8)).sum()) > 0
 
 
 def _replaced(table, order):

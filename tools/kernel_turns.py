@@ -36,6 +36,15 @@ version's products by graph replay (``<kernel>_plain_graph``: the
 per-group ``torch.matmul`` loop with the sizes read beforehand, since the
 plain version's host read of the sizes cannot be captured); a tree
 without B6 skips it.
+``table_lookup`` (``kernels.table_ops.lookup``) runs on the three
+chunks, each in a table of its class's capacity holding it, and
+``table_migrate`` on 2^21 keys (a seed-0 permutation) from 2^22 slots into
+2^23 and into 2^24 (``x2``, ``x4``), each by CUDA-graph replay
+(``<kernel>_graph``) and by graph replay after an L2 flush
+(``<kernel>_cold``); where the tree has the lookup's paths,
+``table_lookup_paths`` times each path forced on each chunk and on tables
+of 2^11 to 2^15 slots at load 1/2, probed by 2^21 rows of their keys (by
+graph).  A tree without ``kernels/table_ops.py`` skips them.
 Each is timed three times per class in one process (CUDA events, median
 of 5 after 50 ms of warm-up calls), and the script prints ``SRC_DIR
 {kernel: {class: [ms, ...]}}``.  Kernels named after ``SRC_DIR`` are the
@@ -245,6 +254,72 @@ def gmm_backward_times(dev):
     return out
 
 
+def table_lookup_times(classes, dev, flush):
+    """``table_ops.lookup`` on each chunk in a table of its class's
+    capacity holding it, three timings a class: by graph replay, and by
+    graph replay after an L2 flush; and, where the tree has the paths,
+    each path forced on each chunk and on tables of 2^11..2^15 slots at
+    load 1/2 probed by 2^21 rows of their keys (graph)."""
+    from repro_torch.kernels import table_ops as tops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for name, (keys, g) in classes.items():
+        k32 = cs.to_i32(keys)
+        table = tk.make_table(table_capacity(g), g, device=dev)
+        tops.get_or_insert(table, k32)
+        cases[name] = (table, k32)
+    sweep = {}
+    for log2 in range(11, 16):
+        c = 1 << log2
+        held = torch.randperm(1 << 24, generator=gen, device=dev)[:c // 2].to(torch.int32)
+        table = tk.make_table(c, c, device=dev)
+        tops.get_or_insert(table, held)
+        rows = held[torch.randint(0, c // 2, (1 << 21,), generator=gen, device=dev)]
+        sweep[f"C2e{log2}"] = (table, rows)
+    out = {k: {} for k in ("graph", "cold")}
+    paths = {}
+    for _ in range(3):
+        for name, (table, k32) in cases.items():
+            call = lambda: tops.lookup(table, k32)  # noqa: E731
+            call()
+            out["graph"].setdefault(name, []).append(cs.time_graph(call))
+            out["cold"].setdefault(name, []).append(graph_cold(call, flush))
+        if not hasattr(tops, "_launch_lookup"):
+            continue
+        for name, (table, k32) in {**cases, **sweep}.items():
+            o = torch.empty_like(k32)
+            for path in ("shared", "probe"):
+                if path == "shared" and table.capacity > 1 << 14:
+                    continue
+                call = lambda: tops._launch_lookup(table, k32, o, path)  # noqa: E731
+                call()
+                paths.setdefault(f"{name}_{path}", []).append(cs.time_graph(call))
+    if paths:
+        out["paths"] = paths
+    return out
+
+
+def table_migrate_times(dev, flush):
+    """``table_ops.migrate`` of 2^21 keys from 2^22 slots into 2^23 and
+    2^24, three timings each: by graph replay, and by graph replay after
+    an L2 flush."""
+    from repro_torch.kernels import table_ops as tops
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = tk.make_table(1 << 22, 1 << 21, device=dev)
+    tops.get_or_insert(src, torch.randperm(1 << 24, generator=gen, device=dev)[:1 << 21]
+                       .to(torch.int32))
+    out = {k: {} for k in ("graph", "cold")}
+    for _ in range(3):
+        for name, c2 in (("x2", 1 << 23), ("x4", 1 << 24)):
+            call = lambda: tops.migrate(src, c2)  # noqa: E731
+            call()
+            out["graph"].setdefault(name, []).append(cs.time_graph(call, calls=5))
+            out["cold"].setdefault(name, []).append(graph_cold(call, flush))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
@@ -253,14 +328,15 @@ def main() -> int:
     only = set(sys.argv[2:])
 
     module = {"scan_ticket": "fused_groupby", "segment_agg_serialized": "segment_agg",
-              "grouped_matmul_backward": "grouped_matmul"}
+              "grouped_matmul_backward": "grouped_matmul", "table_lookup": "table_ops",
+              "table_migrate": "table_ops"}
 
     def wanted(kernel):
         return (not only or kernel in only) and importlib.util.find_spec(
             "repro_torch.kernels." + module.get(kernel, kernel)) is not None
 
     chunked = ("fused_groupby", "ticket_hash", "scan_ticket", "hybrid_registers",
-               "segment_agg_serialized", "preagg")
+               "segment_agg_serialized", "preagg", "table_lookup")
     if any(wanted(k) for k in chunked):
         classes, vals = cs.phase4_chunks(torch.Generator(device=dev).manual_seed(0), dev)
     out = {k: {} for k in ("fused_groupby", "ticket_hash", "scan_ticket") if wanted(k)}
@@ -299,6 +375,11 @@ def main() -> int:
         for kind, per_shape in gmm_backward_times(dev).items():
             key = "grouped_matmul_backward"
             out[key if kind == "event" else f"{key}_{kind}"] = per_shape
+    for kernel, times in (("table_lookup", lambda: table_lookup_times(classes, dev, flush)),
+                          ("table_migrate", lambda: table_migrate_times(dev, flush))):
+        if wanted(kernel):
+            for kind, per_case in times().items():
+                out[f"{kernel}_{kind}"] = per_case
     print(sys.argv[1], json.dumps(out))
     return 0
 
